@@ -1,0 +1,87 @@
+"""Hyper-parameter dataclasses (reference: reagent/core/parameters.py).
+
+The port's copy of the five classes of ``reagent_tpu/core/parameters.py`` the
+offline DQN path uses, kept identical so configs and normalization specs
+compare equal across the two packages.
+Plain frozen dataclasses — hashable so they can serve as cache keys.
+Field names and defaults keep the reference's config contract
+(reagent/core/parameters.py:47 ``RLParameters`` etc.) so YAML configs carry over.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import field
+from typing import Dict, Optional, Tuple
+
+
+def _tuple_safe(x):
+    """Coerce lists (unhashable) to tuples so frozen params stay hashable."""
+    if isinstance(x, list):
+        return tuple(_tuple_safe(v) for v in x)
+    if isinstance(x, dict):
+        return tuple(sorted((k, _tuple_safe(v)) for k, v in x.items()))
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class RLParameters:
+    """Reference: reagent/core/parameters.py:47-68."""
+
+    gamma: float = 0.9
+    epsilon: float = 0.1
+    target_update_rate: float = 0.001
+    maxq_learning: bool = True
+    reward_boost: Optional[Dict[str, float]] = None
+    temperature: float = 0.01
+    softmax_policy: bool = False
+    use_seq_num_diff_as_time_diff: bool = False
+    q_network_loss: str = "mse"
+    set_missing_value_to_zero: bool = False
+    tensorboard_logging_freq: int = 0
+    time_diff_unit_length: float = 1.0
+    multi_steps: Optional[int] = None
+
+    def __hash__(self) -> int:
+        return hash(tuple(_tuple_safe(getattr(self, f.name)) for f in dataclasses.fields(self)))
+
+
+@dataclasses.dataclass(frozen=True)
+class EvaluationParameters:
+    calc_cpe_in_training: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class NormalizationParameters:
+    """Per-feature normalization spec (reference: parameters.py:138-151)."""
+
+    feature_type: str
+    boxcox_lambda: Optional[float] = None
+    boxcox_shift: Optional[float] = None
+    mean: Optional[float] = None
+    stddev: Optional[float] = None
+    possible_values: Optional[Tuple[int, ...]] = None  # ENUM
+    quantiles: Optional[Tuple[float, ...]] = None  # QUANTILE, sorted
+    min_value: Optional[float] = None
+    max_value: Optional[float] = None
+
+    def __post_init__(self):
+        # Coerce lists (e.g. from YAML/JSON) into hashable tuples.
+        for name in ("possible_values", "quantiles"):
+            v = getattr(self, name)
+            if isinstance(v, list):
+                object.__setattr__(self, name, tuple(v))
+
+
+class NormalizationKey:
+    STATE = "state"
+    ACTION = "action"
+    ITEM = "item"
+    CANDIDATE = "candidate"
+
+
+@dataclasses.dataclass(frozen=True)
+class NormalizationData:
+    dense_normalization_parameters: Dict[int, NormalizationParameters] = field(
+        default_factory=dict
+    )
