@@ -16,7 +16,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      K1, with the exported artifact scored against the in-process module and
      the host's batch preprocessing timed beside the train step;
   7. the workflow at the sample config's shapes through K2;
-  8. one JSON line describing each ported kernel.
+  8. K2's packed interface, K3 (fused MLP forward) and K4 (n-step replay
+     rewards) against their plain versions at the online path's shapes;
+  9. CUDA-event timing of those three and their plain versions, beside the
+     bound;
+ 10. the fused online DQN loop at bench.py's width (CartPole, 4-128-64-2,
+     minibatch 512, packed replay of 100,000): prefill 1,000, a 32-step
+     lockstep check against the plain versions on the CPU, then 5,000 steps
+     through K2-packed and K3;
+ 11. the generic online loop (ReplayBuffer of 50,000, softmax acting through
+     the K3 scorer, tensor K2, K4 in every sample) for 1,000 steps, then
+     evaluate_policy over 20 greedy episodes through K3;
+ 12. one JSON line describing each ported kernel.
+Every path runs with the launch counts set to 0 just before it and read
+just after; a path whose kernels did not launch once per step fails.
 The last line is {"ok": true, "device": {...}}.  It needs no network, and it
 imports nothing of JAX or of the JAX package.
 """
@@ -45,6 +58,8 @@ FULL = dict(D=128, widths=[512, 256], A=8, B=4096, block=512, act="leaky_relu",
             gamma=0.99, tau=0.1, lr=1e-3)
 CARTPOLE = dict(D=4, widths=[128, 64], A=2, B=512, block=None, act="leaky_relu",
                 gamma=0.99, tau=0.2, lr=0.01)
+FUSED_STEPS = 5000  # bench.py's online_dqn runs 30,000; cut to fit the time limit
+GENERIC_STEPS = 1000
 
 
 def log(msg: str) -> None:
@@ -196,22 +211,33 @@ def profile_update(cfg, torch, n=5):
     return total
 
 
-def bound(cfg, double_q, name):
-    """Least time for one update: the larger of its f32 operations over the
-    card's peak and its bytes (inputs read once, params8 read and written
-    once) over the memory rate."""
+def roofline(flops, nbytes, name):
+    """The larger of f32 operations over the card's peak and bytes over its
+    memory rate, in ms, and which of the two it is."""
+    peak_flops, peak_bw = peaks_for(name)
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def update_work(cfg, double_q):
+    """One update's f32 operations and the parameter count P of one net."""
     B, D, A = cfg["B"], cfg["D"], cfg["A"]
     sizes = [D, *cfg["widths"], A]
     macs_layer = [i * o for i, o in zip(sizes[:-1], sizes[1:])]
     F = sum(macs_layer)
     n_fwd = 3 if double_q else 2
     flops = 2.0 * B * (n_fwd * F + F + (F - macs_layer[0]))
-    P = F + sum(sizes[1:])
+    return flops, F + sum(sizes[1:])
+
+
+def bound(cfg, double_q, name):
+    """Least time for one update: the larger of its f32 operations over the
+    card's peak and its bytes (inputs read once, params8 read and written
+    once) over the memory rate."""
+    B, D, A = cfg["B"], cfg["D"], cfg["A"]
+    flops, P = update_work(cfg, double_q)
     nbytes = 4.0 * (2 * B * D + 2 * B * A + 2 * B + 2 + 2 * 8 * P + 4)
-    peak_flops, peak_bw = peaks_for(name)
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            flops, nbytes)
+    return (*roofline(flops, nbytes, name), flops, nbytes)
 
 
 def time_kernel(cfg, torch, name):
@@ -337,17 +363,40 @@ def check_artifact(out, df, serving, torch):
     return diff
 
 
-def reset_counts(fused_dqn, fused_dqn_offline):
-    fused_dqn.fused_dqn_update.launches = 0
-    fused_dqn.fused_dqn_update_reference.calls = 0
-    fused_dqn_offline.fused_dqn_offline_update.launches = 0
-    fused_dqn_offline.fused_dqn_offline_update_reference.calls = 0
+def counted():
+    """(wrapper, plain version) of every kernel, by name."""
+    from reagent_tpu_torch.ops import fused_dqn, fused_dqn_offline, fused_mlp, nstep_replay
+
+    return {
+        "fused_dqn_offline_update": (fused_dqn_offline.fused_dqn_offline_update,
+                                     fused_dqn_offline.fused_dqn_offline_update_reference),
+        "fused_dqn_update": (fused_dqn.fused_dqn_update, fused_dqn.fused_dqn_update_reference),
+        "fused_dqn_update_packed": (fused_dqn.fused_dqn_update_packed,
+                                    fused_dqn.fused_dqn_update_packed_reference),
+        "fused_mlp_forward": (fused_mlp.fused_mlp_forward,
+                              fused_mlp.fused_mlp_forward_reference),
+        "nstep_rewards": (nstep_replay.nstep_rewards, nstep_replay.nstep_rewards_reference),
+    }
+
+
+def reset_counts():
+    """Every kernel's launch count and every plain version's call count to 0."""
+    for fn, plain in counted().values():
+        fn.launches = 0
+        plain.calls = 0
+
+
+def read_counts():
+    """(launches by kernel, plain-version calls in all) since reset_counts."""
+    pairs = counted()
+    return ({k: fn.launches for k, (fn, _) in pairs.items()},
+            sum(plain.calls for _, plain in pairs.values()))
 
 
 def workflow_phase(cfg, n_rows, epochs, kernel, torch, tmp, label):
     from reagent_tpu_torch.ops import fused_dqn, fused_dqn_offline
 
-    reset_counts(fused_dqn, fused_dqn_offline)
+    reset_counts()
     out, df, serving, batch_pre, wall = run_workflow(cfg, n_rows, epochs, torch, tmp, label)
     launches = {
         "fused_dqn_offline_update": fused_dqn_offline.fused_dqn_offline_update.launches,
@@ -383,6 +432,405 @@ def workflow_phase(cfg, n_rows, epochs, kernel, torch, tmp, label):
     return launches[kernel], steps, secs
 
 
+# ------------------------------------------------------------ online slice
+
+# bench.py:232-254: CartPole (200 steps), 4 -> 128 -> 64 -> 2 leaky_relu,
+# gamma 0.99, tau 0.2, Adam lr 0.01, minibatch 512 (the CARTPOLE shapes)
+PACKED_COLS = (1, 0, 5, 6)  # CartPole rows: action, observation 1-4, reward, terminal
+ROW_WIDTH = 8
+EVAL_EPISODES = 20
+K4_SHAPES = {"loop": (50_000, 512, 1), "kernel phase": (100_000, 512, 3)}  # capacity, B, H
+
+
+def example_transition(torch):
+    return dict(observation=torch.zeros(4), action=torch.tensor(0, dtype=torch.int32),
+                reward=torch.tensor(0.0), terminal=torch.tensor(False))
+
+
+def copy_state(state, device):
+    """A deep copy of one of the port's state dataclasses on ``device``."""
+    import dataclasses
+
+    def cp(v):
+        if isinstance(v, tuple):
+            return tuple(cp(x) for x in v)
+        if isinstance(v, dict):
+            return {k: cp(x) for k, x in v.items()}
+        return v.detach().to(device).clone()
+
+    return type(state)(**{f.name: cp(getattr(state, f.name)) for f in dataclasses.fields(state)})
+
+
+def packed_rows(torch, seed, device):
+    """Replay rows of CartPole transitions: ~5% terminals, as on the loop."""
+    rng = np.random.default_rng(seed)
+    B = CARTPOLE["B"]
+    rows = np.zeros((B, ROW_WIDTH), np.float32)
+    rows[:, 0] = rng.integers(0, 2, B)
+    rows[:, 1:5] = rng.normal(size=(B, 4)) * 0.5
+    rows[:, 5] = 1.0
+    rows[:, 6] = rng.random(B) < 0.05
+    return torch.tensor(rows, device=device)
+
+
+def k2_packed_kw(double_q):
+    cfg = CARTPOLE
+    return dict(cols=PACKED_COLS, activations=[cfg["act"]] * 2 + ["linear"],
+                gamma=cfg["gamma"], tau=cfg["tau"], double_q_learning=double_q)
+
+
+def compare_k2_packed(torch):
+    """5 lockstep updates of K2's packed interface and its plain version,
+    double-Q and single-Q; K2's tolerances (metrics rtol 2e-4, atol 2e-5;
+    final params rtol 5e-4, atol 5e-5)."""
+    from reagent_tpu_torch.ops import fused_dqn
+
+    worst = 0.0
+    for double_q in (True, False):
+        kw = k2_packed_kw(double_q)
+        _, _, p_kern = make_inputs(CARTPOLE, 1234, torch, DEVICE)
+        p_plain = [p.clone() for p in p_kern]
+        for step in range(5):
+            rows, next_rows = packed_rows(torch, step, DEVICE), packed_rows(torch, 100 + step, DEVICE)
+            lr_t, eps_t = step_scalars(torch, step, CARTPOLE["lr"], DEVICE)
+            mk = fused_dqn.fused_dqn_update_packed(lr_t, eps_t, rows, next_rows, p_kern, **kw)
+            mp = fused_dqn.fused_dqn_update_packed_reference(
+                lr_t, eps_t, rows, next_rows, p_plain, **kw)
+            torch.testing.assert_close(mk, mp, rtol=2e-4, atol=2e-5)
+            worst = max(worst, (mk - mp).abs().max().item())
+        for a, b in zip(p_kern, p_plain):
+            torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5)
+            worst = max(worst, (a - b).abs().max().item())
+        log(f"  K2-packed double_q={double_q}: 5 updates, last metrics "
+            f"{mk.flatten().tolist()}, max abs {worst:.3e}")
+    return worst
+
+
+def k3_inputs(torch, rows, seed):
+    """The act step's weights as the trainer passes them (W^T views of
+    [out, in] tensors) and ``rows`` CartPole-scale observations."""
+    _, _, params = make_inputs(CARTPOLE, seed, torch, DEVICE)
+    L = len(CARTPOLE["widths"]) + 1
+    weights = [(w.T, b.reshape(-1)) for w, b in zip(params[:L], params[L:2 * L])]
+    rng = np.random.default_rng(seed)
+    x = torch.tensor((rng.normal(size=(rows, CARTPOLE["D"])) * 0.05).astype(np.float32),
+                     device=DEVICE)
+    return x, weights, [CARTPOLE["act"]] * (L - 1) + ["linear"]
+
+
+def compare_k3(torch):
+    """The act step ([1, 4]) and evaluate_policy ([20, 4]); float32 sums in
+    another order: rtol 1e-5, atol 1e-5."""
+    from reagent_tpu_torch.ops import fused_mlp
+
+    worst = 0.0
+    for rows in (1, EVAL_EPISODES):
+        x, weights, acts = k3_inputs(torch, rows, 5 + rows)
+        y = fused_mlp.fused_mlp_forward(x, weights, acts)
+        yp = fused_mlp.fused_mlp_forward_reference(x, weights, acts)
+        torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
+        worst = max(worst, (y - yp).abs().max().item())
+        log(f"  K3 [{rows}, 4]: {y[0].tolist()} max abs {(y - yp).abs().max().item():.3e}")
+    return worst
+
+
+def k4_inputs(torch, capacity, B, seed):
+    """A store of CartPole-like rewards with ~5% terminals and B uniform
+    start indices (some windows wrap the capacity)."""
+    rng = np.random.default_rng(seed)
+    rewards = torch.tensor(rng.normal(size=capacity).astype(np.float32), device=DEVICE)
+    terminals = torch.tensor(rng.random(capacity) < 0.05, device=DEVICE)
+    idx = rng.integers(0, capacity, B)
+    idx[:4] = [capacity - 1, capacity - 2, capacity - 3, 0]
+    return rewards, terminals, torch.tensor(idx, dtype=torch.int64, device=DEVICE)
+
+
+def compare_k4(torch):
+    """The kernel rounds as its plain version does, in its order: exact."""
+    from reagent_tpu_torch.ops import nstep_replay
+
+    worst = 0.0
+    for label, (capacity, B, H) in K4_SHAPES.items():
+        rewards, terminals, idx = k4_inputs(torch, capacity, B, H)
+        got = nstep_replay.nstep_rewards(rewards, terminals, idx, H, 0.99)
+        want = nstep_replay.nstep_rewards_reference(rewards, terminals, idx, H, 0.99)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        worst = max(worst, (got[0] - want[0]).abs().max().item())
+        log(f"  K4 {label} capacity {capacity} B {B} H {H}: mean steps "
+            f"{got[1].float().mean().item():.4f}, terminals {int(got[2].sum())}, exact")
+    return worst
+
+
+def time_online_kernels(torch, name):
+    """CUDA-event times (3 warm-ups, median of 20) of K2-packed, K3 and K4
+    and their plain versions at the main path's shapes, with each bound."""
+    from reagent_tpu_torch.ops import fused_dqn, fused_mlp, nstep_replay
+
+    out = {}
+    kw = k2_packed_kw(True)
+    _, _, p_kern = make_inputs(CARTPOLE, 99, torch, DEVICE)
+    p_plain = [p.clone() for p in p_kern]
+    rows, next_rows = packed_rows(torch, 1, DEVICE), packed_rows(torch, 2, DEVICE)
+    lr_t, eps_t = step_scalars(torch, 0, CARTPOLE["lr"], DEVICE)
+    flops, P = update_work(CARTPOLE, True)
+    B = CARTPOLE["B"]
+    nbytes = 4.0 * (2 * B * ROW_WIDTH + 2 + 2 * 8 * P + 4)
+    out["K2-packed"] = (
+        time_ms(torch, lambda: fused_dqn.fused_dqn_update_packed(
+            lr_t, eps_t, rows, next_rows, p_kern, **kw)),
+        time_ms(torch, lambda: fused_dqn.fused_dqn_update_packed_reference(
+            lr_t, eps_t, rows, next_rows, p_plain, **kw)),
+        *roofline(flops, nbytes, name), flops, nbytes, "rows [512, 8], double-Q")
+
+    for rows_k3 in (1, EVAL_EPISODES):
+        x, weights, acts = k3_inputs(torch, rows_k3, 7)
+        sizes = [CARTPOLE["D"], *CARTPOLE["widths"], CARTPOLE["A"]]
+        macs = sum(i * o for i, o in zip(sizes[:-1], sizes[1:]))
+        flops = 2.0 * rows_k3 * macs
+        nbytes = 4.0 * (rows_k3 * sizes[0] + macs + sum(sizes[1:]) + rows_k3 * sizes[-1])
+        out[f"K3 [{rows_k3}, 4]"] = (
+            time_ms(torch, lambda: fused_mlp.fused_mlp_forward(x, weights, acts)),
+            time_ms(torch, lambda: fused_mlp.fused_mlp_forward_reference(x, weights, acts)),
+            *roofline(flops, nbytes, name), flops, nbytes, f"x [{rows_k3}, 4]")
+
+    for label, (capacity, B, H) in K4_SHAPES.items():
+        rewards, terminals, idx = k4_inputs(torch, capacity, B, H)
+        steps = nstep_replay.nstep_rewards(rewards, terminals, idx, H, 0.99)[1]
+        walked = int(steps.sum())  # this run's windows, as far as each is read
+        flops = 2.0 * walked
+        nbytes = 8.0 * B + 5.0 * walked + 9.0 * B
+        out[f"K4 {label}"] = (
+            time_ms(torch, lambda: nstep_replay.nstep_rewards(rewards, terminals, idx, H, 0.99)),
+            time_ms(torch, lambda: nstep_replay.nstep_rewards_reference(
+                rewards, terminals, idx, H, 0.99)),
+            *roofline(flops, nbytes, name), flops, nbytes,
+            f"capacity {capacity}, B {B}, H {H}")
+    return out
+
+
+def online_setup(torch, device, seed):
+    """The bench's online DQN: env, q-network, trainer and a fresh state."""
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.gym.envs import CartPole
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+    from reagent_tpu_torch.training.fused_dqn_trainer import FusedDQNTrainer
+
+    cfg = CARTPOLE
+    env = CartPole(max_steps=200, device=device)
+    net = FullyConnectedDQN(state_dim=cfg["D"], action_dim=cfg["A"], sizes=cfg["widths"],
+                            activations=[cfg["act"]] * len(cfg["widths"]))
+    trainer = FusedDQNTrainer(
+        q_network=net, rl=RLParameters(gamma=cfg["gamma"], target_update_rate=cfg["tau"]),
+        optimizer={"Adam": {"lr": cfg["lr"]}}, minibatch_size=cfg["B"], device=device)
+    return env, net, trainer, trainer.init(torch.Generator().manual_seed(seed))
+
+
+def fused_loop_against_cpu(torch, env, trainer, tstate, rb, rb_state, n=32):
+    """``n`` steps of the fused loop on the card and on the CPU (the plain
+    versions) from the same state and noise tape.  Per-step td_loss to rtol
+    1e-3, atol 1e-4 and final params to rtol 1e-3, atol 1e-4: each update
+    differs at K2's tolerances, and n steps of training feed that back;
+    actions and terminals exactly, observations to atol 1e-4 (sin/cos of
+    two libraries)."""
+    from reagent_tpu_torch.gym.fused_dqn_loop import (
+        FusedLoopConfig,
+        draw_noise_tape,
+        run_fused_loop_from_tape,
+    )
+    from reagent_tpu_torch.replay import PackedReplayBuffer
+
+    cfg = FusedLoopConfig(num_steps=n, minibatch_size=CARTPOLE["B"])
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    env_state, obs = env.reset(gen)
+    tape = draw_noise_tape(env, cfg, gen)
+    env_c, _, trainer_c, _ = online_setup(torch, "cpu", 0)
+    rb_c = PackedReplayBuffer(replay_capacity=rb.capacity, device="cpu")
+    rb_c.init(**example_transition(torch))
+    runs = {}
+    for dev, e, tr, r in ((DEVICE, env, trainer, rb), ("cpu", env_c, trainer_c, rb_c)):
+        runs[dev] = run_fused_loop_from_tape(
+            e, tr, copy_state(tstate, dev), r, copy_state(rb_state, dev),
+            copy_state(env_state, dev), obs.to(dev).clone(), tuple(x.to(dev) for x in tape), cfg)
+    (ts_g, rs_g, aux_g), (ts_c, rs_c, aux_c) = runs[DEVICE], runs["cpu"]
+    td_g, td_c = aux_g["td_losses"].cpu(), aux_c["td_losses"]
+    torch.testing.assert_close(td_g, td_c, rtol=1e-3, atol=1e-4)
+    rows_g, rows_c = rs_g.rows.cpu(), rs_c.rows
+    for col in (PACKED_COLS[1], PACKED_COLS[3]):
+        assert torch.equal(rows_g[:, col], rows_c[:, col]), f"column {col} differs"
+    torch.testing.assert_close(rows_g[:, 1:5], rows_c[:, 1:5], rtol=0, atol=1e-4)
+    for a, b in zip(ts_g.params8(), ts_c.params8()):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
+    assert int(aux_g["episodes_completed"]) == int(aux_c["episodes_completed"])
+    return (td_g - td_c).abs().max().item()
+
+
+def fused_loop_phase(torch, steps):
+    """Prefill 1,000 random transitions, then ``steps`` of the fused loop
+    (bench.py's online_dqn, cut from 30,000 steps to ``steps``)."""
+    from reagent_tpu_torch.gym.fused_dqn_loop import FusedLoopConfig, run_fused_online_dqn
+    from reagent_tpu_torch.gym.online_loop import prefill_replay_buffer
+    from reagent_tpu_torch.replay import PackedReplayBuffer
+
+    env, _, trainer, tstate = online_setup(torch, DEVICE, 0)
+    rb = PackedReplayBuffer(replay_capacity=100_000, device=DEVICE)
+    rb_state = rb.init(**example_transition(torch))
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    rb_state = prefill_replay_buffer(env, rb, rb_state, gen, 1000)
+    assert int(rb_state.add_count) == 1000
+    err = fused_loop_against_cpu(torch, env, trainer, tstate, rb, rb_state)
+    log(f"  card vs CPU plain versions, 32 lockstep steps: td_loss max abs {err:.3e}")
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tstate, rb_state, aux = run_fused_online_dqn(
+        env, trainer, tstate, rb, rb_state, gen,
+        FusedLoopConfig(num_steps=steps, minibatch_size=CARTPOLE["B"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    td = aux["td_losses"].cpu()
+    episodes = int(aux["episodes_completed"])
+    returns = aux["recent_episode_returns"].cpu()
+    returns = returns[~torch.isnan(returns)]
+    log(f"  fused loop: {steps} env steps + {steps} updates in {wall:.3f} s = "
+        f"{steps / wall:.2f} steps/s (each an env step and an update, host time "
+        f"included), episodes completed {episodes}, mean of the last "
+        f"{len(returns)} returns {returns.mean().item():.2f}, last td_loss "
+        f"{td[-1].item():.6g}, launches {launches}, plain-version calls {plain_calls}")
+    for kernel in ("fused_dqn_update_packed", "fused_mlp_forward"):
+        if launches[kernel] != steps:
+            raise AssertionError(f"{kernel} launched {launches[kernel]} times for {steps} steps")
+    if plain_calls:
+        raise AssertionError(f"plain versions ran {plain_calls} times on the main path")
+    if td.shape != (steps,) or not torch.isfinite(td).all() or episodes < 1:
+        raise AssertionError(f"fused loop output: td {td.shape}, episodes {episodes}")
+    if int(rb_state.add_count) != 1000 + steps or int(tstate.step) != steps:
+        raise AssertionError("fused loop did not add and train once per step")
+
+    # where a step's time goes: device time by CUDA kernel over a profiled
+    # window, beside the unprofiled wall time per step
+    n = 50
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_fused_online_dqn(env, trainer, tstate, rb, rb_state, gen,
+                             FusedLoopConfig(num_steps=n, minibatch_size=CARTPOLE["B"]))
+        torch.cuda.synchronize()
+    device_us, cpu_us = [], []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            device_us.append((dev / n, ev.count / n, ev.key))
+        if ev.self_cpu_time_total > 0:
+            cpu_us.append((ev.self_cpu_time_total / n, ev.count / n, ev.key))
+    device_us.sort(reverse=True)
+    cpu_us.sort(reverse=True)
+    dev_step = sum(r[0] for r in device_us)
+    wall_step = wall / steps * 1e6
+    log(f"  fused loop step: {wall_step:.1f} us wall (unprofiled), {dev_step:.1f} us of "
+        f"device kernels (profiled window of {n} steps): the device is idle "
+        f"{(1 - dev_step / wall_step) * 100:.1f}% of a step")
+    for us, count, key in device_us[:8]:
+        log(f"    device {us:8.2f} us  x{count:<5.1f} {key[:80]}")
+    for us, count, key in cpu_us[:8]:
+        log(f"    host   {us:8.2f} us  x{count:<5.1f} {key[:80]}")
+    # a value read back to the host shows as _local_scalar_dense; the one
+    # expected is run_fused_online_dqn's prefill guard, before the loop
+    counts = {ev.key: ev.count for ev in prof.key_averages()}
+    log(f"  host reads of device values in the {n}-step window: "
+        f"{counts.get('aten::_local_scalar_dense', 0)} "
+        f"(cudaStreamSynchronize: {counts.get('cudaStreamSynchronize', 0)})")
+    return launches, steps / wall, err
+
+
+def generic_loop_phase(torch, steps):
+    """ReplayBuffer (capacity 50,000, update_horizon 1) prefilled with 1,000
+    random transitions, ``steps`` env steps with softmax acting through the
+    K3 scorer and one tensor-K2 update per step, then evaluate_policy over
+    20 greedy episodes through K3."""
+    from reagent_tpu_torch.gym.online_loop import (
+        OnlineLoopConfig,
+        evaluate_policy,
+        prefill_replay_buffer,
+        run_online_training,
+    )
+    from reagent_tpu_torch.gym.policies import (
+        GreedyActionSampler,
+        SoftmaxActionSampler,
+        discrete_dqn_scorer,
+    )
+    from reagent_tpu_torch.gym.preprocessors import make_discrete_dqn_batch
+    from reagent_tpu_torch.replay import ReplayBuffer
+
+    env, net, trainer, tstate = online_setup(torch, DEVICE, 2)
+    rb = ReplayBuffer(replay_capacity=50_000, update_horizon=1, gamma=0.99, device=DEVICE)
+    rb_state = rb.init(**example_transition(torch))
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    rb_state = prefill_replay_buffer(env, rb, rb_state, gen, 1000)
+    scorer = discrete_dqn_scorer(net)
+    softmax, greedy = SoftmaxActionSampler(temperature=1.0), GreedyActionSampler()
+
+    def policy_act(ts, obs, g):
+        out = softmax.sample_action(scorer(trainer.mlp_weights(ts), obs[None]), g)
+        idx = torch.argmax(out.action[0]).to(torch.int32)
+        return idx, idx
+
+    def greedy_act(ts, obs, g):
+        return torch.argmax(greedy.sample_action(scorer(trainer.mlp_weights(ts), obs)).action, -1)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tstate, rb_state, aux = run_online_training(
+        env, trainer, tstate, rb, rb_state, policy_act,
+        lambda d: make_discrete_dqn_batch(d, CARTPOLE["A"]), gen,
+        OnlineLoopConfig(num_steps=steps, minibatch_size=CARTPOLE["B"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loop_launches, plain_calls = read_counts()
+    td = aux["td_losses"].cpu()
+    log(f"  generic loop: {steps} env steps + {steps} updates in {wall:.3f} s = "
+        f"{steps / wall:.2f} steps/s, episodes completed {int(aux['episodes_completed'])}, "
+        f"last td_loss {td[-1].item():.6g}, launches {loop_launches}, "
+        f"plain-version calls {plain_calls}")
+    for kernel in ("nstep_rewards", "fused_mlp_forward", "fused_dqn_update"):
+        if loop_launches[kernel] != steps:
+            raise AssertionError(f"{kernel} launched {loop_launches[kernel]} times for {steps} steps")
+    if plain_calls or td.shape != (steps,) or not torch.isfinite(td).all():
+        raise AssertionError(f"generic loop: plain calls {plain_calls}, td {td.shape}")
+    if int(rb_state.add_count) != 1000 + steps:
+        raise AssertionError("generic loop did not add once per step")
+
+    # the sample the loop trained on, against the same state on the CPU (K4's
+    # plain version), for 512 indices the buffer would draw
+    idx = rb.sample_index_batch(rb_state, gen, CARTPOLE["B"])
+    got = rb.sample(rb_state, indices=idx)
+    from reagent_tpu_torch.replay import ReplayBuffer as CpuBuffer
+
+    rb_c = CpuBuffer(replay_capacity=50_000, update_horizon=1, gamma=0.99, device="cpu")
+    rb_c.init(**example_transition(torch))
+    want = rb_c.sample(copy_state(rb_state, "cpu"), indices=idx.cpu())
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), f"sample[{k}] differs from the CPU buffer"
+
+    reset_counts()
+    t0 = time.perf_counter()
+    returns = evaluate_policy(env, greedy_act, tstate, gen, num_episodes=EVAL_EPISODES).cpu()
+    wall_eval = time.perf_counter() - t0
+    eval_launches, plain_calls = read_counts()
+    log(f"  evaluate_policy: {EVAL_EPISODES} greedy episodes in {wall_eval:.3f} s, returns "
+        f"{returns.tolist()} (mean {returns.mean().item():.2f}), launches {eval_launches}")
+    if eval_launches["fused_mlp_forward"] != env.max_steps or plain_calls:
+        raise AssertionError(f"evaluate_policy launches {eval_launches}, plain {plain_calls}")
+    if returns.shape != (EVAL_EPISODES,) or not ((returns >= 1) & (returns <= env.max_steps)).all():
+        raise AssertionError(f"evaluate_policy returns {returns}")
+    return loop_launches, eval_launches, steps / wall
+
+
 def main() -> int:
     import torch
 
@@ -405,7 +853,8 @@ def main() -> int:
     log("phase 2: build")
     t0 = time.perf_counter()
     libs = _build.build_all()
-    _build.load_library()
+    for lib in ("fused_dqn", "fused_mlp", "nstep_replay"):
+        _build.load_library(lib)
     log(f"  built {[os.path.basename(p) for p in libs]} in {time.perf_counter() - t0:.2f} s")
 
     log("phase 3: K1 against its plain version (full width)")
@@ -433,25 +882,66 @@ def main() -> int:
         k2_launches, _, _ = workflow_phase(
             CARTPOLE, 2048, 2, "fused_dqn_update", torch, tmp, "cartpole_sample")
 
-    log("phase 8: kernels")
+    log("phase 8: K2's packed interface, K3 and K4 against their plain versions")
+    err_k2p = compare_k2_packed(torch)
+    err_k3 = compare_k3(torch)
+    err_k4 = compare_k4(torch)
+
+    log("phase 9: timing of K2-packed, K3 and K4 (CUDA events, 3 warm-ups, median of 20)")
+    online_timing = time_online_kernels(torch, name)
+    for kname, (ms, plain_ms, b_ms, b_by, flops, nbytes, shapes) in online_timing.items():
+        log(f"  {kname} ({shapes}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}; {flops:.4g} FLOP, {nbytes:.4g} B), on {card}")
+
+    log(f"phase 10: fused online loop at the bench's width ({FUSED_STEPS} steps)")
+    fused_launches, fused_rate, _ = fused_loop_phase(torch, FUSED_STEPS)
+
+    log(f"phase 11: generic online loop ({GENERIC_STEPS} steps) and evaluate_policy")
+    generic_launches, eval_launches, _ = generic_loop_phase(torch, GENERIC_STEPS)
+
+    log("phase 12: kernels")
+    by_path = {
+        "K1 fused_dqn_offline_update": {"offline workflow, full width": k1_launches},
+        "K2 fused_dqn_update": {"offline workflow, CartPole sample": k2_launches,
+                                "generic online loop": generic_launches["fused_dqn_update"]},
+        "K2 fused_dqn_update_packed": {
+            "fused online loop": fused_launches["fused_dqn_update_packed"]},
+        "K3 fused_mlp_forward": {
+            "fused online loop": fused_launches["fused_mlp_forward"],
+            "generic online loop": generic_launches["fused_mlp_forward"],
+            "evaluate_policy": eval_launches["fused_mlp_forward"]},
+        "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"]},
+    }
+    sources = {"K3": "reagent_tpu_torch/ops/csrc/fused_mlp.cu",
+               "K4": "reagent_tpu_torch/ops/csrc/nstep_replay.cu"}
     rows = []
-    for kname, fn, replaces, launches, err in (
+    for kname, fn, replaces, err, times in (
         ("K1 fused_dqn_offline_update", fused_dqn_offline.fused_dqn_offline_update,
-         "reagent_tpu/ops/fused_dqn_offline.py:240", k1_launches, err_k1),
+         "reagent_tpu/ops/fused_dqn_offline.py:240", err_k1, timing["K1"]),
         ("K2 fused_dqn_update", fused_dqn.fused_dqn_update,
-         "reagent_tpu/ops/fused_dqn.py:259", k2_launches, err_k2),
+         "reagent_tpu/ops/fused_dqn.py:259", err_k2, timing["K2"]),
+        ("K2 fused_dqn_update_packed", fused_dqn.fused_dqn_update_packed,
+         "reagent_tpu/ops/fused_dqn.py:259", err_k2p, online_timing["K2-packed"]),
+        ("K3 fused_mlp_forward", None, "reagent_tpu/ops/fused_mlp.py:75", err_k3,
+         online_timing["K3 [1, 4]"]),
+        ("K4 nstep_rewards", None, "reagent_tpu/ops/nstep_replay.py:92", err_k4,
+         online_timing["K4 loop"]),
     ):
-        ms, plain_ms, b_ms, b_by, _, _ = timing[kname.split()[0]]
-        rows.append({
+        ms, plain_ms, b_ms, b_by = times[:4]
+        row = {
             "name": kname, "route": "cuda",
-            "source": "reagent_tpu_torch/ops/csrc/fused_dqn.cu",
-            "replaces": replaces, "launches": launches,
-            "cuda_kernels_per_launch": fn.kernels_per_update,
+            "source": sources.get(kname.split()[0], "reagent_tpu_torch/ops/csrc/fused_dqn.cu"),
+            "replaces": replaces, "launches": sum(by_path[kname].values()),
+            "launches_by_path": by_path[kname],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
-            # no single PyTorch call computes a whole DQN update
+            # no single PyTorch call computes a DQN update, a fused MLP
+            # forward or an n-step window sum
             "library_ms": None,
-        })
+        }
+        if fn is not None:
+            row["cuda_kernels_per_launch"] = fn.kernels_per_update
+        rows.append(row)
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

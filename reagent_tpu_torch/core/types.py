@@ -1,7 +1,7 @@
 """Typed training batches as tensor dataclasses.
 
-Port of the three batch types the offline DQN path uses from
-``reagent_tpu/core/types.py`` (``FeatureData`` :179, ``ExtraData`` :255,
+Port of the batch types the DQN paths use from ``reagent_tpu/core/types.py``
+(``FeatureData`` :179, ``ActorOutput`` :246, ``ExtraData`` :255,
 ``DiscreteDqnInput`` :290).  Fields hold ``torch.Tensor``s (or ``None``);
 ``.to(device)`` moves every tensor field, recursing into nested batches.
 """
@@ -33,6 +33,15 @@ class FeatureData(_TensorDataClass):
     """Dense features for one entity (reference types.py:314)."""
 
     float_features: Tensor
+
+
+@dataclasses.dataclass
+class ActorOutput(_TensorDataClass):
+    """A sampler's output (reference types.py:247)."""
+
+    action: Tensor
+    log_prob: Optional[Tensor] = None
+    squashed_mean: Optional[Tensor] = None
 
 
 @dataclasses.dataclass

@@ -1,0 +1,45 @@
+"""Scorers: (weights, obs) -> action scores for a policy.
+
+Port of ``apply_possible_actions_mask`` and ``discrete_dqn_scorer`` from
+``reagent_tpu/gym/policies/scorers.py`` (:22-42).  The DQN scorer runs the
+q-network's forward as one K3 launch (``ops/fused_mlp.py``) on the weights
+it is given: ``mlp_weight_list(q_network)`` for a module, or
+``FusedDQNTrainer.mlp_weights(state)`` for a trainer state.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from reagent_tpu_torch.ops.fused_mlp import fused_mlp_forward
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e9  # finite so a masked softmax stays well-defined in float32
+
+
+def apply_possible_actions_mask(
+    scores: Tensor,
+    possible_actions_mask: Optional[Tensor] = None,
+    invalid_score: float = NEG_INF,
+) -> Tensor:
+    """Invalid actions get ``invalid_score`` (ref discrete_scorer.py:18-30)."""
+    if possible_actions_mask is None:
+        return scores
+    return torch.where(possible_actions_mask.to(torch.bool), scores, invalid_score)
+
+
+def discrete_dqn_scorer(q_network: nn.Module) -> Callable:
+    """Q scores per action (ref discrete_scorer.py:33-49) for a dense MLP
+    q-network: ``score(weights, obs [B, D], mask=None) -> [B, A]``, where
+    ``weights`` is K3's ``[(W [in, out], b [out]), ...]``."""
+    activations = list(q_network.activations)
+
+    def score(weights, obs: Tensor, possible_actions_mask: Optional[Tensor] = None) -> Tensor:
+        scores = fused_mlp_forward(obs, weights, activations)
+        return apply_possible_actions_mask(scores, possible_actions_mask)
+
+    return score

@@ -36,15 +36,28 @@ _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
 _FP = ctypes.POINTER(ctypes.c_float)
 _PP = ctypes.POINTER(ctypes.c_void_p)
+_LL = ctypes.c_longlong
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 # argtypes per source: every pointer and the stream as c_void_p
 _SIGNATURES = {
     "fused_dqn": {
-        "fused_dqn_workspace_floats": (ctypes.c_longlong, [_I, _IP, _I, _I]),
+        "fused_dqn_workspace_floats": (_LL, [_I, _IP, _I, _I]),
         "fused_dqn_error_string": (ctypes.c_char_p, [_I]),
         "fused_dqn_update": (
             _I, [_I, _IP, _IP, _I, _I, _FP, _PP] + [_P] * 10 + [_IP, _P]),
         "fused_dqn_offline_update": (
             _I, [_I, _IP, _IP, _I, _I, _FP, _PP] + [_P] * 10 + [_IP, _P]),
+        "fused_dqn_update_packed": (
+            _I, [_I, _IP, _IP, _I, _I, _FP, _PP, _P, _P, _I, _IP] + [_P] * 4 + [_IP, _P]),
+    },
+    "fused_mlp": {
+        "fused_mlp_error_string": (ctypes.c_char_p, [_I]),
+        "fused_mlp_forward": (_I, [_I, _IP, _IP, _PP, _LLP, _PP, _P, _I, _I, _P, _P]),
+    },
+    "nstep_replay": {
+        "nstep_error_string": (ctypes.c_char_p, [_I]),
+        "nstep_max_horizon": (_I, []),
+        "nstep_rewards": (_I, [_P, _I, _P, _P, _I, _LL, _I, _FP, _P, _P, _P, _P]),
     },
 }
 

@@ -3,8 +3,13 @@
 // Replaces the two TPU kernels that each run a whole DQN training step:
 //   K1  reagent_tpu/ops/fused_dqn_offline.py::make_fused_dqn_offline_kernel
 //       -> C entry fused_dqn_offline_update (batch split into 256-row chunks)
-//   K2  reagent_tpu/ops/fused_dqn.py::make_fused_dqn_train_kernel (tensor
-//       interface) -> C entry fused_dqn_update (whole batch as one chunk)
+//   K2  reagent_tpu/ops/fused_dqn.py::make_fused_dqn_train_kernel
+//       tensor interface -> C entry fused_dqn_update (whole batch as one
+//       chunk); packed interface (packed=, :164-176) -> C entry
+//       fused_dqn_update_packed, which reads raw PackedReplayBuffer rows in
+//       place: the observation GEMMs take the rows' stride, and the TD-row
+//       kernel reads the action, reward and terminal columns, builds the
+//       one-hot as |a - j| < 0.5 and sets nt = 1 - terminal (no mask).
 //
 // One update is a fixed sequence of launches on the caller's stream:
 //   (a) per layer, a shared-memory-tiled GEMM  h = act(x . W^T + b)  for the
@@ -152,12 +157,38 @@ gemm_kernel(const float* __restrict__ A, long long sam, long long sak,
   }
 }
 
+// Where an update reads its batch.  Tensor interface (rows == nullptr):
+// obs/nobs [B, D] (ld = D), act and mask [B, A], rew and nt [B, 1].
+// Packed interface: obs/nobs point at the observation column of the raw
+// replay rows (ld = row width); action, reward and terminal are columns of
+// the same rows, and every next action is possible.
+struct BatchIn {
+  const float* obs;
+  const float* nobs;
+  long long obs_ld, nobs_ld;
+  const float* act;
+  const float* rew;
+  const float* nt;
+  const float* mask;
+  const float* rows;
+  long long rows_ld;
+  int act_col, rew_col, term_col;
+};
+
+__device__ __forceinline__ float penalty_at(const BatchIn& in, long long r, int a) {
+  return in.rows ? 0.f : NOT_POSSIBLE * (1.f - in.mask[r + a]);
+}
+
+__device__ __forceinline__ float action_at(const BatchIn& in, int m, long long r, int a) {
+  if (!in.rows) return in.act[r + a];
+  const float code = in.rows[m * in.rows_ld + in.act_col];
+  return fabsf((float)a - code) < 0.5f ? 1.f : 0.f;
+}
+
 // One thread per row.  sel_q is q_online(nobs) for double-Q, else q_target.
 __global__ void __launch_bounds__(ROW_THREADS)
 td_rows_kernel(const float* __restrict__ q, const float* __restrict__ sel_q,
-               const float* __restrict__ qt, const float* __restrict__ act,
-               const float* __restrict__ rew, const float* __restrict__ nt,
-               const float* __restrict__ mask, float* __restrict__ dz,
+               const float* __restrict__ qt, BatchIn in, float* __restrict__ dz,
                float* __restrict__ partials, int B, int A, float gamma,
                float two_over_b) {
   __shared__ float red[4][ROW_THREADS];
@@ -166,26 +197,28 @@ td_rows_kernel(const float* __restrict__ q, const float* __restrict__ sel_q,
   float s_err2 = 0.f, s_q = 0.f, s_qtaken = 0.f, s_r = 0.f;
   if (m < B) {
     const long long r = (long long)m * A;
+    const float rew = in.rows ? in.rows[m * in.rows_ld + in.rew_col] : in.rew[m];
+    const float nt = in.rows ? 1.f - in.rows[m * in.rows_ld + in.term_col] : in.nt[m];
     int best = 0;
-    float best_v = sel_q[r] + NOT_POSSIBLE * (1.f - mask[r]);
+    float best_v = sel_q[r] + penalty_at(in, r, 0);
     for (int a = 1; a < A; ++a) {
-      const float v = sel_q[r + a] + NOT_POSSIBLE * (1.f - mask[r + a]);
+      const float v = sel_q[r + a] + penalty_at(in, r, a);
       if (v > best_v) { best_v = v; best = a; }  // first index wins ties
     }
-    const float next_sel = qt[r + best] + NOT_POSSIBLE * (1.f - mask[r + best]);
-    const float y = rew[m] + gamma * next_sel * nt[m];
+    const float next_sel = qt[r + best] + penalty_at(in, r, best);
+    const float y = rew + gamma * next_sel * nt;
     float q_taken = 0.f, q_sum = 0.f;
     for (int a = 0; a < A; ++a) {
-      q_taken += q[r + a] * act[r + a];
+      q_taken += q[r + a] * action_at(in, m, r, a);
       q_sum += q[r + a];
     }
     const float err = q_taken - y;
     const float g = two_over_b * err;
-    for (int a = 0; a < A; ++a) dz[r + a] = g * act[r + a];
+    for (int a = 0; a < A; ++a) dz[r + a] = g * action_at(in, m, r, a);
     s_err2 = err * err;
     s_q = q_sum;
     s_qtaken = q_taken;
-    s_r = rew[m];
+    s_r = rew;
   }
   red[0][tid] = s_err2;
   red[1][tid] = s_q;
@@ -305,26 +338,27 @@ cudaError_t gemm(cudaStream_t st, const float* A, long long sam, long long sak,
     ++*n_launches;                           \
   } while (0)
 
-// Forward x [B, dims[0]] through L layers; layer i writes outs[i].
-int forward(cudaStream_t st, const float* x, float* const* Ws,
+// Forward x [B, dims[0]] (row stride x_ld) through L layers; layer i
+// writes outs[i] (contiguous).
+int forward(cudaStream_t st, const float* x, long long x_ld, float* const* Ws,
             float* const* bs, const int* dims, const int* acts, int L, int B,
             float* const* outs, int* n_launches) {
   const float* in = x;
+  long long ld = x_ld;
   for (int i = 0; i < L; ++i) {
     const int K = dims[i], N = dims[i + 1];
-    CHECK(gemm<EPI_BIAS_ACT>(st, in, K, 1, Ws[i], 1, K, 0, outs[i], B, N, K, K,
+    CHECK(gemm<EPI_BIAS_ACT>(st, in, ld, 1, Ws[i], 1, K, 0, outs[i], B, N, K, K,
                              1, bs[i], acts[i]));
     in = outs[i];
+    ld = N;
   }
   return 0;
 }
 
 int run_update(int L, const int* dims, const int* acts, int B, int double_q,
-               const float* consts, void* const* params, const float* obs,
-               const float* nobs, const float* act, const float* rew,
-               const float* nt, const float* mask, const float* lr_t,
-               const float* eps_t, float* metrics, float* ws, int* n_launches,
-               cudaStream_t st, int offline) {
+               const float* consts, void* const* params, const BatchIn& in,
+               const float* lr_t, const float* eps_t, float* metrics, float* ws,
+               int* n_launches, cudaStream_t st, int offline) {
   *n_launches = 0;
   Layout lay;
   if (!make_layout(L, dims, B, offline, &lay)) return (int)cudaErrorInvalidValue;
@@ -345,17 +379,17 @@ int run_update(int L, const int* dims, const int* acts, int B, int double_q,
   // (a) forwards
   float* hs[MAX_LAYERS];
   for (int i = 0; i < L; ++i) hs[i] = ws + lay.h[i + 1];
-  int e = forward(st, obs, W, b, dims, acts, L, B, hs, n_launches);
+  int e = forward(st, in.obs, in.obs_ld, W, b, dims, acts, L, B, hs, n_launches);
   if (e) return e;
   float* tmp[MAX_LAYERS];
   for (int i = 0; i < L; ++i) tmp[i] = ws + ((i % 2) ? lay.tmp1 : lay.tmp0);
   if (double_q) {
     tmp[L - 1] = ws + lay.qn;
-    e = forward(st, nobs, W, b, dims, acts, L, B, tmp, n_launches);
+    e = forward(st, in.nobs, in.nobs_ld, W, b, dims, acts, L, B, tmp, n_launches);
     if (e) return e;
   }
   tmp[L - 1] = ws + lay.qt;
-  e = forward(st, nobs, Wt, bt, dims, acts, L, B, tmp, n_launches);
+  e = forward(st, in.nobs, in.nobs_ld, Wt, bt, dims, acts, L, B, tmp, n_launches);
   if (e) return e;
 
   // (b) TD rows
@@ -364,27 +398,27 @@ int run_update(int L, const int* dims, const int* acts, int B, int double_q,
   float* dz = ws + lay.dz0;
   float* dz_next = ws + lay.dz1;
   td_rows_kernel<<<lay.nrowblocks, ROW_THREADS, 0, st>>>(
-      q, sel_q, ws + lay.qt, act, rew, nt, mask, dz, ws + lay.partials, B, A,
-      gamma, two_over_b);
+      q, sel_q, ws + lay.qt, in, dz, ws + lay.partials, B, A, gamma, two_over_b);
   CHECK(cudaGetLastError());
 
   // (c) + (d) backward and update, last layer first
   float* grad = ws + lay.grad;
   for (int i = L - 1; i >= 0; --i) {
-    const int in = dims[i], out = dims[i + 1];
-    const float* h_prev = i == 0 ? obs : ws + lay.h[i];
+    const int fan_in = dims[i], out = dims[i + 1];
+    const float* h_prev = i == 0 ? in.obs : ws + lay.h[i];
+    const long long h_ld = i == 0 ? in.obs_ld : fan_in;
     // [dW | db][n, j] = sum_m dz[m, n] * [h_prev | 1][m, j]
-    CHECK(gemm<EPI_SPLITK>(st, dz, 1, out, h_prev, in, 1, 1, grad, out, in + 1,
-                           B, lay.chunk_rows, lay.nchunks, nullptr, 0));
+    CHECK(gemm<EPI_SPLITK>(st, dz, 1, out, h_prev, h_ld, 1, 1, grad, out,
+                           fan_in + 1, B, lay.chunk_rows, lay.nchunks, nullptr, 0));
     if (i > 0) {
       // dz_prev[m, j] = (sum_n dz[m, n] * W[n, j]) * act'(h_prev[m, j])
-      CHECK(gemm<EPI_ACT_GRAD>(st, dz, out, 1, W[i], in, 1, 0, dz_next, B, in,
-                               out, out, 1, h_prev, acts[i - 1]));
+      CHECK(gemm<EPI_ACT_GRAD>(st, dz, out, 1, W[i], fan_in, 1, 0, dz_next, B,
+                               fan_in, out, out, 1, h_prev, acts[i - 1]));
     }
-    const long long total = (long long)out * (in + 1);
+    const long long total = (long long)out * (fan_in + 1);
     adam_polyak_kernel<<<cdiv(total, EW_THREADS), EW_THREADS, 0, st>>>(
         W[i], b[i], Wt[i], bt[i], mW[i], mb[i], vW[i], vb[i], grad,
-        lay.nchunks, out, in, lr_t, eps_t, ac);
+        lay.nchunks, out, fan_in, lr_t, eps_t, ac);
     CHECK(cudaGetLastError());
     float* t = dz; dz = dz_next; dz_next = t;
   }
@@ -392,6 +426,19 @@ int run_update(int L, const int* dims, const int* acts, int B, int double_q,
   metrics_kernel<<<1, 32, 0, st>>>(ws + lay.partials, lay.nrowblocks, B, A, metrics);
   CHECK(cudaGetLastError());
   return 0;
+}
+
+BatchIn tensor_batch(int D, const void* obs, const void* nobs, const void* act,
+                     const void* rew, const void* nt, const void* mask) {
+  BatchIn in{};
+  in.obs = (const float*)obs;
+  in.nobs = (const float*)nobs;
+  in.obs_ld = in.nobs_ld = D;
+  in.act = (const float*)act;
+  in.rew = (const float*)rew;
+  in.nt = (const float*)nt;
+  in.mask = (const float*)mask;
+  return in;
 }
 
 }  // namespace
@@ -416,9 +463,32 @@ int fused_dqn_update(int L, const int* dims, const int* acts, int B,
                      const void* rew, const void* nt, const void* mask,
                      const void* lr_t, const void* eps_t, void* metrics,
                      void* workspace, int* n_launches, void* stream) {
-  return run_update(L, dims, acts, B, double_q, consts, params,
-                    (const float*)obs, (const float*)nobs, (const float*)act,
-                    (const float*)rew, (const float*)nt, (const float*)mask,
+  const BatchIn in = tensor_batch(dims[0], obs, nobs, act, rew, nt, mask);
+  return run_update(L, dims, acts, B, double_q, consts, params, in,
+                    (const float*)lr_t, (const float*)eps_t, (float*)metrics,
+                    (float*)workspace, n_launches, (cudaStream_t)stream, 0);
+}
+
+// K2, packed interface: rows and next_rows are [B, row_width] raw replay
+// rows; cols = (obs_col, act_col, rew_col, term_col).
+int fused_dqn_update_packed(int L, const int* dims, const int* acts, int B,
+                            int double_q, const float* consts,
+                            void* const* params, const void* rows,
+                            const void* next_rows, int row_width,
+                            const int* cols, const void* lr_t,
+                            const void* eps_t, void* metrics, void* workspace,
+                            int* n_launches, void* stream) {
+  const float* r = (const float*)rows;
+  BatchIn in{};
+  in.obs = r + cols[0];
+  in.nobs = (const float*)next_rows + cols[0];
+  in.obs_ld = in.nobs_ld = row_width;
+  in.rows = r;
+  in.rows_ld = row_width;
+  in.act_col = cols[1];
+  in.rew_col = cols[2];
+  in.term_col = cols[3];
+  return run_update(L, dims, acts, B, double_q, consts, params, in,
                     (const float*)lr_t, (const float*)eps_t, (float*)metrics,
                     (float*)workspace, n_launches, (cudaStream_t)stream, 0);
 }
@@ -431,9 +501,8 @@ int fused_dqn_offline_update(int L, const int* dims, const int* acts, int B,
                              const void* nt, const void* mask, const void* lr_t,
                              const void* eps_t, void* metrics, void* workspace,
                              int* n_launches, void* stream) {
-  return run_update(L, dims, acts, B, double_q, consts, params,
-                    (const float*)obs, (const float*)nobs, (const float*)act,
-                    (const float*)rew, (const float*)nt, (const float*)mask,
+  const BatchIn in = tensor_batch(dims[0], obs, nobs, act, rew, nt, mask);
+  return run_update(L, dims, acts, B, double_q, consts, params, in,
                     (const float*)lr_t, (const float*)eps_t, (float*)metrics,
                     (float*)workspace, n_launches, (cudaStream_t)stream, 1);
 }

@@ -1,7 +1,13 @@
 """Fully fused DQN update (K2): one call runs a whole training step.
 
 Replaces the TPU kernel ``reagent_tpu/ops/fused_dqn.py::
-make_fused_dqn_train_kernel`` (its ``pallas_call`` at :259), tensor interface.
+make_fused_dqn_train_kernel`` (its ``pallas_call`` at :259): the tensor
+interface (``fused_dqn_update``) and the packed interface
+(``fused_dqn_update_packed``, :164-176), which reads raw ``PackedReplayBuffer``
+rows: the CUDA GEMMs take the observation columns through the rows' stride
+and the TD-row kernel reads the action, reward and terminal columns, so the
+batch is never copied out of the rows.
+
 One update is: online forward over ``[obs; nobs]``, target forward over
 ``nobs``, masked first-index-argmax TD target (double-Q or target argmax),
 mse loss, analytic backward, Adam with the bias correction folded into the
@@ -196,46 +202,53 @@ def fused_dqn_update_reference(
 fused_dqn_update_reference.calls = 0
 
 
+# -------------------------------------------------------- packed interface
+
+
+def _unpack_rows(rows, next_rows, cols: Sequence[int], D: int, A: int):
+    """The tensor interface's batch from raw ``PackedReplayBuffer`` rows, as
+    the TPU kernel's packed interface reads them (``reagent_tpu/ops/
+    fused_dqn.py:164-176``): observation columns, the action one-hot as
+    ``|a - j| < 0.5``, ``nt = 1 - terminal`` and an all-ones mask."""
+    obs_col, act_col, rew_col, term_col = cols
+    B = rows.shape[0]
+    iota = torch.arange(A, device=rows.device, dtype=torch.float32)
+    act = (torch.abs(iota - rows[:, act_col:act_col + 1]) < 0.5).to(torch.float32)
+    return (
+        rows[:, obs_col:obs_col + D], next_rows[:, obs_col:obs_col + D], act,
+        rows[:, rew_col:rew_col + 1], 1.0 - rows[:, term_col:term_col + 1],
+        torch.ones((B, A), dtype=torch.float32, device=rows.device),
+    )
+
+
+def fused_dqn_update_packed_reference(
+    lr_t, eps_t, rows, next_rows, params8, *, cols: Sequence[int],
+    activations: Sequence[str], gamma: float, tau: float,
+    double_q_learning: bool, b1: float = 0.9, b2: float = 0.999,
+) -> torch.Tensor:
+    """Plain PyTorch version of K2's packed interface: unpack the columns and
+    run the tensor update with an all-ones mask (``-1e9 * (1 - 1)`` is
+    exactly 0, as the packed TPU kernel, which has no mask, computes)."""
+    fused_dqn_update_packed_reference.calls += 1
+    L, (W, *_rest) = _split8(params8)
+    batch = _unpack_rows(rows, next_rows, cols, W[0].shape[1], W[-1].shape[0])
+    return update_reference(
+        lr_t, eps_t, *batch, params8, activations=activations, gamma=gamma,
+        tau=tau, double_q_learning=double_q_learning, b1=b1, b2=b2,
+        act_grad=_act_grad,
+    )
+
+
+fused_dqn_update_packed_reference.calls = 0
+
+
 # -------------------------------------------------------- CUDA launch
 
 
-def launch_cuda(
-    entry: str, lr_t, eps_t, obs, nobs, act, rew, nt, mask, params8, *,
-    activations, gamma, tau, double_q_learning, b1, b2,
-) -> Tuple[torch.Tensor, int]:
-    """Check the inputs, allocate metrics and workspace, and run one of the
-    two C entries of ``csrc/fused_dqn.cu`` on the current stream.  Returns
-    the metrics row and the number of CUDA kernels the update launched."""
-    from reagent_tpu_torch.ops import _build
-
-    L, groups = _split8(params8)
-    B, D = obs.shape
-    W = groups[0]
-    dims = [D] + [w.shape[0] for w in W]
-    A = dims[-1]
-    if len(activations) != L:
-        raise ValueError(f"{len(activations)} activations for {L} layers")
-    unknown = [a for a in activations if a not in _ACT_CODES]
-    if unknown:
-        raise ValueError(f"unsupported activations {unknown}; supported: {sorted(_ACT_CODES)}")
-    if activations[-1] not in ("linear", "identity"):
-        raise ValueError("the fused update needs a linear output layer")
-    want = {
-        "obs": (B, D), "nobs": (B, D), "act": (B, A), "rew": (B, 1),
-        "nt": (B, 1), "mask": (B, A), "lr_t": None, "eps_t": None,
-    }
-    named = dict(obs=obs, nobs=nobs, act=act, rew=rew, nt=nt, mask=mask,
-                 lr_t=lr_t, eps_t=eps_t)
-    for i in range(L):
-        for g, name in enumerate(("W", "b", "Wt", "bt", "mW", "mb", "vW", "vb")):
-            named[f"{name}{i}"] = groups[g][i]
-            want[f"{name}{i}"] = (
-                (dims[i + 1], dims[i]) if g % 2 == 0 else (1, dims[i + 1])
-            )
-    dev = obs.device
+def _check_tensors(named, want, dev) -> None:
     for name, t in named.items():
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, obs on {dev}")
+            raise ValueError(f"{name} is on {t.device}, the batch on {dev}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
@@ -246,6 +259,37 @@ def launch_cuda(
                 raise ValueError(f"{name} must hold one value, got {tuple(t.shape)}")
         elif tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def _check_params(lr_t, eps_t, params8, activations, D):
+    """Layer dims, the params8 groups, and the named tensors with the shapes
+    the C entries expect (weights [out, in], biases [1, out])."""
+    L, groups = _split8(params8)
+    dims = [D] + [w.shape[0] for w in groups[0]]
+    if len(activations) != L:
+        raise ValueError(f"{len(activations)} activations for {L} layers")
+    unknown = [a for a in activations if a not in _ACT_CODES]
+    if unknown:
+        raise ValueError(f"unsupported activations {unknown}; supported: {sorted(_ACT_CODES)}")
+    if activations[-1] not in ("linear", "identity"):
+        raise ValueError("the fused update needs a linear output layer")
+    named = {"lr_t": lr_t, "eps_t": eps_t}
+    want = {"lr_t": None, "eps_t": None}
+    for i in range(L):
+        for g, name in enumerate(("W", "b", "Wt", "bt", "mW", "mb", "vW", "vb")):
+            named[f"{name}{i}"] = groups[g][i]
+            want[f"{name}{i}"] = (
+                (dims[i + 1], dims[i]) if g % 2 == 0 else (1, dims[i + 1])
+            )
+    return L, groups, dims, named, want
+
+
+def _run_entry(entry, dev, B, L, groups, dims, batch_args, lr_t, eps_t, *,
+               activations, gamma, tau, double_q_learning, b1, b2):
+    """Allocate metrics and workspace and call one C entry of
+    ``csrc/fused_dqn.cu`` on the current stream; returns the metrics row and
+    the number of CUDA kernels the update launched."""
+    from reagent_tpu_torch.ops import _build
 
     lib = _build.load_library()
     offline = entry == "fused_dqn_offline_update"
@@ -266,13 +310,60 @@ def launch_cuda(
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, entry)(
             L, c_dims, c_acts, B, int(bool(double_q_learning)), c_consts, c_params,
-            obs.data_ptr(), nobs.data_ptr(), act.data_ptr(), rew.data_ptr(),
-            nt.data_ptr(), mask.data_ptr(), lr_t.data_ptr(), eps_t.data_ptr(),
+            *batch_args, lr_t.data_ptr(), eps_t.data_ptr(),
             metrics.data_ptr(), workspace.data_ptr(), ctypes.byref(n_launches), stream,
         )
     if err != 0:
         raise RuntimeError(f"{entry} failed: {lib.fused_dqn_error_string(err).decode()}")
     return metrics, n_launches.value
+
+
+def launch_cuda(
+    entry: str, lr_t, eps_t, obs, nobs, act, rew, nt, mask, params8, *,
+    activations, gamma, tau, double_q_learning, b1, b2,
+) -> Tuple[torch.Tensor, int]:
+    """Check the inputs and run one of the two tensor-interface C entries
+    (``fused_dqn_update``, ``fused_dqn_offline_update``)."""
+    B, D = obs.shape
+    L, groups, dims, named, want = _check_params(lr_t, eps_t, params8, activations, D)
+    A = dims[-1]
+    named.update(obs=obs, nobs=nobs, act=act, rew=rew, nt=nt, mask=mask)
+    want.update(obs=(B, D), nobs=(B, D), act=(B, A), rew=(B, 1), nt=(B, 1), mask=(B, A))
+    _check_tensors(named, want, obs.device)
+    return _run_entry(
+        entry, obs.device, B, L, groups, dims,
+        [t.data_ptr() for t in (obs, nobs, act, rew, nt, mask)], lr_t, eps_t,
+        activations=activations, gamma=gamma, tau=tau,
+        double_q_learning=double_q_learning, b1=b1, b2=b2)
+
+
+def launch_cuda_packed(
+    lr_t, eps_t, rows, next_rows, params8, *, cols, activations, gamma, tau,
+    double_q_learning, b1, b2,
+) -> Tuple[torch.Tensor, int]:
+    """Check the inputs and run the C entry ``fused_dqn_update_packed``, which
+    reads the observation, action, reward and terminal columns of ``rows`` /
+    ``next_rows`` [B, row_width] in place."""
+    if rows.ndim != 2:
+        raise ValueError(f"rows must be [B, row_width], got {tuple(rows.shape)}")
+    B, width = rows.shape
+    D = params8[0].shape[1]
+    L, groups, dims, named, want = _check_params(lr_t, eps_t, params8, activations, D)
+    named.update(rows=rows, next_rows=next_rows)
+    want.update(rows=(B, width), next_rows=(B, width))
+    _check_tensors(named, want, rows.device)
+    cols = tuple(int(c) for c in cols)
+    if (len(cols) != 4 or min(cols) < 0 or cols[0] + D > width
+            or max(cols[1:]) >= width):
+        raise ValueError(
+            f"cols {cols} (obs, action, reward, terminal) do not fit rows of "
+            f"width {width} with {D} observation columns")
+    c_cols = (ctypes.c_int * 4)(*cols)
+    return _run_entry(
+        "fused_dqn_update_packed", rows.device, B, L, groups, dims,
+        [rows.data_ptr(), next_rows.data_ptr(), width, c_cols], lr_t, eps_t,
+        activations=activations, gamma=gamma, tau=tau,
+        double_q_learning=double_q_learning, b1=b1, b2=b2)
 
 
 def fused_dqn_update(
@@ -299,3 +390,32 @@ def fused_dqn_update(
 
 fused_dqn_update.launches = 0
 fused_dqn_update.kernels_per_update = None  # CUDA kernels in the last update
+
+
+def fused_dqn_update_packed(
+    lr_t, eps_t, rows, next_rows, params8, *, cols: Sequence[int],
+    activations: Sequence[str], gamma: float, tau: float,
+    double_q_learning: bool, b1: float = 0.9, b2: float = 0.999,
+) -> torch.Tensor:
+    """K2's packed interface: one DQN update straight from gathered replay
+    rows ``rows`` / ``next_rows`` [B, row_width] (``cols`` = the observation,
+    action, reward and terminal columns); every next action is possible.
+    Updates ``params8`` in place and returns metrics [1, 4].
+
+    A CUDA tensor launches the hand-written kernel (or raises); a CPU tensor
+    takes the plain version."""
+    kw = dict(cols=cols, activations=activations, gamma=gamma, tau=tau,
+              double_q_learning=double_q_learning, b1=b1, b2=b2)
+    if rows.device.type == "cpu":
+        return fused_dqn_update_packed_reference(
+            lr_t, eps_t, rows, next_rows, params8, **kw)
+    if rows.device.type != "cuda":
+        raise ValueError(f"fused_dqn_update_packed runs on cuda or cpu, not {rows.device}")
+    metrics, fused_dqn_update_packed.kernels_per_update = launch_cuda_packed(
+        lr_t, eps_t, rows, next_rows, params8, **kw)
+    fused_dqn_update_packed.launches += 1
+    return metrics
+
+
+fused_dqn_update_packed.launches = 0
+fused_dqn_update_packed.kernels_per_update = None

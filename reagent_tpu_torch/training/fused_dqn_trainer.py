@@ -6,8 +6,11 @@ parameters and Adam moments are carried in the kernels' layout (weights
 q-network's own parameters happens only at init and export.  ``train_step``
 is one call of ``ops.fused_dqn.fused_dqn_update`` (K2) or, when
 ``block_size`` is set, ``ops.fused_dqn_offline.fused_dqn_offline_update``
-(K1).  The update writes the state's tensors in place (the JAX trainer
-donates them), so a state passed to ``train_step`` must not be reused.
+(K1); ``train_step_packed`` is one call of K2's packed interface on raw
+``PackedReplayBuffer`` rows (the fused online loop's update).  The update
+writes the state's tensors in place (the JAX trainer donates them), so a
+state passed to a train step must not be reused.  ``q_values`` is one K3
+launch (``ops.fused_mlp.fused_mlp_forward``): the online loops' act step.
 
 Constraints (checked): plain Adam (no weight decay / amsgrad), mse loss,
 scalar-gamma discount (no time_diff exponents), no CPE heads, a dense MLP
@@ -29,6 +32,7 @@ from reagent_tpu_torch.core.parameters import RLParameters
 from reagent_tpu_torch.ops.fused_dqn import (
     extract_mlp_layout,
     fused_dqn_update,
+    fused_dqn_update_packed,
     mlp_forward_transposed,
     params_to_kernel_layout,
 )
@@ -36,6 +40,7 @@ from reagent_tpu_torch.ops.fused_dqn_offline import (
     check_block_size,
     fused_dqn_offline_update,
 )
+from reagent_tpu_torch.ops.fused_mlp import fused_mlp_forward
 from reagent_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -116,6 +121,7 @@ class FusedDQNTrainer:
                 fused_dqn_offline_update, block_size=block_size, **kernel_kw)
         else:
             self._update = functools.partial(fused_dqn_update, **kernel_kw)
+        self._update_packed = functools.partial(fused_dqn_update_packed, **kernel_kw)
 
     # ------------------------------------------------------------------ init
 
@@ -173,11 +179,7 @@ class FusedDQNTrainer:
                 f"batch has {rows} rows but the trainer was built for "
                 f"minibatch_size={B}; the fused update takes one batch size"
             )
-        t = (state.step + 1).to(torch.float32)
-        bc1 = 1.0 - self.b1 ** t
-        bc2 = 1.0 - self.b2 ** t
-        lr_t = (self.lr * torch.sqrt(bc2) / bc1).to(torch.float32)
-        eps_t = (self.eps * torch.sqrt(bc2)).to(torch.float32)
+        lr_t, eps_t = self._adam_scalars(state)
 
         def f32(x, shape=None):
             x = x.to(device=self.device, dtype=torch.float32)
@@ -193,14 +195,47 @@ class FusedDQNTrainer:
             f32(batch.possible_next_actions_mask),
             state.params8(),
         )
-        state = dataclasses.replace(state, step=state.step + 1)
-        metrics = {
-            "td_loss": m[0, 0],
-            "q_values_mean": m[0, 1],
-            "q_taken_mean": m[0, 2],
-            "reward_mean": m[0, 3],
-        }
-        return state, metrics
+        return dataclasses.replace(state, step=state.step + 1), _metrics(m)
+
+    def _adam_scalars(self, state: FusedDQNTrainerState) -> Tuple[Tensor, Tensor]:
+        """This step's ``lr_t`` and ``eps_t`` (Adam's bias correction), on the
+        device."""
+        t = (state.step + 1).to(torch.float32)
+        bc1 = 1.0 - self.b1 ** t
+        bc2 = 1.0 - self.b2 ** t
+        lr_t = (self.lr * torch.sqrt(bc2) / bc1).to(torch.float32)
+        eps_t = (self.eps * torch.sqrt(bc2)).to(torch.float32)
+        return lr_t, eps_t
+
+    # ------------------------------------------------- packed-row fast path
+
+    def configure_packed(self, rb) -> Tuple[int, int, int, int]:
+        """The ``(obs, action, reward, terminal)`` columns of a
+        ``PackedReplayBuffer``'s rows, for ``train_step_packed``; call after
+        ``rb.init`` (which sets the row layout)."""
+        if self.block_size is not None:
+            raise ValueError("the packed update is K2's; it takes no block_size")
+        obs_dim = self.dims[0][0]
+        if rb.field_size("observation") != obs_dim:
+            raise ValueError(
+                f"the buffer's observations have {rb.field_size('observation')} "
+                f"columns; the q-network takes {obs_dim}")
+        return tuple(rb.column(k) for k in ("observation", "action", "reward", "terminal"))
+
+    def train_step_packed(
+        self, state: FusedDQNTrainerState, rows: Tensor, next_rows: Tensor,
+        cols: Tuple[int, int, int, int],
+    ) -> Tuple[FusedDQNTrainerState, Dict[str, Tensor]]:
+        """One fused update straight from gathered replay rows [B, row_width]
+        (no batch assembly); every next action is possible.  Writes
+        ``state``'s tensors in place, as ``train_step`` does."""
+        if rows.shape[0] != self.minibatch_size:
+            raise ValueError(
+                f"rows hold {rows.shape[0]} transitions but the trainer was "
+                f"built for minibatch_size={self.minibatch_size}")
+        lr_t, eps_t = self._adam_scalars(state)
+        m = self._update_packed(lr_t, eps_t, rows, next_rows, state.params8(), cols=cols)
+        return dataclasses.replace(state, step=state.step + 1), _metrics(m)
 
     def _run_steps(self, state, num_steps, generator, num_rows, batch_of):
         outs = []
@@ -286,9 +321,15 @@ class FusedDQNTrainer:
 
     # ------------------------------------------------------------- inference
 
+    def mlp_weights(self, state: FusedDQNTrainerState):
+        """The online weights as K3's ``[(W [in, out], b [out])]``: views of
+        the state's ``[out, in]`` / ``[1, out]`` tensors, no copy."""
+        return [(w.T, b.reshape(-1)) for w, b in zip(state.W, state.b)]
+
     def q_values(self, state: FusedDQNTrainerState, obs: Tensor) -> Tensor:
+        """Q [B, A] for obs [B, D]: one K3 launch on a CUDA tensor."""
         with torch.no_grad():
-            return mlp_forward_transposed(obs, state.W, state.b, self.activations)
+            return fused_mlp_forward(obs, self.mlp_weights(state), self.activations)
 
     # ------------------------------------------------------------- export
 
@@ -302,6 +343,15 @@ class FusedDQNTrainer:
                 layer.weight.copy_(w)
                 layer.bias.copy_(b.reshape(-1))
         return net
+
+
+def _metrics(m: Tensor) -> Dict[str, Tensor]:
+    return {
+        "td_loss": m[0, 0],
+        "q_values_mean": m[0, 1],
+        "q_taken_mean": m[0, 2],
+        "reward_mean": m[0, 3],
+    }
 
 
 def _batch(s, ns, a, r, nt, mask) -> rlt.DiscreteDqnInput:

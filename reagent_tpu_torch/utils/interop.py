@@ -1,4 +1,5 @@
-"""Carry weights between the JAX package's layouts and the port's.
+"""Carry weights and replay state between the JAX package's layouts and the
+port's.
 
 Numpy in, torch out (and back); no JAX import.  The flax tree of a
 ``FullyConnectedDQN`` is
@@ -9,12 +10,15 @@ weights ``[out, in]`` under ``net.layers.i``.
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
+from reagent_tpu_torch.replay.circular import ReplayBufferState
+from reagent_tpu_torch.replay.packed import PackedReplayBufferState
 from reagent_tpu_torch.training.fused_dqn_trainer import FusedDQNTrainerState
 
 _NET = "FullyConnectedNetwork_0"
@@ -57,6 +61,10 @@ def flax_from_q_network_state(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     return {"params": {_NET: layers}}
 
 
+def _scalar_i32(x, device) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(x)), dtype=torch.int32, device=device)
+
+
 def fused_state_from_arrays(
     W, b, Wt, bt, mW, mb, vW, vb, step, device="cpu"
 ) -> FusedDQNTrainerState:
@@ -71,5 +79,47 @@ def fused_state_from_arrays(
     return FusedDQNTrainerState(
         W=tensors(W), b=tensors(b), Wt=tensors(Wt), bt=tensors(bt),
         mW=tensors(mW), mb=tensors(mb), vW=tensors(vW), vb=tensors(vb),
-        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+        step=_scalar_i32(step, device),
     )
+
+
+def packed_replay_state_from_arrays(
+    rows, add_count, episode_len, device="cpu"
+) -> PackedReplayBufferState:
+    """The port's packed buffer state from a ``reagent_tpu``
+    ``PackedReplayBufferState`` whose leaves were turned into numpy.  The row
+    layout is the same, so rows are copied unchanged; the port's buffer must
+    have been ``init``-ed with the same example transition."""
+    return PackedReplayBufferState(
+        rows=torch.tensor(np.asarray(rows, np.float32), device=device),
+        add_count=_scalar_i32(add_count, device),
+        episode_len=_scalar_i32(episode_len, device),
+    )
+
+
+def replay_state_from_arrays(
+    store: Mapping, add_count, is_valid, episode_len, device="cpu"
+) -> ReplayBufferState:
+    """The port's circular buffer state from a ``reagent_tpu``
+    ``ReplayBufferState`` whose leaves were turned into numpy (``store`` a
+    dict of ``[capacity, ...]`` arrays; dtypes kept)."""
+    return ReplayBufferState(
+        store={k: torch.tensor(np.asarray(v), device=device) for k, v in store.items()},
+        add_count=_scalar_i32(add_count, device),
+        is_valid=torch.tensor(np.asarray(is_valid, bool), device=device),
+        episode_len=_scalar_i32(episode_len, device),
+    )
+
+
+def state_to_arrays(state) -> Dict:
+    """Any of the port's state dataclasses as a dict of numpy leaves (dicts
+    of tensors stay dicts), field by field: the inverse of the carriers."""
+
+    def leaf(v):
+        if isinstance(v, dict):
+            return {k: leaf(x) for k, x in v.items()}
+        if isinstance(v, (tuple, list)):
+            return type(v)(leaf(x) for x in v)
+        return v.detach().cpu().numpy()
+
+    return {f.name: leaf(getattr(state, f.name)) for f in dataclasses.fields(state)}

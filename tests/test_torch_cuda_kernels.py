@@ -1,4 +1,5 @@
-"""The CUDA kernels K1/K2 against their plain versions, on the card.
+"""The CUDA kernels K1, K2 (tensor and packed), K3 and K4 against their plain
+versions, on the card.
 
 Skipped without an NVIDIA card.  On the machine with the card run
 
@@ -104,3 +105,167 @@ def test_wrapper_rejects_bad_inputs(card):
     with pytest.raises(ValueError, match="linear output layer"):
         fused_dqn.fused_dqn_update(one, one, *batch, params,
                                    **{**kw, "activations": ["relu", "relu", "tanh"]})
+
+
+# ------------------------------------------- K2 packed, K3, K4 (online slice)
+
+from reagent_tpu_torch.ops import fused_mlp, nstep_replay  # noqa: E402
+
+PACKED_COLS = (1, 0, 14, 15)  # action 0, observation 1-13, reward 14, terminal 15
+
+
+def _packed_rows(device, B, D, A, seed):
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((B, 16), np.float32)
+    rows[:, 0] = rng.integers(0, A, B)
+    rows[:, 1:1 + D] = rng.normal(size=(B, D))
+    rows[:, 14] = rng.normal(size=B)
+    rows[:, 15] = rng.random(B) < 0.1
+    return torch.tensor(rows, device=device)
+
+
+@pytest.mark.parametrize("double_q", [True, False])
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "tanh"])
+def test_k2_packed_matches_plain_version(card, double_q, act):
+    B = 200
+    _, p_kern = _inputs(card, B, 13, [70, 33], 5, seed=6)
+    p_plain = [p.clone() for p in p_kern]
+    kw = dict(cols=PACKED_COLS, activations=[act, act, "linear"], gamma=0.9, tau=0.3,
+              double_q_learning=double_q)
+    fn = fused_dqn.fused_dqn_update_packed
+    launches = fn.launches
+    for step in range(3):
+        rows = _packed_rows(card, B, 13, 5, seed=10 + step)
+        next_rows = _packed_rows(card, B, 13, 5, seed=20 + step)
+        t = torch.tensor(float(step + 1), device=card)
+        lr_t = (0.01 * torch.sqrt(1 - 0.999 ** t) / (1 - 0.9 ** t)).float()
+        eps_t = (1e-8 * torch.sqrt(1 - 0.999 ** t)).float()
+        mk = fn(lr_t, eps_t, rows, next_rows, p_kern, **kw)
+        mp = fused_dqn.fused_dqn_update_packed_reference(
+            lr_t, eps_t, rows, next_rows, p_plain, **kw)
+        torch.testing.assert_close(mk, mp, rtol=2e-4, atol=2e-5)
+    assert fn.launches == launches + 3
+    for a, b in zip(p_kern, p_plain):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5)
+
+
+def _mlp(device, sizes, seed, transposed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, o in zip(sizes[:-1], sizes[1:]):
+        w = torch.tensor((rng.normal(size=(o, i)) / np.sqrt(i)).astype(np.float32), device=device)
+        b = torch.tensor((rng.normal(size=o) * 0.1).astype(np.float32), device=device)
+        out.append((w.T if transposed else w.T.contiguous(), b))
+    return out
+
+
+@pytest.mark.parametrize("transposed", [True, False], ids=["out_in_view", "in_out"])
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "tanh", "linear"])
+@pytest.mark.parametrize("B", [1, 37, 300])
+def test_k3_matches_plain_version(card, transposed, act, B):
+    """Ragged batches through both weight layouts; f32 sums in another order
+    (rtol 1e-5, atol 1e-5)."""
+    weights = _mlp(card, [13, 70, 33, 5], 2, transposed)
+    x = torch.tensor(np.random.default_rng(B).normal(size=(B, 13)).astype(np.float32),
+                     device=card)
+    acts = [act, act, "linear"]
+    launches = fused_mlp.fused_mlp_forward.launches
+    y = fused_mlp.fused_mlp_forward(x, weights, acts)
+    assert fused_mlp.fused_mlp_forward.launches == launches + 1
+    torch.testing.assert_close(
+        y, fused_mlp.fused_mlp_forward_reference(x, weights, acts), rtol=1e-5, atol=1e-5)
+
+
+def test_k3_wide_layers_use_large_shared_memory(card):
+    """maxw 600 at 16-row tiles needs 76.8 KB of shared memory (above the
+    48 KB default)."""
+    weights = _mlp(card, [8, 600, 40, 3], 3, True)
+    x = torch.randn((50, 8), device=card, generator=torch.Generator(device=card).manual_seed(0))
+    acts = ["tanh", "relu", "linear"]
+    torch.testing.assert_close(
+        fused_mlp.fused_mlp_forward(x, weights, acts),
+        fused_mlp.fused_mlp_forward_reference(x, weights, acts), rtol=1e-5, atol=1e-5)
+
+
+def _nstep_inputs(device, capacity, R, term_dtype, seed):
+    rng = np.random.default_rng(seed)
+    rewards = rng.normal(size=(capacity,) if R == 1 else (capacity, 2, R // 2)).astype(np.float32)
+    terminals = rng.random(capacity) < 0.2
+    idx = np.concatenate([rng.integers(0, capacity, 300),
+                          [capacity - 1, capacity - 2, capacity, -1, 2 * capacity + 3]])
+    return (torch.tensor(rewards, device=device),
+            torch.tensor(terminals, device=device).to(term_dtype),
+            torch.tensor(idx, dtype=torch.int64, device=device))
+
+
+@pytest.mark.parametrize("term_dtype", [torch.bool, torch.uint8])
+@pytest.mark.parametrize("R", [1, 6])
+@pytest.mark.parametrize("horizon", [1, 3])
+def test_k4_matches_plain_version(card, term_dtype, R, horizon):
+    """Wrapping and out-of-range indices, terminals inside the window, vector
+    rewards.  The kernel rounds each product and sum as the plain version
+    does, in its order, so the two agree exactly."""
+    rewards, terminals, idx = _nstep_inputs(card, 1000, R, term_dtype, seed=horizon)
+    launches = nstep_replay.nstep_rewards.launches
+    got = nstep_replay.nstep_rewards(rewards, terminals, idx, horizon, 0.9)
+    assert nstep_replay.nstep_rewards.launches == launches + 1
+    want = nstep_replay.nstep_rewards_reference(rewards, terminals, idx, horizon, 0.9)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_online_kernels_are_deterministic(card):
+    """Two runs of each kernel on the same inputs agree bit for bit."""
+    runs = []
+    for _ in range(2):
+        _, params = _inputs(card, 64, 13, [70, 33], 5, seed=9)
+        one = torch.ones((), device=card)
+        m = fused_dqn.fused_dqn_update_packed(
+            one * 1e-3, one * 1e-8, _packed_rows(card, 64, 13, 5, 1),
+            _packed_rows(card, 64, 13, 5, 2), params, cols=PACKED_COLS,
+            activations=["leaky_relu", "leaky_relu", "linear"], gamma=0.9, tau=0.3,
+            double_q_learning=True)
+        x = torch.ones((37, 13), device=card)
+        y = fused_mlp.fused_mlp_forward(x, _mlp(card, [13, 70, 33, 5], 2, True),
+                                        ["tanh", "tanh", "linear"])
+        r = nstep_replay.nstep_rewards(*_nstep_inputs(card, 1000, 6, torch.bool, 4), 3, 0.9)
+        runs.append([m, *params, y, *r])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_online_wrappers_reject_bad_inputs(card):
+    _, params = _inputs(card, 64, 13, [70, 33], 5, seed=1)
+    one = torch.ones((), device=card)
+    rows = _packed_rows(card, 64, 13, 5, 0)
+    kw = dict(cols=PACKED_COLS, activations=["relu", "relu", "linear"], gamma=0.9,
+              tau=0.3, double_q_learning=True)
+    k2p = fused_dqn.fused_dqn_update_packed
+    with pytest.raises(ValueError, match="contiguous"):
+        k2p(one, one, rows.t().contiguous().t(), rows, params, **kw)
+    with pytest.raises(TypeError, match="float32"):
+        k2p(one, one, rows.double(), rows.double(), params, **kw)
+    with pytest.raises(ValueError, match="is on"):
+        k2p(one, one, rows, rows, [p.cpu() for p in params], **kw)
+    with pytest.raises(ValueError, match="cols"):
+        k2p(one, one, rows, rows, params, **{**kw, "cols": (5, 0, 14, 15)})
+
+    weights = _mlp(card, [13, 70, 5], 0, True)
+    x = torch.ones((8, 13), device=card)
+    with pytest.raises(TypeError, match="float32"):
+        fused_mlp.fused_mlp_forward(x.double(), weights, ["relu", "linear"])
+    with pytest.raises(ValueError, match="is on"):
+        fused_mlp.fused_mlp_forward(x, [(w.cpu(), b.cpu()) for w, b in weights],
+                                    ["relu", "linear"])
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_mlp.fused_mlp_forward(torch.ones((13, 8), device=card).t(), weights,
+                                    ["relu", "linear"])
+
+    rewards, terminals, idx = _nstep_inputs(card, 100, 1, torch.bool, 0)
+    with pytest.raises(TypeError, match="bool or uint8"):
+        nstep_replay.nstep_rewards(rewards, terminals.int(), idx, 3, 0.9)
+    with pytest.raises(TypeError, match="int64"):
+        nstep_replay.nstep_rewards(rewards, terminals, idx.int(), 3, 0.9)
+    with pytest.raises(ValueError, match="is on"):
+        nstep_replay.nstep_rewards(rewards, terminals, idx.cpu(), 3, 0.9)

@@ -86,3 +86,48 @@ def test_trainer_rejects_nonlinear_output_layer():
     net.net.activations[-1] = "tanh"
     with pytest.raises(ValueError, match="linear output layer"):
         FusedDQNTrainer(q_network=net, minibatch_size=16, device="cpu")
+
+
+def test_replay_states_round_trip():
+    """JAX replay states -> numpy -> the port's states -> numpy is exact, and
+    the carried packed rows sample like the JAX buffer's."""
+    from reagent_tpu.replay import PackedReplayBuffer as JaxPacked
+    from reagent_tpu.replay import ReplayBuffer as JaxReplay
+    from reagent_tpu_torch.replay import PackedReplayBuffer
+    from reagent_tpu_torch.utils.interop import (
+        packed_replay_state_from_arrays,
+        replay_state_from_arrays,
+        state_to_arrays,
+    )
+
+    rng = np.random.default_rng(0)
+    example = dict(observation=jnp.zeros(3), action=jnp.int32(0),
+                   reward=jnp.float32(0), terminal=jnp.bool_(False))
+    jp, jr = JaxPacked(replay_capacity=8), JaxReplay(replay_capacity=8, update_horizon=2)
+    ps, rs = jp.init(**example), jr.init(**example)
+    for i in range(11):
+        tr = dict(observation=jnp.asarray(rng.normal(size=3), jnp.float32),
+                  action=jnp.int32(i % 2), reward=jnp.float32(i),
+                  terminal=jnp.bool_(i % 4 == 3))
+        ps, rs = jp.add(ps, **tr), jr.add(rs, **tr)
+    leaves = lambda s: jax.tree_util.tree_map(np.asarray, s)
+
+    packed = packed_replay_state_from_arrays(**{
+        k: v for k, v in vars(leaves(ps)).items()})
+    circ = replay_state_from_arrays(**{k: v for k, v in vars(leaves(rs)).items()})
+    for port, jstate in ((packed, ps), (circ, rs)):
+        back = state_to_arrays(port)
+        want = vars(leaves(jstate))
+        assert back.keys() == want.keys()
+        for k, v in want.items():
+            got = back[k]
+            for a, b in (zip(got.values(), v.values()) if isinstance(v, dict) else [(got, v)]):
+                assert a.dtype == b.dtype and np.array_equal(a, b), k
+
+    rb = PackedReplayBuffer(replay_capacity=8, device="cpu")
+    rb.init(**{k: np.array(v) for k, v in example.items()})
+    idx = np.array([0, 5, 7], np.int32)
+    got = rb.sample(packed, indices=torch.tensor(idx))
+    want = jp.sample(ps, jax.random.PRNGKey(0), 3, indices=jnp.asarray(idx))
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
