@@ -27,7 +27,21 @@ Phases, in order; any failure raises and the script exits non-zero:
  11. the generic online loop (ReplayBuffer of 50,000, softmax acting through
      the K3 scorer, tensor K2, K4 in every sample) for 1,000 steps, then
      evaluate_policy over 20 greedy episodes through K3;
- 12. one JSON line describing each ported kernel.
+ 12. K5 (pairwise quantile-Huber loss, forward and backward) against its
+     plain version at [4096, 51], [8192, 201], [512, 11], in bfloat16 and on
+     inputs built to hit ties;
+ 13. CUDA-event timing of K5's forward and backward and of the plain version
+     at the three shapes, beside the bound;
+ 14. the offline QR-DQN workflow at full width (D=128, 512, 256, A=8, 51
+     atoms, minibatch 4096) through K5, the artifact scored against the
+     in-process module and against the trainer's q_values (K3), and a train
+     step's time by CUDA kernel and host operator (torch.profiler);
+ 15. 5 QR-DQN train steps at that width on the card (K5) against 5 on the
+     CPU (the plain version) from one state and the same batches;
+ 16. the online QR-DQN loop (dueling 64, 64 with 11 atoms, ReplayBuffer of
+     50,000, minibatch 512) for 1,000 steps through K4 and K5, then
+     evaluate_policy over 20 greedy episodes and a profiled window;
+ 17. one JSON line describing each ported kernel.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
 The last line is {"ok": true, "device": {...}}.  It needs no network, and it
@@ -60,6 +74,14 @@ CARTPOLE = dict(D=4, widths=[128, 64], A=2, B=512, block=None, act="leaky_relu",
                 gamma=0.99, tau=0.2, lr=0.01)
 FUSED_STEPS = 5000  # bench.py's online_dqn runs 30,000; cut to fit the time limit
 GENERIC_STEPS = 1000
+# tests/test_gym_all_algos.py:98-115 prefills 20,000 and runs 30,000 steps; cut
+# to the generic loop's depth to fit the time limit
+QR_ONLINE = dict(widths=[64, 64], act="leaky_relu", atoms=11, gamma=0.9, tau=0.05,
+                 B=512, prefill=1000, steps=1000)
+QR_ATOMS = 51  # QuantileFullyConnected's default num_atoms
+QR_OPTIMIZER = {"Adam": {"lr": 0.001, "amsgrad": True}}
+K5_SHAPES = [(4096, 51), (8192, 201), (512, 11)]  # offline, the largest named, online
+K5_FWD_OPS, K5_BWD_OPS = 12, 7  # f32 operations per (i, j) pair, csrc/quantile_huber.cu
 
 
 def log(msg: str) -> None:
@@ -182,6 +204,26 @@ def time_ms(torch, fn, warmup=3, iters=20):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def profiled_rows(prof, n):
+    """(device rows, host rows) of a profiled window of ``n`` steps, each row
+    (us per step, count per step, name), largest first.  Device rows are the
+    CUDA kernels and copies themselves: an operator's row repeats the time of
+    the kernels it launched, and counting both would count them twice."""
+    from torch.autograd import DeviceType
+
+    device_us, cpu_us = [], []
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            dev = getattr(ev, "self_device_time_total", None)
+            if dev is None:
+                dev = getattr(ev, "self_cuda_time_total", 0.0)
+            if dev > 0:
+                device_us.append((dev / n, ev.count / n, ev.key))
+        elif ev.self_cpu_time_total > 0:
+            cpu_us.append((ev.self_cpu_time_total / n, ev.count / n, ev.key))
+    return sorted(device_us, reverse=True), sorted(cpu_us, reverse=True)
+
+
 def profile_update(cfg, torch, n=5):
     """Device time of one update by CUDA kernel (torch.profiler over n
     updates, averaged)."""
@@ -196,17 +238,10 @@ def profile_update(cfg, torch, n=5):
         for _ in range(n):
             kern(lr_t, eps_t, *batch, params, **kw)
         torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((us / n, ev.count // n, ev.key))
-    rows.sort(reverse=True)
+    rows, _ = profiled_rows(prof, n)
     total = sum(r[0] for r in rows)
     for us, count, key in rows:
-        log(f"    {us:9.2f} us  x{count:<3d} {key[:90]}")
+        log(f"    {us:9.2f} us  x{count:<5.1f} {key[:90]}")
     log(f"    {total:9.2f} us  device time per update (sum of kernels)")
     return total
 
@@ -296,16 +331,20 @@ def make_table(path, n_rows, n_features, n_actions, seed):
     return df
 
 
-def run_workflow(cfg, n_rows, epochs, torch, tmp, label):
+def run_workflow(cfg, n_rows, epochs, torch, tmp, label, model=None):
     """identify_and_train_network on a synthetic table; returns the output,
-    the table and the in-process serving module."""
+    the table, the in-process serving module with the arguments it was built
+    from (trainer, trainer state, normalization), the batch preprocessor and
+    the wall time.  ``model`` defaults to the fused DiscreteDQN of ``cfg``."""
+    from unittest import mock
+
+    from reagent_tpu_torch.core.registry import MODEL_MANAGERS
     from reagent_tpu_torch.data.data_module import TableSpec
-    from reagent_tpu_torch.model_managers.discrete_dqn import DiscreteDQN
     from reagent_tpu_torch.workflow.training import identify_and_train_network
 
     table = os.path.join(tmp, f"{label}.pkl")
     df = make_table(table, n_rows, cfg["D"], cfg["A"], seed=7)
-    model = {"DiscreteDQN": {
+    model = model or {"DiscreteDQN": {
         "trainer_param": {
             "actions": [str(a) for a in range(cfg["A"])],
             "rl": {"gamma": cfg["gamma"], "target_update_rate": cfg["tau"],
@@ -320,28 +359,25 @@ def run_workflow(cfg, n_rows, epochs, torch, tmp, label):
         "eval_parameters": {"calc_cpe_in_training": False},
     }}
     # keep what the manager builds, to score and time it afterwards
+    manager_cls = MODEL_MANAGERS.get(next(iter(model)))
     captured = {}
-    originals = {m: getattr(DiscreteDQN, m)
-                 for m in ("build_serving_module", "build_batch_preprocessor")}
 
     def capturing(method):
-        def wrapper(self, *args, **kwargs):
-            captured[method] = originals[method](self, *args, **kwargs)
-            return captured[method]
-        return wrapper
+        original = getattr(manager_cls, method)
 
-    for m in originals:
-        setattr(DiscreteDQN, m, capturing(m))
-    try:
+        def wrapper(self, *args, **kwargs):
+            captured[method] = original(self, *args, **kwargs)
+            captured[method + "_args"] = args
+            return captured[method]
+        return mock.patch.object(manager_cls, method, wrapper)
+
+    with capturing("build_serving_module"), capturing("build_batch_preprocessor"):
         t0 = time.perf_counter()
         out = identify_and_train_network(
             TableSpec(table_name=label, path=table), model, num_epochs=epochs,
             output_dir=os.path.join(tmp, label), seed=0, device=DEVICE)
         wall = time.perf_counter() - t0
-    finally:
-        for m, fn in originals.items():
-            setattr(DiscreteDQN, m, fn)
-    return (out, df, captured["build_serving_module"],
+    return (out, df, captured["build_serving_module"], captured["build_serving_module_args"],
             captured["build_batch_preprocessor"], wall)
 
 
@@ -365,9 +401,17 @@ def check_artifact(out, df, serving, torch):
 
 def counted():
     """(wrapper, plain version) of every kernel, by name."""
-    from reagent_tpu_torch.ops import fused_dqn, fused_dqn_offline, fused_mlp, nstep_replay
+    from reagent_tpu_torch.ops import (
+        fused_dqn,
+        fused_dqn_offline,
+        fused_mlp,
+        nstep_replay,
+        quantile_huber,
+    )
 
     return {
+        "quantile_huber_loss": (quantile_huber.quantile_huber_loss,
+                                quantile_huber.quantile_huber_loss_reference),
         "fused_dqn_offline_update": (fused_dqn_offline.fused_dqn_offline_update,
                                      fused_dqn_offline.fused_dqn_offline_update_reference),
         "fused_dqn_update": (fused_dqn.fused_dqn_update, fused_dqn.fused_dqn_update_reference),
@@ -384,20 +428,24 @@ def reset_counts():
     for fn, plain in counted().values():
         fn.launches = 0
         plain.calls = 0
+        if hasattr(fn, "backward_launches"):
+            fn.backward_launches = 0
 
 
 def read_counts():
-    """(launches by kernel, plain-version calls in all) since reset_counts."""
+    """(launches by kernel, plain-version calls in all) since reset_counts;
+    K5's backward launches under ``quantile_huber_backward``."""
     pairs = counted()
-    return ({k: fn.launches for k, (fn, _) in pairs.items()},
-            sum(plain.calls for _, plain in pairs.values()))
+    launches = {k: fn.launches for k, (fn, _) in pairs.items()}
+    launches["quantile_huber_backward"] = pairs["quantile_huber_loss"][0].backward_launches
+    return launches, sum(plain.calls for _, plain in pairs.values())
 
 
 def workflow_phase(cfg, n_rows, epochs, kernel, torch, tmp, label):
     from reagent_tpu_torch.ops import fused_dqn, fused_dqn_offline
 
     reset_counts()
-    out, df, serving, batch_pre, wall = run_workflow(cfg, n_rows, epochs, torch, tmp, label)
+    out, df, serving, _, batch_pre, wall = run_workflow(cfg, n_rows, epochs, torch, tmp, label)
     launches = {
         "fused_dqn_offline_update": fused_dqn_offline.fused_dqn_offline_update.launches,
         "fused_dqn_update": fused_dqn.fused_dqn_update.launches,
@@ -452,6 +500,10 @@ def copy_state(state, device):
     import dataclasses
 
     def cp(v):
+        if v is None:
+            return None
+        if dataclasses.is_dataclass(v):
+            return copy_state(v, device)
         if isinstance(v, tuple):
             return tuple(cp(x) for x in v)
         if isinstance(v, dict):
@@ -718,17 +770,7 @@ def fused_loop_phase(torch, steps):
         run_fused_online_dqn(env, trainer, tstate, rb, rb_state, gen,
                              FusedLoopConfig(num_steps=n, minibatch_size=CARTPOLE["B"]))
         torch.cuda.synchronize()
-    device_us, cpu_us = [], []
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev > 0:
-            device_us.append((dev / n, ev.count / n, ev.key))
-        if ev.self_cpu_time_total > 0:
-            cpu_us.append((ev.self_cpu_time_total / n, ev.count / n, ev.key))
-    device_us.sort(reverse=True)
-    cpu_us.sort(reverse=True)
+    device_us, cpu_us = profiled_rows(prof, n)
     dev_step = sum(r[0] for r in device_us)
     wall_step = wall / steps * 1e6
     log(f"  fused loop step: {wall_step:.1f} us wall (unprofiled), {dev_step:.1f} us of "
@@ -831,6 +873,355 @@ def generic_loop_phase(torch, steps):
     return loop_launches, eval_launches, steps / wall
 
 
+# ------------------------------------------------------------ QR-DQN slice
+
+
+def k5_inputs(torch, B, N, seed, dtype=None, ties=False):
+    """Target and current quantiles [B, N] from a numpy seed.  ``ties``:
+    quarter-step values (exact in float32), every third target row one value
+    (a terminal row's reward) and one current row equal to its target, so td
+    lands on 0, on +-0.5 and on +-1.0 = kappa."""
+    rng = np.random.default_rng(seed)
+    target = rng.normal(size=(B, N)) * 2.0
+    current = rng.normal(size=(B, N)) * 2.0
+    if ties:
+        target, current = np.round(target * 4) / 4, np.round(current * 4) / 4
+        target[::3] = 1.0
+        current[0] = target[0]
+    put = lambda a: torch.tensor(a, dtype=torch.float32, device=DEVICE).to(dtype or torch.float32)
+    return put(target), put(current)
+
+
+def compare_k5(torch):
+    """K5's forward (per-sample losses) and backward (the gradient of their
+    mean, as the trainer takes it, times B) against the plain version and its
+    autograd.  float32 sums in another order, with fma contraction: rtol
+    1e-5, atol 1e-6; a bfloat16 gradient is rounded once more, to 8 bits
+    (rtol 1.6e-2, atol 1e-5).  Returns the largest float32 abs errors of the
+    forward and of the gradient."""
+    from reagent_tpu_torch.ops import quantile_huber as qh
+
+    worst_f = worst_g = 0.0
+    cases = [(B, N, None, False) for B, N in K5_SHAPES]
+    cases += [(4096, 51, torch.bfloat16, False), (4096, 51, None, True)]
+    for B, N, dtype, ties in cases:
+        target, current = k5_inputs(torch, B, N, seed=B + N, dtype=dtype, ties=ties)
+        c_kern = current.clone().requires_grad_(True)
+        c_plain = current.clone().requires_grad_(True)
+        per_kern = qh.quantile_huber_per_sample(target, c_kern, 1.0)
+        per_plain = qh.quantile_huber_per_sample_reference(target, c_plain, 1.0)
+        (g_kern,) = torch.autograd.grad(per_kern.mean(), c_kern)
+        (g_plain,) = torch.autograd.grad(per_plain.mean(), c_plain)
+        torch.cuda.synchronize()
+        g_kern, g_plain = g_kern.float() * B, g_plain.float() * B
+        err_f = (per_kern - per_plain).abs().max().item()
+        err_g = (g_kern - g_plain).abs().max().item()
+        label = f"[{B}, {N}] {'bf16' if dtype else 'f32'}{' ties' if ties else ''}"
+        log(f"  K5 {label}: loss {per_kern.mean().item():.6f}, forward max abs {err_f:.3e}, "
+            f"gradient (x B) max abs {err_g:.3e} of max |g| {g_plain.abs().max().item():.3e}")
+        torch.testing.assert_close(per_kern, per_plain, rtol=1e-5, atol=1e-6)
+        if dtype is None:
+            torch.testing.assert_close(g_kern, g_plain, rtol=1e-5, atol=1e-6)
+            worst_f, worst_g = max(worst_f, err_f), max(worst_g, err_g)
+        else:
+            torch.testing.assert_close(g_kern, g_plain, rtol=1.6e-2, atol=1e-5)
+    return worst_f, worst_g
+
+
+def time_k5(torch, name):
+    """CUDA-event times of K5's forward and backward launches, of the plain
+    version's forward, of autograd's backward through it and of the two
+    together, at the three shapes, with the bounds computed from this run's
+    shapes."""
+    from reagent_tpu_torch.ops import quantile_huber as qh
+
+    out = {}
+    for B, N in K5_SHAPES:
+        target, current = k5_inputs(torch, B, N, seed=N)
+        grad_out = torch.full((B,), 1.0 / B, device=DEVICE)
+        c_grad = current.clone().requires_grad_(True)
+
+        def plain_fwd_bwd():
+            torch.autograd.grad(qh.quantile_huber_loss_reference(target, c_grad), c_grad)
+
+        with torch.no_grad():
+            fwd = time_ms(torch, lambda: qh.quantile_huber_per_sample(target, current))
+            plain = time_ms(torch, lambda: qh.quantile_huber_per_sample_reference(target, current))
+        bwd = time_ms(torch, lambda: qh._launch_backward(target, current, 1.0, grad_out))
+        plain_both = time_ms(torch, plain_fwd_bwd)
+        plain_loss = qh.quantile_huber_loss_reference(target, c_grad)
+        plain_bwd = time_ms(
+            torch, lambda: torch.autograd.grad(plain_loss, c_grad, retain_graph=True))
+        del plain_loss
+        pairs = float(B) * N * N
+        fwd_bound = roofline(K5_FWD_OPS * pairs, 4.0 * (2 * B * N + B), name)
+        bwd_bound = roofline(K5_BWD_OPS * pairs, 4.0 * (3 * B * N + B), name)
+        out[(B, N)] = dict(fwd=fwd, bwd=bwd, plain=plain, plain_bwd=plain_bwd,
+                           plain_both=plain_both,
+                           fwd_bound=fwd_bound, bwd_bound=bwd_bound, pairs=pairs)
+    return out
+
+
+def qr_offline_model():
+    cfg = FULL
+    return {"DiscreteQRDQN": {
+        "trainer_param": {
+            "actions": [str(a) for a in range(cfg["A"])],
+            "rl": {"gamma": 0.9, "target_update_rate": 0.05},
+            "double_q_learning": True,
+            "minibatch_size": cfg["B"],
+            "optimizer": QR_OPTIMIZER,
+        },
+        "net_builder": {"QuantileFullyConnected": {
+            "sizes": cfg["widths"], "activations": [cfg["act"]] * len(cfg["widths"]),
+            "num_atoms": QR_ATOMS}},
+        "eval_parameters": {"calc_cpe_in_training": False},
+    }}
+
+
+def profile_qr_step(torch, trainer, tstate, batch_pre, df, B, n=5):
+    """Where an offline QR-DQN train step's time goes: the host's batch
+    preprocessing of ``B`` logged rows (median of 3), ``n`` train steps on
+    one batch by the host clock, and the same steps' device time by CUDA
+    kernel and host time by operator (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pre_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        batch = batch_pre(df.iloc[:B])
+        torch.cuda.synchronize()
+        pre_s.append(time.perf_counter() - t0)
+    state, _ = trainer.train_step(tstate, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, _ = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            state, _ = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    device_us, cpu_us = profiled_rows(prof, n)
+    dev_step = sum(r[0] for r in device_us)
+    k5_us = sum(us for us, _, key in device_us if "quantile_huber" in key)
+    gemm_us = sum(us for us, _, key in device_us if "gemm" in key.lower())
+    log(f"  QR-DQN train step at B={B}: batch preprocessing on the host "
+        f"{statistics.median(pre_s) * 1e3:.2f} ms (median of 3); train_step {step_ms:.3f} ms "
+        f"by the host clock (mean of {n}, one batch), of which {dev_step / 1e3:.3f} ms are "
+        f"device kernels ({sum(r[1] for r in device_us):.0f} launches a step): K5 forward "
+        f"and backward {k5_us / 1e3:.4f} ms, matrix products {gemm_us / 1e3:.4f} ms, "
+        f"elementwise and reductions {(dev_step - k5_us - gemm_us) / 1e3:.4f} ms")
+    for us, count, key in device_us[:8]:
+        log(f"    device {us:8.2f} us  x{count:<5.1f} {key[:80]}")
+    for us, count, key in cpu_us[:6]:
+        log(f"    host   {us:8.2f} us  x{count:<5.1f} {key[:80]}")
+
+
+def qr_workflow_phase(torch, tmp, k5_step_ms):
+    """identify_and_train_network with DiscreteQRDQN at full width: K5 once
+    forward and once backward per train step, a finite loss, the loaded
+    artifact against the in-process serving module on 64 raw rows (max abs
+    1e-4), and the trainer's q_values (K3, then the mean over atoms) against
+    the same module."""
+    from reagent_tpu_torch.prediction.predictor_wrapper import CategoricalDqnPredictorWrapper
+    from reagent_tpu_torch.preprocessing.batch_preprocessor import sparse_to_dense
+
+    cfg, label = FULL, "qr_full_width"
+    reset_counts()
+    out, df, serving, (trainer, tstate, _), batch_pre, wall = run_workflow(
+        cfg, 16384, 2, torch, tmp, label, model=qr_offline_model())
+    launches, plain_calls = read_counts()
+    steps, secs = out.logger_data["train_steps"], out.logger_data["train_seconds"]
+    td = out.training_report.td_loss
+    log(f"  {label}: {steps} train steps, launches {launches}, plain-version calls "
+        f"{plain_calls}, td_loss {td}, training {secs:.3f} s ({steps / secs:.2f} steps/s "
+        f"host time included), whole workflow {wall:.1f} s; K5 forward + backward "
+        f"{k5_step_ms:.4f} ms = {k5_step_ms / (secs / steps * 1e3) * 100:.4f}% of a step")
+    for kernel in ("quantile_huber_loss", "quantile_huber_backward"):
+        if launches[kernel] != steps or steps == 0:
+            raise AssertionError(f"{kernel} launched {launches[kernel]} times for {steps} steps")
+    if plain_calls:
+        raise AssertionError(f"plain versions ran {plain_calls} times on the main path")
+    if td is None or not np.isfinite(td):
+        raise AssertionError(f"td_loss is not finite: {td}")
+
+    sf = serving.preprocessor.sorted_features
+    values, presence = sparse_to_dense(df["state_features"].tolist()[:64], sf)
+    names, q_artifact = CategoricalDqnPredictorWrapper.load(
+        out.output_paths["default_model"])(values, presence)
+    v, p = torch.tensor(values, device=DEVICE), torch.tensor(presence, device=DEVICE)
+    _, q_live = serving(v, p)
+    diff = float(np.abs(q_artifact - q_live.cpu().numpy()).max())
+    np.testing.assert_allclose(q_artifact, q_live.cpu().numpy(), atol=1e-4, rtol=0)
+    assert q_artifact.shape == (64, cfg["A"]) and np.isfinite(q_artifact).all()
+    assert names == [str(a) for a in range(cfg["A"])]
+    q_k3 = trainer.q_values(tstate, serving.preprocessor(v, p))
+    torch.cuda.synchronize()
+    k3_launches = read_counts()[0]["fused_mlp_forward"]
+    diff_k3 = (q_k3 - q_live).abs().max().item()
+    torch.testing.assert_close(q_k3, q_live, rtol=1e-4, atol=1e-4)
+    if k3_launches != 1:
+        raise AssertionError(f"q_values launched K3 {k3_launches} times")
+    log(f"  {label}: artifact vs in-process serving module on 64 rows: max abs {diff:.3e}; "
+        f"trainer.q_values (K3, mean over {QR_ATOMS} atoms) vs the module: max abs {diff_k3:.3e}")
+    launches["fused_mlp_forward"] = k3_launches
+    profile_qr_step(torch, trainer, tstate, batch_pre, df, cfg["B"])
+    return launches, steps, secs
+
+
+def qr_lockstep_phase(torch, n=5):
+    """``n`` QRDQNTrainer steps at the offline width on the card (K5) and on
+    the CPU (the plain version) from one initial state and the same batches.
+    td_loss per step to rtol 1e-4, atol 1e-5; final parameters, target
+    parameters and Adam moments to rtol 1e-3, atol 1e-4: float32 sums in
+    another order, which amsgrad amplifies where |g| is small and ``n`` steps
+    feed back."""
+    import copy
+
+    from reagent_tpu_torch.core import types as rlt
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.net_builder.quantile_dqn import QuantileFullyConnected
+    from reagent_tpu_torch.training.qrdqn_trainer import QRDQNTrainer
+
+    cfg = FULL
+    net = QuantileFullyConnected(
+        sizes=cfg["widths"], activations=[cfg["act"]] * len(cfg["widths"]),
+        num_atoms=QR_ATOMS).build_q_network(None, cfg["A"], state_dim=cfg["D"])
+    kw = dict(num_atoms=QR_ATOMS, rl=RLParameters(gamma=0.9, target_update_rate=0.05),
+              optimizer=QR_OPTIMIZER)
+    trainers = {"cpu": QRDQNTrainer(copy.deepcopy(net), device="cpu", **kw),
+                DEVICE: QRDQNTrainer(net, device=DEVICE, **kw)}
+    first = trainers[DEVICE].init(torch.Generator().manual_seed(11))
+    states = {dev: copy_state(first, dev) for dev in trainers}
+    reset_counts()
+    worst_td = 0.0
+    for step in range(n):
+        _, b, _ = make_inputs(cfg, 500 + step, torch, "cpu")
+        obs, nobs, action, reward, not_terminal, mask = b
+        td = {}
+        for dev, trainer in trainers.items():
+            batch = rlt.DiscreteDqnInput(
+                state=rlt.FeatureData(obs), next_state=rlt.FeatureData(nobs), action=action,
+                next_action=action, reward=reward, time_diff=None, step=None,
+                not_terminal=not_terminal, possible_actions_mask=torch.ones_like(mask),
+                possible_next_actions_mask=mask).to(dev)
+            states[dev], m = trainer.train_step(states[dev], batch)
+            td[dev] = m["td_loss"].cpu()
+        torch.testing.assert_close(td[DEVICE], td["cpu"], rtol=1e-4, atol=1e-5)
+        worst_td = max(worst_td, (td[DEVICE] - td["cpu"]).abs().item())
+    launches, plain_calls = read_counts()
+    if (launches["quantile_huber_loss"], launches["quantile_huber_backward"], plain_calls) != (n, n, n):
+        raise AssertionError(f"lockstep: launches {launches}, plain calls {plain_calls}")
+    worst_p = 0.0
+    g, c = states[DEVICE], states["cpu"]
+    for a, b in ((g.q_params, c.q_params), (g.q_target_params, c.q_target_params),
+                 (g.opt_state.mu, c.opt_state.mu), (g.opt_state.nu_max, c.opt_state.nu_max)):
+        for k in b:
+            torch.testing.assert_close(a[k].cpu(), b[k], rtol=1e-3, atol=1e-4)
+            worst_p = max(worst_p, (a[k].cpu() - b[k]).abs().max().item())
+    log(f"  card (K5) vs CPU (plain version), {n} lockstep train steps: td_loss max abs "
+        f"{worst_td:.3e} (last {td[DEVICE].item():.6f}), parameters and moments max abs "
+        f"{worst_p:.3e}")
+    return worst_td, worst_p
+
+
+def qr_online_phase(torch):
+    """tests/test_gym_all_algos.py:98-115 at the widths given there: QRDQNTrainer
+    on a dueling 64, 64 net with 11 atoms, ReplayBuffer of 50,000, softmax
+    acting on trainer.q_values, minibatch 512; prefill and steps cut to
+    QR_ONLINE's.  Then evaluate_policy over 20 greedy episodes."""
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.gym.envs import CartPole
+    from reagent_tpu_torch.gym.online_loop import (
+        OnlineLoopConfig,
+        evaluate_policy,
+        prefill_replay_buffer,
+        run_online_training,
+    )
+    from reagent_tpu_torch.gym.policies import SoftmaxActionSampler
+    from reagent_tpu_torch.gym.preprocessors import make_discrete_dqn_batch
+    from reagent_tpu_torch.net_builder.quantile_dqn import DuelingQuantile
+    from reagent_tpu_torch.replay import ReplayBuffer
+    from reagent_tpu_torch.training.qrdqn_trainer import QRDQNTrainer
+
+    q = QR_ONLINE
+    steps = q["steps"]
+    env = CartPole(max_steps=200, device=DEVICE)
+    net = DuelingQuantile(sizes=q["widths"], activations=[q["act"]] * 2,
+                          num_atoms=q["atoms"]).build_q_network(None, 2, state_dim=4)
+    trainer = QRDQNTrainer(
+        net, q["atoms"], rl=RLParameters(gamma=q["gamma"], target_update_rate=q["tau"]),
+        optimizer=QR_OPTIMIZER, device=DEVICE)
+    tstate = trainer.init(torch.Generator().manual_seed(4))
+    rb = ReplayBuffer(replay_capacity=50_000, update_horizon=1, gamma=q["gamma"], device=DEVICE)
+    rb_state = rb.init(**example_transition(torch))
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    rb_state = prefill_replay_buffer(env, rb, rb_state, gen, q["prefill"])
+    softmax = SoftmaxActionSampler(temperature=1.0)
+
+    def policy_act(ts, obs, g):
+        out = softmax.sample_action(trainer.q_values(ts, obs[None]), g)
+        idx = torch.argmax(out.action[0]).to(torch.int32)
+        return idx, idx
+
+    def greedy_act(ts, obs, g):
+        return torch.argmax(trainer.q_values(ts, obs), dim=1).to(torch.int32)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tstate, rb_state, aux = run_online_training(
+        env, trainer, tstate, rb, rb_state, policy_act,
+        lambda d: make_discrete_dqn_batch(d, 2), gen,
+        OnlineLoopConfig(num_steps=steps, minibatch_size=q["B"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    td = aux["td_losses"].cpu()
+    log(f"  online QR-DQN loop: {steps} env steps + {steps} updates in {wall:.3f} s = "
+        f"{steps / wall:.2f} steps/s, episodes completed {int(aux['episodes_completed'])}, "
+        f"last td_loss {td[-1].item():.6g}, launches {launches}, "
+        f"plain-version calls {plain_calls}")
+    for kernel in ("nstep_rewards", "quantile_huber_loss", "quantile_huber_backward"):
+        if launches[kernel] != steps:
+            raise AssertionError(f"{kernel} launched {launches[kernel]} times for {steps} steps")
+    if plain_calls or td.shape != (steps,) or not torch.isfinite(td).all():
+        raise AssertionError(f"online QR-DQN loop: plain calls {plain_calls}, td {td.shape}")
+    if int(rb_state.add_count) != q["prefill"] + steps or int(tstate.step) != steps:
+        raise AssertionError("online QR-DQN loop did not add and train once per step")
+
+    returns = evaluate_policy(env, greedy_act, tstate, gen, num_episodes=EVAL_EPISODES).cpu()
+    log(f"  evaluate_policy: {EVAL_EPISODES} greedy episodes, returns {returns.tolist()} "
+        f"(mean {returns.mean().item():.2f})")
+    if returns.shape != (EVAL_EPISODES,) or not ((returns >= 1) & (returns <= env.max_steps)).all():
+        raise AssertionError(f"evaluate_policy returns {returns}")
+
+    # where a step's time goes: a profiled window beside the unprofiled wall time
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_online_training(
+            env, trainer, tstate, rb, rb_state, policy_act,
+            lambda d: make_discrete_dqn_batch(d, 2), gen,
+            OnlineLoopConfig(num_steps=n, minibatch_size=q["B"]))
+        torch.cuda.synchronize()
+    device_us, cpu_us = profiled_rows(prof, n)
+    dev_step, wall_step = sum(r[0] for r in device_us), wall / steps * 1e6
+    k5_us = sum(us for us, _, key in device_us if "quantile_huber" in key)
+    log(f"  online QR-DQN step: {wall_step:.1f} us wall (unprofiled), {dev_step:.1f} us of "
+        f"device kernels in {sum(r[1] for r in device_us):.0f} launches (profiled window of "
+        f"{n} steps), K5 forward and backward {k5_us:.1f} us of them: the device is idle "
+        f"{(1 - dev_step / wall_step) * 100:.1f}% of a step")
+    for us, count, key in device_us[:6]:
+        log(f"    device {us:8.2f} us  x{count:<5.1f} {key[:80]}")
+    for us, count, key in cpu_us[:6]:
+        log(f"    host   {us:8.2f} us  x{count:<5.1f} {key[:80]}")
+    return launches, steps / wall
+
+
 def main() -> int:
     import torch
 
@@ -853,7 +1244,7 @@ def main() -> int:
     log("phase 2: build")
     t0 = time.perf_counter()
     libs = _build.build_all()
-    for lib in ("fused_dqn", "fused_mlp", "nstep_replay"):
+    for lib in ("fused_dqn", "fused_mlp", "nstep_replay", "quantile_huber"):
         _build.load_library(lib)
     log(f"  built {[os.path.basename(p) for p in libs]} in {time.perf_counter() - t0:.2f} s")
 
@@ -899,7 +1290,30 @@ def main() -> int:
     log(f"phase 11: generic online loop ({GENERIC_STEPS} steps) and evaluate_policy")
     generic_launches, eval_launches, _ = generic_loop_phase(torch, GENERIC_STEPS)
 
-    log("phase 12: kernels")
+    log("phase 12: K5 (quantile-Huber loss, forward and backward) against its plain version")
+    err_k5, err_k5_grad = compare_k5(torch)
+
+    log("phase 13: timing of K5 (CUDA events, 3 warm-ups, median of 20)")
+    k5_timing = time_k5(torch, name)
+    for (kB, kN), t in k5_timing.items():
+        log(f"  K5 [{kB}, {kN}] ({t['pairs']:.4g} pairs): forward {t['fwd']:.4f} ms (bound "
+            f"{t['fwd_bound'][0]:.6f} ms, {t['fwd_bound'][1]}, {K5_FWD_OPS} ops/pair), backward "
+            f"{t['bwd']:.4f} ms (bound {t['bwd_bound'][0]:.6f} ms, {t['bwd_bound'][1]}, "
+            f"{K5_BWD_OPS} ops/pair); plain forward {t['plain']:.4f} ms, autograd backward "
+            f"{t['plain_bwd']:.4f} ms, the two together {t['plain_both']:.4f} ms, on {card}")
+    k5_main = k5_timing[K5_SHAPES[0]]
+
+    log("phase 14: offline QR-DQN workflow at full width through K5")
+    with tempfile.TemporaryDirectory() as tmp:
+        qr_launches, _, _ = qr_workflow_phase(torch, tmp, k5_main["fwd"] + k5_main["bwd"])
+
+    log("phase 15: QR-DQN train steps, card against CPU")
+    qr_lockstep_phase(torch)
+
+    log(f"phase 16: online QR-DQN loop ({QR_ONLINE['steps']} steps) and evaluate_policy")
+    qr_online_launches, _ = qr_online_phase(torch)
+
+    log("phase 17: kernels")
     by_path = {
         "K1 fused_dqn_offline_update": {"offline workflow, full width": k1_launches},
         "K2 fused_dqn_update": {"offline workflow, CartPole sample": k2_launches,
@@ -909,11 +1323,21 @@ def main() -> int:
         "K3 fused_mlp_forward": {
             "fused online loop": fused_launches["fused_mlp_forward"],
             "generic online loop": generic_launches["fused_mlp_forward"],
-            "evaluate_policy": eval_launches["fused_mlp_forward"]},
-        "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"]},
+            "evaluate_policy": eval_launches["fused_mlp_forward"],
+            "offline QR-DQN workflow (q_values)": qr_launches["fused_mlp_forward"]},
+        "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
+                             "online QR-DQN loop": qr_online_launches["nstep_rewards"]},
+        "K5 quantile_huber_loss": {
+            "offline QR-DQN workflow": qr_launches["quantile_huber_loss"],
+            "online QR-DQN loop": qr_online_launches["quantile_huber_loss"]},
+        "K5 quantile_huber_backward": {
+            "offline QR-DQN workflow": qr_launches["quantile_huber_backward"],
+            "online QR-DQN loop": qr_online_launches["quantile_huber_backward"]},
     }
     sources = {"K3": "reagent_tpu_torch/ops/csrc/fused_mlp.cu",
-               "K4": "reagent_tpu_torch/ops/csrc/nstep_replay.cu"}
+               "K4": "reagent_tpu_torch/ops/csrc/nstep_replay.cu",
+               "K5": "reagent_tpu_torch/ops/csrc/quantile_huber.cu"}
+    k5_shapes = {f"[{b}, {n}]": t for (b, n), t in k5_timing.items()}
     rows = []
     for kname, fn, replaces, err, times in (
         ("K1 fused_dqn_offline_update", fused_dqn_offline.fused_dqn_offline_update,
@@ -926,6 +1350,12 @@ def main() -> int:
          online_timing["K3 [1, 4]"]),
         ("K4 nstep_rewards", None, "reagent_tpu/ops/nstep_replay.py:92", err_k4,
          online_timing["K4 loop"]),
+        # K5's two launches, each at the offline path's [4096, 51]; the TPU
+        # kernel has no backward (XLA differentiates its plain formulation)
+        ("K5 quantile_huber_loss", None, "reagent_tpu/ops/quantile_huber.py:77", err_k5,
+         (k5_main["fwd"], k5_main["plain"], *k5_main["fwd_bound"])),
+        ("K5 quantile_huber_backward", None, "reagent_tpu/ops/quantile_huber.py:77",
+         err_k5_grad, (k5_main["bwd"], k5_main["plain_bwd"], *k5_main["bwd_bound"])),
     ):
         ms, plain_ms, b_ms, b_by = times[:4]
         row = {
@@ -936,9 +1366,15 @@ def main() -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
             # no single PyTorch call computes a DQN update, a fused MLP
-            # forward or an n-step window sum
+            # forward, an n-step window sum or a pairwise quantile-Huber loss
             "library_ms": None,
         }
+        if kname == "K5 quantile_huber_loss":
+            row["by_shape"] = {k: {"ms": t["fwd"], "plain_ms": t["plain"],
+                                   "bound_ms": t["fwd_bound"][0]} for k, t in k5_shapes.items()}
+        if kname == "K5 quantile_huber_backward":
+            row["by_shape"] = {k: {"ms": t["bwd"], "plain_ms": t["plain_bwd"],
+                                   "bound_ms": t["bwd_bound"][0]} for k, t in k5_shapes.items()}
         if fn is not None:
             row["cuda_kernels_per_launch"] = fn.kernels_per_update
         rows.append(row)

@@ -94,6 +94,8 @@ def _resolve_dataclass_type(tp: Any) -> Optional[type]:
     return tp if dataclasses.is_dataclass(tp) else None
 
 
-# The roles this slice of the port fills (the JAX package has fourteen).
+# The roles the port fills so far (the JAX package has fourteen).
 DISCRETE_DQN_NET_BUILDERS: Registry = Registry("net_builder.discrete_dqn")
+QR_DQN_NET_BUILDERS: Registry = Registry("net_builder.quantile_dqn")
 MODEL_MANAGERS: Registry = Registry("model_manager")
+OPTIMIZERS: Registry = Registry("optimizer")

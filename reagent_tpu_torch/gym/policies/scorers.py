@@ -1,10 +1,13 @@
 """Scorers: (weights, obs) -> action scores for a policy.
 
 Port of ``apply_possible_actions_mask`` and ``discrete_dqn_scorer`` from
-``reagent_tpu/gym/policies/scorers.py`` (:22-42).  The DQN scorer runs the
-q-network's forward as one K3 launch (``ops/fused_mlp.py``) on the weights
-it is given: ``mlp_weight_list(q_network)`` for a module, or
-``FusedDQNTrainer.mlp_weights(state)`` for a trainer state.
+``reagent_tpu/gym/policies/scorers.py`` (:22-42).  The DQN scorer runs a
+dense MLP's forward as one K3 launch (``ops/fused_mlp.py``) on the weights
+it is given: ``mlp_weight_list(q_network)`` for a module,
+``FusedDQNTrainer.mlp_weights(state)`` for a fused trainer state, or the
+``q_params`` dict of an unfused trainer state, which also serves modules
+that are no flat MLP (their own forward).  A ``[B, A, N]`` quantile head is
+averaged over its atoms.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 from torch import nn
 
 from reagent_tpu_torch.ops.fused_mlp import fused_mlp_forward
+from reagent_tpu_torch.training import functional
 
 Tensor = torch.Tensor
 
@@ -33,13 +37,18 @@ def apply_possible_actions_mask(
 
 
 def discrete_dqn_scorer(q_network: nn.Module) -> Callable:
-    """Q scores per action (ref discrete_scorer.py:33-49) for a dense MLP
-    q-network: ``score(weights, obs [B, D], mask=None) -> [B, A]``, where
-    ``weights`` is K3's ``[(W [in, out], b [out]), ...]``."""
-    activations = list(q_network.activations)
+    """Q scores per action (ref discrete_scorer.py:33-49):
+    ``score(weights, obs [B, D], mask=None) -> [B, A]``, where ``weights`` is
+    K3's ``[(W [in, out], b [out]), ...]`` for a dense MLP q-network, or a
+    ``{name: tensor}`` parameter dict of ``q_network``."""
 
     def score(weights, obs: Tensor, possible_actions_mask: Optional[Tensor] = None) -> Tensor:
-        scores = fused_mlp_forward(obs, weights, activations)
+        if isinstance(weights, dict):
+            scores = functional.score(q_network, weights, obs)
+        else:
+            scores = fused_mlp_forward(obs, weights, list(q_network.activations))
+        if scores.ndim == 3:  # quantile head: mean over atoms
+            scores = scores.mean(dim=2)
         return apply_possible_actions_mask(scores, possible_actions_mask)
 
     return score

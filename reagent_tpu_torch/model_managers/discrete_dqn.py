@@ -1,16 +1,16 @@
 """DiscreteDQN model manager.
 
-Port of ``reagent_tpu/model_managers/discrete_dqn.py`` for the fused path
-(``trainer_param.use_fused_kernel: true``): builds the q-network from the
-net-builder union, the ``FusedDQNTrainer`` (K1 above 512 rows, else K2), the
-batch preprocessor and the serving artifact.  ``DQNTrainer`` (the unfused
-path), CPE heads and the reporter are not ported yet (``ROADMAP.md`` §1).
+Port of ``reagent_tpu/model_managers/discrete_dqn.py``: builds the q-network
+from the net-builder union, the trainer, the batch preprocessor and the
+serving artifact.  With ``trainer_param.use_fused_kernel: true`` the trainer
+is ``FusedDQNTrainer`` (K1 above 512 rows, else K2), otherwise ``DQNTrainer``.
+CPE heads and the reporter are not ported yet (``ROADMAP.md`` §1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Union
 
 import pandas as pd
 
@@ -23,12 +23,14 @@ from reagent_tpu_torch.core.parameters import (
 )
 from reagent_tpu_torch.core.registry import DISCRETE_DQN_NET_BUILDERS, MODEL_MANAGERS
 from reagent_tpu_torch.model_managers.model_manager import ModelManager
+from reagent_tpu_torch.models.dqn import FullyConnectedDQN
 from reagent_tpu_torch.preprocessing.batch_preprocessor import DiscreteDqnBatchPreprocessor
 from reagent_tpu_torch.preprocessing.normalization import (
     get_feature_norm_metadata,
     get_num_output_features,
 )
 from reagent_tpu_torch.preprocessing.preprocessor import Preprocessor
+from reagent_tpu_torch.training.dqn_trainer import DQNTrainer
 from reagent_tpu_torch.training.fused_dqn_trainer import FusedDQNTrainer
 from reagent_tpu_torch.utils.device import resolve_device
 
@@ -119,22 +121,32 @@ class DiscreteDQN(ModelManager):
         normalization_data_map: Dict[str, NormalizationData],
         use_gpu: bool = False,
         device="cuda",
-    ) -> FusedDQNTrainer:
+    ) -> Union[DQNTrainer, FusedDQNTrainer]:
         """``use_gpu`` is accepted so the JAX package's configs load; it has
         no effect — ``device`` places the trainer."""
-        if not self._param.use_fused_kernel:
-            raise NotImplementedError(
-                "DQNTrainer and the scan loop are not ported yet (ROADMAP.md "
-                "§1 item 1); set trainer_param.use_fused_kernel: true"
-            )
         if self.eval_params.calc_cpe_in_training:
-            raise ValueError(
-                "use_fused_kernel does not support CPE heads; set "
+            if self._param.use_fused_kernel:
+                raise ValueError(
+                    "use_fused_kernel does not support CPE heads; set "
+                    "eval_parameters.calc_cpe_in_training: false"
+                )
+            raise NotImplementedError(
+                "the CPE heads are not ported yet (ROADMAP.md §1 item 2); set "
                 "eval_parameters.calc_cpe_in_training: false"
             )
         state_norm = normalization_data_map[NormalizationKey.STATE]
         builder = DISCRETE_DQN_NET_BUILDERS.build(self.net_builder)
         q_network = builder.build_q_network(state_norm, output_dim=len(self._param.actions))
+        if not self._param.use_fused_kernel:
+            return DQNTrainer(
+                emit_reporter_arrays=self.get_reporter() is not None,
+                q_network=q_network,
+                rl=self.rl_parameters,
+                double_q_learning=self._param.double_q_learning,
+                optimizer=self._param.optimizer,
+                action_names=tuple(self._param.actions),
+                device=device,
+            )
         B = self._param.minibatch_size
         block = self._param.block_size
         if block is None and B > 512:
@@ -167,9 +179,7 @@ class DiscreteDQN(ModelManager):
             normalization_data_map[NormalizationKey.STATE].dense_normalization_parameters
         )
 
-    def build_serving_module(
-        self, trainer: FusedDQNTrainer, trainer_state, normalization_data_map
-    ):
+    def build_serving_module(self, trainer, trainer_state, normalization_data_map):
         """The serving module, on the trainer's device, with the q-network's
         true activations in its manifest (the JAX manager writes relu for
         every hidden layer; see ROADMAP.md §3)."""
@@ -178,9 +188,15 @@ class DiscreteDQN(ModelManager):
             DiscreteDqnWithPreprocessor,
         )
 
+        q_network = trainer.export_q_network(trainer_state)
+        if not isinstance(q_network, FullyConnectedDQN):
+            raise ValueError(
+                "the manifest.json + weights.bin artifact holds a flat MLP; a "
+                f"{type(q_network).__name__} cannot be exported through it"
+            )
         state_norm = normalization_data_map[NormalizationKey.STATE]
         pre = Preprocessor(state_norm.dense_normalization_parameters, device=trainer.device)
-        wrapped = DiscreteDqnWithPreprocessor(trainer.export_q_network(trainer_state), pre)
+        wrapped = DiscreteDqnWithPreprocessor(q_network, pre)
         return DiscreteDqnPredictorWrapper(
-            wrapped, self._param.actions, activations=trainer.activations
+            wrapped, self._param.actions, activations=q_network.activations
         )

@@ -38,6 +38,7 @@ _FP = ctypes.POINTER(ctypes.c_float)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _LL = ctypes.c_longlong
 _LLP = ctypes.POINTER(ctypes.c_longlong)
+_F = ctypes.c_float
 # argtypes per source: every pointer and the stream as c_void_p
 _SIGNATURES = {
     "fused_dqn": {
@@ -58,6 +59,13 @@ _SIGNATURES = {
         "nstep_error_string": (ctypes.c_char_p, [_I]),
         "nstep_max_horizon": (_I, []),
         "nstep_rewards": (_I, [_P, _I, _P, _P, _I, _LL, _I, _FP, _P, _P, _P, _P]),
+    },
+    "quantile_huber": {
+        "quantile_huber_error_string": (ctypes.c_char_p, [_I]),
+        "quantile_huber_max_atoms": (_I, []),
+        "quantile_huber_forward": (_I, [_P, _LL, _P, _LL, _I, _I, _I, _F, _P, _P]),
+        "quantile_huber_backward": (
+            _I, [_P, _LL, _P, _LL, _I, _I, _I, _F, _P, _LL, _P, _P]),
     },
 }
 

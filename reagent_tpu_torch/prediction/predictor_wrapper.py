@@ -1,7 +1,9 @@
 """Predictor wrapper: preprocessor + q-network in one exportable module.
 
 Port of the discrete-DQN part of ``reagent_tpu/prediction/predictor_wrapper.py``
-(``DiscreteDqnWithPreprocessor`` :57, ``DiscreteDqnPredictorWrapper`` :74).
+(``DiscreteDqnWithPreprocessor`` :57, ``DiscreteDqnPredictorWrapper`` :74)
+and of its distributional wrapper (``CategoricalDqnPredictorWrapper`` :323,
+``make_quantile_dqn_predictor_wrapper`` :401), described at that class.
 
 Export format (framework-free, loaded unchanged by the C++ scorer in
 ``serving/``, and the same files the JAX package writes):
@@ -129,3 +131,129 @@ class DiscreteDqnPredictorWrapper:
             return manifest["action_names"], x
 
         return forward
+
+
+class _QuantileMeanHead(nn.Module):
+    """[B, A * N] or [B, A, N] quantile outputs -> mean over atoms [B, A]."""
+
+    def __init__(self, module: nn.Module, num_actions: int, num_atoms: int):
+        super().__init__()
+        self.module = module
+        self.num_actions = num_actions
+        self.num_atoms = num_atoms
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        out = self.module(obs)
+        return out.reshape(obs.shape[0], self.num_actions, self.num_atoms).mean(dim=2)
+
+
+# q-network classes an artifact may name; load() builds nothing else
+def _artifact_modules() -> Dict[str, type]:
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+    from reagent_tpu_torch.models.dueling_q_network import DuelingQNetwork
+
+    return {"FullyConnectedDQN": FullyConnectedDQN, "DuelingQNetwork": DuelingQNetwork}
+
+
+def _module_spec(module: nn.Module) -> Dict[str, Any]:
+    """The constructor arguments that rebuild ``module`` (one of
+    ``_artifact_modules``), as JSON values."""
+    name = type(module).__name__
+    if name not in _artifact_modules():
+        raise ValueError(f"cannot export a {name}; known: {sorted(_artifact_modules())}")
+    if name == "FullyConnectedDQN":
+        linears = list(module.net.layers)
+        kwargs = {
+            "state_dim": module.state_dim, "action_dim": module.action_dim,
+            "sizes": [l.out_features for l in linears[:-1]],
+            "activations": list(module.activations[:-1]),
+        }
+    else:
+        kwargs = {
+            "state_dim": module.state_dim, "action_dim": module.action_dim,
+            "layers": [l.out_features for l in module.shared.layers],
+            "activations": list(module.shared.activations),
+            "num_atoms": module.num_atoms,
+        }
+    return {"class": name, "kwargs": kwargs}
+
+
+class CategoricalDqnPredictorWrapper:
+    """Serving for distributional heads whose module emits expected Q
+    ``[B, A]`` (reference: ``reagent_tpu/prediction/predictor_wrapper.py``
+    :323-385).  The head is no flat MLP, so the artifact is
+    ``manifest.json`` (the JAX artifact's keys: ``model_type``,
+    ``action_names``) plus ``model.pt``: the normalization spec, the
+    module's class name and constructor arguments, and its ``state_dict`` —
+    tensors and JSON values only, read back with ``weights_only=True``.  The
+    JAX artifact pickles a flax module; the two payloads are not
+    interchangeable.
+    """
+
+    def __init__(self, q_network: nn.Module, state_preprocessor: Preprocessor,
+                 action_names: Sequence[str]):
+        self.q_network = q_network
+        self.preprocessor = state_preprocessor
+        self.action_names = list(action_names)
+
+    @torch.no_grad()
+    def _forward(self, values: torch.Tensor, presence: torch.Tensor) -> torch.Tensor:
+        return self.q_network(self.preprocessor(values, presence))  # expected Q [B, A]
+
+    def __call__(self, values, presence) -> Tuple[List[str], torch.Tensor]:
+        return self.action_names, self._forward(values, presence)
+
+    def save(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "manifest.json"), "w") as f:
+            json.dump(
+                {"model_type": "categorical_dqn", "action_names": self.action_names},
+                f, indent=2,
+            )
+        head = self.q_network
+        payload: Dict[str, Any] = {
+            "normalization": {
+                str(k): v for k, v in serialize(self.preprocessor.normalization_parameters).items()
+            },
+            "action_names": self.action_names,
+        }
+        if isinstance(head, _QuantileMeanHead):
+            payload["quantile_head"] = {
+                "num_actions": head.num_actions, "num_atoms": head.num_atoms}
+            head = head.module
+        payload["module"] = _module_spec(head)
+        payload["state_dict"] = {k: v.detach().cpu() for k, v in head.state_dict().items()}
+        torch.save(payload, os.path.join(path, "model.pt"))
+
+    @staticmethod
+    def load(path: str):
+        """``forward(values, presence) -> (action_names, q [B, A] numpy)``
+        from an artifact, on the CPU."""
+        payload = torch.load(
+            os.path.join(path, "model.pt"), map_location="cpu", weights_only=True)
+        spec = payload["module"]
+        module = _artifact_modules()[spec["class"]](**spec["kwargs"])
+        module.load_state_dict(payload["state_dict"])
+        if "quantile_head" in payload:
+            module = _QuantileMeanHead(module, **payload["quantile_head"])
+        pre = Preprocessor(deserialize(payload["normalization"]))
+
+        def forward(values, presence):
+            with torch.no_grad():
+                q = module(pre(
+                    torch.as_tensor(np.asarray(values, np.float32)),
+                    torch.as_tensor(np.asarray(presence, np.float32)),
+                ))
+            return payload["action_names"], q.numpy()
+
+        return forward
+
+
+def make_quantile_dqn_predictor_wrapper(
+    q_network: nn.Module, state_preprocessor: Preprocessor, action_names: Sequence[str],
+    num_atoms: int,
+) -> CategoricalDqnPredictorWrapper:
+    """QR-DQN serving: Q(s, a) = mean of the quantile atoms (reference
+    :401-408).  ``q_network`` holds the weights to serve."""
+    head = _QuantileMeanHead(q_network, len(action_names), num_atoms)
+    return CategoricalDqnPredictorWrapper(head, state_preprocessor, action_names)

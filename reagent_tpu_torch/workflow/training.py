@@ -2,9 +2,10 @@
 
 Port of ``reagent_tpu/workflow/training.py`` (reference:
 reagent/workflow/training.py:59-323): feature identification -> query/split
-data -> train -> export the serving artifact.  This slice trains through the
-fused DQN update; CPE, warm start, reward options, validators and
-publishers are not ported yet (``ROADMAP.md`` §1).
+data -> train -> export the serving artifact, for the managers the port has
+(``DiscreteDQN``, fused or unfused, and ``DiscreteQRDQN``); CPE, warm start,
+reward options, validators and publishers are not ported yet (``ROADMAP.md``
+§1).
 
 Every entry point takes ``device`` (default ``"cuda"``; raises when no card
 is present rather than dropping to the CPU).  ``use_gpu`` is accepted so the
@@ -135,8 +136,7 @@ def train_workflow(
     The trainer state comes from ``manager.init_trainer_state(trainer,
     generator, state_dim)`` where the manager defines it, else from
     ``trainer.init(generator)``; ``generator`` is a CPU ``torch.Generator``
-    seeded with ``seed``.  ``eval_df`` feeds CPE, which the fused trainer
-    does not run.
+    seeded with ``seed``.  ``eval_df`` feeds CPE, which is not ported yet.
     """
     device = resolve_device(device)
     if warm_start_path:

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2 (tensor and packed), K3 and K4 against their plain
-versions, on the card.
+"""The CUDA kernels K1, K2 (tensor and packed), K3, K4 and K5 (forward and
+backward) against their plain versions, on the card.
 
 Skipped without an NVIDIA card.  On the machine with the card run
 
@@ -269,3 +269,136 @@ def test_online_wrappers_reject_bad_inputs(card):
         nstep_replay.nstep_rewards(rewards, terminals, idx.int(), 3, 0.9)
     with pytest.raises(ValueError, match="is on"):
         nstep_replay.nstep_rewards(rewards, terminals, idx.cpu(), 3, 0.9)
+
+
+# ------------------------------------------------------------------- K5
+
+
+def _k5_inputs(device, B, N, dtype, seed, ties):
+    rng = np.random.default_rng(seed)
+    target = rng.normal(size=(B, N)) * 2.0
+    current = rng.normal(size=(B, N)) * 2.0
+    if ties:
+        # quarter-steps are exact in float32 and bfloat16: td lands on 0,
+        # on +-0.5 and on +-1.0; every third target row is one value
+        target, current = np.round(target * 4) / 4, np.round(current * 4) / 4
+        target[::3] = 1.0
+        current[0] = target[0]
+    put = lambda a: torch.tensor(a, dtype=torch.float32, device=device).to(dtype)
+    return put(target), put(current)
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kappa", [1.0, 0.5])
+@pytest.mark.parametrize("B,N", [(512, 11), (37, 51), (9, 201), (1, 1), (3, 32), (5, 33)])
+def test_k5_matches_plain_version(card, B, N, kappa, dtype, ties):
+    """Forward and backward against the plain version and its autograd, over
+    block tails (B not a multiple of 8), warp tails (N not a multiple of 32)
+    and ties.  float32 sums in another order, with fma contraction: rtol
+    1e-5, atol 1e-6; a bfloat16 gradient is one more rounding to 8 bits."""
+    from reagent_tpu_torch.ops import quantile_huber as qh
+
+    target, current = _k5_inputs(card, B, N, dtype, seed=B + N, ties=ties)
+    c_kern = current.clone().requires_grad_(True)
+    c_plain = current.clone().requires_grad_(True)
+    fwd, bwd = qh.quantile_huber_loss.launches, qh.quantile_huber_loss.backward_launches
+    weights = torch.linspace(-1.0, 2.0, B, device=card)
+    per_kern = qh.quantile_huber_per_sample(target, c_kern, kappa)
+    per_plain = qh.quantile_huber_per_sample_reference(target, c_plain, kappa)
+    assert per_kern.dtype == torch.float32 and per_kern.shape == (B,)
+    torch.testing.assert_close(per_kern, per_plain, rtol=1e-5, atol=1e-6)
+    (per_kern * weights).sum().backward()
+    (per_plain * weights).sum().backward()
+    assert qh.quantile_huber_loss.launches == fwd + 1
+    assert qh.quantile_huber_loss.backward_launches == bwd + 1
+    assert c_kern.grad.dtype == dtype
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else dict(rtol=1.6e-2, atol=1e-5)
+    torch.testing.assert_close(c_kern.grad, c_plain.grad, **tol)
+    analytic = qh.quantile_huber_grad_reference(target, current, kappa, weights)
+    torch.testing.assert_close(c_kern.grad, analytic, **tol)
+
+
+def test_k5_mean_strided_rows_and_determinism(card):
+    from reagent_tpu_torch.ops import quantile_huber as qh
+
+    target, current = _k5_inputs(card, 300, 51, torch.float32, seed=7, ties=True)
+    wide_t = torch.cat([target, target.flip(1)], dim=1)
+    wide_c = torch.cat([current.flip(1), current], dim=1)
+    c = wide_c[:, 51:].detach().requires_grad_(True)  # row stride 102
+    assert not c.is_contiguous()
+    loss = qh.quantile_huber_loss(wide_t[:, :51], c)
+    (grad,) = torch.autograd.grad(loss, c)
+    c_ref = current.clone().requires_grad_(True)
+    want = qh.quantile_huber_loss_reference(target, c_ref)
+    (want_grad,) = torch.autograd.grad(want, c_ref)
+    torch.testing.assert_close(loss, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(grad, want_grad, rtol=1e-5, atol=1e-7)
+    again = qh.quantile_huber_loss(wide_t[:, :51], c)
+    (grad_again,) = torch.autograd.grad(again, c)
+    assert torch.equal(loss, again) and torch.equal(grad, grad_again)  # no atomics
+    # an expanded target row (stride 0): a terminal sample's reward
+    row = torch.full((1, 51), 1.0, device=card).expand(300, 51)
+    torch.testing.assert_close(
+        qh.quantile_huber_loss(row, current),
+        qh.quantile_huber_loss_reference(row, current), rtol=1e-5, atol=1e-6)
+
+
+def test_k5_gradcheck_against_plain_autograd(card):
+    """The kernel's backward as the Jacobian-vector product of the plain
+    version, row by row of the incoming gradient, and zero at td == 0."""
+    from reagent_tpu_torch.ops import quantile_huber as qh
+
+    target, current = _k5_inputs(card, 6, 11, torch.float32, seed=3, ties=False)
+    for b in range(6):
+        onehot = torch.zeros(6, device=card)
+        onehot[b] = 1.0
+        c_kern = current.clone().requires_grad_(True)
+        c_plain = current.clone().requires_grad_(True)
+        (gk,) = torch.autograd.grad(
+            qh.quantile_huber_per_sample(target, c_kern), c_kern, grad_outputs=onehot)
+        (gp,) = torch.autograd.grad(
+            qh.quantile_huber_per_sample_reference(target, c_plain), c_plain, grad_outputs=onehot)
+        torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-7)
+        assert not gk[torch.arange(6, device=card) != b].any()
+    c = torch.full((4, 1), 0.75, device=card, requires_grad=True)
+    (g,) = torch.autograd.grad(qh.quantile_huber_loss(torch.full((4, 1), 0.75, device=card), c), c)
+    assert not g.any()
+
+
+def test_k5_wrapper_rejects_bad_inputs(card):
+    from reagent_tpu_torch.ops import quantile_huber as qh
+
+    t = torch.zeros((4, 11), device=card)
+    with pytest.raises(ValueError, match="no gradient"):
+        qh.quantile_huber_loss(t.clone().requires_grad_(True), t)
+    with pytest.raises(ValueError, match="atom stride 1"):
+        qh.quantile_huber_loss(torch.zeros((11, 4), device=card).T, t)
+    with pytest.raises(TypeError, match="float32 or both bfloat16"):
+        qh.quantile_huber_loss(t.half(), t.half())
+    with pytest.raises(ValueError, match="is on"):
+        qh.quantile_huber_loss(t, t.cpu())
+    with pytest.raises(ValueError, match="at most"):
+        qh.quantile_huber_loss(torch.zeros((2, 2000), device=card), torch.zeros((2, 2000), device=card))
+
+
+def test_argmax_takes_the_first_of_equal_maxima_on_the_card(card):
+    """``get_max_q_values_with_target`` on the all-equal rows of an untrained
+    net and on a fully masked row, against the CPU."""
+    from reagent_tpu_torch.training.rl_trainer_base import get_max_q_values_with_target
+
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(64, 8)).astype(np.float32)
+    q[::2] = 0.25
+    q[1, [2, 5]] = 9.0
+    mask = (rng.random((64, 8)) > 0.3).astype(np.float32)
+    mask[:, 3] = 1.0
+    mask[4] = 0.0
+    for double_q in (True, False):
+        want_q, want_i = get_max_q_values_with_target(
+            torch.tensor(q), torch.tensor(q[::-1].copy()), torch.tensor(mask), double_q)
+        got_q, got_i = get_max_q_values_with_target(
+            torch.tensor(q, device=card), torch.tensor(q[::-1].copy(), device=card),
+            torch.tensor(mask, device=card), double_q)
+        assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_q.cpu(), want_q)
+        assert int(want_i[4]) == 0
