@@ -41,7 +41,20 @@ Phases, in order; any failure raises and the script exits non-zero:
  16. the online QR-DQN loop (dueling 64, 64 with 11 atoms, ReplayBuffer of
      50,000, minibatch 512) for 1,000 steps through K4 and K5, then
      evaluate_policy over 20 greedy episodes and a profiled window;
- 17. one JSON line describing each ported kernel.
+ 17. K1 with its bfloat16 options against its plain version at full width,
+     double-Q and single-Q, 5 updates each compared from one state, for
+     (matmul, save) = (bf16, bf16) and (f32, bf16);
+ 18. CUDA-event timing of K1-bf16, the f32 K1 and the plain bf16 version,
+     beside the bound at the tensor cores' bf16 rate;
+ 19. the device-resident fused loop at bench.py's width: a 100,000-row table
+     on the card, FusedDQNTrainer(minibatch 4096, block 1024, matmul_dtype
+     bfloat16), make_packed_sampled_train_fn for 200 and 1,000 steps, a
+     profiled window (device time by CUDA kernel, idle share, host reads),
+     then its f32 twin, 5 steps on the card against 5 on the CPU from one
+     state and the same indices, and q_values on 64 rows through K3;
+ 20. the unfused scan path: make_sampled_train_fn(DQNTrainer, ...) on the
+     same table with compute_dtype float32 and bfloat16, 200 steps each;
+ 21. one JSON line describing each ported kernel.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
 The last line is {"ok": true, "device": {...}}.  It needs no network, and it
@@ -62,10 +75,11 @@ import numpy as np
 
 DEVICE = "cuda"
 
-# Published peaks (NVIDIA data sheets): f32 outside the tensor cores, HBM rate.
+# Published peaks (NVIDIA data sheets): f32 outside the tensor cores, HBM
+# rate, dense bf16 on the tensor cores.
 PEAKS = {
-    "H100 PCIe": (51e12, 2.0e12),
-    "H100": (67e12, 3.35e12),  # SXM
+    "H100 PCIe": (51e12, 2.0e12, 756e12),
+    "H100": (67e12, 3.35e12, 989e12),  # SXM
 }
 
 FULL = dict(D=128, widths=[512, 256], A=8, B=4096, block=512, act="leaky_relu",
@@ -82,6 +96,11 @@ QR_ATOMS = 51  # QuantileFullyConnected's default num_atoms
 QR_OPTIMIZER = {"Adam": {"lr": 0.001, "amsgrad": True}}
 K5_SHAPES = [(4096, 51), (8192, 201), (512, 11)]  # offline, the largest named, online
 K5_FWD_OPS, K5_BWD_OPS = 12, 7  # f32 operations per (i, j) pair, csrc/quantile_huber.cu
+# bench.py:286-321, :395-412: the device-resident offline table and loops
+TABLE_ROWS = 100_000
+SCAN_BLOCK = 1024
+SCAN_STEPS = (200, 1000)  # bench.py's two scan lengths
+UNFUSED_STEPS = 200
 
 
 def log(msg: str) -> None:
@@ -140,12 +159,16 @@ def step_scalars(torch, step, lr, device, b1=0.9, b2=0.999, eps=1e-8):
     return (lr * torch.sqrt(bc2) / bc1).float(), (eps * torch.sqrt(bc2)).float()
 
 
-def kernel_fns(cfg, double_q):
+def kernel_fns(cfg, double_q, dtypes=None):
+    """(kernel wrapper, plain version, keyword arguments); ``dtypes`` =
+    K1's (matmul_dtype, save_dtype)."""
     from reagent_tpu_torch.ops import fused_dqn, fused_dqn_offline
 
     acts = [cfg["act"]] * len(cfg["widths"]) + ["linear"]
     kw = dict(activations=acts, gamma=cfg["gamma"], tau=cfg["tau"],
               double_q_learning=double_q)
+    if dtypes is not None:
+        kw.update(matmul_dtype=dtypes[0], save_dtype=dtypes[1])
     if cfg["block"] is not None:
         kw["block_size"] = cfg["block"]
         return (fused_dqn_offline.fused_dqn_offline_update,
@@ -224,12 +247,12 @@ def profiled_rows(prof, n):
     return sorted(device_us, reverse=True), sorted(cpu_us, reverse=True)
 
 
-def profile_update(cfg, torch, n=5):
+def profile_update(cfg, torch, n=5, dtypes=None):
     """Device time of one update by CUDA kernel (torch.profiler over n
     updates, averaged)."""
     from torch.profiler import ProfilerActivity, profile
 
-    kern, _, kw = kernel_fns(cfg, True)
+    kern, _, kw = kernel_fns(cfg, True, dtypes)
     _, batch, params = make_inputs(cfg, 5, torch, "cuda")
     lr_t, eps_t = step_scalars(torch, 0, cfg["lr"], "cuda")
     kern(lr_t, eps_t, *batch, params, **kw)
@@ -246,10 +269,12 @@ def profile_update(cfg, torch, n=5):
     return total
 
 
-def roofline(flops, nbytes, name):
-    """The larger of f32 operations over the card's peak and bytes over its
-    memory rate, in ms, and which of the two it is."""
-    peak_flops, peak_bw = peaks_for(name)
+def roofline(flops, nbytes, name, tensor_cores=False):
+    """The larger of the operations over the card's peak (f32 outside the
+    tensor cores, or dense bf16 on them) and bytes over its memory rate, in
+    ms, and which of the two it is."""
+    peak_f32, peak_bw, peak_bf16 = peaks_for(name)
+    peak_flops = peak_bf16 if tensor_cores else peak_f32
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -265,24 +290,26 @@ def update_work(cfg, double_q):
     return flops, F + sum(sizes[1:])
 
 
-def bound(cfg, double_q, name):
-    """Least time for one update: the larger of its f32 operations over the
-    card's peak and its bytes (inputs read once, params8 read and written
-    once) over the memory rate."""
+def bound(cfg, double_q, name, tensor_cores=False):
+    """Least time for one update: the larger of its matmul operations over
+    the card's peak (f32, or bf16 on the tensor cores) and its bytes (inputs
+    read once, params8 read and written once, all float32 whatever the
+    products' type) over the memory rate."""
     B, D, A = cfg["B"], cfg["D"], cfg["A"]
     flops, P = update_work(cfg, double_q)
     nbytes = 4.0 * (2 * B * D + 2 * B * A + 2 * B + 2 + 2 * 8 * P + 4)
-    return (*roofline(flops, nbytes, name), flops, nbytes)
+    return (*roofline(flops, nbytes, name, tensor_cores), flops, nbytes)
 
 
-def time_kernel(cfg, torch, name):
-    kern, plain, kw = kernel_fns(cfg, True)
+def time_kernel(cfg, torch, name, dtypes=None):
+    kern, plain, kw = kernel_fns(cfg, True, dtypes)
     _, batch, p_kern = make_inputs(cfg, 99, torch, "cuda")
     p_plain = [p.clone() for p in p_kern]
     lr_t, eps_t = step_scalars(torch, 0, cfg["lr"], "cuda")
     ms = time_ms(torch, lambda: kern(lr_t, eps_t, *batch, p_kern, **kw))
     plain_ms = time_ms(torch, lambda: plain(lr_t, eps_t, *batch, p_plain, **kw))
-    b_ms, b_by, flops, nbytes = bound(cfg, True, name)
+    tensor_cores = dtypes is not None and str(dtypes[0]).endswith("bfloat16")
+    b_ms, b_by, flops, nbytes = bound(cfg, True, name, tensor_cores)
     return ms, plain_ms, b_ms, b_by, flops, nbytes
 
 
@@ -428,16 +455,22 @@ def reset_counts():
     for fn, plain in counted().values():
         fn.launches = 0
         plain.calls = 0
-        if hasattr(fn, "backward_launches"):
-            fn.backward_launches = 0
+        for extra in ("backward_launches", "bf16_launches"):
+            if hasattr(fn, extra):
+                setattr(fn, extra, 0)
 
 
 def read_counts():
     """(launches by kernel, plain-version calls in all) since reset_counts;
-    K5's backward launches under ``quantile_huber_backward``."""
+    K5's backward launches under ``quantile_huber_backward``, and K1's
+    launches split into ``fused_dqn_offline_update`` (f32) and
+    ``fused_dqn_offline_update_bf16`` (a bfloat16 option set)."""
     pairs = counted()
     launches = {k: fn.launches for k, (fn, _) in pairs.items()}
     launches["quantile_huber_backward"] = pairs["quantile_huber_loss"][0].backward_launches
+    k1_bf16 = pairs["fused_dqn_offline_update"][0].bf16_launches
+    launches["fused_dqn_offline_update_bf16"] = k1_bf16
+    launches["fused_dqn_offline_update"] -= k1_bf16
     return launches, sum(plain.calls for _, plain in pairs.values())
 
 
@@ -1222,6 +1255,337 @@ def qr_online_phase(torch):
     return launches, steps / wall
 
 
+# ------------------------------------------- device-resident offline slice
+
+
+def assert_first_moments_close(torch, got, want, label):
+    """First moments ``b1 * m + 0.1 * g`` after one update from one state:
+    rtol 1e-3, atol 5e-6, except in at most 16 rows of a weight's moment
+    (elements of a bias's), where up to 2e-4 is allowed.  Those outliers are
+    sign flips, not rounding: a hidden pre-activation within float32 rounding
+    of 0 lands on the other side in the other summation order, leaky_relu's
+    derivative there is 1 or 0.01, and that batch row's term (about
+    0.1 * |dz| * |h_prev|, some 1e-5 at this width) enters one row of dW in
+    full or at a hundredth.  Returns (max abs, outliers, rows holding them)."""
+    diff = (got - want).abs()
+    far = diff > 5e-6 + 1e-3 * want.abs()
+    rows = int(far.any(dim=1).sum()) if got.shape[0] > 1 else int(far.sum())
+    worst = diff.max().item()
+    if rows > 16 or worst > 2e-4:
+        raise AssertionError(f"{label}: first moments differ in {rows} rows "
+                             f"({int(far.sum())} elements), max abs {worst:.3e}")
+    return worst, int(far.sum()), rows
+
+
+def compare_k1_bf16(torch, dtypes, label):
+    """5 updates of K1 with ``dtypes`` = (matmul_dtype, save_dtype), each held
+    against its plain version run from the SAME state: before every update
+    the plain version is handed a copy of the kernel's state.  Two bfloat16
+    trajectories left to themselves part within a few updates without either
+    being wrong: both sides multiply bfloat16 values exactly but sum in
+    another order, a last-bit difference in a pre-activation flips the
+    bfloat16 rounding of a saved activation (2^-8 relative there, a few
+    hundred of three million a step), that changes sign(g) for weights
+    whose gradient is near 0, and Adam moves those by about lr either way.
+    Per update: metrics rtol 2e-4, atol 2e-5; the first moments
+    (b1 * m + 0.1 * g, linear in the gradient) as
+    assert_first_moments_close says; parameters and targets atol
+    2 * 3.2 * lr_t (Adam's largest step, from zero moments, is
+    lr_t * 0.1 / sqrt(0.001)) with a mean abs difference under 1e-6.
+    Double-Q and single-Q.  Returns the largest abs error of the metrics and
+    first moments."""
+    cfg, worst = FULL, 0.0
+    L = len(cfg["widths"]) + 1
+    for double_q in (True, False):
+        kern, plain, kw = kernel_fns(cfg, double_q, dtypes)
+        _, batch, p_kern = make_inputs(cfg, 1234, torch, DEVICE)
+        for step in range(5):
+            p_plain = [p.clone() for p in p_kern]
+            lr_t, eps_t = step_scalars(torch, step, cfg["lr"], DEVICE)
+            mk = kern(lr_t, eps_t, *batch, p_kern, **kw)
+            mp = plain(lr_t, eps_t, *batch, p_plain, **kw)
+            diff = (mk - mp).abs().max().item()
+            torch.testing.assert_close(mk, mp, rtol=2e-4, atol=2e-5)
+            worst_m = n_far = n_rows = 0
+            for i in range(4 * L, 6 * L):
+                d, far, rows = assert_first_moments_close(
+                    torch, p_kern[i], p_plain[i], f"{label} step {step} params8[{i}]")
+                worst_m, n_far, n_rows = max(worst_m, d), n_far + far, n_rows + rows
+            far_p = mean_p = 0.0
+            for a, b in zip(p_kern[:4 * L], p_plain[:4 * L]):
+                torch.testing.assert_close(a, b, rtol=0, atol=2 * 3.2 * lr_t.item())
+                far_p = max(far_p, (a - b).abs().max().item())
+                mean_p = max(mean_p, (a - b).abs().mean().item())
+            log(f"  {label} double_q={double_q} step {step}: metrics {mk.flatten().tolist()} "
+                f"max abs {diff:.3e}; first moments max abs {worst_m:.3e} ({n_far} outliers in {n_rows} rows); "
+                f"parameters max abs {far_p:.3e}, largest mean abs {mean_p:.3e}")
+            if mean_p > 1e-6:
+                raise AssertionError(f"{label}: parameters part by {mean_p:.3e} on average")
+            worst = max(worst, diff, worst_m)
+    return worst
+
+
+def offline_dataset(torch, device):
+    """bench.py:293-318's device-resident training table, drawn in its order
+    from numpy.random.default_rng(0): TABLE_ROWS rows of D features, A
+    actions, every row non-terminal, every action possible."""
+    from reagent_tpu_torch.core import types as rlt
+
+    S, A, N = FULL["D"], FULL["A"], TABLE_ROWS
+    g = np.random.default_rng(0)
+    put = lambda a: torch.tensor(a, device=device)
+    return rlt.DiscreteDqnInput(
+        state=rlt.FeatureData(put(g.normal(size=(N, S)).astype(np.float32))),
+        next_state=rlt.FeatureData(put(g.normal(size=(N, S)).astype(np.float32))),
+        action=put(np.eye(A, dtype=np.float32)[g.integers(0, A, N)]),
+        next_action=put(np.eye(A, dtype=np.float32)[g.integers(0, A, N)]),
+        reward=put(g.normal(size=(N, 1)).astype(np.float32)),
+        time_diff=put(np.ones((N, 1), np.float32)),
+        step=put(np.ones((N, 1), np.int32)),
+        not_terminal=put(np.ones((N, 1), np.float32)),
+        possible_actions_mask=put(np.ones((N, A), np.float32)),
+        possible_next_actions_mask=put(np.ones((N, A), np.float32)),
+    )
+
+
+def offline_net(torch, compute_dtype=None):
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+
+    cfg = FULL
+    kw = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
+    return FullyConnectedDQN(state_dim=cfg["D"], action_dim=cfg["A"], sizes=cfg["widths"],
+                             activations=[cfg["act"]] * len(cfg["widths"]), **kw)
+
+
+def fused_offline_trainer(torch, matmul_dtype, device):
+    """bench.py:400-406's trainer."""
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.training.fused_dqn_trainer import FusedDQNTrainer
+
+    return FusedDQNTrainer(
+        offline_net(torch), RLParameters(gamma=0.99, target_update_rate=0.1),
+        optimizer={"Adam": {"lr": 1e-3}}, minibatch_size=FULL["B"], block_size=SCAN_BLOCK,
+        matmul_dtype=matmul_dtype, device=device)
+
+
+def profile_loop(torch, run, n, wall_step_us, label):
+    """A profiled window of ``n`` steps of ``run()``: device time per step by
+    CUDA kernel, launches per step, the gathers' share, the device's idle
+    share against the unprofiled wall time per step, and the host reads of
+    device values (``aten::_local_scalar_dense``; 0 expected in the loop)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device_us, cpu_us = profiled_rows(prof, n)
+    dev_step = sum(r[0] for r in device_us)
+    launches = sum(r[1] for r in device_us)
+    gather_us = sum(us for us, _, key in device_us if "index" in key.lower())
+    counts = {ev.key: ev.count for ev in prof.key_averages()}
+    reads = counts.get("aten::_local_scalar_dense", 0)
+    log(f"  {label} step: {wall_step_us:.1f} us wall (unprofiled), {dev_step:.1f} us of device "
+        f"kernels in {launches:.1f} launches (profiled window of {n} steps), gathers "
+        f"{gather_us:.1f} us of them: the device is idle "
+        f"{(1 - dev_step / wall_step_us) * 100:.1f}% of a step; host reads of device values "
+        f"in the window: {reads} (cudaStreamSynchronize: {counts.get('cudaStreamSynchronize', 0)})")
+    for us, count, key in device_us[:8]:
+        log(f"    device {us:8.2f} us  x{count:<5.1f} {key[:80]}")
+    for us, count, key in cpu_us[:5]:
+        log(f"    host   {us:8.2f} us  x{count:<5.1f} {key[:80]}")
+    if reads:
+        raise AssertionError(f"{label}: {reads} host reads of device values inside the loop")
+    return dev_step, launches
+
+
+def td_trend(td):
+    """(mean of the first 20 losses, mean of the last 20)."""
+    return td[:20].mean().item(), td[-20:].mean().item()
+
+
+def device_resident_fused_phase(torch, dataset, matmul_dtype, label):
+    """bench.py:383-434 on the port: make_packed_sampled_train_fn over the
+    table on the card for SCAN_STEPS steps; K1 once per step, no plain
+    version, no host read in the loop.  Returns the trainer, its final state,
+    the launches by kernel, the steps/s of each scan length and the first
+    scan's td_loss per step."""
+    trainer = fused_offline_trainer(torch, matmul_dtype, DEVICE)
+    state = trainer.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    state, _ = trainer.make_packed_sampled_train_fn(dataset, num_steps=3)(state, gen)  # warm up
+    reset_counts()
+    rates, tds = {}, []
+    for n in SCAN_STEPS:
+        run = trainer.make_packed_sampled_train_fn(dataset, num_steps=n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = run(state, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rates[n] = n / wall
+        td = metrics["td_loss"].cpu()
+        if td.shape != (n,) or not torch.isfinite(td).all():
+            raise AssertionError(f"{label}: td_loss {td.shape} finite {torch.isfinite(td).all()}")
+        tds.append(td)
+        del run
+    launches, plain_calls = read_counts()
+    steps = sum(SCAN_STEPS)
+    k1 = counted()["fused_dqn_offline_update"][0]
+    if matmul_dtype == torch.bfloat16:
+        kernel, per_update = "fused_dqn_offline_update_bf16", k1.bf16_kernels_per_update
+    else:
+        kernel, per_update = "fused_dqn_offline_update", k1.kernels_per_update
+    trends = "; ".join(
+        "{} steps: first 20 {:.4f}, last 20 {:.4f}".format(len(td), *td_trend(td)) for td in tds)
+    log(f"  {label}: " + ", ".join(f"{n} steps at {r:.2f} steps/s" for n, r in rates.items())
+        + f" (host time included, synchronised at the ends only); td_loss over {trends}; "
+        f"launches {launches}, plain-version calls {plain_calls}, CUDA kernels per update "
+        f"{per_update}")
+    other = "fused_dqn_offline_update" if "bf16" in kernel else "fused_dqn_offline_update_bf16"
+    if launches[kernel] != steps or launches[other] != 0 or int(state.step) != steps + 3:
+        raise AssertionError(f"{label}: {kernel} launched {launches[kernel]} times "
+                             f"({other}: {launches[other]}) for {steps} steps")
+    if plain_calls:
+        raise AssertionError(f"{label}: plain versions ran {plain_calls} times on the main path")
+    n = 50
+    window = trainer.make_packed_sampled_train_fn(dataset, num_steps=n)
+    holder = [state]
+
+    def run_window():
+        holder[0], _ = window(holder[0], gen)
+
+    wall_step_us = 1e6 / rates[SCAN_STEPS[-1]]
+    profile_loop(torch, run_window, n, wall_step_us, label)
+    return trainer, holder[0], launches, rates, tds[0]
+
+
+def fused_lockstep_against_cpu(torch, dataset, n=5):
+    """``n`` train steps of the bf16 trainer on the card (K1 on the tensor
+    cores) and on the CPU (the plain version) from one state, on minibatches
+    gathered with the same indices (numpy seed).  td_loss per step rtol 1e-3,
+    atol 1e-4; first moments after the first step as
+    assert_first_moments_close says; final parameters atol 2 * lr per step, mean abs difference under 1e-5
+    (compare_k1_bf16 says why)."""
+    from reagent_tpu_torch.training import scan_loop
+
+    trainers = {DEVICE: fused_offline_trainer(torch, torch.bfloat16, DEVICE),
+                "cpu": fused_offline_trainer(torch, torch.bfloat16, "cpu")}
+    first = trainers[DEVICE].init(torch.Generator().manual_seed(3))
+    states = {dev: copy_state(first, dev) for dev in trainers}
+    rng = np.random.default_rng(17)
+    reset_counts()
+    worst_td = worst_m = 0.0
+    for step in range(n):
+        idx = torch.tensor(rng.integers(0, TABLE_ROWS, FULL["B"]), device=DEVICE)
+        batch = scan_loop.tree_map(lambda x: x[idx], dataset)
+        td = {}
+        for dev, trainer in trainers.items():
+            states[dev], m = trainer.train_step(states[dev], batch.to(dev))
+            td[dev] = m["td_loss"].cpu()
+        torch.testing.assert_close(td[DEVICE], td["cpu"], rtol=5e-3, atol=1e-3)
+        worst_td = max(worst_td, (td[DEVICE] - td["cpu"]).abs().item())
+        if step == 0:
+            for a, b in zip(states[DEVICE].mW + states[DEVICE].mb,
+                            states["cpu"].mW + states["cpu"].mb):
+                worst_m = max(worst_m, assert_first_moments_close(
+                    torch, a.cpu(), b, "lockstep first moments")[0])
+    launches, plain_calls = read_counts()
+    if (launches["fused_dqn_offline_update_bf16"], plain_calls) != (n, n):
+        raise AssertionError(f"lockstep: launches {launches}, plain calls {plain_calls}")
+    far = mean = 0.0
+    g, c = states[DEVICE], states["cpu"]
+    for a, b in zip(g.W + g.b + g.Wt + g.bt, c.W + c.b + c.Wt + c.bt):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2 * 1e-3 * n)
+        far = max(far, (a.cpu() - b).abs().max().item())
+        mean = max(mean, (a.cpu() - b).abs().mean().item())
+    log(f"  card (K1-bf16) vs CPU (plain version), {n} lockstep train steps: td_loss max abs "
+        f"{worst_td:.3e} (last {td[DEVICE].item():.6f}), first moments after step 1 max abs "
+        f"{worst_m:.3e}, parameters max abs {far:.3e}, largest mean abs {mean:.3e}")
+    if mean > 1e-4:
+        raise AssertionError(f"lockstep: parameters part by {mean:.3e} on average")
+    return worst_td
+
+
+def q_values_phase(torch, trainer, state, dataset):
+    """trainer.q_values on 64 table rows (one K3 launch at [64, 128] -> 512
+    -> 256 -> 8) against the exported q-network's own forward: float32 sums
+    in another order, rtol 1e-4, atol 1e-4."""
+    obs = dataset.state.float_features[:64].contiguous()
+    reset_counts()
+    q = trainer.q_values(state, obs)
+    torch.cuda.synchronize()
+    launches, plain_calls = read_counts()
+    with torch.no_grad():
+        want = trainer.export_q_network(state)(obs)
+    diff = (q - want).abs().max().item()
+    torch.testing.assert_close(q, want, rtol=1e-4, atol=1e-4)
+    if launches["fused_mlp_forward"] != 1 or plain_calls or not torch.isfinite(q).all():
+        raise AssertionError(f"q_values: launches {launches}, plain calls {plain_calls}")
+    log(f"  q_values (K3) on 64 rows vs the exported q-network: max abs {diff:.3e}, "
+        f"q[0] {q[0].tolist()}")
+    return launches["fused_mlp_forward"]
+
+
+def unfused_scan_phase(torch, dataset, compute_dtype, label):
+    """bench.py:324-380 on the port: make_sampled_train_fn over a DQNTrainer
+    whose net computes in ``compute_dtype``, UNFUSED_STEPS steps on the
+    table on the card.  No hand-written kernel is on this path (the matrix
+    products are PyTorch's, as the JAX path leaves them to XLA)."""
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.training import DQNTrainer, make_sampled_train_fn
+
+    trainer = DQNTrainer(
+        offline_net(torch, compute_dtype), rl=RLParameters(gamma=0.99, target_update_rate=0.1),
+        optimizer={"Adam": {"lr": 1e-3}}, device=DEVICE)
+    state = trainer.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    state, _ = make_sampled_train_fn(trainer, dataset, FULL["B"], 3)(state, gen)  # warm up
+    run = make_sampled_train_fn(trainer, dataset, FULL["B"], UNFUSED_STEPS)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = run(state, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    td = metrics["td_loss"].float().cpu()
+    first, last = td_trend(td)
+    rate = UNFUSED_STEPS / wall
+    log(f"  {label}: {UNFUSED_STEPS} steps at {rate:.2f} steps/s (host time included, "
+        f"synchronised at the ends only); td_loss first 20 {first:.4f}, last 20 {last:.4f}; "
+        f"hand-written kernel launches {sum(launches.values())}, plain-version calls {plain_calls}")
+    if td.shape != (UNFUSED_STEPS,) or not torch.isfinite(td).all():
+        raise AssertionError(f"{label}: td_loss {td.shape}")
+    if int(state.step) != UNFUSED_STEPS + 3 or plain_calls:
+        raise AssertionError(f"{label}: step {int(state.step)}, plain calls {plain_calls}")
+    for p in state.q_params.values():
+        if p.dtype != torch.float32 or not torch.isfinite(p).all():
+            raise AssertionError(f"{label}: parameters {p.dtype}")
+    n = 20
+    window = make_sampled_train_fn(trainer, dataset, FULL["B"], n)
+    profile_loop(torch, lambda: window(state, gen), n, 1e6 / rate, label)
+    return rate, td
+
+
+def compare_td_paths(torch, tds):
+    """The fused and the unfused loops start from the same weights (generator
+    seed 0) and draw the same minibatch indices (generator seed 1 on the
+    card), so over their first UNFUSED_STEPS steps they are one algorithm in
+    four arithmetics.  td_loss per step of each against the fused float32
+    loop: the float32 autograd trainer within rtol 1e-2 (float32 sums in
+    another order, fed back through 200 Adam steps), the two bfloat16 paths
+    within rtol 5e-2 (they round at every product)."""
+    base = tds["fused f32"][:UNFUSED_STEPS]
+    for label, td in tds.items():
+        rel = ((td[:UNFUSED_STEPS] - base).abs() / base.abs()).max().item()
+        log(f"  td_loss over the first {UNFUSED_STEPS} steps, {label}: first 20 "
+            "{:.4f}, last 20 {:.4f}".format(*td_trend(td[:UNFUSED_STEPS]))
+            + f", max rel difference from the fused f32 loop {rel:.3e}")
+        limit = 5e-2 if "bf16" in label else 1e-2
+        if rel > limit:
+            raise AssertionError(f"{label}: td_loss parts from the fused f32 loop by {rel:.3e}")
+
+
 def main() -> int:
     import torch
 
@@ -1313,9 +1677,50 @@ def main() -> int:
     log(f"phase 16: online QR-DQN loop ({QR_ONLINE['steps']} steps) and evaluate_policy")
     qr_online_launches, _ = qr_online_phase(torch)
 
-    log("phase 17: kernels")
+    bf16, f32 = torch.bfloat16, torch.float32
+    log("phase 17: K1 with its bfloat16 options against its plain version (full width)")
+    err_k1_bf16 = compare_k1_bf16(torch, (bf16, bf16), "K1-bf16 (matmul bf16, save bf16)")
+    err_k1_save = compare_k1_bf16(torch, (f32, bf16), "K1 (matmul f32, save bf16)")
+
+    log("phase 18: timing of K1-bf16 (CUDA events, 3 warm-ups, median of 20)")
+    timing["K1-bf16"] = time_kernel(FULL, torch, name, (bf16, bf16))
+    timing["K1 again"] = time_kernel(FULL, torch, name)
+    for kname in ("K1-bf16", "K1 again"):
+        ms, plain_ms, b_ms, b_by, flops, nbytes = timing[kname]
+        log(f"  {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; {flops:.4g} FLOP, {nbytes:.4g} B), {b_ms / ms * 100:.1f}% of the "
+            f"bound, on {card}")
+    log("  K1-bf16 device time by CUDA kernel (torch.profiler, mean of 5 updates):")
+    profile_update(FULL, torch, dtypes=(bf16, bf16))
+
+    log(f"phase 19: device-resident fused loop ({TABLE_ROWS} rows on the card, minibatch "
+        f"{FULL['B']}, block {SCAN_BLOCK})")
+    dataset = offline_dataset(torch, DEVICE)
+    trainer_bf16, state_bf16, scan_bf16, rates_bf16, td_bf16 = device_resident_fused_phase(
+        torch, dataset, bf16, "fused loop, matmul bf16")
+    _, _, scan_f32, rates_f32, td_f32 = device_resident_fused_phase(
+        torch, dataset, f32, "fused loop, f32 twin")
+    fused_lockstep_against_cpu(torch, dataset)
+    k3_scan_launches = q_values_phase(torch, trainer_bf16, state_bf16, dataset)
+
+    log(f"phase 20: unfused scan path (DQNTrainer, {UNFUSED_STEPS} steps each)")
+    unfused = {label: unfused_scan_phase(torch, dataset, dtype, f"unfused scan, {label}")
+               for label, dtype in (("compute f32", None), ("compute bf16", bf16))}
+    compare_td_paths(torch, {"fused f32": td_f32, "fused bf16": td_bf16,
+                             **{f"unfused {k}": v[1] for k, v in unfused.items()}})
+    log("  steps/s on " + card + ": fused bf16 "
+        + ", ".join(f"{r:.2f} ({n})" for n, r in rates_bf16.items()) + "; fused f32 "
+        + ", ".join(f"{r:.2f} ({n})" for n, r in rates_f32.items()) + "; "
+        + "; ".join(f"{k} {v[0]:.2f}" for k, v in unfused.items()))
+    del dataset
+
+    log("phase 21: kernels")
     by_path = {
-        "K1 fused_dqn_offline_update": {"offline workflow, full width": k1_launches},
+        "K1 fused_dqn_offline_update": {
+            "offline workflow, full width": k1_launches,
+            "device-resident fused loop, f32 twin": scan_f32["fused_dqn_offline_update"]},
+        "K1 fused_dqn_offline_update (bf16)": {
+            "device-resident fused loop": scan_bf16["fused_dqn_offline_update_bf16"]},
         "K2 fused_dqn_update": {"offline workflow, CartPole sample": k2_launches,
                                 "generic online loop": generic_launches["fused_dqn_update"]},
         "K2 fused_dqn_update_packed": {
@@ -1324,7 +1729,8 @@ def main() -> int:
             "fused online loop": fused_launches["fused_mlp_forward"],
             "generic online loop": generic_launches["fused_mlp_forward"],
             "evaluate_policy": eval_launches["fused_mlp_forward"],
-            "offline QR-DQN workflow (q_values)": qr_launches["fused_mlp_forward"]},
+            "offline QR-DQN workflow (q_values)": qr_launches["fused_mlp_forward"],
+            "device-resident fused loop (q_values)": k3_scan_launches},
         "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
                              "online QR-DQN loop": qr_online_launches["nstep_rewards"]},
         "K5 quantile_huber_loss": {
@@ -1342,6 +1748,11 @@ def main() -> int:
     for kname, fn, replaces, err, times in (
         ("K1 fused_dqn_offline_update", fused_dqn_offline.fused_dqn_offline_update,
          "reagent_tpu/ops/fused_dqn_offline.py:240", err_k1, timing["K1"]),
+        # the matmul_dtype=bfloat16 / save_dtype options (:71-72): the same
+        # entry point, its products on the tensor cores
+        ("K1 fused_dqn_offline_update (bf16)", None,
+         "reagent_tpu/ops/fused_dqn_offline.py:240", max(err_k1_bf16, err_k1_save),
+         timing["K1-bf16"]),
         ("K2 fused_dqn_update", fused_dqn.fused_dqn_update,
          "reagent_tpu/ops/fused_dqn.py:259", err_k2, timing["K2"]),
         ("K2 fused_dqn_update_packed", fused_dqn.fused_dqn_update_packed,
@@ -1377,6 +1788,10 @@ def main() -> int:
                                    "bound_ms": t["bwd_bound"][0]} for k, t in k5_shapes.items()}
         if fn is not None:
             row["cuda_kernels_per_launch"] = fn.kernels_per_update
+        if kname.endswith("(bf16)"):
+            row["cuda_kernels_per_launch"] = (
+                fused_dqn_offline.fused_dqn_offline_update.bf16_kernels_per_update)
+            row["mma"] = "nvcuda::wmma m16n16k16 bf16, f32 accumulators (mma.sync)"
         rows.append(row)
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -26,8 +26,10 @@ class FullyConnectedDQN(nn.Module):
         use_layer_norm: bool = False,
         use_skip_connections: bool = False,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.state_dim = state_dim
         self.action_dim = action_dim
         self.net = FullyConnectedNetwork(
@@ -38,6 +40,7 @@ class FullyConnectedDQN(nn.Module):
             use_layer_norm=use_layer_norm,
             use_skip_connections=use_skip_connections,
             generator=generator,
+            compute_dtype=compute_dtype,
         )
 
     @property

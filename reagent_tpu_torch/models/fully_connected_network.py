@@ -2,7 +2,11 @@
 
 Port of ``reagent_tpu/models/fully_connected_network.py``: ``nn.Linear``
 layers with per-layer activations and the reference's gaussian-fill-w-gain
-init (:28).  The batch-norm, dropout, layer-norm and skip-connection options
+init (:28).  ``compute_dtype`` (:49-50, :74) is the matmul compute type:
+parameters stay float32, and each layer casts its input, weight and bias to
+``compute_dtype`` and returns that type, as flax's ``nn.Dense(dtype=...)``
+does; gradients reach the float32 parameters through the cast.  The
+batch-norm, dropout, layer-norm and skip-connection options
 of the JAX module are not ported yet (``ROADMAP.md`` §1); asking for one
 raises.
 """
@@ -56,8 +60,10 @@ class FullyConnectedNetwork(nn.Module):
         use_layer_norm: bool = False,
         use_skip_connections: bool = False,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.compute_dtype = compute_dtype
         if len(sizes) - 1 != len(activations):
             raise ValueError(f"sizes {list(sizes)} vs activations {list(activations)}")
         if use_batch_norm or dropout_ratio > 0.0 or use_layer_norm or use_skip_connections:
@@ -85,6 +91,12 @@ class FullyConnectedNetwork(nn.Module):
                 layer.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
         for layer, act in zip(self.layers, self.activations):
-            x = apply_activation(act, layer(x))
+            if cd == torch.float32:
+                x = layer(x)
+            else:
+                # the product, then the bias, each rounded to compute_dtype
+                x = F.linear(x.to(cd), layer.weight.to(cd)) + layer.bias.to(cd)
+            x = apply_activation(act, x)
         return x

@@ -42,12 +42,14 @@ _F = ctypes.c_float
 # argtypes per source: every pointer and the stream as c_void_p
 _SIGNATURES = {
     "fused_dqn": {
-        "fused_dqn_workspace_floats": (_LL, [_I, _IP, _I, _I]),
+        "fused_dqn_workspace_floats": (_LL, [_I, _IP, _I, _I, _I]),
         "fused_dqn_error_string": (ctypes.c_char_p, [_I]),
         "fused_dqn_update": (
             _I, [_I, _IP, _IP, _I, _I, _FP, _PP] + [_P] * 10 + [_IP, _P]),
         "fused_dqn_offline_update": (
             _I, [_I, _IP, _IP, _I, _I, _FP, _PP] + [_P] * 10 + [_IP, _P]),
+        "fused_dqn_offline_update_bf16": (
+            _I, [_I, _IP, _IP, _I, _I, _I, _I, _FP, _PP] + [_P] * 10 + [_IP, _P]),
         "fused_dqn_update_packed": (
             _I, [_I, _IP, _IP, _I, _I, _FP, _PP, _P, _P, _I, _IP] + [_P] * 4 + [_IP, _P]),
     },

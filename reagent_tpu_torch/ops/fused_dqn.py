@@ -133,24 +133,51 @@ def _split8(params8):
     return L, [list(params8[i * L:(i + 1) * L]) for i in range(8)]
 
 
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_kernel_dtype(name: str, dtype) -> None:
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name} must be torch.float32 or torch.bfloat16, got {dtype!r}")
+
+
+def _round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to ``dtype`` and back to float32 (float32: unchanged)."""
+    return x if dtype == torch.float32 else x.to(dtype).to(torch.float32)
+
+
 @torch.no_grad()
 def update_reference(
     lr_t, eps_t, obs, nobs, act, rew, nt, mask, params8, *,
     activations: Sequence[str], gamma: float, tau: float,
     double_q_learning: bool, b1: float, b2: float, act_grad,
+    matmul_dtype: torch.dtype = torch.float32,
+    save_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """The update in plain PyTorch with the analytic backward (shared by the
-    K1 and K2 plain versions, which differ only in ``act_grad``)."""
+    K1 and K2 plain versions, which differ only in ``act_grad``).
+
+    K1's options, with the rounding points of the TPU kernel
+    (``reagent_tpu/ops/fused_dqn_offline.py:96-100, :138-143, :179-183``):
+    every product rounds both operands to ``matmul_dtype`` and is taken in
+    float32 (a product of two bfloat16 values is exact in float32, so only
+    the order of the sum differs from a tensor-core product); the saved layer
+    outputs, the observation among them, are kept in ``save_dtype``, and the
+    weight and activation gradients read those rounded copies; the bias
+    gradient is the sum of the unrounded ``dz``; ``q`` is never rounded."""
     L, (W, b, Wt, bt, mW, mb, vW, vb) = _split8(params8)
     B = obs.shape[0]
 
+    def mm(x, w):
+        return _round_to(x, matmul_dtype) @ _round_to(w, matmul_dtype)
+
     def fwd(x, Ws, bs):
-        h, zs, hs = x, [], [x]
+        h, zs, hs = x, [], [_round_to(x, save_dtype)]
         for i in range(L):
-            z = h @ Ws[i].T + bs[i]
+            z = mm(h, Ws[i].T) + bs[i]
             h = _act(activations[i], z)
             zs.append(z)
-            hs.append(h)
+            hs.append(_round_to(h, save_dtype))
         return h, zs, hs
 
     penalty = ACTION_NOT_POSSIBLE_VAL * (1.0 - mask)
@@ -170,10 +197,10 @@ def update_reference(
     # with a zero dL/dq on the nobs half, and zero rows add nothing.
     dz = (2.0 / B) * err * act
     for i in range(L - 1, -1, -1):
-        dWt = dz.T @ hs[i][:B]
+        dWt = mm(dz.T, hs[i][:B])
         db = torch.sum(dz, dim=0, keepdim=True)
         if i > 0:
-            dz = (dz @ W[i]) * act_grad(activations[i - 1], zs[i - 1][:B], hs[i][:B])
+            dz = mm(dz, W[i]) * act_grad(activations[i - 1], zs[i - 1][:B], hs[i][:B])
         for p, pt, m, v, g in ((W[i], Wt[i], mW[i], vW[i], dWt), (b[i], bt[i], mb[i], vb[i], db)):
             m_n = b1 * m + (1.0 - b1) * g
             v_n = b2 * v + (1.0 - b2) * g * g
@@ -285,14 +312,16 @@ def _check_params(lr_t, eps_t, params8, activations, D):
 
 
 def _run_entry(entry, dev, B, L, groups, dims, batch_args, lr_t, eps_t, *,
-               activations, gamma, tau, double_q_learning, b1, b2):
+               activations, gamma, tau, double_q_learning, b1, b2, precision=()):
     """Allocate metrics and workspace and call one C entry of
     ``csrc/fused_dqn.cu`` on the current stream; returns the metrics row and
-    the number of CUDA kernels the update launched."""
+    the number of CUDA kernels the update launched.  ``precision`` = the ints
+    ``(matmul_bf16, save_bf16)`` for the entry that takes K1's options."""
     from reagent_tpu_torch.ops import _build
 
     lib = _build.load_library()
-    offline = entry == "fused_dqn_offline_update"
+    offline = entry.startswith("fused_dqn_offline_update")
+    save_bf16 = precision[1] if precision else 0
     c_dims = (ctypes.c_int * (L + 1))(*dims)
     c_acts = (ctypes.c_int * L)(*(_ACT_CODES[a] for a in activations))
     consts = np.array(
@@ -300,7 +329,7 @@ def _run_entry(entry, dev, B, L, groups, dims, batch_args, lr_t, eps_t, *,
     )
     c_consts = (ctypes.c_float * 8)(*consts.tolist())
     c_params = (ctypes.c_void_p * (8 * L))(*(p.data_ptr() for g in groups for p in g))
-    n_ws = lib.fused_dqn_workspace_floats(L, c_dims, B, int(offline))
+    n_ws = lib.fused_dqn_workspace_floats(L, c_dims, B, int(offline), save_bf16)
     if n_ws < 0:
         raise ValueError(f"{entry}: unsupported layer count {L} or batch {B}")
     with torch.cuda.device(dev):
@@ -309,8 +338,8 @@ def _run_entry(entry, dev, B, L, groups, dims, batch_args, lr_t, eps_t, *,
         n_launches = ctypes.c_int(0)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, entry)(
-            L, c_dims, c_acts, B, int(bool(double_q_learning)), c_consts, c_params,
-            *batch_args, lr_t.data_ptr(), eps_t.data_ptr(),
+            L, c_dims, c_acts, B, int(bool(double_q_learning)), *precision,
+            c_consts, c_params, *batch_args, lr_t.data_ptr(), eps_t.data_ptr(),
             metrics.data_ptr(), workspace.data_ptr(), ctypes.byref(n_launches), stream,
         )
     if err != 0:
@@ -320,10 +349,11 @@ def _run_entry(entry, dev, B, L, groups, dims, batch_args, lr_t, eps_t, *,
 
 def launch_cuda(
     entry: str, lr_t, eps_t, obs, nobs, act, rew, nt, mask, params8, *,
-    activations, gamma, tau, double_q_learning, b1, b2,
+    activations, gamma, tau, double_q_learning, b1, b2, precision=(),
 ) -> Tuple[torch.Tensor, int]:
-    """Check the inputs and run one of the two tensor-interface C entries
-    (``fused_dqn_update``, ``fused_dqn_offline_update``)."""
+    """Check the inputs and run one of the tensor-interface C entries
+    (``fused_dqn_update``, ``fused_dqn_offline_update`` and, with
+    ``precision``, ``fused_dqn_offline_update_bf16``)."""
     B, D = obs.shape
     L, groups, dims, named, want = _check_params(lr_t, eps_t, params8, activations, D)
     A = dims[-1]
@@ -334,7 +364,7 @@ def launch_cuda(
         entry, obs.device, B, L, groups, dims,
         [t.data_ptr() for t in (obs, nobs, act, rew, nt, mask)], lr_t, eps_t,
         activations=activations, gamma=gamma, tau=tau,
-        double_q_learning=double_q_learning, b1=b1, b2=b2)
+        double_q_learning=double_q_learning, b1=b1, b2=b2, precision=precision)
 
 
 def launch_cuda_packed(

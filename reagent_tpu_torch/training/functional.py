@@ -32,11 +32,13 @@ def apply(q_network: nn.Module, params: Params, obs: Tensor) -> Tensor:
 
 def score(q_network: nn.Module, params: Params, obs: Tensor) -> Tensor:
     """The forward for acting and scoring, without a graph.  A dense MLP
-    (``FullyConnectedDQN``) goes through K3, one launch on a CUDA tensor; any
-    other module runs its own forward, as the JAX package computes it outside
+    (``FullyConnectedDQN``) in float32 goes through K3, one launch on a CUDA
+    tensor; any other module, and one with a reduced ``compute_dtype`` (K3 is
+    float32), runs its own forward, as the JAX package computes it outside
     any kernel."""
     with torch.no_grad():
-        if isinstance(q_network, FullyConnectedDQN):
+        if (isinstance(q_network, FullyConnectedDQN)
+                and q_network.compute_dtype == torch.float32):
             n = len(q_network.net.layers)
             weights = [(params[f"net.layers.{i}.weight"].T, params[f"net.layers.{i}.bias"])
                        for i in range(n)]

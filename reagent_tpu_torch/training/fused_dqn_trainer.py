@@ -30,6 +30,7 @@ from torch import nn
 from reagent_tpu_torch.core import types as rlt
 from reagent_tpu_torch.core.parameters import RLParameters
 from reagent_tpu_torch.ops.fused_dqn import (
+    check_kernel_dtype,
     extract_mlp_layout,
     fused_dqn_update,
     fused_dqn_update_packed,
@@ -41,6 +42,7 @@ from reagent_tpu_torch.ops.fused_dqn_offline import (
     fused_dqn_offline_update,
 )
 from reagent_tpu_torch.ops.fused_mlp import fused_mlp_forward
+from reagent_tpu_torch.training.scan_loop import run_sampled_steps
 from reagent_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -69,7 +71,13 @@ class FusedDQNTrainer:
     """DQN with a fully fused update.
 
     ``device`` defaults to ``"cuda"`` and raises if no card is present;
-    ``block_size`` selects K1 (and must divide ``minibatch_size``).
+    ``block_size`` selects K1 (and must divide ``minibatch_size``), so that
+    ``minibatch_size`` can be offline-sized (4096+).  With K1,
+    ``matmul_dtype=torch.bfloat16`` runs the update's matrix products on the
+    tensor cores in bfloat16 with float32 accumulation and keeps the saved
+    activations in bfloat16 (``None`` means float32).  K2 has no such option:
+    asking for it without ``block_size`` raises, where the JAX trainer drops
+    it silently.
     """
 
     def __init__(
@@ -80,6 +88,7 @@ class FusedDQNTrainer:
         optimizer: Any = None,
         minibatch_size: int = 512,
         block_size: Optional[int] = None,
+        matmul_dtype: Optional[torch.dtype] = None,
         device="cuda",
     ) -> None:
         if rl.q_network_loss != "mse":
@@ -101,6 +110,12 @@ class FusedDQNTrainer:
         self.minibatch_size = int(minibatch_size)
         check_block_size(self.minibatch_size, block_size)
         self.block_size = block_size
+        self.matmul_dtype = torch.float32 if matmul_dtype is None else matmul_dtype
+        check_kernel_dtype("matmul_dtype", self.matmul_dtype)
+        if block_size is None and self.matmul_dtype != torch.float32:
+            raise ValueError(
+                f"matmul_dtype={self.matmul_dtype} needs block_size: only the "
+                "offline fused update (K1) has reduced-precision products")
         self.device = resolve_device(device)
         self.q_network = q_network.to(self.device)
         _, self.dims = extract_mlp_layout(q_network)
@@ -118,7 +133,8 @@ class FusedDQNTrainer:
         )
         if block_size is not None:
             self._update = functools.partial(
-                fused_dqn_offline_update, block_size=block_size, **kernel_kw)
+                fused_dqn_offline_update, block_size=block_size,
+                matmul_dtype=self.matmul_dtype, **kernel_kw)
         else:
             self._update = functools.partial(fused_dqn_update, **kernel_kw)
         self._update_packed = functools.partial(fused_dqn_update_packed, **kernel_kw)
@@ -237,17 +253,6 @@ class FusedDQNTrainer:
         m = self._update_packed(lr_t, eps_t, rows, next_rows, state.params8(), cols=cols)
         return dataclasses.replace(state, step=state.step + 1), _metrics(m)
 
-    def _run_steps(self, state, num_steps, generator, num_rows, batch_of):
-        outs = []
-        for _ in range(num_steps):
-            idx = torch.randint(
-                0, num_rows, (self.minibatch_size,), generator=generator,
-                device=self.device,
-            )
-            state, m = self.train_step(state, batch_of(idx))
-            outs.append(m)
-        return state, {k: torch.stack([m[k] for m in outs]) for k in outs[0]}
-
     def make_sampled_train_fn(
         self, dataset: rlt.DiscreteDqnInput, num_steps: int,
         num_rows: Optional[int] = None,
@@ -279,7 +284,9 @@ class FusedDQNTrainer:
                           g["not_terminal"], g["possible_next_actions_mask"])
 
         def run(state, generator):
-            return self._run_steps(state, num_steps, generator, num_rows, batch_of)
+            return run_sampled_steps(
+                self.train_step, state, batch_of, num_steps, self.minibatch_size,
+                num_rows, generator)
 
         return run
 
@@ -315,7 +322,9 @@ class FusedDQNTrainer:
             )
 
         def run(state, generator):
-            return self._run_steps(state, num_steps, generator, num_rows, batch_of)
+            return run_sampled_steps(
+                self.train_step, state, batch_of, num_steps, self.minibatch_size,
+                num_rows, generator)
 
         return run
 
@@ -330,6 +339,33 @@ class FusedDQNTrainer:
         """Q [B, A] for obs [B, D]: one K3 launch on a CUDA tensor."""
         with torch.no_grad():
             return fused_mlp_forward(obs, self.mlp_weights(state), self.activations)
+
+    # ------------------------------------------------------------- interop
+
+    def from_dqn_state(self, dqn_state) -> FusedDQNTrainerState:
+        """Adopt a ``DQNTrainerState`` of the same q-network: online and
+        target weights and the Adam moments as copies in the kernels' layout,
+        the step taken from Adam's count.  The state's optimizer must be
+        plain Adam (it carries ``mu`` and ``nu``)."""
+        opt = dqn_state.opt_state
+        if opt.mu is None or opt.nu is None or opt.nu_max is not None:
+            raise ValueError("from_dqn_state needs a plain Adam optimizer state (mu and nu)")
+        names = [n for n, m in self.q_network.named_modules() if isinstance(m, nn.Linear)]
+
+        def layout(tree):
+            f32 = dict(device=self.device, dtype=torch.float32)
+            return (tuple(tree[f"{n}.weight"].detach().to(**f32).clone() for n in names),
+                    tuple(tree[f"{n}.bias"].detach().to(**f32).reshape(1, -1).clone()
+                          for n in names))
+
+        W, b = layout(dqn_state.q_params)
+        Wt, bt = layout(dqn_state.q_target_params)
+        mW, mb = layout(opt.mu)
+        vW, vb = layout(opt.nu)
+        return FusedDQNTrainerState(
+            W=W, b=b, Wt=Wt, bt=bt, mW=mW, mb=mb, vW=vW, vb=vb,
+            step=opt.count.detach().to(device=self.device, dtype=torch.int32).clone(),
+        )
 
     # ------------------------------------------------------------- export
 

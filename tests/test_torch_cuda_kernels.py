@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K2 (tensor and packed), K3, K4 and K5 (forward and
-backward) against their plain versions, on the card.
+"""The CUDA kernels K1 (float32 and with its bfloat16 options), K2 (tensor and
+packed), K3, K4 and K5 (forward and backward) against their plain versions,
+on the card.
 
 Skipped without an NVIDIA card.  On the machine with the card run
 
@@ -89,6 +90,97 @@ def test_kernel_is_deterministic(card, name, fn, extra, B):
         runs.append([m] + params)
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ------------------------------- K1's matmul_dtype / save_dtype options
+
+K1_DTYPES = [
+    (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, None),  # save_dtype follows matmul_dtype
+]
+
+
+def _dtype_id(d):
+    return "none" if d is None else str(d).split(".")[-1]
+
+
+def _k1_scalars(card, step, lr=0.01):
+    t = torch.tensor(float(step + 1), device=card)
+    return ((lr * torch.sqrt(1 - 0.999 ** t) / (1 - 0.9 ** t)).float(),
+            (1e-8 * torch.sqrt(1 - 0.999 ** t)).float())
+
+
+@pytest.mark.parametrize("matmul_dtype,save_dtype", K1_DTYPES,
+                         ids=[f"{_dtype_id(m)}-{_dtype_id(s)}" for m, s in K1_DTYPES])
+@pytest.mark.parametrize("double_q", [True, False])
+@pytest.mark.parametrize("act", ["leaky_relu", "tanh"])
+def test_k1_dtype_options_match_plain_version(card, matmul_dtype, save_dtype, double_q, act):
+    """D=5, A=3 and a width of 24 are no multiple of the 16-wide MMA
+    fragment, 70 none of the 64-wide tile, B=700 none of the 256-row chunk.
+    Kernel and plain version multiply bfloat16 values exactly and sum in
+    another order; a last-bit difference can flip the bfloat16 rounding of
+    one saved activation (2^-8 relative there).  First update from zero
+    moments: metrics rtol 2e-4, atol 2e-5; first moments rtol 1e-3, atol
+    5e-6; parameters atol 2 * 3.2 * lr_t (Adam's first step from zero moments
+    is lr_t * 0.1 / sqrt(0.001) * sign(g)).
+    Two more updates: metrics rtol 1e-3, atol 1e-4."""
+    fn = fused_dqn_offline.fused_dqn_offline_update
+    plain = fused_dqn_offline.fused_dqn_offline_update_reference
+    batch, p_kern = _inputs(card, 700, 5, [24, 70], 3, seed=4)
+    p_plain = [p.clone() for p in p_kern]
+    kw = dict(activations=[act, act, "linear"], gamma=0.9, tau=0.3, double_q_learning=double_q,
+              block_size=100, matmul_dtype=matmul_dtype, save_dtype=save_dtype)
+    launches, bf16_launches = fn.launches, fn.bf16_launches
+    L = 3
+    for step in range(3):
+        lr_t, eps_t = _k1_scalars(card, step)
+        mk = fn(lr_t, eps_t, *batch, p_kern, **kw)
+        mp = plain(lr_t, eps_t, *batch, p_plain, **kw)
+        if step == 0:
+            torch.testing.assert_close(mk, mp, rtol=2e-4, atol=2e-5)
+            for a, b in zip(p_kern[4 * L:6 * L], p_plain[4 * L:6 * L]):
+                torch.testing.assert_close(a, b, rtol=1e-3, atol=5e-6)
+            for a, b in zip(p_kern[:4 * L], p_plain[:4 * L]):
+                torch.testing.assert_close(a, b, rtol=0, atol=2 * float(lr_t) * 3.2)
+        else:
+            torch.testing.assert_close(mk, mp, rtol=1e-3, atol=1e-4)
+    assert fn.launches == launches + 3 and fn.bf16_launches == bf16_launches + 3
+    for a, b in zip(p_kern, p_plain):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().mean() < 1e-4
+
+
+@pytest.mark.parametrize("matmul_dtype,save_dtype", K1_DTYPES[:3],
+                         ids=[f"{_dtype_id(m)}-{_dtype_id(s)}" for m, s in K1_DTYPES[:3]])
+def test_k1_dtype_options_are_deterministic(card, matmul_dtype, save_dtype):
+    """No atomics, fixed-order sums: two runs agree bit for bit."""
+    kw = dict(activations=["tanh", "leaky_relu", "linear"], gamma=0.9, tau=0.3,
+              double_q_learning=True, block_size=100, matmul_dtype=matmul_dtype,
+              save_dtype=save_dtype)
+    runs = []
+    for _ in range(2):
+        batch, params = _inputs(card, 700, 5, [24, 70], 3, seed=9)
+        lr_t, eps_t = _k1_scalars(card, 0)
+        m = fused_dqn_offline.fused_dqn_offline_update(lr_t, eps_t, *batch, params, **kw)
+        runs.append([m] + params)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_k1_dtype_options_reject_other_types(card):
+    batch, params = _inputs(card, 64, 5, [24], 3, seed=1)
+    one = torch.ones((), device=card)
+    kw = dict(activations=["relu", "linear"], gamma=0.9, tau=0.3, double_q_learning=True,
+              block_size=32)
+    fn = fused_dqn_offline.fused_dqn_offline_update
+    with pytest.raises(TypeError, match="matmul_dtype must be"):
+        fn(one, one, *batch, params, matmul_dtype=torch.float16, **kw)
+    with pytest.raises(TypeError, match="save_dtype must be"):
+        fn(one, one, *batch, params, matmul_dtype=torch.bfloat16, save_dtype=torch.float16, **kw)
+    with pytest.raises(TypeError, match="float32"):  # the batch itself stays float32
+        fn(one, one, batch[0].bfloat16(), *batch[1:], params, matmul_dtype=torch.bfloat16, **kw)
 
 
 def test_wrapper_rejects_bad_inputs(card):
