@@ -8,18 +8,23 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build the CUDA kernels from reagent_tpu_torch/ops/csrc (nvcc, sm_90a);
   3. K1 (offline fused DQN update) against its plain PyTorch version at full
      width, double-Q and single-Q, 5 lockstep updates;
-  4. K2 (single-block fused DQN update) the same, at the CartPole sample
-     config's shapes;
-  5. CUDA-event timing of each kernel and its plain version, beside the bound,
-     and each update's device time by CUDA kernel (torch.profiler);
+  4. K2 (fused DQN update, one launch per update) the same, at the CartPole
+     sample config's shapes, and at the full offline width, which exceeds a
+     block's shared memory and takes K2's launch sequence; each route's
+     CUDA kernels per update checked (1; 19 double-Q, 16 single-Q);
+  5. CUDA-event timing of each kernel (K2 on both routes) and its plain
+     version, beside the bound, and each update's device time by CUDA kernel
+     (torch.profiler);
   6. the offline workflow (identify_and_train_network) at full width through
      K1, with the exported artifact scored against the in-process module and
      the host's batch preprocessing timed beside the train step;
   7. the workflow at the sample config's shapes through K2;
-  8. K2's packed interface, K3 (fused MLP forward) and K4 (n-step replay
-     rewards) against their plain versions at the online path's shapes;
+  8. K2's packed interface (one launch), K3 (fused MLP forward) and K4
+     (n-step replay rewards) against their plain versions at the online
+     path's shapes;
   9. CUDA-event timing of those three and their plain versions, beside the
-     bound;
+     bound, K2's wrapper host time per call (both interfaces) and K2-packed's
+     device time by CUDA kernel;
  10. the fused online DQN loop at bench.py's width (CartPole, 4-128-64-2,
      minibatch 512, packed replay of 100,000): prefill 1,000, a 32-step
      lockstep check against the plain versions on the CPU, then 5,000 steps
@@ -54,7 +59,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      state and the same indices, and q_values on 64 rows through K3;
  20. the unfused scan path: make_sampled_train_fn(DQNTrainer, ...) on the
      same table with compute_dtype float32 and bfloat16, 200 steps each;
- 21. one JSON line describing each ported kernel.
+ 21. one JSON line describing each ported kernel (K2's rows with the CUDA
+     kernels per update of each route and the wrapper's host time).
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
 The last line is {"ok": true, "device": {...}}.  It needs no network, and it
@@ -86,6 +92,11 @@ FULL = dict(D=128, widths=[512, 256], A=8, B=4096, block=512, act="leaky_relu",
             gamma=0.99, tau=0.1, lr=1e-3)
 CARTPOLE = dict(D=4, widths=[128, 64], A=2, B=512, block=None, act="leaky_relu",
                 gamma=0.99, tau=0.2, lr=0.01)
+# K2 at the full offline width: both nets' weights (1.6 MB) exceed a block's
+# shared memory, so K2 takes its launch sequence instead of the one launch
+K2_LARGE = dict(FULL, B=512, block=None)
+ONE_LAUNCH = {True: 1, False: 1}       # CUDA kernels per K2 update, by double_q
+LAUNCH_SEQUENCE = {True: 19, False: 16}
 FUSED_STEPS = 5000  # bench.py's online_dqn runs 30,000; cut to fit the time limit
 GENERIC_STEPS = 1000
 # tests/test_gym_all_algos.py:98-115 prefills 20,000 and runs 30,000 steps; cut
@@ -176,11 +187,12 @@ def kernel_fns(cfg, double_q, dtypes=None):
     return fused_dqn.fused_dqn_update, fused_dqn.fused_dqn_update_reference, kw
 
 
-def compare_kernel(name, cfg, torch):
+def compare_kernel(name, cfg, torch, kernels=None):
     """5 lockstep updates of the kernel and its plain version from one state,
     double-Q and single-Q.  Tolerances: float32 sums taken in another order,
     which Adam amplifies where |g| is small (td_loss/metrics rtol 2e-4,
-    atol 2e-5; final params rtol 5e-4, atol 5e-5)."""
+    atol 2e-5; final params rtol 5e-4, atol 5e-5).  ``kernels``: the CUDA
+    kernels per update the route must launch, by double_q."""
     worst = 0.0
     for double_q in (True, False):
         kern, plain, kw = kernel_fns(cfg, double_q)
@@ -189,6 +201,9 @@ def compare_kernel(name, cfg, torch):
         for step in range(5):
             lr_t, eps_t = step_scalars(torch, step, cfg["lr"], DEVICE)
             mk = kern(lr_t, eps_t, *batch, p_kern, **kw)
+            if kernels is not None and kern.kernels_per_update != kernels[double_q]:
+                raise AssertionError(f"{name} double_q={double_q} launched "
+                                     f"{kern.kernels_per_update} CUDA kernels, not {kernels[double_q]}")
             mp = plain(lr_t, eps_t, *batch, p_plain, **kw)
             diff = (mk - mp).abs().max().item()
             rel = ((mk - mp).abs() / mp.abs().clamp_min(1e-30)).max().item()
@@ -250,16 +265,22 @@ def profiled_rows(prof, n):
 def profile_update(cfg, torch, n=5, dtypes=None):
     """Device time of one update by CUDA kernel (torch.profiler over n
     updates, averaged)."""
-    from torch.profiler import ProfilerActivity, profile
-
     kern, _, kw = kernel_fns(cfg, True, dtypes)
     _, batch, params = make_inputs(cfg, 5, torch, "cuda")
     lr_t, eps_t = step_scalars(torch, 0, cfg["lr"], "cuda")
-    kern(lr_t, eps_t, *batch, params, **kw)
+    return profile_calls(torch, lambda: kern(lr_t, eps_t, *batch, params, **kw), n)
+
+
+def profile_calls(torch, fn, n=5):
+    """Device time of one call of ``fn`` by CUDA kernel (torch.profiler over
+    n calls, averaged), one row per kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            kern(lr_t, eps_t, *batch, params, **kw)
+            fn()
         torch.cuda.synchronize()
     rows, _ = profiled_rows(prof, n)
     total = sum(r[0] for r in rows)
@@ -579,6 +600,9 @@ def compare_k2_packed(torch):
             rows, next_rows = packed_rows(torch, step, DEVICE), packed_rows(torch, 100 + step, DEVICE)
             lr_t, eps_t = step_scalars(torch, step, CARTPOLE["lr"], DEVICE)
             mk = fused_dqn.fused_dqn_update_packed(lr_t, eps_t, rows, next_rows, p_kern, **kw)
+            if fused_dqn.fused_dqn_update_packed.kernels_per_update != 1:
+                raise AssertionError("K2-packed did not run as one launch: "
+                                     f"{fused_dqn.fused_dqn_update_packed.kernels_per_update}")
             mp = fused_dqn.fused_dqn_update_packed_reference(
                 lr_t, eps_t, rows, next_rows, p_plain, **kw)
             torch.testing.assert_close(mk, mp, rtol=2e-4, atol=2e-5)
@@ -647,26 +671,52 @@ def compare_k4(torch):
     return worst
 
 
-def time_online_kernels(torch, name):
-    """CUDA-event times (3 warm-ups, median of 20) of K2-packed, K3 and K4
-    and their plain versions at the main path's shapes, with each bound."""
-    from reagent_tpu_torch.ops import fused_dqn, fused_mlp, nstep_replay
+def k2_packed_call(torch, seed=99):
+    """(K2-packed call, its plain version's call) on one state and batch at
+    the online loop's shapes, double-Q."""
+    from reagent_tpu_torch.ops import fused_dqn
 
-    out = {}
     kw = k2_packed_kw(True)
-    _, _, p_kern = make_inputs(CARTPOLE, 99, torch, DEVICE)
+    _, _, p_kern = make_inputs(CARTPOLE, seed, torch, DEVICE)
     p_plain = [p.clone() for p in p_kern]
     rows, next_rows = packed_rows(torch, 1, DEVICE), packed_rows(torch, 2, DEVICE)
     lr_t, eps_t = step_scalars(torch, 0, CARTPOLE["lr"], DEVICE)
+    return (lambda: fused_dqn.fused_dqn_update_packed(lr_t, eps_t, rows, next_rows, p_kern, **kw),
+            lambda: fused_dqn.fused_dqn_update_packed_reference(
+                lr_t, eps_t, rows, next_rows, p_plain, **kw))
+
+
+def time_k2_packed(torch, name):
+    """K2-packed's and its plain version's CUDA-event times, the bound and
+    its work (the batch is read as the raw [512, 8] rows)."""
+    kern, plain = k2_packed_call(torch)
     flops, P = update_work(CARTPOLE, True)
     B = CARTPOLE["B"]
     nbytes = 4.0 * (2 * B * ROW_WIDTH + 2 + 2 * 8 * P + 4)
-    out["K2-packed"] = (
-        time_ms(torch, lambda: fused_dqn.fused_dqn_update_packed(
-            lr_t, eps_t, rows, next_rows, p_kern, **kw)),
-        time_ms(torch, lambda: fused_dqn.fused_dqn_update_packed_reference(
-            lr_t, eps_t, rows, next_rows, p_plain, **kw)),
-        *roofline(flops, nbytes, name), flops, nbytes, "rows [512, 8], double-Q")
+    return (time_ms(torch, kern), time_ms(torch, plain), *roofline(flops, nbytes, name),
+            flops, nbytes, "rows [512, 8], double-Q")
+
+
+def host_us_per_call(torch, fn, n=200):
+    """Host time of one call in us: time.perf_counter over ``n`` calls with no
+    sync between them.  With one launch per update, the ctypes wrapper's own
+    checks and set-up are most of what an update costs the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def time_online_kernels(torch, name):
+    """CUDA-event times (3 warm-ups, median of 20) of K2-packed, K3 and K4
+    and their plain versions at the main path's shapes, with each bound."""
+    from reagent_tpu_torch.ops import fused_mlp, nstep_replay
+
+    out = {"K2-packed": time_k2_packed(torch, name)}
 
     for rows_k3 in (1, EVAL_EPISODES):
         x, weights, acts = k3_inputs(torch, rows_k3, 7)
@@ -1613,13 +1663,15 @@ def main() -> int:
     log(f"  built {[os.path.basename(p) for p in libs]} in {time.perf_counter() - t0:.2f} s")
 
     log("phase 3: K1 against its plain version (full width)")
-    err_k1 = compare_kernel("K1", FULL, torch)
-    log("phase 4: K2 against its plain version (CartPole sample shapes)")
-    err_k2 = compare_kernel("K2", CARTPOLE, torch)
+    err_k1 = compare_kernel("K1", FULL, torch, LAUNCH_SEQUENCE)
+    log("phase 4: K2 against its plain version: one launch at the CartPole sample shapes, "
+        "the launch sequence at the full offline width")
+    err_k2 = compare_kernel("K2", CARTPOLE, torch, ONE_LAUNCH)
+    err_k2_seq = compare_kernel("K2 (launch sequence)", K2_LARGE, torch, LAUNCH_SEQUENCE)
 
     log("phase 5: timing (CUDA events, 3 warm-ups, median of 20)")
     timing = {}
-    for kname, cfg in (("K1", FULL), ("K2", CARTPOLE)):
+    for kname, cfg in (("K1", FULL), ("K2", CARTPOLE), ("K2 (launch sequence)", K2_LARGE)):
         timing[kname] = time_kernel(cfg, torch, name)
         ms, plain_ms, b_ms, b_by, flops, nbytes = timing[kname]
         log(f"  {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -1647,6 +1699,16 @@ def main() -> int:
     for kname, (ms, plain_ms, b_ms, b_by, flops, nbytes, shapes) in online_timing.items():
         log(f"  {kname} ({shapes}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.6f} ms ({b_by}; {flops:.4g} FLOP, {nbytes:.4g} B), on {card}")
+    kern_t, _, kw_t = kernel_fns(CARTPOLE, True)
+    _, batch_t, params_t = make_inputs(CARTPOLE, 98, torch, DEVICE)
+    lr_t, eps_t = step_scalars(torch, 0, CARTPOLE["lr"], DEVICE)
+    host_us = {"K2-packed": host_us_per_call(torch, k2_packed_call(torch)[0]),
+               "K2": host_us_per_call(torch, lambda: kern_t(lr_t, eps_t, *batch_t, params_t, **kw_t))}
+    log(f"  K2 wrapper host time per call (time.perf_counter over 200 calls, no sync): "
+        f"packed {host_us['K2-packed']:.1f} us, tensor {host_us['K2']:.1f} us, "
+        f"{fused_dqn.fused_dqn_update_packed.kernels_per_update} CUDA kernel per update")
+    log("  K2-packed device time by CUDA kernel (torch.profiler, mean of 5 updates):")
+    profile_calls(torch, k2_packed_call(torch)[0])
 
     log(f"phase 10: fused online loop at the bench's width ({FUSED_STEPS} steps)")
     fused_launches, fused_rate, _ = fused_loop_phase(torch, FUSED_STEPS)
@@ -1755,6 +1817,8 @@ def main() -> int:
          timing["K1-bf16"]),
         ("K2 fused_dqn_update", fused_dqn.fused_dqn_update,
          "reagent_tpu/ops/fused_dqn.py:259", err_k2, timing["K2"]),
+        # the packed interface reads the batch in place; both interfaces run
+        # one C kernel, or the launch sequence where the shapes exceed it
         ("K2 fused_dqn_update_packed", fused_dqn.fused_dqn_update_packed,
          "reagent_tpu/ops/fused_dqn.py:259", err_k2p, online_timing["K2-packed"]),
         ("K3 fused_mlp_forward", None, "reagent_tpu/ops/fused_mlp.py:75", err_k3,
@@ -1788,6 +1852,16 @@ def main() -> int:
                                    "bound_ms": t["bwd_bound"][0]} for k, t in k5_shapes.items()}
         if fn is not None:
             row["cuda_kernels_per_launch"] = fn.kernels_per_update
+        if kname.startswith("K2"):
+            # phase 4 held each route to these counts (double-Q)
+            row["cuda_kernels_per_launch_by_route"] = {
+                "one launch (CartPole shapes)": ONE_LAUNCH[True],
+                "launch sequence (D=128, 512, 256, A=8)": LAUNCH_SEQUENCE[True]}
+            row["wrapper_host_us"] = host_us["K2-packed" if kname.endswith("packed") else "K2"]
+        if kname == "K2 fused_dqn_update":
+            seq = timing["K2 (launch sequence)"]
+            row["launch_sequence"] = {"max_abs_err": err_k2_seq, "ms": seq[0], "plain_ms": seq[1],
+                                      "bound_ms": seq[2], "bound_by": seq[3]}
         if kname.endswith("(bf16)"):
             row["cuda_kernels_per_launch"] = (
                 fused_dqn_offline.fused_dqn_offline_update.bf16_kernels_per_update)

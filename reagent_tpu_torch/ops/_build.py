@@ -119,14 +119,20 @@ def build_all() -> List[Path]:
         return list(pool.map(_compile, sources))
 
 
+def bind(src: Path, name: str) -> ctypes.CDLL:
+    """Build (if needed) and load the source ``src`` with the C interface of
+    ``csrc/<name>.cu``, argtypes set; not cached."""
+    lib = ctypes.CDLL(str(_compile(src)))
+    for fn, (restype, argtypes) in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.restype = restype
+        f.argtypes = argtypes
+    return lib
+
+
 def load_library(name: str = "fused_dqn") -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``, with argtypes set."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(_compile(CSRC / f"{name}.cu")))
-        for fn, (restype, argtypes) in _SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.restype = restype
-            f.argtypes = argtypes
-        _loaded[name] = lib
+        lib = _loaded[name] = bind(CSRC / f"{name}.cu", name)
     return lib

@@ -6,14 +6,47 @@
 //   K1  reagent_tpu/ops/fused_dqn_offline.py::make_fused_dqn_offline_kernel
 //       -> C entry fused_dqn_offline_update (batch split into 256-row chunks)
 //   K2  reagent_tpu/ops/fused_dqn.py::make_fused_dqn_train_kernel
-//       tensor interface -> C entry fused_dqn_update (whole batch as one
-//       chunk); packed interface (packed=, :164-176) -> C entry
-//       fused_dqn_update_packed, which reads raw PackedReplayBuffer rows in
-//       place: the observation GEMMs take the rows' stride, and the TD-row
-//       kernel reads the action, reward and terminal columns, builds the
-//       one-hot as |a - j| < 0.5 and sets nt = 1 - terminal (no mask).
+//       tensor interface -> C entry fused_dqn_update; packed interface
+//       (packed=, :164-176) -> C entry fused_dqn_update_packed, which reads
+//       raw PackedReplayBuffer rows in place: the observation columns through
+//       the rows' stride, the action, reward and terminal columns per row, the
+//       one-hot as |a - j| < 0.5, nt = 1 - terminal, and no mask.
 //
-// One update is a fixed sequence of launches on the caller's stream:
+// K2 is one launch per update (k2_one_launch_kernel), the TPU kernel's own
+// shape: that kernel keeps the whole update in VMEM.  At the online shapes
+// (4 -> 128 -> 64 -> 2, B = 512) the update is 44 MFLOP, 0.00067 ms at the
+// card's f32 rate, so what bounds it is launch latency and the serial chain
+// of small dependent products, not operations or bytes.  Design:
+//   * G blocks of R = ceil(B / G) batch rows (R = 8 where ceil(B / 8)
+//     blocks can be co-resident).  Each block stages both nets' W and b into
+//     dynamic shared memory (16-byte loads, several in flight a thread; rows
+//     at an odd pitch so a warp reading a column hits distinct banks) with
+//     its obs and nobs rows;
+//   * it runs its rows through the online net over obs (every layer's output
+//     kept), the online net over nobs (double-Q only) and the target net over
+//     nobs, each layer one product in shared memory with the bias and
+//     activation fused in; then the TD rows (penalty, first-index argmax, y,
+//     err, dL/dq, per-row metric terms); then dz back through the layers
+//     (OLD weights, in shared memory), writing each layer's input and dz rows
+//     to a workspace;
+//   * one grid-wide barrier (cooperative launch, cooperative_groups grid
+//     sync; every block co-resident by construction).  Then the blocks, and
+//     as many more as there are tiles of the gradient (up to what the card
+//     holds at once), share out TN x TK tiles of each layer's [dW | db]: each
+//     entry is one fma chain over all B rows in order, staged through shared
+//     memory, which is the launch sequence's order, so both routes give the
+//     same gradient bit for bit (the f32 Adam trajectories part where |g| is
+//     at rounding level, so the order matters at K2's tolerances).  Each
+//     thread applies Adam, the parameter write and the polyak blend to its
+//     entry in place; every block read the old weights before the barrier.
+//     Block 0 sums the row blocks' metric terms in block order.
+// Shapes whose weights and one block's rows exceed the 227 KB of shared
+// memory, or whose blocks cannot all be co-resident, take the launch
+// sequence below (16 launches single-Q, 19 double-Q); the entry decides from
+// the shapes and the device before any launch and reports the count.
+//
+// K1 (and K2 where the one launch does not fit) is a fixed sequence of
+// launches on the caller's stream:
 //   (a) per layer, a shared-memory-tiled GEMM  h = act(x . W^T + b)  for the
 //       online net over obs (outputs saved for the backward), the online net
 //       over nobs (double-Q only) and the target net over nobs;
@@ -26,11 +59,12 @@
 //   (d) one elementwise kernel that sums the chunks in fixed order and applies
 //       Adam, the parameter write and the polyak blend, in place;
 //   and a one-block kernel that finishes the metrics row.
-// No atomics anywhere: the result repeats bit for bit from run to run.
+// No atomics in any value path, in either design: the result repeats bit for
+// bit from run to run.
 //
-// Bound: f32 operations (about 5 * B * sum(in*out) multiply-adds, no tensor
-// cores at this precision) against a few MB of traffic.  This first design
-// is a plain 64x64x16 tile with a 4x4 register block per thread.
+// Bound of K1: f32 operations (about 5 * B * sum(in*out) multiply-adds, no
+// tensor cores at this precision) against a few MB of traffic.  Its GEMM is a
+// plain 64x64x16 tile with a 4x4 register block per thread.
 //
 // K1 with matmul_dtype=bfloat16 (reagent_tpu/ops/fused_dqn_offline.py:71-72,
 // :96-100) -> C entry fused_dqn_offline_update_bf16.  Every product rounds
@@ -56,6 +90,7 @@
 // Interface: plain C, bound with ctypes; every entry returns cudaGetLastError()
 // after each launch (0 on success).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -730,6 +765,563 @@ BatchIn tensor_batch(int D, const void* obs, const void* nobs, const void* act,
   return in;
 }
 
+// ----------------------------------------------------------------------------
+// K2 in one launch: blocks of R batch rows, each holding both nets' weights
+// in shared memory, then one grid-wide barrier, then the weight-gradient
+// tiles and Adam (see the header).
+
+constexpr int ONE_THREADS = 256;
+constexpr int ONE_ROWS = 8;     // rows a block takes when the grid can hold B / 8 blocks
+constexpr int ONE_PLAN_TRIES = 8;
+
+// Shared-memory matrices have an odd row pitch: a warp reading a column of
+// them (16 or 32 rows at one k) then hits distinct banks.
+__host__ __device__ __forceinline__ int pitch_of(int n) { return n | 1; }
+
+// Float offsets into a block's dynamic shared memory.
+struct OneLayout {
+  int w[MAX_LAYERS], b[MAX_LAYERS];    // online W [out][pitch(in)], b [out]
+  int wt[MAX_LAYERS], bt[MAX_LAYERS];  // the target net's, alike
+  int h[MAX_LAYERS + 1];               // h[0]: the block's obs rows; h[i]: the online
+                                       // net's layer i-1 output over them (h[L] = q)
+  int nx, s0, s1, qn, qt, rowv;        // nobs rows, two scratch buffers (forward
+                                       // ping-pong, then dz), q over nobs, per-row sums
+};
+
+struct OneArgs {
+  int L, B, R, double_q;
+  int G_rows, G;                // blocks with batch rows; all blocks (the rest only
+                                // take weight-gradient tiles after the barrier)
+  int smem_floats;              // dynamic shared memory of a block
+  int dims[MAX_LAYERS + 1];
+  int acts[MAX_LAYERS];
+  long long hg[MAX_LAYERS];     // workspace: layer i's input over the batch [B, in]
+  long long dzg[MAX_LAYERS];    // workspace: dL/dz of layer i [B, out]
+  long long mg;                 // workspace: [G_rows, 4] metric sums
+  float* prm[8 * MAX_LAYERS];   // params8: W, b, Wt, bt, mW, mb, vW, vb (L each)
+  BatchIn in;
+  const float* lr_t;
+  const float* eps_t;
+  float* metrics;
+  float* ws;
+  float gamma, two_over_b;
+  AdamConsts ac;
+  OneLayout sm;
+};
+
+// After the barrier the [out, in + 1] gradient [dW | db] of each layer is cut
+// into tiles of TN x TK entries (TK = in + 1 up to 32, a power of two; TN =
+// ONE_THREADS / TK), one entry per thread.
+__host__ __device__ __forceinline__ int tile_k_bits(int in) {
+  int b = 0;
+  while ((1 << b) < in + 1 && b < 5) ++b;
+  return b;
+}
+
+__host__ __device__ __forceinline__ int layer_tiles(int in, int out) {
+  const int kb = tile_k_bits(in);
+  const int tk = 1 << kb, tn = ONE_THREADS >> kb;
+  return ((in + 1 + tk - 1) / tk) * ((out + tn - 1) / tn);
+}
+
+// The shared-memory layout for blocks of R rows; returns its size in floats.
+long long one_layout(int L, const int* dims, int R, OneLayout* s) {
+  long long off = 0;
+  auto take = [&off](long long floats) {
+    const long long at = off;
+    off += floats;
+    return (int)at;
+  };
+  for (int i = 0; i < L; ++i) {
+    s->w[i] = take((long long)dims[i + 1] * pitch_of(dims[i]));
+    s->b[i] = take(dims[i + 1]);
+  }
+  for (int i = 0; i < L; ++i) {
+    s->wt[i] = take((long long)dims[i + 1] * pitch_of(dims[i]));
+    s->bt[i] = take(dims[i + 1]);
+  }
+  int maxw = 0;
+  for (int i = 1; i <= L; ++i) maxw = dims[i] > maxw ? dims[i] : maxw;
+  for (int i = 0; i <= L; ++i) s->h[i] = take((long long)R * pitch_of(dims[i]));
+  s->nx = take((long long)R * pitch_of(dims[0]));
+  s->s0 = take((long long)R * pitch_of(maxw));
+  s->s1 = take((long long)R * pitch_of(maxw));
+  s->qn = take((long long)R * pitch_of(dims[L]));
+  s->qt = take((long long)R * pitch_of(dims[L]));
+  s->rowv = take(4LL * R);
+  // after the barrier the whole region stages gradient tiles, at least 64 rows
+  constexpr long long stage_min = 64LL * (ONE_THREADS / 2 + 2);
+  return off > stage_min ? off : stage_min;
+}
+
+// Loads a thread keeps in flight while it fills shared memory: a load from
+// L2 takes hundreds of cycles, and a loop that stores each value before it
+// issues the next load pays that once per element.
+constexpr int IN_FLIGHT = 8;
+
+// dst[e] = value_at(e) for e < n, IN_FLIGHT loads per thread at a time.
+template <class F>
+__device__ __forceinline__ void fill(float* dst, int n, F value_at) {
+  for (int e0 = threadIdx.x; e0 < n; e0 += IN_FLIGHT * ONE_THREADS) {
+    float v[IN_FLIGHT];
+#pragma unroll
+    for (int j = 0; j < IN_FLIGHT; ++j) {
+      const int e = e0 + j * ONE_THREADS;
+      v[j] = e < n ? value_at(e) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < IN_FLIGHT; ++j) {
+      const int e = e0 + j * ONE_THREADS;
+      if (e < n) dst[e] = v[j];
+    }
+  }
+}
+
+// rows x cols of a contiguous matrix in device memory into shared memory at
+// row pitch `pitch`, with 16-byte loads (IN_FLIGHT / 2 at a time) where the
+// source is 16-byte aligned.
+__device__ __forceinline__ void stage(float* dst, int pitch, const float* src, int rows, int cols) {
+  constexpr int V = IN_FLIGHT / 2;
+  const int total = rows * cols;
+  int done = 0;
+  if ((reinterpret_cast<size_t>(src) & 15) == 0) {
+    const int n4 = total / 4;
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    for (int q0 = threadIdx.x; q0 < n4; q0 += V * ONE_THREADS) {
+      float4 v[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (q0 + j * ONE_THREADS < n4) v[j] = s4[q0 + j * ONE_THREADS];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int q = q0 + j * ONE_THREADS;
+        if (q < n4) {
+          const float vals[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+          int r = (4 * q) / cols, c = (4 * q) % cols;
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            dst[r * pitch + c] = vals[t];
+            if (++c == cols) { c = 0; ++r; }
+          }
+        }
+      }
+    }
+    done = 4 * n4;
+  }
+  for (int e = done + threadIdx.x; e < total; e += ONE_THREADS)
+    dst[(e / cols) * pitch + e % cols] = src[e];
+}
+
+// C(m, n) = sum_k A[m*sam + k*sak] * Bm[k*sbk + n*sbn] for m < M, n < N, both
+// operands in shared memory; epi(m, n, sum) stores each result.  The block's
+// threads form a TY x TX grid (TX = 2^txb); each owns MI x NJ outputs of a
+// tile, m = m0 + ty + TY*i and n = n0 + tx + TX*j.  Rows and columns past the
+// edge read row/column 0 and are not stored.
+template <int MI, int NJ, class Epi>
+__device__ __forceinline__ void product_tiles(const float* __restrict__ A, int sam, int sak,
+                                              const float* __restrict__ Bm, int sbk, int sbn,
+                                              int M, int N, int K, int txb, Epi epi) {
+  const int TX = 1 << txb, TY = ONE_THREADS >> txb;
+  const int tx = threadIdx.x & (TX - 1), ty = threadIdx.x >> txb;
+  for (int m0 = 0; m0 < M; m0 += MI * TY) {
+    for (int n0 = 0; n0 < N; n0 += NJ * TX) {
+      int ao[MI], bo[NJ];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int m = m0 + ty + TY * i;
+        ao[i] = (m < M ? m : 0) * sam;
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int n = n0 + tx + TX * j;
+        bo[j] = (n < N ? n : 0) * sbn;
+      }
+      float acc[MI][NJ];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+      for (int k = 0; k < K; ++k) {
+        float a[MI], b[NJ];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) a[i] = A[ao[i] + k * sak];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) b[j] = Bm[bo[j] + k * sbk];
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int m = m0 + ty + TY * i;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int n = n0 + tx + TX * j;
+          if (m < M && n < N) epi(m, n, acc[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// The product above with each thread's MI x NJ block chosen from the outputs
+// per thread (up to 4 x 4) and TX from N, so that few outputs go idle.
+template <class Epi>
+__device__ __forceinline__ void product(const float* A, int sam, int sak, const float* Bm,
+                                        int sbk, int sbn, int M, int N, int K, Epi epi) {
+  const int per = (M * N + ONE_THREADS - 1) / ONE_THREADS;
+  const int nj = (per >= 4 && N >= 4) ? 4 : ((per >= 2 && N >= 2) ? 2 : 1);
+  const int mi = per >= 4 * nj ? 4 : (per >= 2 * nj ? 2 : 1);
+  int txb = 0;
+  while ((nj << txb) < N && txb < 8) ++txb;
+#define ONE_PRODUCT(I, J) \
+  product_tiles<I, J>(A, sam, sak, Bm, sbk, sbn, M, N, K, txb, epi)
+  if (mi == 4) {
+    if (nj == 4) ONE_PRODUCT(4, 4); else if (nj == 2) ONE_PRODUCT(4, 2); else ONE_PRODUCT(4, 1);
+  } else if (mi == 2) {
+    if (nj == 4) ONE_PRODUCT(2, 4); else if (nj == 2) ONE_PRODUCT(2, 2); else ONE_PRODUCT(2, 1);
+  } else {
+    if (nj == 4) ONE_PRODUCT(1, 4); else if (nj == 2) ONE_PRODUCT(1, 2); else ONE_PRODUCT(1, 1);
+  }
+#undef ONE_PRODUCT
+}
+
+// y[m][n] = act(sum_k x[m][k] * W[n][k] + b[n]) for the block's M rows.
+__device__ __forceinline__ void dense_rows(const float* x, int px, const float* W, int pw,
+                                           const float* b, float* y, int py, int M, int N,
+                                           int K, int act) {
+  product(x, px, 1, W, 1, pw, M, N, K,
+          [=](int m, int n, float s) { y[m * py + n] = act_fwd(s + b[n], act); });
+}
+
+// Adam, the parameter write and the polyak blend of entry o, gradient g.
+__device__ __forceinline__ void adam_entry(float* p, float* pt, float* m, float* v, long long o,
+                                           float g, float lr_t, float eps_t,
+                                           const AdamConsts& c) {
+  const float m_n = c.b1 * m[o] + c.one_minus_b1 * g;
+  const float v_n = c.b2 * v[o] + c.one_minus_b2 * g * g;
+  const float p_n = p[o] - lr_t * m_n / (sqrtf(v_n) + eps_t);
+  m[o] = m_n;
+  v[o] = v_n;
+  p[o] = p_n;
+  pt[o] = c.tau * p_n + c.one_minus_tau * pt[o];
+}
+
+__global__ void __launch_bounds__(ONE_THREADS)
+k2_one_launch_kernel(const OneArgs a) {
+  extern __shared__ float sm[];
+  __shared__ int dims[MAX_LAYERS + 1], acts[MAX_LAYERS], hoff[MAX_LAYERS + 1];
+  __shared__ int woff[MAX_LAYERS], boff[MAX_LAYERS], wtoff[MAX_LAYERS], btoff[MAX_LAYERS];
+  const int tid = threadIdx.x, g = blockIdx.x;
+  const int L = a.L, R = a.R;
+  if (tid <= L) {
+    dims[tid] = a.dims[tid];
+    hoff[tid] = a.sm.h[tid];
+  }
+  if (tid < L) {
+    acts[tid] = a.acts[tid];
+    woff[tid] = a.sm.w[tid];
+    boff[tid] = a.sm.b[tid];
+    wtoff[tid] = a.sm.wt[tid];
+    btoff[tid] = a.sm.bt[tid];
+  }
+  const BatchIn in = a.in;
+  const int r0 = g * R;
+  const int Rb = min(R, a.B - r0);   // this block's rows
+  const int D = a.dims[0], A = a.dims[L];
+  const int nx = a.sm.nx, s0 = a.sm.s0, s1 = a.sm.s1, qn = a.sm.qn, qt = a.sm.qt;
+  const int rowv = a.sm.rowv;
+
+  float* ws = a.ws;
+  float* dz = sm + s0;
+  float* dz_next = sm + s1;
+  if (g < a.G_rows) {  // rows
+    // (0) both nets' weights and the block's obs and nobs rows into shared memory
+    for (int i = 0; i < L; ++i) {
+      const int N = a.dims[i + 1], K = a.dims[i];
+      stage(sm + a.sm.w[i], pitch_of(K), a.prm[i], N, K);
+      stage(sm + a.sm.b[i], N, a.prm[L + i], 1, N);
+      stage(sm + a.sm.wt[i], pitch_of(K), a.prm[2 * L + i], N, K);
+      stage(sm + a.sm.bt[i], N, a.prm[3 * L + i], 1, N);
+    }
+    const int px = pitch_of(D);
+    for (int e = tid; e < Rb * D; e += ONE_THREADS) {
+      const int r = e / D, c = e % D;
+      sm[a.sm.h[0] + r * px + c] = in.obs[(long long)(r0 + r) * in.obs_ld + c];
+      sm[nx + r * px + c] = in.nobs[(long long)(r0 + r) * in.nobs_ld + c];
+    }
+    __syncthreads();
+
+    // (1) the online net over obs, every layer's output kept for the backward
+    for (int i = 0; i < L; ++i) {
+      dense_rows(sm + hoff[i], pitch_of(dims[i]), sm + woff[i], pitch_of(dims[i]), sm + boff[i],
+                 sm + hoff[i + 1], pitch_of(dims[i + 1]), Rb, dims[i + 1], dims[i], acts[i]);
+      __syncthreads();
+    }
+    // (2) the online net over nobs (double-Q), then the target net over nobs
+    for (int net = a.double_q ? 0 : 1; net < 2; ++net) {
+      const int* w = net ? wtoff : woff;
+      const int* b = net ? btoff : boff;
+      const float* x = sm + nx;
+      int pin = px;
+      for (int i = 0; i < L; ++i) {
+        float* y = sm + (i == L - 1 ? (net ? qt : qn) : ((i & 1) ? s1 : s0));
+        const int py = pitch_of(dims[i + 1]);
+        dense_rows(x, pin, sm + w[i], pitch_of(dims[i]), sm + b[i], y, py, Rb, dims[i + 1],
+                   dims[i], acts[i]);
+        __syncthreads();
+        x = y;
+        pin = py;
+      }
+    }
+
+    // (3) TD rows: penalty, first-index argmax, y, err, dL/dq (into s0) and the
+    // per-row terms of the metrics
+    const int pa = pitch_of(A);
+    const float* q = sm + hoff[L];
+    const float* q_t = sm + qt;
+    const float* sel_q = a.double_q ? sm + qn : q_t;
+    for (int r = tid; r < Rb; r += ONE_THREADS) {
+      const int m = r0 + r;
+      const long long gr = (long long)m * A;
+      const float rew = in.rows ? in.rows[m * in.rows_ld + in.rew_col] : in.rew[m];
+      const float nt = in.rows ? 1.f - in.rows[m * in.rows_ld + in.term_col] : in.nt[m];
+      int best = 0;
+      float best_v = sel_q[r * pa] + penalty_at(in, gr, 0);
+      for (int j = 1; j < A; ++j) {
+        const float v = sel_q[r * pa + j] + penalty_at(in, gr, j);
+        if (v > best_v) { best_v = v; best = j; }  // first index wins ties
+      }
+      const float y = rew + a.gamma * (q_t[r * pa + best] + penalty_at(in, gr, best)) * nt;
+      float q_taken = 0.f, q_sum = 0.f;
+      for (int j = 0; j < A; ++j) {
+        q_taken += q[r * pa + j] * action_at(in, m, gr, j);
+        q_sum += q[r * pa + j];
+      }
+      const float err = q_taken - y;
+      const float gs = a.two_over_b * err;
+      for (int j = 0; j < A; ++j) dz[r * pa + j] = gs * action_at(in, m, gr, j);
+      sm[rowv + r] = err * err;
+      sm[rowv + R + r] = q_sum;
+      sm[rowv + 2 * R + r] = q_taken;
+      sm[rowv + 3 * R + r] = rew;
+    }
+    __syncthreads();
+    if (tid < 4) {
+      float t = 0.f;
+      for (int r = 0; r < Rb; ++r) t += sm[rowv + tid * R + r];
+      ws[a.mg + g * 4 + tid] = t;
+    }
+
+    // (4) the backward over the block's rows, last layer first: each layer's
+    // input and dz rows into the workspace for the weight gradient, and dz
+    // through the OLD weights (still in shared memory) times act'
+    for (int i = L - 1; i >= 0; --i) {
+      const int N = dims[i + 1], K = dims[i];
+      const int pz = pitch_of(N), ph = pitch_of(K);
+      const float* hp = sm + hoff[i];
+      const float* dzc = dz;
+      for (int e = tid; e < Rb * N; e += ONE_THREADS)
+        ws[a.dzg[i] + (long long)r0 * N + e] = dzc[(e / N) * pz + e % N];
+      for (int e = tid; e < Rb * K; e += ONE_THREADS)
+        ws[a.hg[i] + (long long)r0 * K + e] = hp[(e / K) * ph + e % K];
+      if (i > 0) {
+        const int act = acts[i - 1];
+        float* dn = dz_next;
+        product(dzc, pz, 1, sm + woff[i], pitch_of(K), 1, Rb, K, N,
+                [=](int m, int n, float s) {
+                  dn[m * ph + n] = s * act_grad_from_h(hp[m * ph + n], act);
+                });
+      }
+      __syncthreads();
+      float* t = dz; dz = dz_next; dz_next = t;
+    }
+  }  // rows
+
+  // (5) after the barrier every block has read the old weights and written its
+  // rows; the blocks share out tiles of each layer's [dW | db] (entry (n, j) =
+  // sum over all B rows IN ORDER of dz[r, n] * [h | 1][r, j], the launch
+  // sequence's order) and apply Adam and the polyak blend to their entries
+  cooperative_groups::this_grid().sync();
+  const float lr_t = *a.lr_t, eps_t = *a.eps_t;
+  const AdamConsts c = a.ac;
+  const int B = a.B, G = a.G;
+  int first = 0;  // the layer's first tile in the numbering over all layers
+  for (int i = 0; i < L; ++i) {
+    const int N = dims[i + 1], K = dims[i];
+    const int kb = tile_k_bits(K), TK = 1 << kb, TN = ONE_THREADS >> kb;
+    const int ktiles = (K + 1 + TK - 1) / TK;
+    const int tiles = layer_tiles(K, N);
+    const int rc_max = min(B, a.smem_floats / (TN + TK));
+    float* dz_s = sm;
+    float* h_s = sm + rc_max * TN;
+    const float* DZ = ws + a.dzg[i];
+    const float* H = ws + a.hg[i];
+    const int nn = tid >> kb, kk = tid & (TK - 1);
+    for (int u = ((g - first) % G + G) % G; u < tiles; u += G) {
+      const int n0 = (u / ktiles) * TN, k0 = (u % ktiles) * TK;
+      const int n = n0 + nn, k = k0 + kk;
+      float acc = 0.f;
+      for (int c0 = 0; c0 < B; c0 += rc_max) {
+        const int rc = min(rc_max, B - c0);
+        __syncthreads();  // the previous chunk is used up
+        fill(dz_s, rc * TN, [=](int e) {
+          const int nj = n0 + (e & (TN - 1));
+          return nj < N ? __ldcg(DZ + (long long)(c0 + e / TN) * N + nj) : 0.f;
+        });
+        fill(h_s, rc * TK, [=](int e) {
+          const int kj = k0 + (e & (TK - 1));
+          return kj < K ? __ldcg(H + (long long)(c0 + (e >> kb)) * K + kj)
+                        : (kj == K ? 1.f : 0.f);
+        });
+        __syncthreads();
+#pragma unroll 8
+        for (int r = 0; r < rc; ++r) acc = fmaf(dz_s[r * TN + nn], h_s[r * TK + kk], acc);
+      }
+      if (n < N && k < K)
+        adam_entry(a.prm[i], a.prm[2 * L + i], a.prm[4 * L + i], a.prm[6 * L + i],
+                   (long long)n * K + k, acc, lr_t, eps_t, c);
+      else if (n < N && k == K)
+        adam_entry(a.prm[L + i], a.prm[3 * L + i], a.prm[5 * L + i], a.prm[7 * L + i], n, acc,
+                   lr_t, eps_t, c);
+    }
+    first += tiles;
+  }
+  if (g == 0 && tid < 4) {
+    float s = 0.f;
+    for (int z = 0; z < a.G_rows; ++z) s += __ldcg(ws + a.mg + z * 4 + tid);
+    const float denom = (tid == 1) ? (float)B * (float)A : (float)B;
+    a.metrics[tid] = s / denom;
+  }
+}
+
+// What the host knows of a device, read once.
+struct OneDevice {
+  int ready, sms, cooperative;
+  size_t max_dynamic;  // dynamic shared memory a block of the kernel may take
+};
+constexpr int MAX_DEVICES = 64;
+OneDevice one_devices[MAX_DEVICES];
+
+struct OnePlan {
+  int fits, R, G_rows, G, smem_floats;
+  OneLayout sm;
+};
+
+cudaError_t one_device(OneDevice** out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  OneDevice* d = &one_devices[dev];
+  if (!d->ready) {
+    int optin = 0;
+    cudaFuncAttributes fa;
+    if ((e = cudaDeviceGetAttribute(&d->sms, cudaDevAttrMultiProcessorCount, dev)) ||
+        (e = cudaDeviceGetAttribute(&d->cooperative, cudaDevAttrCooperativeLaunch, dev)) ||
+        (e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) ||
+        (e = cudaFuncGetAttributes(&fa, (const void*)k2_one_launch_kernel)))
+      return e;
+    d->max_dynamic = (size_t)optin - fa.sharedSizeBytes;
+    e = cudaFuncSetAttribute((const void*)k2_one_launch_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)d->max_dynamic);
+    if (e != cudaSuccess) return e;
+    d->ready = 1;
+  }
+  *out = d;
+  return cudaSuccess;
+}
+
+// Whether K2 at these shapes runs as one launch on the current device, and
+// how: R = 8 rows a block where the grid of ceil(B / 8) blocks can be
+// co-resident, else as many rows as make it so, and as many more blocks as
+// there are weight-gradient tiles (up to what the card holds at once).  The
+// shapes and the device alone decide, before any launch.
+cudaError_t plan_one_launch(int L, const int* dims, int B, OnePlan* plan) {
+  plan->fits = 0;
+  if (L < 1 || L > MAX_LAYERS || B < 1) return cudaSuccess;
+  OneDevice* d = nullptr;
+  cudaError_t e = one_device(&d);
+  if (e != cudaSuccess) return e;
+  if (!d->cooperative) return cudaSuccess;
+  int tiles = 0;
+  for (int i = 0; i < L; ++i) tiles += layer_tiles(dims[i], dims[i + 1]);
+  int R = B < ONE_ROWS ? B : ONE_ROWS;
+  for (int t = 0; t < ONE_PLAN_TRIES; ++t) {
+    const long long floats = one_layout(L, dims, R, &plan->sm);
+    if (floats * 4 > (long long)d->max_dynamic) return cudaSuccess;  // weights + rows too large
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k2_one_launch_kernel, ONE_THREADS,
+                                                      (size_t)floats * 4);
+    if (e != cudaSuccess) return e;
+    const long long max_blocks = (long long)per_sm * d->sms;
+    if (max_blocks < 1) return cudaSuccess;
+    const int G = cdiv(B, R);
+    if (G <= max_blocks) {
+      plan->G_rows = G;
+      plan->R = cdiv(B, G);  // the same G blocks, rows spread evenly
+      plan->smem_floats = (int)one_layout(L, dims, plan->R, &plan->sm);
+      plan->G = (int)(tiles < max_blocks ? (tiles > G ? tiles : G) : max_blocks);
+      plan->fits = 1;
+      return cudaSuccess;
+    }
+    R = cdiv(B, max_blocks);
+  }
+  return cudaSuccess;
+}
+
+// The one-launch workspace: every layer's input and dz over the batch, then
+// the row blocks' metric sums; returns its size in floats.
+long long one_workspace(int L, const int* dims, int B, int G_rows, OneArgs* a) {
+  long long off = 0;
+  for (int i = 0; i < L; ++i) {
+    a->hg[i] = off;
+    off += ((long long)B * dims[i] + 3) / 4 * 4;
+    a->dzg[i] = off;
+    off += ((long long)B * dims[i + 1] + 3) / 4 * 4;
+  }
+  a->mg = off;
+  return off + 4LL * G_rows;
+}
+
+// K2: one launch where the shapes allow it, else run_update's sequence.
+int k2_update(int L, const int* dims, const int* acts, int B, int double_q, const float* consts,
+              void* const* params, const BatchIn& in, const float* lr_t, const float* eps_t,
+              float* metrics, float* ws, int* n_launches, cudaStream_t st) {
+  *n_launches = 0;
+  OnePlan plan;
+  cudaError_t e = plan_one_launch(L, dims, B, &plan);
+  if (e != cudaSuccess) return (int)e;
+  if (!plan.fits)
+    return run_update(L, dims, acts, B, double_q, consts, params, in, lr_t, eps_t, metrics, ws,
+                      n_launches, st, 0, Precision{0, 0});
+  OneArgs a{};
+  a.L = L; a.B = B; a.R = plan.R; a.double_q = double_q;
+  a.G_rows = plan.G_rows; a.G = plan.G; a.smem_floats = plan.smem_floats;
+  for (int i = 0; i <= L; ++i) a.dims[i] = dims[i];
+  for (int i = 0; i < L; ++i) a.acts[i] = acts[i];
+  one_workspace(L, dims, B, plan.G_rows, &a);
+  for (int i = 0; i < 8 * L; ++i) a.prm[i] = static_cast<float*>(params[i]);
+  a.in = in;
+  a.lr_t = lr_t;
+  a.eps_t = eps_t;
+  a.metrics = metrics;
+  a.ws = ws;
+  a.gamma = consts[0];
+  a.ac = AdamConsts{consts[1], consts[2], consts[3], consts[4], consts[5], consts[6]};
+  a.two_over_b = consts[7];
+  a.sm = plan.sm;
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel((const void*)k2_one_launch_kernel, dim3(plan.G),
+                                  dim3(ONE_THREADS), args, (size_t)plan.smem_floats * 4, st);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  *n_launches = 1;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -737,6 +1329,14 @@ extern "C" {
 // Workspace size (in floats) the wrapper allocates for one update.
 long long fused_dqn_workspace_floats(int L, const int* dims, int B, int offline,
                                      int save_bf16) {
+  if (!offline && !save_bf16) {
+    // K2 in one launch.  A device query that fails here fails again, and is
+    // reported, in the update.
+    OnePlan plan;
+    OneArgs a;
+    if (plan_one_launch(L, dims, B, &plan) == cudaSuccess && plan.fits)
+      return one_workspace(L, dims, B, plan.G_rows, &a);
+  }
   Layout lay;
   if (!make_layout(L, dims, B, offline, save_bf16, &lay)) return -1;
   return lay.total;
@@ -746,7 +1346,8 @@ const char* fused_dqn_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// K2: the whole batch is one split-K chunk.
+// K2: one launch where the shapes allow it (k2_update), else the launch
+// sequence with the whole batch as one split-K chunk.
 int fused_dqn_update(int L, const int* dims, const int* acts, int B,
                      int double_q, const float* consts, void* const* params,
                      const void* obs, const void* nobs, const void* act,
@@ -754,9 +1355,9 @@ int fused_dqn_update(int L, const int* dims, const int* acts, int B,
                      const void* lr_t, const void* eps_t, void* metrics,
                      void* workspace, int* n_launches, void* stream) {
   const BatchIn in = tensor_batch(dims[0], obs, nobs, act, rew, nt, mask);
-  return run_update(L, dims, acts, B, double_q, consts, params, in,
-                    (const float*)lr_t, (const float*)eps_t, (float*)metrics,
-                    (float*)workspace, n_launches, (cudaStream_t)stream, 0, Precision{0, 0});
+  return k2_update(L, dims, acts, B, double_q, consts, params, in, (const float*)lr_t,
+                   (const float*)eps_t, (float*)metrics, (float*)workspace, n_launches,
+                   (cudaStream_t)stream);
 }
 
 // K2, packed interface: rows and next_rows are [B, row_width] raw replay
@@ -778,9 +1379,9 @@ int fused_dqn_update_packed(int L, const int* dims, const int* acts, int B,
   in.act_col = cols[1];
   in.rew_col = cols[2];
   in.term_col = cols[3];
-  return run_update(L, dims, acts, B, double_q, consts, params, in,
-                    (const float*)lr_t, (const float*)eps_t, (float*)metrics,
-                    (float*)workspace, n_launches, (cudaStream_t)stream, 0, Precision{0, 0});
+  return k2_update(L, dims, acts, B, double_q, consts, params, in, (const float*)lr_t,
+                   (const float*)eps_t, (float*)metrics, (float*)workspace, n_launches,
+                   (cudaStream_t)stream);
 }
 
 // K1: 256-row split-K chunks, reduced in fixed order by the Adam kernel.

@@ -22,15 +22,26 @@ biases ``[1, out]``; ``params8`` is the flat list W[], b[], W_tgt[], b_tgt[],
 mW[], mb[], vW[], vb[].  The update writes ``params8`` IN PLACE (the JAX
 trainer donates them) and returns the ``[1, 4]`` metrics row.
 
-On this card (H100, f32 without tensor cores) the update is bound by
-operations: about 5 * B * sum(in*out) multiply-adds against a few MB of
-parameter and batch traffic.  The CUDA design (``csrc/fused_dqn.cu``) runs it
-as a fixed sequence of launches on the current stream: shared-memory-tiled
-GEMMs with the bias/activation or activation-gradient epilogue fused in, one
-row-wise TD kernel, weight gradients as split-K partial sums reduced in fixed
-order inside the Adam+polyak kernel (no atomics, so results repeat run to
-run).  K2 passes the whole batch as one split-K chunk, the way the TPU kernel
-holds it in one VMEM block; K1 (``fused_dqn_offline.py``) splits it.
+At the online shapes (4 -> 128 -> 64 -> 2, B = 512) an update is 44 MFLOP,
+0.00067 ms at the H100's f32 rate: what bounds K2 is launch latency and the
+serial chain of small dependent products, not operations or bytes.  So the
+CUDA design (``csrc/fused_dqn.cu``) runs it as ONE cooperative launch, the
+TPU kernel's own shape: blocks of about 8 batch rows each stage both nets'
+weights in shared memory, run their rows' forwards, TD terms and dz chain,
+and write each layer's input and dz rows to a workspace; after one
+grid-wide barrier the blocks share out tiles of every layer's ``[dW | db]``,
+each entry one fma chain over the batch rows in order (the launch sequence's
+order, so both routes give the same gradient), and apply Adam and the polyak
+blend in place.  Shapes whose
+weights and rows exceed a block's 227 KB of shared memory, or whose blocks
+cannot all be co-resident, take the launch sequence K1 also runs (19 launches
+double-Q, 16 single-Q): shared-memory-tiled GEMMs with fused epilogues, one
+row-wise TD kernel, split-K weight gradients reduced in fixed order by the
+Adam+polyak kernel, with the whole batch as one split-K chunk.  The C entry
+decides from the shapes and the card before any launch, and the wrapper's
+``kernels_per_update`` says which ran (1, or 16/19).  No atomics in any value
+path, so results repeat bit for bit; K1 (``fused_dqn_offline.py``) is the
+sequence with 256-row chunks.
 """
 
 from __future__ import annotations
@@ -38,7 +49,6 @@ from __future__ import annotations
 import ctypes
 from typing import List, Sequence, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -272,25 +282,44 @@ fused_dqn_update_packed_reference.calls = 0
 # -------------------------------------------------------- CUDA launch
 
 
-def _check_tensors(named, want, dev) -> None:
-    for name, t in named.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, the batch on {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        shape = want[name]
-        if shape is None:
-            if t.numel() != 1:
-                raise ValueError(f"{name} must hold one value, got {tuple(t.shape)}")
-        elif tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+_GROUPS = ("W", "b", "Wt", "bt", "mW", "mb", "vW", "vb")
+_WORKSPACE_FLOATS = {}  # (device, entry kind, dims, B) -> the C entry's workspace size
 
 
-def _check_params(lr_t, eps_t, params8, activations, D):
-    """Layer dims, the params8 groups, and the named tensors with the shapes
-    the C entries expect (weights [out, in], biases [1, out])."""
+def _check_tensor(name, t, shape, dev) -> None:
+    """Raise on a tensor the C entries do not take (``shape`` None: one value)."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, the batch on {dev}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is None:
+        if t.numel() != 1:
+            raise ValueError(f"{name} must hold one value, got {tuple(t.shape)}")
+    elif tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def _fits(t, shape, dev) -> bool:
+    """One combined test per tensor: with one launch per update, these checks
+    are most of what a call costs the host, so the message is built only when
+    a test fails."""
+    return (t.dtype is torch.float32 and t.device == dev and t.is_contiguous()
+            and (t.numel() == 1 if shape is None else t.shape == shape))
+
+
+def _check_tensors(named, dev) -> None:
+    """``named``: (name, tensor, expected shape or None) triples."""
+    for name, t, shape in named:
+        if not _fits(t, shape, dev):
+            _check_tensor(name, t, shape, dev)
+
+
+def _check_params(lr_t, eps_t, params8, activations, D, dev):
+    """Layer dims and the params8 groups, after checking them and the step
+    scalars against what the C entries expect (weights [out, in], biases
+    [1, out])."""
     L, groups = _split8(params8)
     dims = [D] + [w.shape[0] for w in groups[0]]
     if len(activations) != L:
@@ -300,15 +329,13 @@ def _check_params(lr_t, eps_t, params8, activations, D):
         raise ValueError(f"unsupported activations {unknown}; supported: {sorted(_ACT_CODES)}")
     if activations[-1] not in ("linear", "identity"):
         raise ValueError("the fused update needs a linear output layer")
-    named = {"lr_t": lr_t, "eps_t": eps_t}
-    want = {"lr_t": None, "eps_t": None}
-    for i in range(L):
-        for g, name in enumerate(("W", "b", "Wt", "bt", "mW", "mb", "vW", "vb")):
-            named[f"{name}{i}"] = groups[g][i]
-            want[f"{name}{i}"] = (
-                (dims[i + 1], dims[i]) if g % 2 == 0 else (1, dims[i + 1])
-            )
-    return L, groups, dims, named, want
+    _check_tensors((("lr_t", lr_t, None), ("eps_t", eps_t, None)), dev)
+    for g, group in enumerate(groups):
+        for i, t in enumerate(group):
+            shape = (dims[i + 1], dims[i]) if g % 2 == 0 else (1, dims[i + 1])
+            if not _fits(t, shape, dev):
+                _check_tensor(f"{_GROUPS[g]}{i}", t, shape, dev)
+    return L, groups, dims
 
 
 def _run_entry(entry, dev, B, L, groups, dims, batch_args, lr_t, eps_t, *,
@@ -324,15 +351,17 @@ def _run_entry(entry, dev, B, L, groups, dims, batch_args, lr_t, eps_t, *,
     save_bf16 = precision[1] if precision else 0
     c_dims = (ctypes.c_int * (L + 1))(*dims)
     c_acts = (ctypes.c_int * L)(*(_ACT_CODES[a] for a in activations))
-    consts = np.array(
-        [gamma, tau, 1.0 - tau, b1, 1.0 - b1, b2, 1.0 - b2, 2.0 / B], np.float32
-    )
-    c_consts = (ctypes.c_float * 8)(*consts.tolist())
+    c_consts = (ctypes.c_float * 8)(gamma, tau, 1.0 - tau, b1, 1.0 - b1, b2, 1.0 - b2, 2.0 / B)
     c_params = (ctypes.c_void_p * (8 * L))(*(p.data_ptr() for g in groups for p in g))
-    n_ws = lib.fused_dqn_workspace_floats(L, c_dims, B, int(offline), save_bf16)
-    if n_ws < 0:
-        raise ValueError(f"{entry}: unsupported layer count {L} or batch {B}")
     with torch.cuda.device(dev):
+        # K2's size depends on its route, which the shapes and the card decide
+        key = (dev.index, offline, save_bf16, tuple(dims), B)
+        n_ws = _WORKSPACE_FLOATS.get(key)
+        if n_ws is None:
+            n_ws = lib.fused_dqn_workspace_floats(L, c_dims, B, int(offline), save_bf16)
+            if n_ws < 0:
+                raise ValueError(f"{entry}: unsupported layer count {L} or batch {B}")
+            _WORKSPACE_FLOATS[key] = n_ws
         metrics = torch.empty((1, 4), dtype=torch.float32, device=dev)
         workspace = torch.empty((n_ws,), dtype=torch.float32, device=dev)
         n_launches = ctypes.c_int(0)
@@ -355,13 +384,13 @@ def launch_cuda(
     (``fused_dqn_update``, ``fused_dqn_offline_update`` and, with
     ``precision``, ``fused_dqn_offline_update_bf16``)."""
     B, D = obs.shape
-    L, groups, dims, named, want = _check_params(lr_t, eps_t, params8, activations, D)
+    dev = obs.device
+    L, groups, dims = _check_params(lr_t, eps_t, params8, activations, D, dev)
     A = dims[-1]
-    named.update(obs=obs, nobs=nobs, act=act, rew=rew, nt=nt, mask=mask)
-    want.update(obs=(B, D), nobs=(B, D), act=(B, A), rew=(B, 1), nt=(B, 1), mask=(B, A))
-    _check_tensors(named, want, obs.device)
+    _check_tensors((("obs", obs, (B, D)), ("nobs", nobs, (B, D)), ("act", act, (B, A)),
+                    ("rew", rew, (B, 1)), ("nt", nt, (B, 1)), ("mask", mask, (B, A))), dev)
     return _run_entry(
-        entry, obs.device, B, L, groups, dims,
+        entry, dev, B, L, groups, dims,
         [t.data_ptr() for t in (obs, nobs, act, rew, nt, mask)], lr_t, eps_t,
         activations=activations, gamma=gamma, tau=tau,
         double_q_learning=double_q_learning, b1=b1, b2=b2, precision=precision)
@@ -378,10 +407,9 @@ def launch_cuda_packed(
         raise ValueError(f"rows must be [B, row_width], got {tuple(rows.shape)}")
     B, width = rows.shape
     D = params8[0].shape[1]
-    L, groups, dims, named, want = _check_params(lr_t, eps_t, params8, activations, D)
-    named.update(rows=rows, next_rows=next_rows)
-    want.update(rows=(B, width), next_rows=(B, width))
-    _check_tensors(named, want, rows.device)
+    dev = rows.device
+    L, groups, dims = _check_params(lr_t, eps_t, params8, activations, D, dev)
+    _check_tensors((("rows", rows, (B, width)), ("next_rows", next_rows, (B, width))), dev)
     cols = tuple(int(c) for c in cols)
     if (len(cols) != 4 or min(cols) < 0 or cols[0] + D > width
             or max(cols[1:]) >= width):
@@ -390,7 +418,7 @@ def launch_cuda_packed(
             f"width {width} with {D} observation columns")
     c_cols = (ctypes.c_int * 4)(*cols)
     return _run_entry(
-        "fused_dqn_update_packed", rows.device, B, L, groups, dims,
+        "fused_dqn_update_packed", dev, B, L, groups, dims,
         [rows.data_ptr(), next_rows.data_ptr(), width, c_cols], lr_t, eps_t,
         activations=activations, gamma=gamma, tau=tau,
         double_q_learning=double_q_learning, b1=b1, b2=b2)

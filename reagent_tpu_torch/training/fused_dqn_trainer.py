@@ -42,7 +42,7 @@ from reagent_tpu_torch.ops.fused_dqn_offline import (
     fused_dqn_offline_update,
 )
 from reagent_tpu_torch.ops.fused_mlp import fused_mlp_forward
-from reagent_tpu_torch.training.scan_loop import run_sampled_steps
+from reagent_tpu_torch.training.scan_loop import check_num_steps, run_sampled_steps
 from reagent_tpu_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -260,6 +260,7 @@ class FusedDQNTrainer:
         """``(state, generator) -> (state, metrics)``: ``num_steps`` updates,
         each on a minibatch sampled with replacement from the device-resident
         ``dataset`` (``generator`` lives on the trainer's device)."""
+        check_num_steps(num_steps)
         fields = {
             "state": dataset.state.float_features,
             "next_state": dataset.next_state.float_features,
@@ -297,6 +298,7 @@ class FusedDQNTrainer:
         """Like ``make_sampled_train_fn``, but the dataset is packed ONCE into
         a single [N, 2S + 2A + 2] row matrix so each step does one row gather
         instead of six."""
+        check_num_steps(num_steps)
         S = dataset.state.float_features.shape[1]
         A = dataset.action.shape[1]
         if num_rows is None:

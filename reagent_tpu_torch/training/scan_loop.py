@@ -82,6 +82,14 @@ def stack_metrics(per_step: List[Dict[str, Tensor]]) -> Dict[str, Tensor]:
     return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
 
 
+def check_num_steps(num_steps: int) -> None:
+    """Refuse a loop of fewer than one step.  JAX's length-0 ``lax.scan``
+    returns the state and ``(0,)`` metrics; the port learns a step's metric
+    keys only by running one, so it raises instead."""
+    if num_steps < 1:
+        raise ValueError(f"a training loop needs at least one step, got num_steps={num_steps}")
+
+
 def run_sampled_steps(
     step: Callable, state: Any, batch_of: Callable[[Tensor], Any], num_steps: int,
     minibatch_size: int, num_rows: int, generator: torch.Generator,
@@ -89,6 +97,7 @@ def run_sampled_steps(
     """``num_steps`` calls of ``step(state, batch_of(idx))``, each on
     ``minibatch_size`` row indices drawn uniformly with replacement from
     ``[0, num_rows)`` on the generator's device; no host read."""
+    check_num_steps(num_steps)
     per_step = []
     for _ in range(num_steps):
         idx = torch.randint(
@@ -109,6 +118,7 @@ def make_scanned_train_fn(trainer: Any) -> Callable:
 
     def run(state, batches):
         num_steps = tree_leaves(batches)[0].shape[0]
+        check_num_steps(num_steps)
         per_step = []
         for k in range(num_steps):
             state, m = raw_step(trainer, state, tree_map(lambda x: x[k], batches))
@@ -136,6 +146,7 @@ def make_sampled_train_fn(
     minibatches over a fixed corpus.
     """
     raw_step = _raw_train_step(trainer)
+    check_num_steps(num_steps)
     leaves = tree_leaves(dataset)
     if num_rows is None:
         num_rows = leaves[0].shape[0]

@@ -1,14 +1,15 @@
 """The CUDA kernels K1 (float32 and with its bfloat16 options), K2 (tensor and
-packed), K3, K4 and K5 (forward and backward) against their plain versions,
-on the card.
+packed, on its one-launch route and on the launch sequence), K3, K4 and K5
+(forward and backward) against their plain versions, on the card.
 
 Skipped without an NVIDIA card.  On the machine with the card run
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 
 (``--noconftest``: the suite's conftest configures JAX, which that machine
-does not need).  Shapes are ragged on purpose (no dimension a multiple of the
-64-wide tiles) to cover the tile edges.
+does not need).  The test shape is ragged on purpose (no dimension a
+multiple of the 64-wide tiles) to cover the tile edges; K2 also runs at the
+online loop's CartPole shapes and at the full offline width.
 """
 
 import numpy as np
@@ -28,7 +29,10 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(device, B, D, widths, A, seed):
+def _inputs(device, B, D, widths, A, seed, mid_training=False):
+    """Batch and params8 from a numpy seed; Adam moments zero, or with
+    ``mid_training`` those of a run some steps in (first moments ~1e-2,
+    second moments 1e-4 above squares of that)."""
     rng = np.random.default_rng(seed)
     sizes = [D, *widths, A]
     W = [(rng.normal(size=(o, i)) / np.sqrt(i)).astype(np.float32)
@@ -37,6 +41,10 @@ def _inputs(device, B, D, widths, A, seed):
     Wt = [(w * 0.9).astype(np.float32) for w in W]
     bt = [(x * 0.9).astype(np.float32) for x in b]
     zeros = [np.zeros_like(p) for p in W + b]
+    m0 = v0 = zeros
+    if mid_training:
+        m0 = [rng.normal(size=p.shape) * 1e-2 for p in W + b]
+        v0 = [(rng.normal(size=p.shape) * 1e-2) ** 2 + 1e-4 for p in W + b]
     mask = (rng.random((B, A)) > 0.3).astype(np.float32)
     mask[:, -1] = 1.0
     batch = [
@@ -45,46 +53,81 @@ def _inputs(device, B, D, widths, A, seed):
         (rng.random((B, 1)) > 0.1), mask,
     ]
     put = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
-    return [put(x) for x in batch], [put(p) for p in W + b + Wt + bt + zeros + zeros]
+    return [put(x) for x in batch], [put(p) for p in W + b + Wt + bt + m0 + v0]
 
 
+TEST_SHAPE = (13, [70, 33], 5)  # D, hidden widths, A
+CARTPOLE = (4, [128, 64], 2)
+# (id, wrapper, extra arguments, B, D, widths, A).  K2 runs as one launch
+# wherever both nets' weights and a block's rows fit its shared memory: the
+# test shape, the online loop's CartPole shapes, one row, and 513 rows (the
+# last block short); the full offline width is too large and takes the
+# launch sequence, as K1 always does.
 CASES = [
-    ("K2", fused_dqn.fused_dqn_update, {}, 200),
-    ("K1", fused_dqn_offline.fused_dqn_offline_update, {"block_size": 100}, 700),
+    ("K2", fused_dqn.fused_dqn_update, {}, 200, *TEST_SHAPE),
+    ("K2-cartpole", fused_dqn.fused_dqn_update, {}, 512, *CARTPOLE),
+    ("K2-B1", fused_dqn.fused_dqn_update, {}, 1, *TEST_SHAPE),
+    ("K2-B513", fused_dqn.fused_dqn_update, {}, 513, *CARTPOLE),
+    ("K2-large", fused_dqn.fused_dqn_update, {}, 512, 128, [512, 256], 8),
+    ("K1", fused_dqn_offline.fused_dqn_offline_update, {"block_size": 100}, 700, *TEST_SHAPE),
 ]
+# The cases added for the one-launch route start from a mid-training Adam
+# state.  From zero moments Adam's first step is lr * sign(g) for every
+# entry, so an entry whose gradient is at float32 rounding level moves by
+# +-lr in one of two correct float32 orders and not the other: at these
+# shapes float32 and float64 plain versions part by up to 300x the params
+# tolerance that way.  Mid-training moments keep every step linear in g
+# (the two part by under 1% of it), so the same tolerances hold the kernel.
+MID_TRAINING = ("K2-cartpole", "K2-B1", "K2-B513", "K2-large")
 
 
-@pytest.mark.parametrize("name,fn,extra,B", CASES, ids=[c[0] for c in CASES])
+def _step_scalars(card, name, step, lr=0.01):
+    """lr_t and eps_t of Adam step ``step`` (10 steps on in a mid-training case)."""
+    t = torch.tensor(float(step + 1 + (10 if name in MID_TRAINING else 0)), device=card)
+    return ((lr * torch.sqrt(1 - 0.999 ** t) / (1 - 0.9 ** t)).float(),
+            (1e-8 * torch.sqrt(1 - 0.999 ** t)).float())
+
+
+def _kernels_per_update(name, double_q):
+    """CUDA kernels one update launches: 1 on K2's one-launch route, else the
+    launch sequence's (three forwards or two, TD rows, per layer the weight
+    gradient, dh and Adam, the metrics)."""
+    if name.startswith("K2") and name != "K2-large":
+        return 1
+    return 19 if double_q else 16
+
+
+@pytest.mark.parametrize("name,fn,extra,B,D,widths,A", CASES, ids=[c[0] for c in CASES])
 @pytest.mark.parametrize("double_q", [True, False])
 @pytest.mark.parametrize("act", ["relu", "leaky_relu", "tanh"])
-def test_kernel_matches_plain_version(card, name, fn, extra, B, double_q, act):
-    plain = (fused_dqn.fused_dqn_update_reference if name == "K2"
+def test_kernel_matches_plain_version(card, name, fn, extra, B, D, widths, A, double_q, act):
+    plain = (fused_dqn.fused_dqn_update_reference if name.startswith("K2")
              else fused_dqn_offline.fused_dqn_offline_update_reference)
-    batch, p_kern = _inputs(card, B, 13, [70, 33], 5, seed=4)
+    batch, p_kern = _inputs(card, B, D, widths, A, seed=4, mid_training=name in MID_TRAINING)
     p_plain = [p.clone() for p in p_kern]
     kw = dict(activations=[act, act, "linear"], gamma=0.9, tau=0.3,
               double_q_learning=double_q, **extra)
     launches = fn.launches
     for step in range(3):
-        t = torch.tensor(float(step + 1), device=card)
-        lr_t = (0.01 * torch.sqrt(1 - 0.999 ** t) / (1 - 0.9 ** t)).float()
-        eps_t = (1e-8 * torch.sqrt(1 - 0.999 ** t)).float()
+        lr_t, eps_t = _step_scalars(card, name, step)
         mk = fn(lr_t, eps_t, *batch, p_kern, **kw)
         mp = plain(lr_t, eps_t, *batch, p_plain, **kw)
         torch.testing.assert_close(mk, mp, rtol=2e-4, atol=2e-5)
     assert fn.launches == launches + 3
+    assert fn.kernels_per_update == _kernels_per_update(name, double_q)
     for a, b in zip(p_kern, p_plain):
         torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5)
 
 
-@pytest.mark.parametrize("name,fn,extra,B", CASES, ids=[c[0] for c in CASES])
-def test_kernel_is_deterministic(card, name, fn, extra, B):
-    """No atomics: two runs from the same state agree bit for bit."""
+@pytest.mark.parametrize("name,fn,extra,B,D,widths,A", CASES, ids=[c[0] for c in CASES])
+def test_kernel_is_deterministic(card, name, fn, extra, B, D, widths, A):
+    """No atomics: two runs from the same state agree bit for bit, on both
+    of K2's routes."""
     kw = dict(activations=["leaky_relu", "leaky_relu", "linear"], gamma=0.9, tau=0.3,
               double_q_learning=True, **extra)
     runs = []
     for _ in range(2):
-        batch, params = _inputs(card, B, 13, [70, 33], 5, seed=9)
+        batch, params = _inputs(card, B, D, widths, A, seed=9)
         one = torch.ones((), device=card)
         m = fn(one * 1e-3, one * 1e-8, *batch, params, **kw)
         runs.append([m] + params)
@@ -203,40 +246,50 @@ def test_wrapper_rejects_bad_inputs(card):
 
 from reagent_tpu_torch.ops import fused_mlp, nstep_replay  # noqa: E402
 
-PACKED_COLS = (1, 0, 14, 15)  # action 0, observation 1-13, reward 14, terminal 15
+def _packed_cols(D):
+    """(observation, action, reward, terminal) columns of replay rows of width
+    max(16, D + 3): action 0, observation from 1, reward and terminal last."""
+    width = max(16, D + 3)
+    return (1, 0, width - 2, width - 1)
+
+
+PACKED_COLS = _packed_cols(13)  # action 0, observation 1-13, reward 14, terminal 15
 
 
 def _packed_rows(device, B, D, A, seed):
     rng = np.random.default_rng(seed)
-    rows = np.zeros((B, 16), np.float32)
-    rows[:, 0] = rng.integers(0, A, B)
-    rows[:, 1:1 + D] = rng.normal(size=(B, D))
-    rows[:, 14] = rng.normal(size=B)
-    rows[:, 15] = rng.random(B) < 0.1
+    obs_col, act_col, rew_col, term_col = _packed_cols(D)
+    rows = np.zeros((B, term_col + 1), np.float32)
+    rows[:, act_col] = rng.integers(0, A, B)
+    rows[:, obs_col:obs_col + D] = rng.normal(size=(B, D))
+    rows[:, rew_col] = rng.normal(size=B)
+    rows[:, term_col] = rng.random(B) < 0.1
     return torch.tensor(rows, device=device)
 
 
+PACKED_CASES = [(c[0], *c[3:]) for c in CASES if c[0].startswith("K2")]
+
+
+@pytest.mark.parametrize("name,B,D,widths,A", PACKED_CASES, ids=[c[0] for c in PACKED_CASES])
 @pytest.mark.parametrize("double_q", [True, False])
 @pytest.mark.parametrize("act", ["relu", "leaky_relu", "tanh"])
-def test_k2_packed_matches_plain_version(card, double_q, act):
-    B = 200
-    _, p_kern = _inputs(card, B, 13, [70, 33], 5, seed=6)
+def test_k2_packed_matches_plain_version(card, name, B, D, widths, A, double_q, act):
+    _, p_kern = _inputs(card, B, D, widths, A, seed=6, mid_training=name in MID_TRAINING)
     p_plain = [p.clone() for p in p_kern]
-    kw = dict(cols=PACKED_COLS, activations=[act, act, "linear"], gamma=0.9, tau=0.3,
+    kw = dict(cols=_packed_cols(D), activations=[act, act, "linear"], gamma=0.9, tau=0.3,
               double_q_learning=double_q)
     fn = fused_dqn.fused_dqn_update_packed
     launches = fn.launches
     for step in range(3):
-        rows = _packed_rows(card, B, 13, 5, seed=10 + step)
-        next_rows = _packed_rows(card, B, 13, 5, seed=20 + step)
-        t = torch.tensor(float(step + 1), device=card)
-        lr_t = (0.01 * torch.sqrt(1 - 0.999 ** t) / (1 - 0.9 ** t)).float()
-        eps_t = (1e-8 * torch.sqrt(1 - 0.999 ** t)).float()
+        rows = _packed_rows(card, B, D, A, seed=10 + step)
+        next_rows = _packed_rows(card, B, D, A, seed=20 + step)
+        lr_t, eps_t = _step_scalars(card, name, step)
         mk = fn(lr_t, eps_t, rows, next_rows, p_kern, **kw)
         mp = fused_dqn.fused_dqn_update_packed_reference(
             lr_t, eps_t, rows, next_rows, p_plain, **kw)
         torch.testing.assert_close(mk, mp, rtol=2e-4, atol=2e-5)
     assert fn.launches == launches + 3
+    assert fn.kernels_per_update == _kernels_per_update(name, double_q)
     for a, b in zip(p_kern, p_plain):
         torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5)
 

@@ -198,6 +198,39 @@ def test_static_leaves_num_rows_and_scalars():
                               num_steps=1, num_rows=10)
 
 
+def _zero_step_loop(entry):
+    """Build and run ``entry`` with zero steps."""
+    if entry == "make_scanned_train_fn":
+        trainer = _trainer()
+        empty = scan_loop.tree_map(lambda x: x[None][:0], _port_batch(0))
+        return make_scanned_train_fn(trainer)(_init(trainer), empty)
+    if entry == "run_sampled_steps":
+        return scan_loop.run_sampled_steps(
+            lambda s, b: (s, {}), 0, lambda idx: idx, 0, 4, 10, torch.Generator())
+    dataset = _port_batch(3, B=64)
+    if entry == "make_sampled_train_fn":
+        trainer = _trainer()
+        run = make_sampled_train_fn(trainer, dataset, minibatch_size=8, num_steps=0)
+        return run(_init(trainer), torch.Generator())
+    net = FullyConnectedDQN(state_dim=S, action_dim=A, sizes=[16], activations=["relu"])
+    tr = FusedDQNTrainer(q_network=net, rl=RLParameters(gamma=0.9, target_update_rate=0.1),
+                         optimizer={"Adam": {"lr": 0.01}}, minibatch_size=8, device="cpu")
+    run = getattr(tr, entry.split(".")[1])(dataset, num_steps=0)
+    return run(tr.state_from_q_network(), torch.Generator())
+
+
+@pytest.mark.parametrize("entry", [
+    "make_scanned_train_fn", "make_sampled_train_fn", "run_sampled_steps",
+    "FusedDQNTrainer.make_sampled_train_fn", "FusedDQNTrainer.make_packed_sampled_train_fn"])
+def test_zero_steps_raise_value_error(entry):
+    """A loop of no steps: JAX's length-0 ``lax.scan`` returns the state and
+    ``(0,)`` metrics, but the port learns a step's metric keys only by running
+    one, so every entry refuses with a ValueError (not an IndexError from
+    stacking no metrics)."""
+    with pytest.raises(ValueError, match="at least one step"):
+        _zero_step_loop(entry)
+
+
 def test_fused_trainer_shares_the_loop():
     """``FusedDQNTrainer`` has the standard signature: the generic sampled
     loop drives it like its own ``make_sampled_train_fn``, draw for draw."""
