@@ -11,9 +11,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. K2 (fused DQN update, one launch per update) the same, at the CartPole
      sample config's shapes, and at the full offline width, which exceeds a
      block's shared memory and takes K2's launch sequence; each route's
-     CUDA kernels per update checked (1; 19 double-Q, 16 single-Q);
+     CUDA kernels per update checked (1; 3L + 1 = 10 on the sequence);
   5. CUDA-event timing of each kernel (K2 on both routes) and its plain
-     version, beside the bound, and each update's device time by CUDA kernel
+     version, beside the bound and K1's products through torch.matmul (a
+     yardstick only), and each update's device time by CUDA kernel
      (torch.profiler);
   6. the offline workflow (identify_and_train_network) at full width through
      K1, with the exported artifact scored against the in-process module and
@@ -48,9 +49,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      evaluate_policy over 20 greedy episodes and a profiled window;
  17. K1 with its bfloat16 options against its plain version at full width,
      double-Q and single-Q, 5 updates each compared from one state, for
-     (matmul, save) = (bf16, bf16) and (f32, bf16);
+     (matmul, save) = (bf16, bf16) and (f32, bf16), each update's CUDA
+     kernels counted (3L + 2 with bf16 products, 3L + 1 without);
  18. CUDA-event timing of K1-bf16, the f32 K1 and the plain bf16 version,
-     beside the bound at the tensor cores' bf16 rate;
+     beside the bound at the tensor cores' bf16 rate and K1-bf16's products
+     through torch.matmul on bf16 operands (a yardstick only);
  19. the device-resident fused loop at bench.py's width: a 100,000-row table
      on the card, FusedDQNTrainer(minibatch 4096, block 1024, matmul_dtype
      bfloat16), make_packed_sampled_train_fn for 200 and 1,000 steps, a
@@ -59,8 +62,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      state and the same indices, and q_values on 64 rows through K3;
  20. the unfused scan path: make_sampled_train_fn(DQNTrainer, ...) on the
      same table with compute_dtype float32 and bfloat16, 200 steps each;
- 21. one JSON line describing each ported kernel (K2's rows with the CUDA
-     kernels per update of each route and the wrapper's host time).
+ 21. one JSON line describing each ported kernel (K1's rows with the CUDA
+     kernels per update, the products' yardstick and the kernel's own GEMM
+     time; K2's rows with the CUDA kernels per update of each route and the
+     wrapper's host time).
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
 The last line is {"ok": true, "device": {...}}.  It needs no network, and it
@@ -96,7 +101,19 @@ CARTPOLE = dict(D=4, widths=[128, 64], A=2, B=512, block=None, act="leaky_relu",
 # shared memory, so K2 takes its launch sequence instead of the one launch
 K2_LARGE = dict(FULL, B=512, block=None)
 ONE_LAUNCH = {True: 1, False: 1}       # CUDA kernels per K2 update, by double_q
-LAUNCH_SEQUENCE = {True: 19, False: 16}
+
+
+def launch_sequence(n_layers, bf16_products=False):
+    """CUDA kernels of one update on the launch sequence (K1, and K2 beyond
+    a block's shared memory), double-Q or not: per layer one forward launch
+    for every (net, input) pair and one weight-gradient launch (the bias
+    gradient in extra blocks), dh past the first layer, the TD rows, one
+    Adam, polyak and metrics launch; bf16 products add one launch that
+    rounds the weights and observations to bf16 first."""
+    return 3 * n_layers + 1 + int(bf16_products)
+
+
+LAUNCH_SEQUENCE = {dq: launch_sequence(len(FULL["widths"]) + 1) for dq in (True, False)}
 FUSED_STEPS = 5000  # bench.py's online_dqn runs 30,000; cut to fit the time limit
 GENERIC_STEPS = 1000
 # tests/test_gym_all_algos.py:98-115 prefills 20,000 and runs 30,000 steps; cut
@@ -264,7 +281,7 @@ def profiled_rows(prof, n):
 
 def profile_update(cfg, torch, n=5, dtypes=None):
     """Device time of one update by CUDA kernel (torch.profiler over n
-    updates, averaged)."""
+    updates, averaged); returns (total us, us in the GEMM kernels)."""
     kern, _, kw = kernel_fns(cfg, True, dtypes)
     _, batch, params = make_inputs(cfg, 5, torch, "cuda")
     lr_t, eps_t = step_scalars(torch, 0, cfg["lr"], "cuda")
@@ -273,7 +290,8 @@ def profile_update(cfg, torch, n=5, dtypes=None):
 
 def profile_calls(torch, fn, n=5):
     """Device time of one call of ``fn`` by CUDA kernel (torch.profiler over
-    n calls, averaged), one row per kernel."""
+    n calls, averaged), one row per kernel; returns (total us, us in the
+    kernels named *gemm*)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -286,8 +304,10 @@ def profile_calls(torch, fn, n=5):
     total = sum(r[0] for r in rows)
     for us, count, key in rows:
         log(f"    {us:9.2f} us  x{count:<5.1f} {key[:90]}")
-    log(f"    {total:9.2f} us  device time per update (sum of kernels)")
-    return total
+    gemm = sum(r[0] for r in rows if "gemm" in r[2])
+    log(f"    {total:9.2f} us  device time per update (sum of kernels), "
+        f"{gemm:.2f} us of it in GEMMs")
+    return total, gemm
 
 
 def roofline(flops, nbytes, name, tensor_cores=False):
@@ -332,6 +352,34 @@ def time_kernel(cfg, torch, name, dtypes=None):
     tensor_cores = dtypes is not None and str(dtypes[0]).endswith("bfloat16")
     b_ms, b_by, flops, nbytes = bound(cfg, True, name, tensor_cores)
     return ms, plain_ms, b_ms, b_by, flops, nbytes
+
+
+def products_library_ms(cfg, torch, bf16_products=False):
+    """A yardstick only, which the port never calls: the products of one
+    double-Q K1 update at its shapes as separate torch.matmul calls (cuBLAS):
+    per layer three forwards x . W^T, the weight gradient dz^T . h over all
+    B rows and, past the first layer, dh = dz . W.  float32 operands (the
+    caller turns TF32 off), or bfloat16 ones for K1-bf16.  Median ms of the
+    whole set."""
+    dt = torch.bfloat16 if bf16_products else torch.float32
+    sizes = [cfg["D"], *cfg["widths"], cfg["A"]]
+    B = cfg["B"]
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=DEVICE).to(dt)
+    xs = [rnd(B, k) for k in sizes[:-1]]
+    ws = [rnd(n, k) for k, n in zip(sizes[:-1], sizes[1:])]
+    dzs = [rnd(B, n) for n in sizes[1:]]
+
+    def run():
+        for i in range(len(ws)):
+            for _ in range(3):
+                torch.matmul(xs[i], ws[i].t())
+        for i in reversed(range(len(ws))):
+            torch.matmul(dzs[i].t(), xs[i])
+            if i:
+                torch.matmul(dzs[i], ws[i])
+
+    return time_ms(torch, run)
 
 
 # ---------------------------------------------------------------- workflow
@@ -1342,7 +1390,8 @@ def compare_k1_bf16(torch, dtypes, label):
     assert_first_moments_close says; parameters and targets atol
     2 * 3.2 * lr_t (Adam's largest step, from zero moments, is
     lr_t * 0.1 / sqrt(0.001)) with a mean abs difference under 1e-6.
-    Double-Q and single-Q.  Returns the largest abs error of the metrics and
+    Double-Q and single-Q; each update launches launch_sequence(L, bf16 products)
+    CUDA kernels.  Returns the largest abs error of the metrics and
     first moments."""
     cfg, worst = FULL, 0.0
     L = len(cfg["widths"]) + 1
@@ -1353,6 +1402,10 @@ def compare_k1_bf16(torch, dtypes, label):
             p_plain = [p.clone() for p in p_kern]
             lr_t, eps_t = step_scalars(torch, step, cfg["lr"], DEVICE)
             mk = kern(lr_t, eps_t, *batch, p_kern, **kw)
+            want = launch_sequence(L, dtypes[0] == torch.bfloat16)
+            if kern.bf16_kernels_per_update != want:
+                raise AssertionError(f"{label} launched {kern.bf16_kernels_per_update} CUDA "
+                                     f"kernels per update, not {want}")
             mp = plain(lr_t, eps_t, *batch, p_plain, **kw)
             diff = (mk - mp).abs().max().item()
             torch.testing.assert_close(mk, mp, rtol=2e-4, atol=2e-5)
@@ -1677,9 +1730,13 @@ def main() -> int:
         log(f"  {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}; {flops:.4g} FLOP, {nbytes:.4g} B), "
             f"{b_ms / ms * 100:.1f}% of the bound, on {card}")
+    products = {"K1": products_library_ms(FULL, torch)}
+    log(f"  K1's products through torch.matmul (cuBLAS, f32, no TF32; a yardstick only): "
+        f"{products['K1']:.4f} ms, on {card}")
+    gemm_us = {}
     for kname, cfg in (("K1", FULL), ("K2", CARTPOLE)):
         log(f"  {kname} device time by CUDA kernel (torch.profiler, mean of 5 updates):")
-        profile_update(cfg, torch)
+        gemm_us[kname] = profile_update(cfg, torch)[1]
 
     with tempfile.TemporaryDirectory() as tmp:
         log("phase 6: workflow at full width through K1")
@@ -1752,8 +1809,11 @@ def main() -> int:
         log(f"  {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}; {flops:.4g} FLOP, {nbytes:.4g} B), {b_ms / ms * 100:.1f}% of the "
             f"bound, on {card}")
+    products["K1-bf16"] = products_library_ms(FULL, torch, bf16_products=True)
+    log(f"  K1-bf16's products through torch.matmul (cuBLAS, bf16 operands; a yardstick only): "
+        f"{products['K1-bf16']:.4f} ms, on {card}")
     log("  K1-bf16 device time by CUDA kernel (torch.profiler, mean of 5 updates):")
-    profile_update(FULL, torch, dtypes=(bf16, bf16))
+    gemm_us["K1-bf16"] = profile_update(FULL, torch, dtypes=(bf16, bf16))[1]
 
     log(f"phase 19: device-resident fused loop ({TABLE_ROWS} rows on the card, minibatch "
         f"{FULL['B']}, block {SCAN_BLOCK})")
@@ -1862,10 +1922,15 @@ def main() -> int:
             seq = timing["K2 (launch sequence)"]
             row["launch_sequence"] = {"max_abs_err": err_k2_seq, "ms": seq[0], "plain_ms": seq[1],
                                       "bound_ms": seq[2], "bound_by": seq[3]}
+        if kname.startswith("K1"):
+            # the same products through cuBLAS, and the kernel's own GEMM share
+            key = "K1-bf16" if kname.endswith("(bf16)") else "K1"
+            row["products_library_ms"] = products[key]
+            row["gemm_device_us"] = gemm_us[key]
         if kname.endswith("(bf16)"):
             row["cuda_kernels_per_launch"] = (
                 fused_dqn_offline.fused_dqn_offline_update.bf16_kernels_per_update)
-            row["mma"] = "nvcuda::wmma m16n16k16 bf16, f32 accumulators (mma.sync)"
+            row["mma"] = "mma.sync m16n8k16 bf16, f32 accumulators, cp.async and ldmatrix"
         rows.append(row)
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -42,49 +42,74 @@
 //     Block 0 sums the row blocks' metric terms in block order.
 // Shapes whose weights and one block's rows exceed the 227 KB of shared
 // memory, or whose blocks cannot all be co-resident, take the launch
-// sequence below (16 launches single-Q, 19 double-Q); the entry decides from
-// the shapes and the device before any launch and reports the count.
+// sequence below; the entry decides from the shapes and the device before
+// any launch and reports the count.
 //
 // K1 (and K2 where the one launch does not fit) is a fixed sequence of
-// launches on the caller's stream:
-//   (a) per layer, a shared-memory-tiled GEMM  h = act(x . W^T + b)  for the
-//       online net over obs (outputs saved for the backward), the online net
-//       over nobs (double-Q only) and the target net over nobs;
+// launches on the caller's stream, 3L + 1 for L layers (10 at L = 3),
+// double-Q or not:
+//   (a) per layer ONE grouped GEMM  h = act(x . W^T + b)  whose blockIdx.z
+//       picks the (net, input) pair: the online net over obs (outputs saved
+//       for the backward), the online net over nobs (double-Q only) and the
+//       target net over nobs, each with its own outputs;
 //   (b) one row-wise kernel: penalty, first-index argmax, y, err, dL/dq and
 //       per-block partial metric sums;
-//   (c) per layer, last to first: the weight AND bias gradients as one split-K
-//       GEMM  [dW | db] = dz^T . [h_prev | 1]  into a [chunks, out, in+1]
-//       workspace, then dh = dz . W with the activation-gradient epilogue
-//       (it needs the old W, so it runs before the layer's Adam), then
-//   (d) one elementwise kernel that sums the chunks in fixed order and applies
-//       Adam, the parameter write and the polyak blend, in place;
-//   and a one-block kernel that finishes the metrics row.
+//   (c) per layer, last to first: the weight gradient as one split-K GEMM
+//       dW = dz^T . h_prev into a [chunks, out, in] workspace, with the bias
+//       gradient of each chunk beside it (rows in ascending order: what a
+//       ones column in the GEMM gave, bit for bit), then dh = dz . W with
+//       the activation-gradient epilogue (it needs the old W);
+//   (d) one elementwise kernel for every layer that sums the chunks in fixed
+//       order and applies Adam, the parameter write and the polyak blend in
+//       place, its block 0 finishing the metrics row.
 // No atomics in any value path, in either design: the result repeats bit for
 // bit from run to run.
 //
 // Bound of K1: f32 operations (about 5 * B * sum(in*out) multiply-adds, no
-// tensor cores at this precision) against a few MB of traffic.  Its GEMM is a
-// plain 64x64x16 tile with a 4x4 register block per thread.
+// tensor cores at this precision) against a few MB of traffic, so its GEMM
+// (gemm_f32_kernel) is built for FMA throughput: 128 x 64 tiles, 16 deep,
+// 256 threads each holding an 8 x 4 register block, so that every k step
+// reads 12 floats of shared memory (three 16-byte loads) for 32 FMAs, at
+// about 80 registers (three blocks an SM; 128 x 128 tiles with 8 x 8 blocks
+// took 128 and ran slower at these shapes, and so did 8-deep stages).
+// Operands sit k-major in two shared-memory stages, filled by cp.async
+// where the global operand is contiguous in m or n and by 16-byte
+// register-staged loads where it is contiguous in k (transposed on the
+// store), while the other stage multiplies; the epilogue stores 16 bytes a
+// thread.  A narrow 64 x 16 tile, 64 deep (4 x 1 a thread), serves N <= 64:
+// the last layer's 8 outputs, and its weight gradient taken as
+// h_prev^T . dz.  Each output is one fmaf chain over k in ascending order
+// from its chunk's first row, the order the earlier 64 x 64 design summed
+// in, and the weight-gradient blocks add the bias gradient from the dz
+// tiles in shared memory in row order: the parameters equal that design's
+// bit for bit.
 //
 // K1 with matmul_dtype=bfloat16 (reagent_tpu/ops/fused_dqn_offline.py:71-72,
-// :96-100) -> C entry fused_dqn_offline_update_bf16.  Every product rounds
-// BOTH operands to bf16 and accumulates in f32: mma_gemm_kernel converts each
-// tile to bf16 (round to nearest even) as it stages it in shared memory and
-// multiplies 16x16x16 fragments with nvcuda::wmma (mma.sync HMMA, bf16 in,
-// f32 accumulators); four warps share a 64x64x32 tile, each owning a 32x32
-// corner, and the accumulators pass through shared memory to the same fused
-// epilogues as the f32 kernel.  Master weights, Adam moments, the polyak
-// blend, q, the TD rows and dz between layers stay f32.  The bias gradient is
-// summed from the unrounded f32 dz by bias_grad_kernel (the ones column of
-// the split-K GEMM would sum bf16-rounded dz), in fixed order.  With
-// save_dtype=bfloat16 the saved layer outputs are stored as bf16 (half the
-// workspace), the first-layer weight gradient reads the observation rounded
-// to bf16, and the activation gradient is taken from the rounded h; q, the
-// last layer's output, is never rounded.  All four (matmul, save) pairs run.
-// At the tensor cores' bf16 rate the update's operations and its bytes (the
-// batch, and eight parameter sets read and written) each take only
-// microseconds, so this first design, one launch per product with scalar
-// staging loads, is far from either bound.
+// :96-100) -> C entry fused_dqn_offline_update_bf16, 3L + 2 launches.  Every
+// product rounds BOTH operands to bf16 and accumulates in f32.  Each operand
+// is rounded once: a first launch copies both nets' weights and the
+// observations into bf16, and every producer of an operand (the forward and
+// dh epilogues, the TD rows' dz) writes a bf16 copy beside its f32 output,
+// rows padded to 8 elements.  mma_gemm_kernel then feeds the tensor cores
+// from 16-byte cp.async copies into a 3-stage ring, 64 deep, ldmatrix
+// (.trans for an operand contiguous in m or n) and mma.sync m16n8k16 bf16
+// with f32 accumulators: eight warps on a 128 x 128 tile where that gives
+// between one and two blocks an SM, else 128 x 64, and a narrow 128 x 16
+// tile for N <= 64.  The epilogue runs from the accumulator registers, a
+// quad of lanes exchanging values so that each stores 16 bytes.  Summed in
+// ascending k16 steps with zero-filled tails, as the earlier nvcuda::wmma
+// kernel did (wmma m16n16k16 compiles to the same instruction), so its
+// parameters equal that kernel's bit for bit too.  Master weights, Adam
+// moments, the polyak blend, q, the TD rows and the f32 dz stay f32; the
+// bias gradient is summed from the unrounded f32 dz by extra blocks of the
+// weight-gradient launch (eight row-strided partial sums added in order, as
+// before).  With save_dtype=bfloat16 the saved layer outputs are stored as
+// bf16, the first-layer weight gradient reads the observation rounded to
+// bf16, and the activation gradient is taken from the rounded h; q, the
+// last layer's output, is never rounded.  All four (matmul, save) pairs
+// run.  At the tensor cores' bf16 rate the update's products take about
+// 8 us; what is left is the launches' fill and drain, Adam and the f32
+// traffic (no wgmma yet).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // Interface: plain C, bound with ctypes; every entry returns cudaGetLastError()
@@ -93,30 +118,36 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stddef.h>
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int TM = 64;
-constexpr int TN = 64;
-constexpr int TK = 16;
-constexpr int GEMM_THREADS = 256;
-// tensor-core GEMM: a TM x TN x MMA_TK tile, four warps, each a 32x32 corner
-constexpr int MMA_TK = 32;
-constexpr int MMA_LDK = MMA_TK + 8;   // bf16 elements; rows stay 16-byte aligned
-constexpr int MMA_LDC = TN + 8;       // floats
-constexpr int MMA_THREADS = 128;
-constexpr int BIAS_GRAD_ROWS = 8;
+constexpr int GEMM_THREADS = 256;     // both GEMM kernels
+constexpr int F32_PAD = 4;            // floats past each shared row of an f32 tile:
+                                      // rows stay 16-byte aligned, stores miss no bank
+// bf16 products: tiles HK deep, in a ring of HSTAGES shared-memory stages
+constexpr int HK = 64;
+constexpr int H_PAD = 8;              // bf16 elements past each shared row
+constexpr int HSTAGES = 3;
+constexpr int NARROW = 64;            // N at or below this takes the narrow tile
 constexpr int ROW_THREADS = 256;
 constexpr int EW_THREADS = 256;
 constexpr int OFFLINE_CHUNK_ROWS = 256;
+constexpr int MAX_LAYERS = 16;
+constexpr int MAX_GROUPS = 3;
 constexpr float NOT_POSSIBLE = -1e9f;
 
 enum Act { ACT_LINEAR = 0, ACT_RELU = 1, ACT_LEAKY = 2, ACT_TANH = 3 };
 enum Epi { EPI_BIAS_ACT = 0, EPI_ACT_GRAD = 1, EPI_SPLITK = 2 };
+// How the f32 product loads its operands.  F32_VEC: 16-byte loads (every
+// operand 16-byte aligned with a row stride a multiple of 4); F32_SCALAR: one
+// float at a time; MIXED: scalar, with the observation rounded to bf16
+// (round_b) and bf16 copies of the outputs (C16); MIXED16: scalar, and the
+// saved activation it reads (B under EPI_SPLITK, aux under EPI_ACT_GRAD) is
+// bf16.  A template argument, never a run-time branch per load: a branch
+// around each load keeps a thread's loads of one tile from being in flight
+// together.
+enum LoadMode { F32_VEC = 0, F32_SCALAR = 1, MIXED = 2, MIXED16 = 3 };
 
 __device__ __forceinline__ float act_fwd(float z, int act) {
   switch (act) {
@@ -138,17 +169,6 @@ __device__ __forceinline__ float act_grad_from_h(float h, int act) {
   }
 }
 
-// A strided matrix in device memory: element (i, j) at p[i*s0 + j*s1], held
-// as float or (bf16 != 0) as __nv_bfloat16.
-struct Operand {
-  const void* p;
-  long long s0, s1;
-  int bf16;
-};
-
-// The element type is a template argument, not a run-time flag: a branch
-// around each load would keep a thread's loads of one tile from being in
-// flight together.
 template <bool BF16>
 __device__ __forceinline__ float load_at(const void* p, long long i) {
   if (BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
@@ -159,250 +179,629 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// One product, as the host describes it to either GEMM kernel:
-// C[m, n] = sum_k A(m, k) * B(k, n) over k in each block's split-K chunk.
-// ones_col: column N-1 of B is a virtual column of ones (gives the bias
-// gradient beside the weight gradient; f32 kernel only).
-// round_b: B is rounded to bf16 and back as it is loaded (f32 kernel: the
-// observation as save_dtype=bfloat16 keeps it).
-// Epilogues: EPI_BIAS_ACT  v = act(acc + aux[n]); C[m,n] = v, C16[m,n] = bf16(v)
-//                          (either output may be null)
-//            EPI_ACT_GRAD  C[m,n] = acc * act'(aux[m,n])   (aux = saved h)
-//            EPI_SPLITK    C[z, m, n] = acc                 (z = chunk)
-// H16 (a template argument of the kernels): the saved activation this
-// product reads is bf16.  Which operand that is follows from the epilogue: A
-// under EPI_BIAS_ACT (a hidden layer's input), B under EPI_SPLITK (h_prev),
-// aux under EPI_ACT_GRAD; every other operand is float.
+// 16 bytes from global to shared memory, the last 16 - bytes of them zero
+// (bytes = 0 reads nothing).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8.  TRANS delivers each matrix transposed.
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+// d += a . b for one 16x8x16 bf16 product, f32 accumulators (the instruction
+// nvcuda::wmma's m16n16k16 bf16 product compiles to, twice)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One product as the host describes it to either GEMM kernel:
+// C(m, n) = sum_k A(m, k) * B(k, n) over k in a split-K chunk, k ascending.
+// The epilogue fixes the operands' layouts:
+//   EPI_BIAS_ACT  A(m,k) = A[m*lda + k], B(k,n) = B[n*ldb + k]   (x . W^T)
+//                 v = act(acc + aux[n]); C = v, C16 = bf16(v) (either may be null)
+//   EPI_ACT_GRAD  A(m,k) = A[m*lda + k], B(k,n) = B[k*ldb + n]   (dz . W)
+//                 v = acc * act'(aux[m*ldaux + n]); C = v, C16 = bf16(v) (may be null)
+//   EPI_SPLITK    A(m,k) = A[k*lda + m], B(k,n) = B[k*ldb + n]   (dz^T . h over rows)
+//                 C[z*cz + m*csm + n*csn] = acc, z = the chunk
+// C(m, n) is at m*csm + n*csn, C16(m, n) at m*ld16 + n.  Forward launches are
+// grouped: blockIdx.z picks one of ngroups (net, input) pairs, each with its
+// own A, B, aux and outputs.  Under EPI_SPLITK blockIdx.z is the chunk, and
+// the bias gradient of the chunk comes with the weight gradient: in the f32
+// product from the dz tiles as they pass through shared memory, in the bf16
+// one (whose tiles hold rounded dz) from blocks past the tiles (bias_*).
 struct GemmArgs {
-  Operand A;            // (m, k)
-  Operand B;            // (k, n)
-  int ones_col, round_b;
-  float* C;
-  __nv_bfloat16* C16;
-  int ldc;              // row stride of C (N, or fan_in + 1 under EPI_SPLITK)
-  int M, N, K, kchunk;
-  const void* aux;      // bias [N] (f32) or saved h [M, N] (f32 or bf16)
-  int aux_bf16, act;
+  int ngroups;
+  const void* A[MAX_GROUPS];
+  long long lda[MAX_GROUPS];
+  const void* B[MAX_GROUPS];
+  const void* aux[MAX_GROUPS];
+  float* C[MAX_GROUPS];
+  __nv_bfloat16* C16[MAX_GROUPS];
+  long long ldb, ldaux, csm, csn, cz, ld16;
+  int M, N, K, kchunk, act, round_b;
+  int ntm, ntn;                 // tiles along m and n
+  const float* bias_dz;         // [K rows, bias_n] f32 dz
+  float* bias_out;              // [chunks, bias_n]
+  int bias_n;
+  int bias_src;                 // f32 products: the bias gradient summed from the staged
+                                // dz tiles, 1 = A (column m), 2 = B (column n); 0 = none
 };
 
-// f32 products: shared-memory tiles, a 4x4 register block per thread.
-// MIXED = false is the all-float32 update (K2, and K1 without options): float
-// operands, C alone, row stride N.  MIXED = true serves float32 products
-// beside bf16 saved activations: typed loads (H16), round_b, C16 and ldc.
-// The two are one body with compile-time branches, so that the all-float32
-// instantiation carries none of the other's selects and null checks.
-template <int EPI, bool MIXED, bool H16>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const void* __restrict__ Ap, long long sam, long long sak,
-            const void* __restrict__ Bp, long long sbk, long long sbn,
-            int ones_col, float* __restrict__ C, int M, int N, int K,
-            int kchunk, const void* __restrict__ aux, int act,
-            int round_b, __nv_bfloat16* __restrict__ C16, int ldc) {
-  constexpr bool A16 = H16 && EPI == EPI_BIAS_ACT;
-  constexpr bool B16 = H16 && EPI == EPI_SPLITK;
-  constexpr bool AUX16 = H16 && EPI == EPI_ACT_GRAD;
-  __shared__ float As[TK][TM + 1];
-  __shared__ float Bs[TK][TN + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.y * TM;
-  const int n0 = blockIdx.x * TN;
-  const int kbeg = blockIdx.z * kchunk;
-  const int kend = min(K, kbeg + kchunk);
-
-  float acc[4][4];
+// The bias gradient of one split-K chunk of a bf16 product, from the
+// unrounded f32 dz, for BIAS_COLS columns a block.  All threads stage
+// BIAS_ROWS rows at a time into shared memory (eight loads in flight a
+// thread: the sum is a chain of dependent adds, and waiting on each load in
+// it would cost a memory latency per row); then one thread per column adds
+// them as eight partial sums over rows strided by 8, added in order (the
+// order of the earlier bias kernel of this route, which the results keep).
+// `stage` holds BIAS_ROWS * BIAS_COLS floats.
+constexpr int BIAS_COLS = 32;
+constexpr int BIAS_ROWS = 64;
+__device__ __forceinline__ void bias_block(const GemmArgs& g, int bb, int z, float* stage) {
+  constexpr int LANES = GEMM_THREADS / BIAS_COLS;   // threads along the rows
+  const int tx = threadIdx.x % BIAS_COLS, ty = threadIdx.x / BIAS_COLS;
+  const int n = bb * BIAS_COLS + tx;
+  const int mbeg = z * g.kchunk;
+  const int mend = min(g.K, mbeg + g.kchunk);
+  const long long ld = g.bias_n;
+  float s[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 8; ++j) s[j] = 0.f;
+  for (int r0 = mbeg; r0 < mend; r0 += BIAS_ROWS) {
+    float v[BIAS_ROWS / LANES];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = kbeg; k0 < kend; k0 += TK) {
-#pragma unroll
-    for (int r = 0; r < (TM * TK) / GEMM_THREADS; ++r) {
-      const int idx = tid + r * GEMM_THREADS;
-      int mm, kk;
-      if (sak == 1) { kk = idx % TK; mm = idx / TK; }   // k contiguous
-      else          { mm = idx % TM; kk = idx / TM; }   // m contiguous
-      const int gm = m0 + mm, gk = k0 + kk;
-      As[kk][mm] = (gm < M && gk < kend) ? load_at<A16>(Ap, gm * sam + gk * sak) : 0.f;
+    for (int j = 0; j < BIAS_ROWS / LANES; ++j) {
+      const int m = r0 + ty + LANES * j;
+      v[j] = (m < mend && n < g.bias_n) ? g.bias_dz[(long long)m * ld + n] : 0.f;
     }
+    __syncthreads();  // the previous rows are summed
 #pragma unroll
-    for (int r = 0; r < (TN * TK) / GEMM_THREADS; ++r) {
-      const int idx = tid + r * GEMM_THREADS;
-      int nn, kk;
-      if (sbn == 1) { nn = idx % TN; kk = idx / TN; }   // n contiguous
-      else          { kk = idx % TK; nn = idx / TK; }   // k contiguous
-      const int gn = n0 + nn, gk = k0 + kk;
-      float v = 0.f;
-      if (gn < N && gk < kend)
-        v = (ones_col && gn == N - 1) ? 1.f : load_at<B16>(Bp, gk * sbk + gn * sbn);
-      if (MIXED) v = round_b ? round_bf16(v) : v;
-      Bs[kk][nn] = v;
-    }
+    for (int j = 0; j < BIAS_ROWS / LANES; ++j) stage[(ty + LANES * j) * BIAS_COLS + tx] = v[j];
     __syncthreads();
+    if (ty == 0) {
+      const int rows = min(BIAS_ROWS, mend - r0);
+      for (int r = 0; r < rows; r += 8)
 #pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      float a[4], b[4];
+        for (int j = 0; j < 8; ++j)
+          if (r + j < rows) s[j] += stage[(r + j) * BIAS_COLS + tx];
+    }
+  }
+  if (ty != 0 || n >= g.bias_n) return;
+  float t = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+  for (int j = 0; j < 8; ++j) t += s[j];
+  g.bias_out[(long long)z * g.bias_n + n] = t;
+}
+
+// Shared work of both GEMM kernels: which tile, group and chunk this block
+// takes, or (false) that it summed a bias gradient instead.
+template <int EPI>
+__device__ __forceinline__ bool tile_of(const GemmArgs& g, int& m0, int& n0, int& grp,
+                                        int& kbeg, int& kend, int BM, int BN, float* stage) {
+  const int tiles = g.ntm * g.ntn;
+  const int bx = blockIdx.x;
+  if (EPI == EPI_SPLITK && bx >= tiles) {
+    bias_block(g, bx - tiles, blockIdx.z, stage);
+    return false;
+  }
+  m0 = (bx / g.ntn) * BM;
+  n0 = (bx % g.ntn) * BN;
+  grp = EPI == EPI_SPLITK ? 0 : blockIdx.z;
+  kbeg = EPI == EPI_SPLITK ? blockIdx.z * g.kchunk : 0;
+  kend = min(g.K, kbeg + g.kchunk);
+  return true;
+}
+
+// The epilogue of output (m, n) with its sum; both kernels end in it.
+template <int EPI, bool AUX16>
+__device__ __forceinline__ void store_out(const GemmArgs& g, int grp, int m, int n, float acc) {
+  float* C = g.C[grp];
+  __nv_bfloat16* C16 = g.C16[grp];
+  const long long o = (long long)m * g.csm + (long long)n * g.csn;
+  if (EPI == EPI_BIAS_ACT) {
+    const float v = act_fwd(acc + static_cast<const float*>(g.aux[grp])[n], g.act);
+    if (C) C[o] = v;
+    if (C16) C16[(long long)m * g.ld16 + n] = __float2bfloat16_rn(v);
+  } else if (EPI == EPI_ACT_GRAD) {
+    const float v = acc * act_grad_from_h(load_at<AUX16>(g.aux[grp], (long long)m * g.ldaux + n),
+                                          g.act);
+    C[o] = v;
+    if (C16) C16[(long long)m * g.ld16 + n] = __float2bfloat16_rn(v);
+  } else {
+    C[(long long)blockIdx.z * g.cz + o] = acc;
+  }
+}
+
+__device__ __forceinline__ bool aligned_at(const void* p, long long i, int bytes, int align) {
+  return ((reinterpret_cast<size_t>(p) + (size_t)(i * bytes)) & (align - 1)) == 0;
+}
+
+// The epilogue of W (4 or 8) outputs of row m from column n: the same
+// arithmetic as store_out, with 16-byte loads and stores (8-byte for four
+// bf16 values) where every address allows, else one output at a time.
+template <int EPI, bool AUX16, int W>
+__device__ __forceinline__ void store_row(const GemmArgs& g, int grp, int m, int n,
+                                          const float (&v)[W]) {
+  float* C = g.C[grp];
+  __nv_bfloat16* C16 = g.C16[grp];
+  const void* aux = g.aux[grp];
+  const long long o = (long long)m * g.csm + n + (EPI == EPI_SPLITK ? blockIdx.z * g.cz : 0);
+  const long long o16 = (long long)m * g.ld16 + n;
+  const long long oa = (long long)m * g.ldaux + n;
+  bool vec = n + W <= g.N && g.csn == 1 && (!C || aligned_at(C, o, 4, 16)) &&
+             (!C16 || aligned_at(C16, o16, 2, 2 * W));
+  if (EPI == EPI_BIAS_ACT) vec = vec && aligned_at(aux, n, 4, 16);
+  if (EPI == EPI_ACT_GRAD) vec = vec && aligned_at(aux, oa, AUX16 ? 2 : 4, AUX16 ? 2 * W : 16);
+  if (!vec) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
+    for (int w = 0; w < W; ++w)
+      if (n + w < g.N) store_out<EPI, AUX16>(g, grp, m, n + w, v[w]);
+    return;
+  }
+  float x[W];
+  if (EPI == EPI_BIAS_ACT) {
+    const float4* b4 = reinterpret_cast<const float4*>(static_cast<const float*>(aux) + n);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int q = 0; q < W / 4; ++q) {
+      const float4 b = b4[q];
+      x[4 * q] = act_fwd(v[4 * q] + b.x, g.act);
+      x[4 * q + 1] = act_fwd(v[4 * q + 1] + b.y, g.act);
+      x[4 * q + 2] = act_fwd(v[4 * q + 2] + b.z, g.act);
+      x[4 * q + 3] = act_fwd(v[4 * q + 3] + b.w, g.act);
+    }
+  } else if (EPI == EPI_ACT_GRAD) {
+    float h[W];
+    if (AUX16) {
+      const __nv_bfloat16* a16 = static_cast<const __nv_bfloat16*>(aux) + oa;
+      __nv_bfloat16 hv[W];
+      if (W == 8) *reinterpret_cast<uint4*>(hv) = *reinterpret_cast<const uint4*>(a16);
+      else *reinterpret_cast<uint2*>(hv) = *reinterpret_cast<const uint2*>(a16);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int w = 0; w < W; ++w) h[w] = __bfloat162float(hv[w]);
+    } else {
+      const float4* a4 = reinterpret_cast<const float4*>(static_cast<const float*>(aux) + oa);
+#pragma unroll
+      for (int q = 0; q < W / 4; ++q) {
+        const float4 a = a4[q];
+        h[4 * q] = a.x; h[4 * q + 1] = a.y; h[4 * q + 2] = a.z; h[4 * q + 3] = a.w;
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) x[w] = v[w] * act_grad_from_h(h[w], g.act);
+  } else {
+#pragma unroll
+    for (int w = 0; w < W; ++w) x[w] = v[w];
+  }
+  if (C) {
+    float4* c4 = reinterpret_cast<float4*>(C + o);
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q)
+      c4[q] = make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+  }
+  if (EPI != EPI_SPLITK && C16) {
+    __nv_bfloat16 y[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) y[w] = __float2bfloat16_rn(x[w]);
+    if (W == 8) *reinterpret_cast<uint4*>(C16 + o16) = *reinterpret_cast<const uint4*>(y);
+    else *reinterpret_cast<uint2*>(C16 + o16) = *reinterpret_cast<const uint2*>(y);
+  }
+}
+
+// f32 products: BM x BN tiles, FK deep, two shared-memory stages, each
+// thread an RM x RN register block (8 x 4 in the 128 x 64 tile, 16 deep;
+// 4 x 1 in the narrow 64 x 16 one, 64 deep).  Operands sit in shared
+// memory k-major, As[k][m] and Bs[k][n], so a thread reads its RM values of
+// A and RN of B at one k with 16-byte loads.  An operand whose contiguous dimension is m or n
+// (A and B of the weight gradient, B of dh) is copied in with cp.async; one
+// contiguous in k is loaded into registers (16 bytes a thread where aligned)
+// before the current tile's products and stored transposed after them.
+// Every output is one fmaf chain over k in ascending order from 0 (or from
+// its chunk's first row): the sum the earlier 64 x 64 tile took, bit for bit.
+template <int EPI, int MODE, int BM, int BN, int RM, int RN, int FK>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_f32_kernel(const GemmArgs g) {
+  constexpr bool AK = EPI != EPI_SPLITK;    // A contiguous in k
+  constexpr bool BKC = EPI == EPI_BIAS_ACT; // B contiguous in k
+  constexpr bool VEC = MODE == F32_VEC;
+  constexpr bool B16 = MODE == MIXED16 && EPI == EPI_SPLITK;
+  constexpr bool AUX16 = MODE == MIXED16 && EPI == EPI_ACT_GRAD;
+  constexpr int TX = BN / RN, TY = BM / RM;
+  static_assert(TX * TY == GEMM_THREADS, "one output block per thread");
+  static_assert(RM % 4 == 0 && (RN % 4 == 0 || RN == 1), "16-byte shared reads");
+  constexpr int PA = BM + F32_PAD, PB = BN + F32_PAD;
+  // 16-byte units of a tile (VEC) or floats a thread stages (scalar)
+  constexpr int A4 = BM * FK / 4, B4 = BN * FK / 4;
+  constexpr int SA = VEC ? (A4 + GEMM_THREADS - 1) / GEMM_THREADS : BM * FK / GEMM_THREADS;
+  constexpr int SB = VEC ? (B4 + GEMM_THREADS - 1) / GEMM_THREADS
+                         : (BN * FK + GEMM_THREADS - 1) / GEMM_THREADS;
+  __shared__ __align__(16) float As[2][FK][PA];
+  __shared__ __align__(16) float Bs[2][FK][PB];
+
+  int m0, n0, grp, kbeg, kend;
+  if (!tile_of<EPI>(g, m0, n0, grp, kbeg, kend, BM, BN, &As[0][0][0])) return;
+  const int tid = threadIdx.x;
+  const int tx = tid % TX, ty = tid / TX;
+  const int M = g.M, N = g.N;
+  const float* __restrict__ Ap = static_cast<const float*>(g.A[grp]);
+  const void* __restrict__ Bp = g.B[grp];
+  const long long lda = g.lda[grp], ldb = g.ldb;
+
+  // operand values at (row, col) of the tile in global memory, 0 outside
+  auto a_at = [&](int m, int k) -> float {
+    if (m >= M || k >= kend) return 0.f;
+    return AK ? Ap[m * lda + k] : Ap[(long long)k * lda + m];
+  };
+  auto b_at = [&](int k, int n) -> float {
+    if (n >= N || k >= kend) return 0.f;
+    float v = BKC ? load_at<B16>(Bp, n * ldb + k) : load_at<B16>(Bp, (long long)k * ldb + n);
+    if (MODE == MIXED && EPI == EPI_SPLITK) v = g.round_b ? round_bf16(v) : v;
+    return v;
+  };
+
+  float ra[VEC ? 4 * SA : SA], rb[VEC ? 4 * SB : SB];  // k-contiguous operands in flight
+
+  // Start the loads of the tile at k0 into stage s: cp.async for the
+  // operands contiguous in m or n, registers for those contiguous in k.
+  auto load_tile = [&](int k0, int s) {
+#pragma unroll
+    for (int r = 0; r < SA; ++r) {
+      const int e = tid + r * GEMM_THREADS;
+      if (VEC) {
+        if (e < A4) {
+          if (AK) {  // 4 along k of one row m
+            const int m = m0 + e / (FK / 4), k = k0 + (e % (FK / 4)) * 4;
+            if (m < M && k + 4 <= kend) {
+              const float4 v = *reinterpret_cast<const float4*>(Ap + m * lda + k);
+              ra[4 * r] = v.x; ra[4 * r + 1] = v.y; ra[4 * r + 2] = v.z; ra[4 * r + 3] = v.w;
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) ra[4 * r + j] = a_at(m, k + j);
+            }
+          } else {   // 4 along m of one row k
+            const int kk = e / (BM / 4), mm = (e % (BM / 4)) * 4;
+            const int m = m0 + mm, k = k0 + kk;
+            const int ok = (k < kend && m < M) ? min(4, M - m) : 0;
+            cp_async16(&As[s][kk][mm], ok ? Ap + (long long)k * lda + m : Ap, 4 * ok);
+          }
+        }
+      } else {
+        int m, k;
+        if (AK) { k = e % FK; m = e / FK; } else { m = e % BM; k = e / BM; }
+        ra[r] = a_at(m0 + m, k0 + k);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < SB; ++r) {
+      const int e = tid + r * GEMM_THREADS;
+      if (VEC) {
+        if (e < B4) {
+          const float* Bf = static_cast<const float*>(Bp);
+          if (BKC) {  // 4 along k of one row n
+            const int n = n0 + e / (FK / 4), k = k0 + (e % (FK / 4)) * 4;
+            if (n < N && k + 4 <= kend) {
+              const float4 v = *reinterpret_cast<const float4*>(Bf + n * ldb + k);
+              rb[4 * r] = v.x; rb[4 * r + 1] = v.y; rb[4 * r + 2] = v.z; rb[4 * r + 3] = v.w;
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) rb[4 * r + j] = b_at(k + j, n);
+            }
+          } else {   // 4 along n of one row k
+            const int kk = e / (BN / 4), nn = (e % (BN / 4)) * 4;
+            const int n = n0 + nn, k = k0 + kk;
+            const int ok = (k < kend && n < N) ? min(4, N - n) : 0;
+            cp_async16(&Bs[s][kk][nn], ok ? Bf + (long long)k * ldb + n : Bf, 4 * ok);
+          }
+        }
+      } else if (e < BN * FK) {
+        int n, k;
+        if (BKC) { k = e % FK; n = e / FK; } else { n = e % BN; k = e / BN; }
+        rb[r] = b_at(k0 + k, n0 + n);
+      }
+    }
+  };
+  // Store the register-staged operands into stage s (transposed where the
+  // global layout is k-contiguous).
+  auto store_tile = [&](int s) {
+#pragma unroll
+    for (int r = 0; r < SA; ++r) {
+      const int e = tid + r * GEMM_THREADS;
+      if (VEC) {
+        if (AK && e < A4) {
+          const int mm = e / (FK / 4), kk = (e % (FK / 4)) * 4;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) As[s][kk + j][mm] = ra[4 * r + j];
+        }
+      } else {
+        int m, k;
+        if (AK) { k = e % FK; m = e / FK; } else { m = e % BM; k = e / BM; }
+        As[s][k][m] = ra[r];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < SB; ++r) {
+      const int e = tid + r * GEMM_THREADS;
+      if (VEC) {
+        if (BKC && e < B4) {
+          const int nn = e / (FK / 4), kk = (e % (FK / 4)) * 4;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) Bs[s][kk + j][nn] = rb[4 * r + j];
+        }
+      } else if (e < BN * FK) {
+        int n, k;
+        if (BKC) { k = e % FK; n = e / FK; } else { n = e % BN; k = e / BN; }
+        Bs[s][k][n] = rb[r];
+      }
+    }
+  };
+
+  float acc[RM][RN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+  // The bias gradient: the first tile along the other dimension sums its dz
+  // column over the chunk's rows in ascending order (zero-filled rows add
+  // +0, which leaves a sum that started at +0 unchanged), one thread a column.
+  const int bias_src = EPI == EPI_SPLITK ? g.bias_src : 0;
+  const bool bias_a = bias_src == 1 && n0 == 0 && tid < BM;
+  const bool bias_b = bias_src == 2 && m0 == 0 && tid < BN;
+  float bsum = 0.f;
+
+  const int nk = (kend - kbeg + FK - 1) / FK;
+  load_tile(kbeg, 0);
+  cp_async_commit();
+  store_tile(0);
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int t = 0; t < nk; ++t) {
+    const int s = t & 1;
+    const bool more = t + 1 < nk;
+    if (more) {
+      load_tile(kbeg + (t + 1) * FK, s ^ 1);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int kk = 0; kk < FK; ++kk) {
+      float a[RM], b[RN];
+#pragma unroll
+      for (int p = 0; p < RM / 4; ++p) {
+        const float4 v = *reinterpret_cast<const float4*>(&As[s][kk][p * (BM / (RM / 4)) + ty * 4]);
+        a[4 * p] = v.x; a[4 * p + 1] = v.y; a[4 * p + 2] = v.z; a[4 * p + 3] = v.w;
+      }
+      if (RN == 1) {
+        b[0] = Bs[s][kk][tx];
+      } else {
+#pragma unroll
+        for (int p = 0; p < RN / 4; ++p) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(&Bs[s][kk][p * (BN / (RN / 4)) + tx * 4]);
+          b[4 * p] = v.x; b[4 * p + 1] = v.y; b[4 * p + 2] = v.z; b[4 * p + 3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (bias_a) {
+#pragma unroll
+      for (int kk = 0; kk < FK; ++kk) bsum += As[s][kk][tid];
+    } else if (bias_b) {
+#pragma unroll
+      for (int kk = 0; kk < FK; ++kk) bsum += Bs[s][kk][tid];
+    }
+    if (more) {
+      store_tile(s ^ 1);
+      cp_async_wait<0>();
     }
     __syncthreads();
   }
 
-  const int ld = MIXED ? ldc : N;
+  if ((bias_a && m0 + tid < M) || (bias_b && n0 + tid < N))
+    g.bias_out[(long long)blockIdx.z * g.bias_n + (bias_a ? m0 : n0) + tid] = bsum;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RM; ++i) {
+    const int m = m0 + (i / 4) * (BM / (RM / 4)) + ty * 4 + i % 4;
+    if (m >= M) continue;
+    if (RN == 1) {
+      if (n0 + tx < N) store_out<EPI, AUX16>(g, grp, m, n0 + tx, acc[i][0]);
+    } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 16 * i;
-      const int n = n0 + tx + 16 * j;
-      if (m >= M || n >= N) continue;
-      const long long o = (long long)m * ld + n;
-      if (EPI == EPI_BIAS_ACT) {
-        const float v = act_fwd(acc[i][j] + static_cast<const float*>(aux)[n], act);
-        if (!MIXED || C) C[o] = v;
-        if (MIXED && C16) C16[o] = __float2bfloat16_rn(v);
-      } else if (EPI == EPI_ACT_GRAD) {
-        C[o] = acc[i][j] * act_grad_from_h(load_at<AUX16>(aux, o), act);
-      } else {
-        C[(long long)blockIdx.z * M * ld + o] = acc[i][j];
+      for (int p = 0; p < RN / 4; ++p) {
+        const float v[4] = {acc[i][4 * p], acc[i][4 * p + 1], acc[i][4 * p + 2], acc[i][4 * p + 3]};
+        store_row<EPI, AUX16, 4>(g, grp, m, n0 + p * (BN / (RN / 4)) + tx * 4, v);
       }
     }
   }
 }
 
-// bf16 products on the tensor cores, f32 accumulation.  Both operands are
-// rounded to bf16 (nearest even) as the tile is staged; tails are zero-filled,
-// so no dimension has to be a multiple of the fragment.  As is [m][k] and Bs
-// is [n][k], k contiguous: row-major A and column-major B fragments.
-template <int EPI, bool H16>
-__global__ void __launch_bounds__(MMA_THREADS)
-mma_gemm_kernel(const void* __restrict__ Ap, long long sam, long long sak,
-                const void* __restrict__ Bp, long long sbk, long long sbn,
-                float* __restrict__ C, int M, int N, int K, int kchunk,
-                const void* __restrict__ aux, int act,
-                __nv_bfloat16* __restrict__ C16, int ldc) {
-  constexpr bool A16 = H16 && EPI == EPI_BIAS_ACT;
-  constexpr bool B16 = H16 && EPI == EPI_SPLITK;
-  constexpr bool AUX16 = H16 && EPI == EPI_ACT_GRAD;
-  __shared__ __align__(32) unsigned short As_raw[TM * MMA_LDK];
-  __shared__ __align__(32) unsigned short Bs_raw[TN * MMA_LDK];
-  __shared__ __align__(32) float Cs[TM * MMA_LDC];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(As_raw);
-  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(Bs_raw);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = (warp / 2) * 32;
-  const int wn = (warp % 2) * 32;
-  const int m0 = blockIdx.y * TM;
-  const int n0 = blockIdx.x * TN;
-  const int kbeg = blockIdx.z * kchunk;
-  const int kend = min(K, kbeg + kchunk);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = kbeg; k0 < kend; k0 += MMA_TK) {
-#pragma unroll
-    for (int r = 0; r < (TM * MMA_TK) / MMA_THREADS; ++r) {
-      const int idx = tid + r * MMA_THREADS;
-      int mm, kk;
-      if (sak == 1) { kk = idx % MMA_TK; mm = idx / MMA_TK; }   // k contiguous
-      else          { mm = idx % TM; kk = idx / TM; }           // m contiguous
-      const int gm = m0 + mm, gk = k0 + kk;
-      const float v = (gm < M && gk < kend)
-                          ? load_at<A16>(Ap, gm * sam + gk * sak) : 0.f;
-      As[mm * MMA_LDK + kk] = __float2bfloat16_rn(v);
-    }
-#pragma unroll
-    for (int r = 0; r < (TN * MMA_TK) / MMA_THREADS; ++r) {
-      const int idx = tid + r * MMA_THREADS;
-      int nn, kk;
-      if (sbn == 1) { nn = idx % TN; kk = idx / TN; }           // n contiguous
-      else          { kk = idx % MMA_TK; nn = idx / MMA_TK; }   // k contiguous
-      const int gn = n0 + nn, gk = k0 + kk;
-      const float v = (gn < N && gk < kend)
-                          ? load_at<B16>(Bp, gk * sbk + gn * sbn) : 0.f;
-      Bs[nn * MMA_LDK + kk] = __float2bfloat16_rn(v);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < MMA_TK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm + 16 * i) * MMA_LDK + kk, MMA_LDK);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + (wn + 16 * j) * MMA_LDK + kk, MMA_LDK);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * MMA_LDC + wn + 16 * j, acc[i][j],
-                              MMA_LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < TM * TN; idx += MMA_THREADS) {
-    const int mm = idx / TN, nn = idx % TN;
-    const int m = m0 + mm, n = n0 + nn;
-    if (m >= M || n >= N) continue;
-    const float sum = Cs[mm * MMA_LDC + nn];
-    const long long o = (long long)m * ldc + n;
-    if (EPI == EPI_BIAS_ACT) {
-      const float v = act_fwd(sum + static_cast<const float*>(aux)[n], act);
-      if (C) C[o] = v;
-      if (C16) C16[o] = __float2bfloat16_rn(v);
-    } else if (EPI == EPI_ACT_GRAD) {
-      C[o] = sum * act_grad_from_h(load_at<AUX16>(aux, o), act);
-    } else {
-      C[(long long)blockIdx.z * M * ldc + o] = sum;
-    }
-  }
+// Dynamic shared memory of the bf16 product: HSTAGES stages of an A and a B
+// tile, each [rows][HK + H_PAD] when contiguous in k, else [HK][cols + H_PAD].
+template <int EPI, int BM, int BN>
+__host__ __device__ constexpr int mma_stage_elems() {
+  return (EPI != EPI_SPLITK ? BM * (HK + H_PAD) : HK * (BM + H_PAD)) +
+         (EPI == EPI_BIAS_ACT ? BN * (HK + H_PAD) : HK * (BN + H_PAD));
 }
 
-// The bias gradient of one split-K chunk from the UNROUNDED f32 dz:
-// grad[z, n, cols-1] = sum over the chunk's rows m of dz[m, n], rows strided
-// over BIAS_GRAD_ROWS threads and those partial sums added in fixed order.
-__global__ void __launch_bounds__(32 * BIAS_GRAD_ROWS)
-bias_grad_kernel(const float* __restrict__ dz, float* __restrict__ grad, int B,
-                 int out, int cols, int chunk_rows) {
-  __shared__ float red[BIAS_GRAD_ROWS][33];
-  const int tx = threadIdx.x % 32;
-  const int ty = threadIdx.x / 32;
-  const int n = blockIdx.x * 32 + tx;
-  const int z = blockIdx.y;
-  const int mbeg = z * chunk_rows;
-  const int mend = min(B, mbeg + chunk_rows);
-  float s = 0.f;
-  if (n < out)
-    for (int m = mbeg + ty; m < mend; m += BIAS_GRAD_ROWS) s += dz[(long long)m * out + n];
-  red[ty][tx] = s;
-  __syncthreads();
-  if (ty == 0 && n < out) {
-    float t = 0.f;
+// bf16 products on the tensor cores, f32 accumulation: a BM x BN tile over
+// eight warps (WM x WN), each warp (BM/WM) x (BN/WN) in 16 x 8 mma.sync
+// products.  Every operand is a bf16 copy in device memory whose rows are
+// padded to a multiple of 8 elements, so each tile comes in by 16-byte
+// cp.async copies (the ragged edge zero-filled by the copy's byte count)
+// into a ring of HSTAGES stages, HK deep, while earlier stages multiply.
+// Fragments come out of shared memory with ldmatrix (.trans for an operand
+// contiguous in m or n).  Each output sums its k16 steps in ascending order
+// from the chunk's start, with tails zero-filled: the sums of the earlier
+// nvcuda::wmma kernel.  The epilogue runs from the accumulator registers.
+template <int EPI, bool AUX16, int BM, int BN, int WM, int WN>
+__global__ void __launch_bounds__(GEMM_THREADS)
+mma_gemm_kernel(const GemmArgs g) {
+  constexpr bool AK = EPI != EPI_SPLITK;
+  constexpr bool BKC = EPI == EPI_BIAS_ACT;
+  static_assert(WM * WN * 32 == GEMM_THREADS, "eight warps");
+  constexpr int WTM = BM / WM, WTN = BN / WN;       // a warp's tile
+  constexpr int MI = WTM / 16, NI = WTN / 8;        // its 16 x 8 products
+  static_assert(MI >= 1 && NI % 2 == 0, "ldmatrix.x4 feeds two n8 blocks");
+  constexpr int PA = AK ? HK + H_PAD : BM + H_PAD;  // row pitch, elements
+  constexpr int PB = BKC ? HK + H_PAD : BN + H_PAD;
+  constexpr int A_ELEMS = AK ? BM * PA : HK * PA;
+  constexpr int STAGE = mma_stage_elems<EPI, BM, BN>();
+  constexpr int A_CH = AK ? BM * (HK / 8) : HK * (BM / 8);   // 16-byte copies a tile
+  constexpr int B_CH = BKC ? BN * (HK / 8) : HK * (BN / 8);
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+
+  int m0, n0, grp, kbeg, kend;
+  if (!tile_of<EPI>(g, m0, n0, grp, kbeg, kend, BM, BN, reinterpret_cast<float*>(mma_smem)))
+    return;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm0 = (warp / WN) * WTM, wn0 = (warp % WN) * WTN;
+  const int M = g.M, N = g.N;
+  const __nv_bfloat16* Ap = static_cast<const __nv_bfloat16*>(g.A[grp]);
+  const __nv_bfloat16* Bp = static_cast<const __nv_bfloat16*>(g.B[grp]);
+  const long long lda = g.lda[grp], ldb = g.ldb;
+
+  auto load_tile = [&](int k0, int s) {
+    __nv_bfloat16* As = sm + s * STAGE;
+    __nv_bfloat16* Bs = As + A_ELEMS;
+    for (int e = tid; e < A_CH; e += GEMM_THREADS) {
+      int r, c, m, k;
+      if (AK) { r = e / (HK / 8); c = (e % (HK / 8)) * 8; m = m0 + r; k = k0 + c; }
+      else    { r = e / (BM / 8); c = (e % (BM / 8)) * 8; k = k0 + r; m = m0 + c; }
+      const int ok = AK ? (m < M ? min(8, max(0, kend - k)) : 0)
+                        : (k < kend ? min(8, max(0, M - m)) : 0);
+      const __nv_bfloat16* src = AK ? Ap + m * lda + k : Ap + (long long)k * lda + m;
+      cp_async16(As + r * PA + c, ok ? src : Ap, 2 * ok);
+    }
+    for (int e = tid; e < B_CH; e += GEMM_THREADS) {
+      int r, c, n, k;
+      if (BKC) { r = e / (HK / 8); c = (e % (HK / 8)) * 8; n = n0 + r; k = k0 + c; }
+      else     { r = e / (BN / 8); c = (e % (BN / 8)) * 8; k = k0 + r; n = n0 + c; }
+      const int ok = BKC ? (n < N ? min(8, max(0, kend - k)) : 0)
+                         : (k < kend ? min(8, max(0, N - n)) : 0);
+      const __nv_bfloat16* src = BKC ? Bp + n * ldb + k : Bp + (long long)k * ldb + n;
+      cp_async16(Bs + r * PB + c, ok ? src : Bp, 2 * ok);
+    }
+  };
+
+  float acc[MI][NI][4];
 #pragma unroll
-    for (int i = 0; i < BIAS_GRAD_ROWS; ++i) t += red[i][tx];
-    grad[((long long)z * out + n) * cols + cols - 1] = t;
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  const int nk = (kend - kbeg + HK - 1) / HK;
+#pragma unroll
+  for (int s = 0; s < HSTAGES - 1; ++s) {
+    if (s < nk) load_tile(kbeg + s * HK, s);
+    cp_async_commit();
   }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<HSTAGES - 2>();
+    __syncthreads();  // stage t has landed; every warp is done with stage t - 1
+    const int tn = t + HSTAGES - 1;
+    if (tn < nk) load_tile(kbeg + tn * HK, tn % HSTAGES);
+    cp_async_commit();
+    const __nv_bfloat16* As = sm + (t % HSTAGES) * STAGE;
+    const __nv_bfloat16* Bs = As + A_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < HK; kk += 16) {
+      unsigned a[MI][4], b[NI][2];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int mb = wm0 + i * 16;
+        if (AK)
+          ldmatrix_x4<false>(a[i], As + (mb + lane % 8 + ((lane / 8) % 2) * 8) * PA + kk +
+                                       (lane / 16) * 8);
+        else
+          ldmatrix_x4<true>(a[i], As + (kk + lane % 8 + (lane / 16) * 8) * PA + mb +
+                                      ((lane / 8) % 2) * 8);
+      }
+#pragma unroll
+      for (int j = 0; j < NI / 2; ++j) {
+        const int nb = wn0 + j * 16;
+        unsigned r[4];
+        if (BKC)
+          ldmatrix_x4<false>(r, Bs + (nb + lane % 8 + (lane / 16) * 8) * PB + kk +
+                                    ((lane / 8) % 2) * 8);
+        else
+          ldmatrix_x4<true>(r, Bs + (kk + lane % 8 + ((lane / 8) % 2) * 8) * PB + nb +
+                                   (lane / 16) * 8);
+        b[2 * j][0] = r[0]; b[2 * j][1] = r[1];
+        b[2 * j + 1][0] = r[2]; b[2 * j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  const int gid = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm0 + i * 16 + gid + 8 * h;
+      if (NI == 4) {
+        // A quad holds columns j*8 + tig*2 + q of this row for j < 4; four
+        // rounds of shuffles within the quad give lane tig the 8 columns of
+        // block j = tig, so that its stores are 16 bytes wide.
+        float r[4][2];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int j = (tig + s) & 3;  // the block this lane sends in round s
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float mine = j == 0 ? acc[i][0][2 * h + q] : j == 1 ? acc[i][1][2 * h + q]
+                             : j == 2 ? acc[i][2][2 * h + q] : acc[i][3][2 * h + q];
+            r[s][q] = s ? __shfl_sync(0xffffffffu, mine, (lane & ~3) | ((tig - s) & 3)) : mine;
+          }
+        }
+        float v[8];  // column tig*8 + 2u + q came from lane u, in round (tig - u) & 3
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int s = (tig - u) & 3;
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            v[2 * u + q] = s == 0 ? r[0][q] : s == 1 ? r[1][q] : s == 2 ? r[2][q] : r[3][q];
+        }
+        if (m < M) store_row<EPI, AUX16, 8>(g, grp, m, n0 + wn0 + tig * 8, v);
+      } else {
+        if (m >= M) continue;
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int n = n0 + wn0 + j * 8 + tig * 2 + q;
+            if (n < N) store_out<EPI, AUX16>(g, grp, m, n, acc[i][j][2 * h + q]);
+          }
+      }
+    }
 }
 
 // Where an update reads its batch.  Tensor interface (rows == nullptr):
@@ -434,11 +833,14 @@ __device__ __forceinline__ float action_at(const BatchIn& in, int m, long long r
 }
 
 // One thread per row.  sel_q is q_online(nobs) for double-Q, else q_target.
+
+// One thread per row.  sel_q is q_online(nobs) for double-Q, else q_target.
+// dz16 (may be null): a bf16 copy of dz, row stride ld16, for bf16 products.
 __global__ void __launch_bounds__(ROW_THREADS)
 td_rows_kernel(const float* __restrict__ q, const float* __restrict__ sel_q,
                const float* __restrict__ qt, BatchIn in, float* __restrict__ dz,
-               float* __restrict__ partials, int B, int A, float gamma,
-               float two_over_b) {
+               __nv_bfloat16* __restrict__ dz16, int ld16, float* __restrict__ partials,
+               int B, int A, float gamma, float two_over_b) {
   __shared__ float red[4][ROW_THREADS];
   const int tid = threadIdx.x;
   const int m = blockIdx.x * ROW_THREADS + tid;
@@ -462,7 +864,11 @@ td_rows_kernel(const float* __restrict__ q, const float* __restrict__ sel_q,
     }
     const float err = q_taken - y;
     const float g = two_over_b * err;
-    for (int a = 0; a < A; ++a) dz[r + a] = g * action_at(in, m, r, a);
+    for (int a = 0; a < A; ++a) {
+      const float d = g * action_at(in, m, r, a);
+      dz[r + a] = d;
+      if (dz16) dz16[(long long)m * ld16 + a] = __float2bfloat16_rn(d);
+    }
     s_err2 = err * err;
     s_q = q_sum;
     s_qtaken = q_taken;
@@ -482,53 +888,102 @@ td_rows_kernel(const float* __restrict__ q, const float* __restrict__ sel_q,
   if (tid < 4) partials[blockIdx.x * 4 + tid] = red[tid][0];
 }
 
-__global__ void metrics_kernel(const float* __restrict__ partials, int nblocks,
-                               int B, int A, float* __restrict__ metrics) {
-  const int k = threadIdx.x;
-  if (k >= 4) return;
-  float s = 0.f;
-  for (int i = 0; i < nblocks; ++i) s += partials[i * 4 + k];
-  const float denom = (k == 1) ? (float)B * (float)A : (float)B;
-  metrics[k] = s / denom;
-}
-
 struct AdamConsts {
   float tau, one_minus_tau, b1, one_minus_b1, b2, one_minus_b2;
 };
 
-// Element i of the [out, in+1] gradient: column < in is W, column in is b.
-__global__ void __launch_bounds__(EW_THREADS)
-adam_polyak_kernel(float* __restrict__ W, float* __restrict__ b,
-                   float* __restrict__ Wt, float* __restrict__ bt,
-                   float* __restrict__ mW, float* __restrict__ mb,
-                   float* __restrict__ vW, float* __restrict__ vb,
-                   const float* __restrict__ grad_chunks, int nchunks,
-                   int out, int in, const float* __restrict__ lr_t_p,
-                   const float* __restrict__ eps_t_p, AdamConsts c) {
-  const int cols = in + 1;
-  const long long total = (long long)out * cols;
-  const long long i = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
-  if (i >= total) return;
-  float g = 0.f;
-  for (int z = 0; z < nchunks; ++z) g += grad_chunks[z * total + i];  // fixed order
-  const int n = (int)(i / cols);
-  const int j = (int)(i % cols);
-  float *p, *pt, *m, *v;
-  long long o;
-  if (j < in) { p = W; pt = Wt; m = mW; v = vW; o = (long long)n * in + j; }
-  else        { p = b; pt = bt; m = mb; v = vb; o = n; }
-  const float lr_t = *lr_t_p;
-  const float eps_t = *eps_t_p;
-  const float m_n = c.b1 * m[o] + c.one_minus_b1 * g;
-  const float v_n = c.b2 * v[o] + c.one_minus_b2 * g * g;
+// Adam, the parameter write and the polyak blend of entry o, gradient g.
+// Which product of a * b + c * d the compiler fuses into an fma depends on
+// the code around it, and from nonzero moments the two choices round apart;
+// the intrinsics fix the form every kernel of this file has used:
+// m' = fma(g, 1 - b1, b1 * m), v' = fma((1 - b2) * g, g, b2 * v),
+// pt' = fma(tau, p', (1 - tau) * pt).
+__device__ __forceinline__ void adam_entry(float* p, float* pt, float* m, float* v, long long o,
+                                           float g, float lr_t, float eps_t,
+                                           const AdamConsts& c) {
+  const float m_n = __fmaf_rn(g, c.one_minus_b1, __fmul_rn(c.b1, m[o]));
+  const float v_n = __fmaf_rn(__fmul_rn(c.one_minus_b2, g), g, __fmul_rn(c.b2, v[o]));
   const float p_n = p[o] - lr_t * m_n / (sqrtf(v_n) + eps_t);
   m[o] = m_n;
   v[o] = v_n;
   p[o] = p_n;
-  pt[o] = c.tau * p_n + c.one_minus_tau * pt[o];
+  pt[o] = __fmaf_rn(c.tau, p_n, __fmul_rn(c.one_minus_tau, pt[o]));
+}
+
+// Every layer's Adam and polyak step in one launch, after every product of
+// the update (dh reads the old W first).  Entry e of layer i is W (e <
+// out*in) or b; its gradient is the sum of the layer's split-K chunks in
+// chunk order.  Block 0 also finishes the metrics row from the TD kernel's
+// per-block sums.
+struct AdamArgs {
+  int L, nchunks;
+  long long start[MAX_LAYERS + 1];  // first entry of each layer; start[L] = all
+  int out[MAX_LAYERS], in[MAX_LAYERS];
+  float* prm[8 * MAX_LAYERS];       // params8: W, b, Wt, bt, mW, mb, vW, vb (L each)
+  const float* gw[MAX_LAYERS];      // [chunks, out, in]
+  const float* gb[MAX_LAYERS];      // [chunks, out]
+  const float* lr_t;
+  const float* eps_t;
+  AdamConsts c;
+  const float* partials;
+  float* metrics;
+  int nrowblocks, B, A;
+};
+
+__global__ void __launch_bounds__(EW_THREADS)
+adam_polyak_kernel(const AdamArgs a) {
+  const long long e = (long long)blockIdx.x * EW_THREADS + threadIdx.x;
+  if (blockIdx.x == 0 && threadIdx.x < 4) {
+    const int k = threadIdx.x;
+    float s = 0.f;
+    for (int i = 0; i < a.nrowblocks; ++i) s += a.partials[i * 4 + k];
+    const float denom = (k == 1) ? (float)a.B * (float)a.A : (float)a.B;
+    a.metrics[k] = s / denom;
+  }
+  if (e >= a.start[a.L]) return;
+  int i = 0;
+  while (e >= a.start[i + 1]) ++i;
+  const int L = a.L, out = a.out[i];
+  const long long nw = (long long)out * a.in[i];
+  const long long o = e - a.start[i];
+  const float lr_t = *a.lr_t, eps_t = *a.eps_t;
+  float g = 0.f;
+  if (o < nw) {
+    for (int z = 0; z < a.nchunks; ++z) g += a.gw[i][z * nw + o];  // fixed order
+    adam_entry(a.prm[i], a.prm[2 * L + i], a.prm[4 * L + i], a.prm[6 * L + i], o, g, lr_t,
+               eps_t, a.c);
+  } else {
+    const long long n = o - nw;
+    for (int z = 0; z < a.nchunks; ++z) g += a.gb[i][(long long)z * out + n];
+    adam_entry(a.prm[L + i], a.prm[3 * L + i], a.prm[5 * L + i], a.prm[7 * L + i], n, g, lr_t,
+               eps_t, a.c);
+  }
+}
+
+// Copies into bf16 (round to nearest even) at the start of a bf16 update:
+// each net's weights and the observations, one segment per blockIdx.y, rows
+// padded to the copy's row stride.
+constexpr int MAX_SEGMENTS = 2 * MAX_LAYERS + 2;
+struct ConvertArgs {
+  const float* src[MAX_SEGMENTS];
+  __nv_bfloat16* dst[MAX_SEGMENTS];
+  long long src_ld[MAX_SEGMENTS], dst_ld[MAX_SEGMENTS];
+  int rows[MAX_SEGMENTS], cols[MAX_SEGMENTS];
+};
+
+__global__ void __launch_bounds__(EW_THREADS)
+to_bf16_kernel(const ConvertArgs a) {
+  const int s = blockIdx.y;
+  const int cols = a.cols[s];
+  const int total = a.rows[s] * cols;  // the host keeps each segment below 2^31
+  for (int e = blockIdx.x * EW_THREADS + threadIdx.x; e < total; e += gridDim.x * EW_THREADS) {
+    const int r = e / cols, c = e - r * cols;
+    a.dst[s][r * a.dst_ld[s] + c] = __float2bfloat16_rn(a.src[s][r * a.src_ld[s] + c]);
+  }
 }
 
 inline int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
+inline long long pad8(long long n) { return (n + 7) / 8 * 8; }
 
 // Which of K1's options an update runs with.
 struct Precision {
@@ -536,15 +991,24 @@ struct Precision {
   int save_bf16;    // saved layer outputs (and the saved observation) in bf16
 };
 
+// Float offsets into the workspace, each a multiple of 4 (16 bytes).  A bf16
+// matrix has rows padded to a multiple of 8 elements (pad8), so that each
+// row starts 16-byte aligned.
 struct Layout {
-  // float offsets into the workspace, each a multiple of 4 (16 bytes)
-  long long h[17];   // saved online outputs over obs, layers 1..L (h[L] = q);
-                     // under save_bf16 layers 1..L-1 hold bf16, q stays f32
-  long long tmp0, tmp1, qn, qt, dz0, dz1, grad, partials, total;
+  long long h[MAX_LAYERS + 1];   // online outputs over obs, layers 1..L (h[L] = q);
+                                 // under save_bf16 layers 1..L-1 are bf16, q stays f32
+  long long tmp[4];              // f32 forward ping-pong: online over nobs (0, 1), and
+                                 // under save_bf16 online over obs (2, 3)
+  long long qn, qt, dz[2];       // the target net's forward uses dz[0], dz[1] as its ping-pong
+  // K1 only (offline): the bf16 operands of the tensor-core products
+  long long hb[MAX_LAYERS + 1];  // hidden outputs over obs (= h under save_bf16)
+  long long w16[MAX_LAYERS], wt16[MAX_LAYERS], obs16, nobs16;
+  long long tb16[2], dz16[2];    // online-over-nobs ping-pong; dz (the target's ping-pong first)
+  long long gw[MAX_LAYERS];      // weight gradients by split-K chunk [chunks, out, in]
+  long long gb[MAX_LAYERS];      // bias gradients [chunks, out]
+  long long partials, total;
   int nchunks, chunk_rows, maxw, nrowblocks;
 };
-
-constexpr int MAX_LAYERS = 16;
 
 bool make_layout(int L, const int* dims, int B, int offline, int save_bf16, Layout* lay) {
   if (L < 1 || L > MAX_LAYERS || B < 1) return false;
@@ -560,51 +1024,150 @@ bool make_layout(int L, const int* dims, int B, int offline, int save_bf16, Layo
     off += (floats + 3) / 4 * 4;
     return at;
   };
+  auto take16 = [&take](long long rows, long long cols) {
+    return take((rows * pad8(cols) + 1) / 2);
+  };
+  const long long Bl = B;
   lay->h[0] = -1;  // obs itself
-  for (int i = 1; i <= L; ++i) {
-    const long long n = (long long)B * dims[i];
-    lay->h[i] = take(save_bf16 && i < L ? (n + 1) / 2 : n);
-  }
+  for (int i = 1; i <= L; ++i)
+    lay->h[i] = save_bf16 && i < L ? take16(Bl, dims[i]) : take(Bl * dims[i]);
   const int A = dims[L];
-  lay->tmp0 = take((long long)B * maxw);
-  lay->tmp1 = take((long long)B * maxw);
-  lay->qn = take((long long)B * A);
-  lay->qt = take((long long)B * A);
-  lay->dz0 = take((long long)B * maxw);
-  lay->dz1 = take((long long)B * maxw);
-  long long g = 0;
-  for (int i = 0; i < L; ++i) {
-    const long long s = (long long)lay->nchunks * dims[i + 1] * (dims[i] + 1);
-    g = s > g ? s : g;
+  for (int t = 0; t < 4; ++t) lay->tmp[t] = t < 2 || save_bf16 ? take(Bl * maxw) : -1;
+  lay->qn = take(Bl * A);
+  lay->qt = take(Bl * A);
+  lay->dz[0] = take(Bl * maxw);
+  lay->dz[1] = take(Bl * maxw);
+  for (int i = 0; i <= L; ++i) lay->hb[i] = -1;
+  for (int i = 0; i < L; ++i) lay->w16[i] = lay->wt16[i] = -1;
+  lay->obs16 = lay->nobs16 = lay->tb16[0] = lay->tb16[1] = lay->dz16[0] = lay->dz16[1] = -1;
+  if (offline) {
+    // the size entry does not know matmul_dtype, so K1 always holds these
+    for (int i = 0; i < L; ++i) {
+      lay->w16[i] = take16(dims[i + 1], dims[i]);
+      lay->wt16[i] = take16(dims[i + 1], dims[i]);
+    }
+    lay->obs16 = take16(Bl, dims[0]);
+    lay->nobs16 = take16(Bl, dims[0]);
+    for (int i = 1; i < L; ++i) lay->hb[i] = save_bf16 ? lay->h[i] : take16(Bl, dims[i]);
+    for (int t = 0; t < 2; ++t) {
+      lay->tb16[t] = take16(Bl, maxw);
+      lay->dz16[t] = take16(Bl, maxw);
+    }
   }
-  lay->grad = take(g);
+  for (int i = 0; i < L; ++i) {
+    lay->gw[i] = take((long long)lay->nchunks * dims[i + 1] * dims[i]);
+    lay->gb[i] = take((long long)lay->nchunks * dims[i + 1]);
+  }
   lay->partials = take((long long)lay->nrowblocks * 4);
   lay->total = off;
   return true;
 }
 
-template <int EPI>
-cudaError_t gemm(cudaStream_t st, const GemmArgs& g, int nchunks, int tensor_cores) {
-  dim3 grid(cdiv(g.N, TN), cdiv(g.M, TM), nchunks);
-  const bool h16 = g.A.bf16 || g.B.bf16 || g.aux_bf16;
-#define MMA_ARGS                                                              \
-  g.A.p, g.A.s0, g.A.s1, g.B.p, g.B.s0, g.B.s1, g.C, g.M, g.N, g.K, g.kchunk, \
-      g.aux, g.act, g.C16, g.ldc
-#define FMA_ARGS                                                                  \
-  g.A.p, g.A.s0, g.A.s1, g.B.p, g.B.s0, g.B.s1, g.ones_col, g.C, g.M, g.N, g.K,  \
-      g.kchunk, g.aux, g.act, g.round_b, g.C16, g.ldc
-  if (tensor_cores) {
-    if (h16) mma_gemm_kernel<EPI, true><<<grid, MMA_THREADS, 0, st>>>(MMA_ARGS);
-    else mma_gemm_kernel<EPI, false><<<grid, MMA_THREADS, 0, st>>>(MMA_ARGS);
-  } else {
-    const bool mixed = h16 || g.round_b || g.C16 || g.ldc != g.N;
-    if (!mixed) gemm_kernel<EPI, false, false><<<grid, GEMM_THREADS, 0, st>>>(FMA_ARGS);
-    else if (h16) gemm_kernel<EPI, true, true><<<grid, GEMM_THREADS, 0, st>>>(FMA_ARGS);
-    else gemm_kernel<EPI, true, false><<<grid, GEMM_THREADS, 0, st>>>(FMA_ARGS);
+constexpr int MAX_DEVICES = 64;
+
+// Launch one bf16 product.  Its ring of stages needs more shared memory than
+// the 48 KB a kernel gets by default: granted once per device.
+template <int EPI, bool AUX16, int BM, int BN, int WM, int WN>
+cudaError_t launch_mma(cudaStream_t st, GemmArgs g, int nz, int nbias) {
+  constexpr size_t smem = (size_t)HSTAGES * mma_stage_elems<EPI, BM, BN>() * 2;
+  static int granted[MAX_DEVICES];
+  const void* kern = (const void*)mma_gemm_kernel<EPI, AUX16, BM, BN, WM, WN>;
+  if (smem > 48 * 1024) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+    if (!granted[dev]) {
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      granted[dev] = 1;
+    }
   }
-#undef MMA_ARGS
-#undef FMA_ARGS
+  g.ntm = cdiv(g.M, BM);
+  g.ntn = cdiv(g.N, BN);
+  mma_gemm_kernel<EPI, AUX16, BM, BN, WM, WN>
+      <<<dim3(g.ntm * g.ntn + nbias, 1, nz), GEMM_THREADS, smem, st>>>(g);
   return cudaGetLastError();
+}
+
+template <int EPI, int MODE, int BM, int BN, int RM, int RN, int FK>
+cudaError_t launch_f32(cudaStream_t st, GemmArgs g, int nz, int nbias) {
+  g.ntm = cdiv(g.M, BM);
+  g.ntn = cdiv(g.N, BN);
+  gemm_f32_kernel<EPI, MODE, BM, BN, RM, RN, FK>
+      <<<dim3(g.ntm * g.ntn + nbias, 1, nz), GEMM_THREADS, 0, st>>>(g);
+  return cudaGetLastError();
+}
+
+// The number of SMs of the current device, read once per device.
+cudaError_t sm_count(int* sms) {
+  static int count[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!count[dev]) {
+    e = cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  *sms = count[dev];
+  return cudaSuccess;
+}
+
+// One product: nz = groups (forward) or split-K chunks, nbias = bias-gradient
+// blocks after the tiles (EPI_SPLITK).  N <= NARROW takes the narrow tile
+// (f32: 64 x 16, 64 deep, so that a long K takes few pipeline steps),
+// except where the operands are unaligned or typed (off the main path),
+// which keep the wide one.
+template <int EPI>
+cudaError_t gemm(cudaStream_t st, const GemmArgs& g, int nz, int nbias, int tc, int mode,
+                 bool aux16) {
+  const bool narrow = g.N <= NARROW;
+  if (tc) {
+    // 128 x 128 tiles where they make between one and two blocks for each
+    // SM (two fit an SM at once), else 128 x 64: more blocks for a product
+    // too small to fill the card, fewer idle SMs in the last round of one
+    // that overfills it
+    int sms = 0;
+    const cudaError_t e = sm_count(&sms);
+    if (e != cudaSuccess) return e;
+    const long long wide = ((long long)cdiv(g.M, 128) * cdiv(g.N, 128) + nbias) * nz;
+    const bool half = !narrow && (wide < sms || wide > 2LL * sms);
+    if constexpr (EPI == EPI_ACT_GRAD) {
+      // dh (K = the layer's width, few k steps) took the 128 x 64 tile at
+      // every width measured, and is built with no other
+      if (aux16)
+        return narrow ? launch_mma<EPI, true, 128, 16, 8, 1>(st, g, nz, nbias)
+                      : launch_mma<EPI, true, 128, 64, 4, 2>(st, g, nz, nbias);
+      return narrow ? launch_mma<EPI, false, 128, 16, 8, 1>(st, g, nz, nbias)
+                    : launch_mma<EPI, false, 128, 64, 4, 2>(st, g, nz, nbias);
+    } else {
+      return narrow ? launch_mma<EPI, false, 128, 16, 8, 1>(st, g, nz, nbias)
+             : half ? launch_mma<EPI, false, 128, 64, 4, 2>(st, g, nz, nbias)
+                    : launch_mma<EPI, false, 128, 128, 2, 4>(st, g, nz, nbias);
+    }
+  }
+  if (mode == F32_VEC)
+    return narrow ? launch_f32<EPI, F32_VEC, 64, 16, 4, 1, 64>(st, g, nz, nbias)
+                  : launch_f32<EPI, F32_VEC, 128, 64, 8, 4, 16>(st, g, nz, nbias);
+  if (mode == F32_SCALAR)  // unaligned operands: off the main path, one tile
+    return launch_f32<EPI, F32_SCALAR, 128, 64, 8, 4, 16>(st, g, nz, nbias);
+  if constexpr (EPI != EPI_ACT_GRAD)
+    if (mode == MIXED) return launch_f32<EPI, MIXED, 128, 64, 8, 4, 16>(st, g, nz, nbias);
+  if constexpr (EPI != EPI_BIAS_ACT)
+    if (mode == MIXED16) return launch_f32<EPI, MIXED16, 128, 64, 8, 4, 16>(st, g, nz, nbias);
+  return cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p, long long ld) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0 && ld % 4 == 0;
+}
+
+// F32_VEC where every operand of every group takes 16-byte loads.
+int f32_mode(const GemmArgs& g) {
+  for (int p = 0; p < g.ngroups; ++p)
+    if (!aligned16(g.A[p], g.lda[p]) || !aligned16(g.B[p], g.ldb)) return F32_SCALAR;
+  return F32_VEC;
 }
 
 #define CHECK(expr)                          \
@@ -614,140 +1177,197 @@ cudaError_t gemm(cudaStream_t st, const GemmArgs& g, int nchunks, int tensor_cor
     ++*n_launches;                           \
   } while (0)
 
-// Forward x [B, dims[0]] through L layers; layer i writes its output
-// (contiguous) to outs[i] as f32 and/or to outs16[i] as bf16, and the next
-// layer reads the f32 copy where there is one.
-int forward(cudaStream_t st, Operand x, float* const* Ws, float* const* bs,
-            const int* dims, const int* acts, int L, int B, float* const* outs,
-            __nv_bfloat16* const* outs16, int tensor_cores, int* n_launches) {
-  Operand in = x;
-  for (int i = 0; i < L; ++i) {
-    const int K = dims[i], N = dims[i + 1];
-    GemmArgs g{};
-    g.A = in;
-    g.B = Operand{Ws[i], 1, K, 0};
-    g.C = outs[i];
-    g.C16 = outs16 ? outs16[i] : nullptr;
-    g.ldc = N;
-    g.M = B; g.N = N; g.K = K; g.kchunk = K;
-    g.aux = bs[i];
-    g.act = acts[i];
-    CHECK(gemm<EPI_BIAS_ACT>(st, g, 1, tensor_cores));
-    in = g.C ? Operand{g.C, N, 1, 0} : Operand{g.C16, N, 1, 1};
-  }
-  return 0;
-}
-
 int run_update(int L, const int* dims, const int* acts, int B, int double_q,
                const float* consts, void* const* params, const BatchIn& in,
                const float* lr_t, const float* eps_t, float* metrics, float* ws,
                int* n_launches, cudaStream_t st, int offline, Precision pr) {
   *n_launches = 0;
   Layout lay;
-  if (!make_layout(L, dims, B, offline, pr.save_bf16, &lay))
+  if (!make_layout(L, dims, B, offline, pr.save_bf16, &lay) || (pr.matmul_bf16 && !offline))
     return (int)cudaErrorInvalidValue;
   float* const* P = reinterpret_cast<float* const*>(params);
   float* const* W = P;
   float* const* b = P + L;
   float* const* Wt = P + 2 * L;
   float* const* bt = P + 3 * L;
-  float* const* mW = P + 4 * L;
-  float* const* mb = P + 5 * L;
-  float* const* vW = P + 6 * L;
-  float* const* vb = P + 7 * L;
-  const int A = dims[L];
-  const float gamma = consts[0];
-  const AdamConsts ac{consts[1], consts[2], consts[3], consts[4], consts[5], consts[6]};
-  const float two_over_b = consts[7];
-  const int tc = pr.matmul_bf16;
+  const int D = dims[0], A = dims[L];
+  const int tc = pr.matmul_bf16, sv = pr.save_bf16;
+  auto f32 = [ws](long long off) { return off < 0 ? nullptr : ws + off; };
+  auto b16 = [ws](long long off) {
+    return off < 0 ? nullptr : reinterpret_cast<__nv_bfloat16*>(ws + off);
+  };
 
-  // (a) forwards.  The online net's outputs over obs are saved for the
-  // backward: as f32 in the h regions, or under save_bf16 as bf16 there (the
-  // next layer then reads that copy, which is what it would round to, when
-  // the products are bf16, and an f32 copy in tmp when they are f32).
-  float* tmp[MAX_LAYERS];
-  for (int i = 0; i < L; ++i) tmp[i] = ws + ((i % 2) ? lay.tmp1 : lay.tmp0);
-  float* h32[MAX_LAYERS];
-  __nv_bfloat16* h16[MAX_LAYERS];
-  for (int i = 0; i < L; ++i) {
-    if (pr.save_bf16 && i < L - 1) {
-      h16[i] = reinterpret_cast<__nv_bfloat16*>(ws + lay.h[i + 1]);
-      h32[i] = tc ? nullptr : tmp[i];
-    } else {
-      h16[i] = nullptr;
-      h32[i] = ws + lay.h[i + 1];
+  // (0) bf16 products: both nets' weights and the observations rounded once
+  if (tc) {
+    ConvertArgs ca{};
+    int ns = 0;
+    long long most = 0;
+    bool fits = true;
+    auto seg = [&](const float* src, long long sld, __nv_bfloat16* dst, int rows, int cols) {
+      fits = fits && (long long)rows * cols < (1LL << 31);
+      ca.src[ns] = src; ca.src_ld[ns] = sld;
+      ca.dst[ns] = dst; ca.dst_ld[ns] = pad8(cols);
+      ca.rows[ns] = rows; ca.cols[ns] = cols;
+      most = (long long)rows * cols > most ? (long long)rows * cols : most;
+      ++ns;
+    };
+    for (int i = 0; i < L; ++i) {
+      seg(W[i], dims[i], b16(lay.w16[i]), dims[i + 1], dims[i]);
+      seg(Wt[i], dims[i], b16(lay.wt16[i]), dims[i + 1], dims[i]);
     }
+    seg(in.obs, in.obs_ld, b16(lay.obs16), B, D);
+    seg(in.nobs, in.nobs_ld, b16(lay.nobs16), B, D);
+    if (!fits) return (int)cudaErrorInvalidValue;
+    const int gx = cdiv(most, EW_THREADS) < 512 ? cdiv(most, EW_THREADS) : 512;
+    to_bf16_kernel<<<dim3(gx, ns), EW_THREADS, 0, st>>>(ca);
+    CHECK(cudaGetLastError());
   }
-  int e = forward(st, Operand{in.obs, in.obs_ld, 1, 0}, W, b, dims, acts, L, B, h32,
-                  h16, tc, n_launches);
-  if (e) return e;
-  const Operand nobs{in.nobs, in.nobs_ld, 1, 0};
-  if (double_q) {
-    tmp[L - 1] = ws + lay.qn;
-    e = forward(st, nobs, W, b, dims, acts, L, B, tmp, nullptr, tc, n_launches);
-    if (e) return e;
+
+  // (a) forwards, one launch per layer for every (net, input) pair: the online
+  // net over obs (its outputs saved for the backward: f32 in h, or under
+  // save_bf16 as bf16 there, the next layer then reading an f32 copy in tmp
+  // when the products are f32), the online net over nobs (double-Q only) and
+  // the target net over nobs.  bf16 products read and write bf16 copies.
+  const int ng = double_q ? 3 : 2;
+  const void* x[MAX_GROUPS];
+  long long ldx[MAX_GROUPS];
+  for (int p = 0; p < ng; ++p) {
+    x[p] = tc ? (const void*)b16(p ? lay.nobs16 : lay.obs16) : (const void*)(p ? in.nobs : in.obs);
+    ldx[p] = tc ? pad8(D) : (p ? in.nobs_ld : in.obs_ld);
   }
-  tmp[L - 1] = ws + lay.qt;
-  e = forward(st, nobs, Wt, bt, dims, acts, L, B, tmp, nullptr, tc, n_launches);
-  if (e) return e;
+  for (int i = 0; i < L; ++i) {
+    const int K = dims[i], N = dims[i + 1];
+    const bool last = i == L - 1;
+    GemmArgs g{};
+    g.ngroups = ng;
+    g.M = B; g.N = N; g.K = K; g.kchunk = K;
+    g.act = acts[i];
+    g.ldb = tc ? pad8(K) : K;
+    g.csm = N; g.csn = 1; g.ld16 = pad8(N);
+    bool c16 = false;
+    for (int p = 0; p < ng; ++p) {
+      const bool target = p == ng - 1;
+      g.A[p] = x[p];
+      g.lda[p] = ldx[p];
+      g.B[p] = tc ? (const void*)b16(target ? lay.wt16[i] : lay.w16[i])
+                  : (const void*)(target ? Wt[i] : W[i]);
+      g.aux[p] = target ? bt[i] : b[i];
+      float* C;
+      __nv_bfloat16* C16 = nullptr;
+      if (p == 0) {
+        C = last ? f32(lay.h[L])
+                 : (sv ? (tc ? nullptr : f32(lay.tmp[2 + i % 2])) : f32(lay.h[i + 1]));
+        if (!last) C16 = tc ? b16(lay.hb[i + 1]) : (sv ? b16(lay.h[i + 1]) : nullptr);
+      } else if (!target) {
+        C = last ? f32(lay.qn) : (tc ? nullptr : f32(lay.tmp[i % 2]));
+        if (!last && tc) C16 = b16(lay.tb16[i % 2]);
+      } else {
+        C = last ? f32(lay.qt) : (tc ? nullptr : f32(lay.dz[i % 2]));
+        if (!last && tc) C16 = b16(lay.dz16[i % 2]);
+      }
+      g.C[p] = C;
+      g.C16[p] = C16;
+      c16 = c16 || C16;
+      x[p] = tc ? (const void*)C16 : (const void*)C;
+      ldx[p] = tc ? pad8(N) : N;
+    }
+    CHECK(gemm<EPI_BIAS_ACT>(st, g, ng, 0, tc, c16 && !tc ? MIXED : f32_mode(g), false));
+  }
 
   // (b) TD rows
-  const float* q = ws + lay.h[L];
-  const float* sel_q = double_q ? ws + lay.qn : ws + lay.qt;
-  float* dz = ws + lay.dz0;
-  float* dz_next = ws + lay.dz1;
+  const float* q = f32(lay.h[L]);
+  const float* sel_q = f32(double_q ? lay.qn : lay.qt);
   td_rows_kernel<<<lay.nrowblocks, ROW_THREADS, 0, st>>>(
-      q, sel_q, ws + lay.qt, in, dz, ws + lay.partials, B, A, gamma, two_over_b);
+      q, sel_q, f32(lay.qt), in, f32(lay.dz[0]), tc ? b16(lay.dz16[0]) : nullptr, (int)pad8(A),
+      f32(lay.partials), B, A, consts[0], consts[7]);
   CHECK(cudaGetLastError());
 
-  // (c) + (d) backward and update, last layer first
-  float* grad = ws + lay.grad;
+  // (c) backward, last layer first: per layer the weight gradient by split-K
+  // chunk with the bias gradient as extra blocks, then dh = dz . W (old W)
+  // with the activation-gradient epilogue
+  int cur = 0;
   for (int i = L - 1; i >= 0; --i) {
     const int fan_in = dims[i], out = dims[i + 1];
     // the saved input of layer i: the observation, or layer i-1's output
-    Operand h_prev{in.obs, in.obs_ld, 1, 0};
-    if (i > 0) {
-      if (pr.save_bf16) h_prev = Operand{h16[i - 1], fan_in, 1, 1};
-      else h_prev = Operand{h32[i - 1], fan_in, 1, 0};
-    }
-    // [dW | db][n, j] = sum_m dz[m, n] * [h_prev | 1][m, j].  On the tensor
-    // cores the GEMM gives dW alone and db comes from the f32 dz.
-    GemmArgs gw{};
-    gw.A = Operand{dz, 1, out, 0};
-    gw.B = h_prev;
-    gw.ones_col = !tc;
-    gw.round_b = pr.save_bf16 && i == 0;
-    gw.C = grad;
-    gw.ldc = fan_in + 1;
-    gw.M = out; gw.N = tc ? fan_in : fan_in + 1; gw.K = B; gw.kchunk = lay.chunk_rows;
-    CHECK(gemm<EPI_SPLITK>(st, gw, lay.nchunks, tc));
+    const void* hp;
+    long long ldh;
     if (tc) {
-      bias_grad_kernel<<<dim3(cdiv(out, 32), lay.nchunks), 32 * BIAS_GRAD_ROWS, 0, st>>>(
-          dz, grad, B, out, fan_in + 1, lay.chunk_rows);
-      CHECK(cudaGetLastError());
+      hp = b16(i ? lay.hb[i] : lay.obs16);
+      ldh = pad8(fan_in);
+    } else if (i == 0) {
+      hp = in.obs;
+      ldh = in.obs_ld;
+    } else {
+      hp = sv ? (const void*)b16(lay.h[i]) : (const void*)f32(lay.h[i]);
+      ldh = sv ? pad8(fan_in) : fan_in;
     }
+    const float* dzf = f32(lay.dz[cur]);
+    const void* dza = tc ? (const void*)b16(lay.dz16[cur]) : (const void*)dzf;
+    const long long ldz = tc ? pad8(out) : out;
+
+    // dW[n, j] = sum_m dz[m, n] * h_prev[m, j] over each chunk's rows
+    GemmArgs gw{};
+    gw.ngroups = 1;
+    gw.M = out; gw.N = fan_in; gw.K = B; gw.kchunk = lay.chunk_rows;
+    gw.A[0] = dza; gw.lda[0] = ldz;
+    gw.B[0] = hp; gw.ldb = ldh;
+    gw.C[0] = f32(lay.gw[i]);
+    gw.csm = fan_in; gw.csn = 1; gw.cz = (long long)out * fan_in;
+    gw.round_b = !tc && sv && i == 0;
+    gw.bias_dz = dzf; gw.bias_out = f32(lay.gb[i]); gw.bias_n = out;
+    const int mode = tc ? F32_VEC : (sv ? (i ? MIXED16 : MIXED) : f32_mode(gw));
+    gw.bias_src = tc ? 0 : 1;
+    if (out <= NARROW && out < fan_in && (tc || mode <= F32_SCALAR)) {
+      // few outputs: h_prev^T . dz instead, so that the narrow tile fits
+      gw.M = fan_in; gw.N = out;
+      gw.A[0] = hp; gw.lda[0] = ldh;
+      gw.B[0] = dza; gw.ldb = ldz;
+      gw.csm = 1; gw.csn = fan_in;
+      gw.bias_src = tc ? 0 : 2;
+    }
+    CHECK(gemm<EPI_SPLITK>(st, gw, lay.nchunks, tc ? cdiv(out, BIAS_COLS) : 0, tc, mode, false));
+
     if (i > 0) {
       // dz_prev[m, j] = (sum_n dz[m, n] * W[n, j]) * act'(h_prev[m, j])
       GemmArgs gh{};
-      gh.A = Operand{dz, out, 1, 0};
-      gh.B = Operand{W[i], fan_in, 1, 0};
-      gh.C = dz_next;
-      gh.ldc = fan_in;
+      gh.ngroups = 1;
       gh.M = B; gh.N = fan_in; gh.K = out; gh.kchunk = out;
-      gh.aux = h_prev.p;
-      gh.aux_bf16 = h_prev.bf16;
+      gh.A[0] = dza; gh.lda[0] = ldz;
+      gh.B[0] = tc ? (const void*)b16(lay.w16[i]) : (const void*)W[i];
+      gh.ldb = tc ? pad8(fan_in) : fan_in;
+      gh.aux[0] = sv ? (const void*)b16(lay.h[i]) : (const void*)f32(lay.h[i]);
+      gh.ldaux = sv ? pad8(fan_in) : fan_in;
       gh.act = acts[i - 1];
-      CHECK(gemm<EPI_ACT_GRAD>(st, gh, 1, tc));
+      gh.C[0] = f32(lay.dz[1 - cur]);
+      gh.C16[0] = tc ? b16(lay.dz16[1 - cur]) : nullptr;
+      gh.csm = fan_in; gh.csn = 1; gh.ld16 = pad8(fan_in);
+      CHECK(gemm<EPI_ACT_GRAD>(st, gh, 1, 0, tc, sv ? MIXED16 : f32_mode(gh), sv));
     }
-    const long long total = (long long)out * (fan_in + 1);
-    adam_polyak_kernel<<<cdiv(total, EW_THREADS), EW_THREADS, 0, st>>>(
-        W[i], b[i], Wt[i], bt[i], mW[i], mb[i], vW[i], vb[i], grad,
-        lay.nchunks, out, fan_in, lr_t, eps_t, ac);
-    CHECK(cudaGetLastError());
-    float* t = dz; dz = dz_next; dz_next = t;
+    cur = 1 - cur;
   }
 
-  metrics_kernel<<<1, 32, 0, st>>>(ws + lay.partials, lay.nrowblocks, B, A, metrics);
+  // (d) Adam and the polyak blend of every layer, and the metrics row
+  AdamArgs aa{};
+  aa.L = L;
+  aa.nchunks = lay.nchunks;
+  aa.start[0] = 0;
+  for (int i = 0; i < L; ++i) {
+    aa.out[i] = dims[i + 1];
+    aa.in[i] = dims[i];
+    aa.start[i + 1] = aa.start[i] + (long long)dims[i + 1] * (dims[i] + 1);
+    aa.gw[i] = f32(lay.gw[i]);
+    aa.gb[i] = f32(lay.gb[i]);
+  }
+  for (int i = 0; i < 8 * L; ++i) aa.prm[i] = P[i];
+  aa.lr_t = lr_t;
+  aa.eps_t = eps_t;
+  aa.c = AdamConsts{consts[1], consts[2], consts[3], consts[4], consts[5], consts[6]};
+  aa.partials = f32(lay.partials);
+  aa.metrics = metrics;
+  aa.nrowblocks = lay.nrowblocks;
+  aa.B = B;
+  aa.A = A;
+  adam_polyak_kernel<<<cdiv(aa.start[L], EW_THREADS), EW_THREADS, 0, st>>>(aa);
   CHECK(cudaGetLastError());
   return 0;
 }
@@ -996,18 +1616,6 @@ __device__ __forceinline__ void dense_rows(const float* x, int px, const float* 
           [=](int m, int n, float s) { y[m * py + n] = act_fwd(s + b[n], act); });
 }
 
-// Adam, the parameter write and the polyak blend of entry o, gradient g.
-__device__ __forceinline__ void adam_entry(float* p, float* pt, float* m, float* v, long long o,
-                                           float g, float lr_t, float eps_t,
-                                           const AdamConsts& c) {
-  const float m_n = c.b1 * m[o] + c.one_minus_b1 * g;
-  const float v_n = c.b2 * v[o] + c.one_minus_b2 * g * g;
-  const float p_n = p[o] - lr_t * m_n / (sqrtf(v_n) + eps_t);
-  m[o] = m_n;
-  v[o] = v_n;
-  p[o] = p_n;
-  pt[o] = c.tau * p_n + c.one_minus_tau * pt[o];
-}
 
 __global__ void __launch_bounds__(ONE_THREADS)
 k2_one_launch_kernel(const OneArgs a) {
@@ -1202,7 +1810,6 @@ struct OneDevice {
   int ready, sms, cooperative;
   size_t max_dynamic;  // dynamic shared memory a block of the kernel may take
 };
-constexpr int MAX_DEVICES = 64;
 OneDevice one_devices[MAX_DEVICES];
 
 struct OnePlan {

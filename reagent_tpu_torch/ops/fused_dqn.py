@@ -34,12 +34,13 @@ each entry one fma chain over the batch rows in order (the launch sequence's
 order, so both routes give the same gradient), and apply Adam and the polyak
 blend in place.  Shapes whose
 weights and rows exceed a block's 227 KB of shared memory, or whose blocks
-cannot all be co-resident, take the launch sequence K1 also runs (19 launches
-double-Q, 16 single-Q): shared-memory-tiled GEMMs with fused epilogues, one
-row-wise TD kernel, split-K weight gradients reduced in fixed order by the
-Adam+polyak kernel, with the whole batch as one split-K chunk.  The C entry
-decides from the shapes and the card before any launch, and the wrapper's
-``kernels_per_update`` says which ran (1, or 16/19).  No atomics in any value
+cannot all be co-resident, take the launch sequence K1 also runs (3L + 1
+launches, 10 at three layers): register-blocked GEMMs with fused epilogues,
+one forward launch per layer for every (net, input) pair, one row-wise TD
+kernel, split-K weight gradients reduced in fixed order by one Adam+polyak
+launch, with the whole batch as one split-K chunk.  The C entry decides
+from the shapes and the card before any launch, and the wrapper's
+``kernels_per_update`` says which ran (1, or 10).  No atomics in any value
 path, so results repeat bit for bit; K1 (``fused_dqn_offline.py``) is the
 sequence with 256-row chunks.
 """

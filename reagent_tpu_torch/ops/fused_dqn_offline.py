@@ -7,20 +7,25 @@ update as K2 (``fused_dqn.py``), which the TPU streams through VMEM in
 
 On Hopper blocks run in parallel and in no order, so nothing carries over
 between them.  The CUDA entry ``fused_dqn_offline_update`` instead splits the
-batch into fixed 256-row chunks: each chunk's weight and bias gradients are a
-split-K GEMM slice written to a ``[chunks, out, in+1]`` workspace, and the
-Adam+polyak kernel sums the chunks in fixed order (no atomics, so results
-repeat run to run).  The saved layer outputs of the whole batch (at 4096 rows
-and widths 512, 256 about 12.6 MB) stay in the 50 MB L2 between the forward
-and the backward.  Like K2 the f32 update is bound by f32 operations on this
-card.
+batch into fixed 256-row chunks: each chunk's weight gradient is a split-K
+GEMM slice written to a ``[chunks, out, in]`` workspace (the same launch's
+extra blocks sum each chunk's bias gradient), and one Adam+polyak launch for
+every layer sums the chunks in fixed order (no atomics, so results repeat
+run to run).  An update is 3L + 1 launches (10 at three layers): one
+forward launch per layer for all three (net, input) pairs, the TD rows, the
+weight gradients, dh, Adam.  The saved layer outputs of the whole batch (at
+4096 rows and widths 512, 256 about 12.6 MB) stay in the 50 MB L2 between
+the forward and the backward.  Like K2 the f32 update is bound by f32
+operations on this card, so its GEMM is a 128x64 tile with an 8x4 register
+block per thread fed by 16-byte loads (``csrc/fused_dqn.cu``).
 
 ``matmul_dtype`` and ``save_dtype`` are the TPU kernel's options of the same
 names (:71-72): ``matmul_dtype=torch.bfloat16`` rounds both operands of every
 product to bfloat16 and accumulates in float32, which the CUDA entry
-``fused_dqn_offline_update_bf16`` does on the tensor cores (``nvcuda::wmma``
-16x16x16 bf16 fragments, f32 accumulators, tiles converted as they are staged
-in shared memory); ``save_dtype`` (default: ``matmul_dtype``) is the type the
+``fused_dqn_offline_update_bf16`` does on the tensor cores (``mma.sync``
+m16n8k16 bf16, f32 accumulators, tiles brought in by ``cp.async`` from bf16
+copies that each operand's producer writes once, 3L + 2 launches);
+``save_dtype`` (default: ``matmul_dtype``) is the type the
 saved layer outputs are kept in, from which the weight and activation
 gradients are taken.  Master weights, Adam moments, ``q`` and the bias
 gradient stay float32.  All four combinations run on the card.

@@ -8,8 +8,11 @@ Skipped without an NVIDIA card.  On the machine with the card run
 
 (``--noconftest``: the suite's conftest configures JAX, which that machine
 does not need).  The test shape is ragged on purpose (no dimension a
-multiple of the 64-wide tiles) to cover the tile edges; K2 also runs at the
-online loop's CartPole shapes and at the full offline width.
+multiple of 4 or of the tiles) to cover the tile edges with one-float
+loads; K1 also runs at the full offline width and at a shape whose widths
+are multiples of 4 but not of the 128-wide tile (the 16-byte loads' ragged
+edges); K2 also runs at the online loop's CartPole shapes and at the full
+offline width.
 """
 
 import numpy as np
@@ -58,6 +61,7 @@ def _inputs(device, B, D, widths, A, seed, mid_training=False):
 
 TEST_SHAPE = (13, [70, 33], 5)  # D, hidden widths, A
 CARTPOLE = (4, [128, 64], 2)
+RAGGED4 = (132, [516, 260], 8)  # multiples of 4, none of the 128-wide tile
 # (id, wrapper, extra arguments, B, D, widths, A).  K2 runs as one launch
 # wherever both nets' weights and a block's rows fit its shared memory: the
 # test shape, the online loop's CartPole shapes, one row, and 513 rows (the
@@ -70,6 +74,10 @@ CASES = [
     ("K2-B513", fused_dqn.fused_dqn_update, {}, 513, *CARTPOLE),
     ("K2-large", fused_dqn.fused_dqn_update, {}, 512, 128, [512, 256], 8),
     ("K1", fused_dqn_offline.fused_dqn_offline_update, {"block_size": 100}, 700, *TEST_SHAPE),
+    ("K1-full", fused_dqn_offline.fused_dqn_offline_update, {"block_size": 512}, 4096,
+     128, [512, 256], 8),
+    ("K1-ragged", fused_dqn_offline.fused_dqn_offline_update, {"block_size": 200}, 1000,
+     *RAGGED4),
 ]
 # The cases added for the one-launch route start from a mid-training Adam
 # state.  From zero moments Adam's first step is lr * sign(g) for every
@@ -78,7 +86,7 @@ CASES = [
 # shapes float32 and float64 plain versions part by up to 300x the params
 # tolerance that way.  Mid-training moments keep every step linear in g
 # (the two part by under 1% of it), so the same tolerances hold the kernel.
-MID_TRAINING = ("K2-cartpole", "K2-B1", "K2-B513", "K2-large")
+MID_TRAINING = ("K2-cartpole", "K2-B1", "K2-B513", "K2-large", "K1-full", "K1-ragged")
 
 
 def _step_scalars(card, name, step, lr=0.01):
@@ -88,13 +96,21 @@ def _step_scalars(card, name, step, lr=0.01):
             (1e-8 * torch.sqrt(1 - 0.999 ** t)).float())
 
 
+def _sequence_kernels(n_layers, bf16_products=False):
+    """CUDA kernels of one update on the launch sequence, double-Q or not:
+    per layer one forward launch for all (net, input) pairs and one
+    weight-gradient launch (bias gradient in extra blocks), dh past the first
+    layer, the TD rows, one Adam + polyak + metrics launch, and with bf16
+    products one conversion launch first."""
+    return 3 * n_layers + 1 + int(bf16_products)
+
+
 def _kernels_per_update(name, double_q):
     """CUDA kernels one update launches: 1 on K2's one-launch route, else the
-    launch sequence's (three forwards or two, TD rows, per layer the weight
-    gradient, dh and Adam, the metrics)."""
+    launch sequence's (every case has three layers)."""
     if name.startswith("K2") and name != "K2-large":
         return 1
-    return 19 if double_q else 16
+    return _sequence_kernels(3)
 
 
 @pytest.mark.parametrize("name,fn,extra,B,D,widths,A", CASES, ids=[c[0] for c in CASES])
@@ -190,6 +206,7 @@ def test_k1_dtype_options_match_plain_version(card, matmul_dtype, save_dtype, do
         else:
             torch.testing.assert_close(mk, mp, rtol=1e-3, atol=1e-4)
     assert fn.launches == launches + 3 and fn.bf16_launches == bf16_launches + 3
+    assert fn.bf16_kernels_per_update == _sequence_kernels(L, matmul_dtype == torch.bfloat16)
     for a, b in zip(p_kern, p_plain):
         assert torch.isfinite(a).all()
         assert (a - b).abs().mean() < 1e-4
@@ -210,6 +227,52 @@ def test_k1_dtype_options_are_deterministic(card, matmul_dtype, save_dtype):
         runs.append([m] + params)
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def _first_moments_close(got, want):
+    """First moments b1 * m + 0.1 * g after one update from one state: rtol
+    1e-3, atol 5e-6, except in at most 16 rows of a weight's moment (elements
+    of a bias's), up to 2e-4: a pre-activation within float32 rounding of 0
+    that lands on the other side in the other summation order enters one
+    row of dW at a hundredth (leaky_relu) or not at all."""
+    diff = (got - want).abs()
+    far = diff > 5e-6 + 1e-3 * want.abs()
+    rows = int(far.any(dim=1).sum()) if got.shape[0] > 1 else int(far.sum())
+    assert rows <= 16 and diff.max().item() <= 2e-4, (rows, diff.max().item())
+
+
+@pytest.mark.parametrize("matmul_dtype,save_dtype", K1_DTYPES[:3],
+                         ids=[f"{_dtype_id(m)}-{_dtype_id(s)}" for m, s in K1_DTYPES[:3]])
+@pytest.mark.parametrize("double_q", [True, False])
+def test_k1_dtype_options_at_16_byte_ragged_widths(card, matmul_dtype, save_dtype, double_q):
+    """B=1000, D=132, widths 516, 260, A=8: rows of multiples of 4 floats
+    (8 bfloat16s only for the padded bf16 copies), none of the 128-wide
+    tile, the last 256-row chunk short.  Three updates, each held against
+    the plain version from the kernel's own state (two bfloat16
+    trajectories part by rounding flips without either being wrong, as
+    chip_smoke.compare_k1_bf16 says): metrics rtol 2e-4, atol 2e-5; first
+    moments as _first_moments_close; parameters and targets atol
+    2 * 3.2 * lr_t with a mean abs difference under 1e-6."""
+    fn = fused_dqn_offline.fused_dqn_offline_update
+    plain = fused_dqn_offline.fused_dqn_offline_update_reference
+    D, widths, A = RAGGED4
+    batch, p_kern = _inputs(card, 1000, D, widths, A, seed=5)
+    kw = dict(activations=["leaky_relu", "leaky_relu", "linear"], gamma=0.9, tau=0.3,
+              double_q_learning=double_q, block_size=200, matmul_dtype=matmul_dtype,
+              save_dtype=save_dtype)
+    L = 3
+    for step in range(3):
+        p_plain = [p.clone() for p in p_kern]
+        lr_t, eps_t = _k1_scalars(card, step, lr=1e-3)
+        mk = fn(lr_t, eps_t, *batch, p_kern, **kw)
+        mp = plain(lr_t, eps_t, *batch, p_plain, **kw)
+        torch.testing.assert_close(mk, mp, rtol=2e-4, atol=2e-5)
+        for a, b in zip(p_kern[4 * L:6 * L], p_plain[4 * L:6 * L]):
+            _first_moments_close(a, b)
+        for a, b in zip(p_kern[:4 * L], p_plain[:4 * L]):
+            torch.testing.assert_close(a, b, rtol=0, atol=2 * 3.2 * float(lr_t))
+            assert (a - b).abs().mean() < 1e-6
+    assert fn.bf16_kernels_per_update == _sequence_kernels(L, matmul_dtype == torch.bfloat16)
 
 
 def test_k1_dtype_options_reject_other_types(card):
