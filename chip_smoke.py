@@ -24,7 +24,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      (n-step replay rewards) against their plain versions at the online
      path's shapes;
   9. CUDA-event timing of those three and their plain versions, beside the
-     bound, K2's wrapper host time per call (both interfaces) and K2-packed's
+     bound and the queued launch floor (an empty kernel's time), K2's, K3's
+     and K4's wrapper host time per call at the main path's shapes, K3's
+     forward as one torch.addmm per layer (a yardstick only) and K2-packed's
      device time by CUDA kernel;
  10. the fused online DQN loop at bench.py's width (CartPole, 4-128-64-2,
      minibatch 512, packed replay of 100,000): prefill 1,000, a 32-step
@@ -65,7 +67,9 @@ Phases, in order; any failure raises and the script exits non-zero:
  21. one JSON line describing each ported kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
-     wrapper's host time).
+     wrapper's host time; K3's and K4's with the wrapper's host time, the
+     launch floor and their other shape, K3's with its torch.addmm
+     yardstick).
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
 The last line is {"ok": true, "device": {...}}.  It needs no network, and it
@@ -789,6 +793,43 @@ def time_online_kernels(torch, name):
                 rewards, terminals, idx, H, 0.99)),
             *roofline(flops, nbytes, name), flops, nbytes,
             f"capacity {capacity}, B {B}, H {H}")
+    return out
+
+
+def k3_products_library_ms(torch, rows=1):
+    """A yardstick only, which the port never calls: K3's forward at the act
+    step as one torch.addmm per layer and the activation (cuBLAS and
+    PyTorch's elementwise kernels), on the same inputs.  Median ms."""
+    from reagent_tpu_torch.ops import fused_mlp
+    from reagent_tpu_torch.ops.fused_dqn import _act
+
+    x, weights, acts = k3_inputs(torch, rows, 7)
+
+    def run():
+        h = x
+        for (w, b), a in zip(weights, acts):
+            h = _act(a, torch.addmm(b, h, w))
+        return h
+
+    torch.testing.assert_close(run(), fused_mlp.fused_mlp_forward(x, weights, acts),
+                               rtol=1e-5, atol=1e-5)
+    return time_ms(torch, run)
+
+
+def online_host_us(torch):
+    """Wrapper host time per call (us) of K3 at the act step ([1, 4]) and at
+    evaluate_policy's [20, 4], and of K4 at the loops' shape."""
+    from reagent_tpu_torch.ops import fused_mlp, nstep_replay
+
+    out = {}
+    for rows in (1, EVAL_EPISODES):
+        x, weights, acts = k3_inputs(torch, rows, 7)
+        out[f"K3 [{rows}, 4]"] = host_us_per_call(
+            torch, lambda: fused_mlp.fused_mlp_forward(x, weights, acts))
+    capacity, B, H = K4_SHAPES["loop"]
+    rewards, terminals, idx = k4_inputs(torch, capacity, B, H)
+    out["K4 loop"] = host_us_per_call(
+        torch, lambda: nstep_replay.nstep_rewards(rewards, terminals, idx, H, 0.99))
     return out
 
 
@@ -1764,6 +1805,14 @@ def main() -> int:
     log(f"  K2 wrapper host time per call (time.perf_counter over 200 calls, no sync): "
         f"packed {host_us['K2-packed']:.1f} us, tensor {host_us['K2']:.1f} us, "
         f"{fused_dqn.fused_dqn_update_packed.kernels_per_update} CUDA kernel per update")
+    host_us.update(online_host_us(torch))
+    launch_floor_ms = time_ms(torch, lambda: torch.cuda._sleep(0))
+    k3_addmm_ms = k3_products_library_ms(torch)
+    log(f"  K3 wrapper host time per call: [1, 4] {host_us['K3 [1, 4]']:.1f} us, [20, 4] "
+        f"{host_us['K3 [20, 4]']:.1f} us; K4 (loop shape) {host_us['K4 loop']:.1f} us; "
+        f"queued launch floor (an empty kernel, CUDA events) {launch_floor_ms:.4f} ms; "
+        f"K3 [1, 4] as one torch.addmm per layer (a yardstick only) {k3_addmm_ms:.4f} ms, "
+        f"on {card}")
     log("  K2-packed device time by CUDA kernel (torch.profiler, mean of 5 updates):")
     profile_calls(torch, k2_packed_call(torch)[0])
 
@@ -1922,6 +1971,16 @@ def main() -> int:
             seq = timing["K2 (launch sequence)"]
             row["launch_sequence"] = {"max_abs_err": err_k2_seq, "ms": seq[0], "plain_ms": seq[1],
                                       "bound_ms": seq[2], "bound_by": seq[3]}
+        if kname.startswith(("K3", "K4")):
+            row["wrapper_host_us"] = host_us["K3 [1, 4]" if kname.startswith("K3") else "K4 loop"]
+            row["launch_floor_ms"] = launch_floor_ms
+            other = online_timing["K3 [20, 4]" if kname.startswith("K3") else "K4 kernel phase"]
+            row["by_shape"] = {other[-1]: {"ms": other[0], "plain_ms": other[1],
+                                           "bound_ms": other[2], "bound_by": other[3]}}
+        if kname.startswith("K3"):
+            # the same forward as one torch.addmm per layer, at [1, 4]
+            row["products_library_ms"] = k3_addmm_ms
+            row["wrapper_host_us_by_shape"] = {"x [20, 4]": host_us["K3 [20, 4]"]}
         if kname.startswith("K1"):
             # the same products through cuBLAS, and the kernel's own GEMM share
             key = "K1-bf16" if kname.endswith("(bf16)") else "K1"

@@ -10,10 +10,13 @@ act step of both online loops (``FusedDQNTrainer.q_values``) and
 The CUDA kernel (``csrc/fused_mlp.cu``) takes each weight's two strides, so a
 caller holding ``[out, in]`` weights (``nn.Linear``, the trainer state)
 passes ``W.T`` views with no copy.  One block scores a tile of up to 16
-rows, its activations kept in shared memory through all layers, each
-layer's weights staged into shared memory with many loads in flight.  At
-the act step's shapes the work is nanoseconds of this card's memory and
-arithmetic; the launch and the latency of the weight loads are the cost.
+rows, its activations kept in shared memory through all layers.  At the act
+step's shapes the work is nanoseconds of this card's memory and arithmetic;
+the launch and the latency of the loads are the cost.  So where the whole
+net fits in a block's shared memory (``takes_resident_route``), the block
+issues every load of the launch (x, all weights and biases) at its start
+and each layer waits only for its own; larger nets stage each layer's
+weights in turn.  Both routes sum every output in the same order.
 
 ``block_b`` is the TPU kernel's batch tile.  The CUDA tile is at most 16 rows
 (it sizes the kernel's shared-memory activation buffers), so ``block_b``
@@ -52,6 +55,27 @@ def fused_mlp_forward_reference(x, weights, activations) -> torch.Tensor:
 fused_mlp_forward_reference.calls = 0
 
 
+def _tile_rows(block_b: int, B: int) -> int:
+    return max(1, min(int(block_b), MAX_TILE_ROWS, B))
+
+
+def takes_resident_route(B: int, weights, block_b: int = 256) -> bool:
+    """Whether a launch at B rows holds these weights in shared memory (the
+    resident route) or stages each layer's weights in turn (the streamed
+    route).  Asks the built library (on the machine with the card)."""
+    from reagent_tpu_torch.ops import _build
+
+    L = len(weights)
+    dims = [weights[0][0].shape[0]] + [w.shape[1] for w, _ in weights]
+    strides = [s for w, _ in weights for s in w.stride()]
+    route = _build.load_library("fused_mlp").fused_mlp_resident(
+        L, (ctypes.c_int * (L + 1))(*dims), (ctypes.c_longlong * (2 * L))(*strides),
+        B, _tile_rows(block_b, B))
+    if route < 0:
+        raise ValueError(f"invalid net {dims} at B={B}")
+    return route == 1
+
+
 def _launch(x, weights, activations, block_b) -> torch.Tensor:
     from reagent_tpu_torch.ops import _build
 
@@ -87,7 +111,7 @@ def _launch(x, weights, activations, block_b) -> torch.Tensor:
     if B == 0:
         return y
     lib = _build.load_library("fused_mlp")
-    tile = max(1, min(int(block_b), MAX_TILE_ROWS, B))
+    tile = _tile_rows(block_b, B)
     with torch.cuda.device(dev):
         err = lib.fused_mlp_forward(
             L, (ctypes.c_int * (L + 1))(*dims),

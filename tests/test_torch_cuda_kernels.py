@@ -385,8 +385,9 @@ def test_k3_matches_plain_version(card, transposed, act, B):
 
 
 def test_k3_wide_layers_use_large_shared_memory(card):
-    """maxw 600 at 16-row tiles needs 76.8 KB of shared memory (above the
-    48 KB default)."""
+    """maxw 600 needs more shared memory than the 48 KB a block gets by
+    default: at 50 rows (one a block) the resident route holds the net in
+    about 133 KB."""
     weights = _mlp(card, [8, 600, 40, 3], 3, True)
     x = torch.randn((50, 8), device=card, generator=torch.Generator(device=card).manual_seed(0))
     acts = ["tanh", "relu", "linear"]
@@ -395,10 +396,78 @@ def test_k3_wide_layers_use_large_shared_memory(card):
         fused_mlp.fused_mlp_forward_reference(x, weights, acts), rtol=1e-5, atol=1e-5)
 
 
-def _nstep_inputs(device, capacity, R, term_dtype, seed):
+def _k3_matches(x, weights, acts):
+    launches = fused_mlp.fused_mlp_forward.launches
+    y = fused_mlp.fused_mlp_forward(x, weights, acts)
+    assert fused_mlp.fused_mlp_forward.launches == launches + 1
+    torch.testing.assert_close(
+        y, fused_mlp.fused_mlp_forward_reference(x, weights, acts), rtol=1e-5, atol=1e-5)
+    return y
+
+
+@pytest.mark.parametrize("rows", [1, 20], ids=["act_step", "evaluate_policy"])
+def test_k3_at_the_act_step_through_the_trainer(card, rows):
+    """The main path's exact call: the CartPole net 4 -> 128 -> 64 -> 2 as
+    FusedDQNTrainer.mlp_weights gives it (W^T views of [out, in]), on the
+    resident route, and trainer.q_values the same."""
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+    from reagent_tpu_torch.training.fused_dqn_trainer import FusedDQNTrainer
+
+    net = FullyConnectedDQN(state_dim=4, action_dim=2, sizes=[128, 64],
+                            activations=["leaky_relu", "leaky_relu"])
+    trainer = FusedDQNTrainer(q_network=net, rl=RLParameters(gamma=0.99, target_update_rate=0.2),
+                              optimizer={"Adam": {"lr": 0.01}}, device=card)
+    state = trainer.init(torch.Generator().manual_seed(rows))
+    weights = trainer.mlp_weights(state)
+    assert fused_mlp.takes_resident_route(rows, weights)
+    x = torch.tensor(np.random.default_rng(rows).normal(size=(rows, 4)).astype(np.float32),
+                     device=card)
+    y = _k3_matches(x, weights, trainer.activations)
+    assert torch.equal(trainer.q_values(state, x), y)
+
+
+def _widest_resident(D, A, tail, B):
+    """The widest first hidden layer H of D -> H -> tail -> A (W^T views) that
+    the resident route holds at B rows."""
+    def views(sizes):  # the strides of _mlp(..., transposed=True), no data
+        return [(torch.empty(o, i).T, torch.empty(o)) for i, o in zip(sizes[:-1], sizes[1:])]
+
+    H = 64
+    while fused_mlp.takes_resident_route(B, views([D, H + 1, tail, A])):
+        H += 1
+    return H
+
+
+@pytest.mark.parametrize("side", ["inside", "past"])
+def test_k3_at_the_edge_of_the_resident_budget(card, side):
+    """A net just inside the shared memory the resident route may use, and
+    one a column past it, which takes the streamed route: both agree with
+    the plain version."""
+    B = 37
+    H = _widest_resident(32, 5, 64, B) + (side == "past")
+    weights = _mlp(card, [32, H, 64, 5], 4, True)
+    assert fused_mlp.takes_resident_route(B, weights) == (side == "inside")
+    x = torch.tensor(np.random.default_rng(5).normal(size=(B, 32)).astype(np.float32),
+                     device=card)
+    _k3_matches(x, weights, ["tanh", "leaky_relu", "linear"])
+
+
+@pytest.mark.parametrize("transposed", [True, False], ids=["out_in_view", "in_out"])
+@pytest.mark.parametrize("B", [1, 20])
+def test_k3_input_widths_not_a_multiple_of_4(card, transposed, B):
+    """Every layer's input width odd or 2 mod 4: the 4-byte copies and the
+    tails of the 16-byte reads, in both weight layouts."""
+    weights = _mlp(card, [6, 130, 67, 2], 6, transposed)
+    x = torch.tensor(np.random.default_rng(B).normal(size=(B, 6)).astype(np.float32),
+                     device=card)
+    _k3_matches(x, weights, ["leaky_relu", "relu", "linear"])
+
+
+def _nstep_inputs(device, capacity, R, term_dtype, seed, p_terminal=0.2):
     rng = np.random.default_rng(seed)
     rewards = rng.normal(size=(capacity,) if R == 1 else (capacity, 2, R // 2)).astype(np.float32)
-    terminals = rng.random(capacity) < 0.2
+    terminals = rng.random(capacity) < p_terminal
     idx = np.concatenate([rng.integers(0, capacity, 300),
                           [capacity - 1, capacity - 2, capacity, -1, 2 * capacity + 3]])
     return (torch.tensor(rewards, device=device),
@@ -421,6 +490,39 @@ def test_k4_matches_plain_version(card, term_dtype, R, horizon):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _k4_matches(rewards, terminals, idx, horizon):
+    launches = nstep_replay.nstep_rewards.launches
+    got = nstep_replay.nstep_rewards(rewards, terminals, idx, horizon, 0.9)
+    assert nstep_replay.nstep_rewards.launches == launches + 1
+    want = nstep_replay.nstep_rewards_reference(rewards, terminals, idx, horizon, 0.9)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    return got
+
+
+@pytest.mark.parametrize("R", [1, 6])
+@pytest.mark.parametrize("capacity,horizon", [(3, 8), (1, 5), (5, 64)])
+def test_k4_window_longer_than_the_capacity(card, R, capacity, horizon):
+    """capacity < horizon: the window wraps the store more than once, and
+    where no terminal stops it, steps is the horizon."""
+    got = _k4_matches(*_nstep_inputs(card, capacity, R, torch.uint8, 11, p_terminal=0.1),
+                      horizon)
+    assert int(got[1].max()) <= horizon
+
+
+@pytest.mark.parametrize("R", [1, 6])
+def test_k4_at_the_maximum_horizon(card, R):
+    """H = 64 (MAX_HORIZON) with few terminals, so many windows run to the
+    horizon and some wrap the capacity."""
+    from reagent_tpu_torch.ops import _build
+
+    H = 64
+    assert _build.load_library("nstep_replay").nstep_max_horizon() == H
+    got = _k4_matches(*_nstep_inputs(card, 1000, R, torch.bool, 12, p_terminal=0.01), H)
+    assert int((got[1] == H).sum()) > 0
 
 
 def test_online_kernels_are_deterministic(card):

@@ -1,4 +1,5 @@
-"""The port and its chip smoke script import neither JAX nor the JAX package."""
+"""The port, its chip smoke script and its tools (which import the script)
+import neither JAX nor the JAX package."""
 
 import ast
 from pathlib import Path
@@ -7,7 +8,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "reagent_tpu"}
-SOURCES = sorted((REPO / "reagent_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = (sorted((REPO / "reagent_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+           + sorted((REPO / "tools").glob("*.py")))
 
 
 def _imported_roots(path: Path):
