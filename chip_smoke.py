@@ -35,11 +35,14 @@ Phases, in order; any failure raises and the script exits non-zero:
  11. the generic online loop (ReplayBuffer of 50,000, softmax acting through
      the K3 scorer, tensor K2, K4 in every sample) for 1,000 steps, then
      evaluate_policy over 20 greedy episodes through K3;
- 12. K5 (pairwise quantile-Huber loss, forward and backward) against its
-     plain version at [4096, 51], [8192, 201], [512, 11], in bfloat16 and on
-     inputs built to hit ties;
- 13. CUDA-event timing of K5's forward and backward and of the plain version
-     at the three shapes, beside the bound;
+ 12. K5 (pairwise quantile-Huber loss) against its plain versions at
+     [4096, 51], [8192, 201], [512, 11], in bfloat16 and on inputs built to
+     hit ties: each route of the forward (loss only; loss and gradient
+     sums), the backward kernel that scales the sums, and the two under
+     autograd;
+ 13. CUDA-event timing of K5's two forward routes, its backward and the
+     trainer's pair (forward with sums, then backward), and of the plain
+     versions, at the three shapes, beside the bound;
  14. the offline QR-DQN workflow at full width (D=128, 512, 256, A=8, 51
      atoms, minibatch 4096) through K5, the artifact scored against the
      in-process module and against the trainer's q_values (K3), and a train
@@ -127,7 +130,15 @@ QR_ONLINE = dict(widths=[64, 64], act="leaky_relu", atoms=11, gamma=0.9, tau=0.0
 QR_ATOMS = 51  # QuantileFullyConnected's default num_atoms
 QR_OPTIMIZER = {"Adam": {"lr": 0.001, "amsgrad": True}}
 K5_SHAPES = [(4096, 51), (8192, 201), (512, 11)]  # offline, the largest named, online
-K5_FWD_OPS, K5_BWD_OPS = 12, 7  # f32 operations per (i, j) pair, csrc/quantile_huber.cu
+# K5's least FP32 instructions per (i, j) pair.  The loss alone: sub; m =
+# min(|td|, kappa) (|td| an operand modifier); the Huber value m (|td| -
+# 0.5 m) as an fma and a mul; the sign compare; the weight select; the fma
+# into the sum.  With the gradient sums one more fma: clip(td) w = m sw,
+# where the select picks the weight with td's sign, sw, and the loss's fma
+# takes |sw| as an operand modifier.  Each takes one lane's issue slot, as an
+# fma does, so the card issues them at half its peak FLOP/s: 33.5e12 a second
+# on an H100 SXM (132 SMs x 128 lanes x 1.98 GHz), 2 FLOPs an instruction.
+K5_LOSS_INSTR, K5_SUMS_INSTR = 7, 8
 # bench.py:286-321, :395-412: the device-resident offline table and loops
 TABLE_ROWS = 100_000
 SCAN_BLOCK = 1024
@@ -528,19 +539,21 @@ def reset_counts():
     for fn, plain in counted().values():
         fn.launches = 0
         plain.calls = 0
-        for extra in ("backward_launches", "bf16_launches"):
+        for extra in ("backward_launches", "sums_launches", "bf16_launches"):
             if hasattr(fn, extra):
                 setattr(fn, extra, 0)
 
 
 def read_counts():
     """(launches by kernel, plain-version calls in all) since reset_counts;
-    K5's backward launches under ``quantile_huber_backward``, and K1's
+    K5's backward launches under ``quantile_huber_backward`` and its forward
+    launches on the gradient route under ``quantile_huber_sums``, and K1's
     launches split into ``fused_dqn_offline_update`` (f32) and
     ``fused_dqn_offline_update_bf16`` (a bfloat16 option set)."""
     pairs = counted()
     launches = {k: fn.launches for k, (fn, _) in pairs.items()}
     launches["quantile_huber_backward"] = pairs["quantile_huber_loss"][0].backward_launches
+    launches["quantile_huber_sums"] = pairs["quantile_huber_loss"][0].sums_launches
     k1_bf16 = pairs["fused_dqn_offline_update"][0].bf16_launches
     launches["fused_dqn_offline_update_bf16"] = k1_bf16
     launches["fused_dqn_offline_update"] -= k1_bf16
@@ -1065,19 +1078,31 @@ def k5_inputs(torch, B, N, seed, dtype=None, ties=False):
 
 
 def compare_k5(torch):
-    """K5's forward (per-sample losses) and backward (the gradient of their
-    mean, as the trainer takes it, times B) against the plain version and its
-    autograd.  float32 sums in another order, with fma contraction: rtol
-    1e-5, atol 1e-6; a bfloat16 gradient is rounded once more, to 8 bits
-    (rtol 1.6e-2, atol 1e-5).  Returns the largest float32 abs errors of the
-    forward and of the gradient."""
+    """Each K5 kernel against its plain twin, then the two under autograd.
+
+    The forward's loss-only route (under ``torch.no_grad()``) and its
+    gradient route give the same per-sample losses bit for bit, within rtol
+    1e-5, atol 1e-6 of the plain version (float32 sums in another order,
+    with fma contraction); the gradient sums within rtol 1e-5, atol 1e-6 N^2
+    (the gradient's bound below, in the sums' units).  The backward kernel
+    scales the kernel's own sums within rtol 1e-6 of the plain scaling (a
+    division against PyTorch's product with the reciprocal; in bfloat16 one
+    more rounding to 8 bits: rtol 1.6e-2, atol 1e-5).  Under autograd the
+    gradient of the mean, times B, within rtol 1e-5, atol 1e-6 (bfloat16
+    rtol 1.6e-2, atol 1e-5).  Returns the largest float32 abs errors of the
+    forward, of the sums route's gradient and of the scaling."""
     from reagent_tpu_torch.ops import quantile_huber as qh
 
-    worst_f = worst_g = 0.0
+    worst_f = worst_g = worst_s = 0.0
     cases = [(B, N, None, False) for B, N in K5_SHAPES]
     cases += [(4096, 51, torch.bfloat16, False), (4096, 51, None, True)]
     for B, N, dtype, ties in cases:
         target, current = k5_inputs(torch, B, N, seed=B + N, dtype=dtype, ties=ties)
+        with torch.no_grad():
+            per_loss = qh.quantile_huber_per_sample(target, current.clone().requires_grad_(True))
+        per_sums, sums = qh._launch_forward(target, current, 1.0, sums=True)
+        weights = torch.linspace(-1.0, 2.0, B, device=DEVICE)
+        grad = qh._launch_scale(sums, weights, current.dtype)
         c_kern = current.clone().requires_grad_(True)
         c_plain = current.clone().requires_grad_(True)
         per_kern = qh.quantile_huber_per_sample(target, c_kern, 1.0)
@@ -1085,26 +1110,55 @@ def compare_k5(torch):
         (g_kern,) = torch.autograd.grad(per_kern.mean(), c_kern)
         (g_plain,) = torch.autograd.grad(per_plain.mean(), c_plain)
         torch.cuda.synchronize()
+        sums_plain = qh.quantile_huber_sums_reference(target, current, 1.0)
+        grad_plain = qh.quantile_huber_scale_reference(sums, weights, current.dtype)
         g_kern, g_plain = g_kern.float() * B, g_plain.float() * B
         err_f = (per_kern - per_plain).abs().max().item()
         err_g = (g_kern - g_plain).abs().max().item()
+        err_s = (grad.float() - grad_plain.float()).abs().max().item()
         label = f"[{B}, {N}] {'bf16' if dtype else 'f32'}{' ties' if ties else ''}"
-        log(f"  K5 {label}: loss {per_kern.mean().item():.6f}, forward max abs {err_f:.3e}, "
+        log(f"  K5 {label}: loss {per_kern.mean().item():.6f}, forward max abs {err_f:.3e} "
+            f"(loss-only and gradient routes bit for bit: "
+            f"{torch.equal(per_loss, per_sums) and torch.equal(per_sums, per_kern)}), sums max "
+            f"abs {(sums - sums_plain).abs().max().item():.3e}, scaling max abs {err_s:.3e}, "
             f"gradient (x B) max abs {err_g:.3e} of max |g| {g_plain.abs().max().item():.3e}")
+        if not (torch.equal(per_loss, per_sums) and torch.equal(per_sums, per_kern)):
+            raise AssertionError(f"K5 {label}: the two forward routes differ")
         torch.testing.assert_close(per_kern, per_plain, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(sums, sums_plain, rtol=1e-5, atol=1e-6 * N * N)
         if dtype is None:
+            torch.testing.assert_close(grad, grad_plain, rtol=1e-6, atol=0.0)
             torch.testing.assert_close(g_kern, g_plain, rtol=1e-5, atol=1e-6)
             worst_f, worst_g = max(worst_f, err_f), max(worst_g, err_g)
+            worst_s = max(worst_s, err_s)
         else:
+            torch.testing.assert_close(grad, grad_plain, rtol=1.6e-2, atol=1e-5)
             torch.testing.assert_close(g_kern, g_plain, rtol=1.6e-2, atol=1e-5)
-    return worst_f, worst_g
+    return worst_f, worst_g, worst_s
+
+
+def k5_bounds(B, N, name):
+    """K5's bounds in ms at [B, N] float32, each (ms, "operations" or
+    "bytes"): the loss-only forward (K5_LOSS_INSTR a pair; target and
+    current read, the losses written), the forward with gradient sums
+    (K5_SUMS_INSTR a pair; the sums written too), the backward (bytes: the
+    sums and the incoming gradient read, the gradient written) and the
+    trainer's pair as one function (K5_SUMS_INSTR a pair; target, current and
+    the incoming gradient read, the losses and the gradient written)."""
+    flops, row = 2.0 * B * N * N, 4.0 * B * N  # an instruction is 2 FLOPs
+    return dict(
+        loss=roofline(K5_LOSS_INSTR * flops, 2 * row + 4 * B, name),
+        sums=roofline(K5_SUMS_INSTR * flops, 3 * row + 4 * B, name),
+        bwd=roofline(0, 2 * row + 4 * B, name),
+        pair=roofline(K5_SUMS_INSTR * flops, 3 * row + 8 * B, name))
 
 
 def time_k5(torch, name):
-    """CUDA-event times of K5's forward and backward launches, of the plain
-    version's forward, of autograd's backward through it and of the two
-    together, at the three shapes, with the bounds computed from this run's
-    shapes."""
+    """CUDA-event times at the three shapes of K5's loss-only forward, its
+    forward with gradient sums, its backward and the trainer's pair (the
+    forward with sums, then the backward), and of the plain versions of
+    each (the pair's: the plain forward and autograd's backward through it),
+    with the bounds computed from this run's shapes."""
     from reagent_tpu_torch.ops import quantile_huber as qh
 
     out = {}
@@ -1112,25 +1166,32 @@ def time_k5(torch, name):
         target, current = k5_inputs(torch, B, N, seed=N)
         grad_out = torch.full((B,), 1.0 / B, device=DEVICE)
         c_grad = current.clone().requires_grad_(True)
+        _, sums = qh._launch_forward(target, current, 1.0, sums=True)
+
+        def pair():
+            qh._launch_scale(qh._launch_forward(target, current, 1.0, sums=True)[1],
+                             grad_out, current.dtype)
 
         def plain_fwd_bwd():
             torch.autograd.grad(qh.quantile_huber_loss_reference(target, c_grad), c_grad)
 
+        t = dict(
+            loss=time_ms(torch, lambda: qh._launch_forward(target, current, 1.0, sums=False)),
+            sums=time_ms(torch, lambda: qh._launch_forward(target, current, 1.0, sums=True)),
+            bwd=time_ms(torch, lambda: qh._launch_scale(sums, grad_out, current.dtype)),
+            pair=time_ms(torch, pair))
         with torch.no_grad():
-            fwd = time_ms(torch, lambda: qh.quantile_huber_per_sample(target, current))
-            plain = time_ms(torch, lambda: qh.quantile_huber_per_sample_reference(target, current))
-        bwd = time_ms(torch, lambda: qh._launch_backward(target, current, 1.0, grad_out))
-        plain_both = time_ms(torch, plain_fwd_bwd)
-        plain_loss = qh.quantile_huber_loss_reference(target, c_grad)
-        plain_bwd = time_ms(
-            torch, lambda: torch.autograd.grad(plain_loss, c_grad, retain_graph=True))
-        del plain_loss
-        pairs = float(B) * N * N
-        fwd_bound = roofline(K5_FWD_OPS * pairs, 4.0 * (2 * B * N + B), name)
-        bwd_bound = roofline(K5_BWD_OPS * pairs, 4.0 * (3 * B * N + B), name)
-        out[(B, N)] = dict(fwd=fwd, bwd=bwd, plain=plain, plain_bwd=plain_bwd,
-                           plain_both=plain_both,
-                           fwd_bound=fwd_bound, bwd_bound=bwd_bound, pairs=pairs)
+            t["plain_loss"] = time_ms(
+                torch, lambda: qh.quantile_huber_per_sample_reference(target, current))
+            t["plain_sums"] = time_ms(torch, lambda: (
+                qh.quantile_huber_per_sample_reference(target, current),
+                qh.quantile_huber_sums_reference(target, current, 1.0)))
+            t["plain_bwd"] = time_ms(
+                torch, lambda: qh.quantile_huber_scale_reference(sums, grad_out, current.dtype))
+        t["plain_pair"] = time_ms(torch, plain_fwd_bwd)
+        t["bounds"] = k5_bounds(B, N, name)
+        t["pairs"] = float(B) * N * N
+        out[(B, N)] = t
     return out
 
 
@@ -1209,9 +1270,9 @@ def qr_workflow_phase(torch, tmp, k5_step_ms):
     td = out.training_report.td_loss
     log(f"  {label}: {steps} train steps, launches {launches}, plain-version calls "
         f"{plain_calls}, td_loss {td}, training {secs:.3f} s ({steps / secs:.2f} steps/s "
-        f"host time included), whole workflow {wall:.1f} s; K5 forward + backward "
+        f"host time included), whole workflow {wall:.1f} s; K5 forward with sums + backward "
         f"{k5_step_ms:.4f} ms = {k5_step_ms / (secs / steps * 1e3) * 100:.4f}% of a step")
-    for kernel in ("quantile_huber_loss", "quantile_huber_backward"):
+    for kernel in ("quantile_huber_loss", "quantile_huber_sums", "quantile_huber_backward"):
         if launches[kernel] != steps or steps == 0:
             raise AssertionError(f"{kernel} launched {launches[kernel]} times for {steps} steps")
     if plain_calls:
@@ -1284,7 +1345,9 @@ def qr_lockstep_phase(torch, n=5):
         torch.testing.assert_close(td[DEVICE], td["cpu"], rtol=1e-4, atol=1e-5)
         worst_td = max(worst_td, (td[DEVICE] - td["cpu"]).abs().item())
     launches, plain_calls = read_counts()
-    if (launches["quantile_huber_loss"], launches["quantile_huber_backward"], plain_calls) != (n, n, n):
+    k5 = [launches[k] for k in ("quantile_huber_loss", "quantile_huber_sums",
+                                "quantile_huber_backward")]
+    if k5 + [plain_calls] != [n] * 4:
         raise AssertionError(f"lockstep: launches {launches}, plain calls {plain_calls}")
     worst_p = 0.0
     g, c = states[DEVICE], states["cpu"]
@@ -1356,7 +1419,8 @@ def qr_online_phase(torch):
         f"{steps / wall:.2f} steps/s, episodes completed {int(aux['episodes_completed'])}, "
         f"last td_loss {td[-1].item():.6g}, launches {launches}, "
         f"plain-version calls {plain_calls}")
-    for kernel in ("nstep_rewards", "quantile_huber_loss", "quantile_huber_backward"):
+    for kernel in ("nstep_rewards", "quantile_huber_loss", "quantile_huber_sums",
+                   "quantile_huber_backward"):
         if launches[kernel] != steps:
             raise AssertionError(f"{kernel} launched {launches[kernel]} times for {steps} steps")
     if plain_calls or td.shape != (steps,) or not torch.isfinite(td).all():
@@ -1822,22 +1886,26 @@ def main() -> int:
     log(f"phase 11: generic online loop ({GENERIC_STEPS} steps) and evaluate_policy")
     generic_launches, eval_launches, _ = generic_loop_phase(torch, GENERIC_STEPS)
 
-    log("phase 12: K5 (quantile-Huber loss, forward and backward) against its plain version")
-    err_k5, err_k5_grad = compare_k5(torch)
+    log("phase 12: K5 (quantile-Huber loss: two forward routes and the backward) against "
+        "its plain versions")
+    err_k5, err_k5_grad, err_k5_scale = compare_k5(torch)
 
     log("phase 13: timing of K5 (CUDA events, 3 warm-ups, median of 20)")
     k5_timing = time_k5(torch, name)
     for (kB, kN), t in k5_timing.items():
-        log(f"  K5 [{kB}, {kN}] ({t['pairs']:.4g} pairs): forward {t['fwd']:.4f} ms (bound "
-            f"{t['fwd_bound'][0]:.6f} ms, {t['fwd_bound'][1]}, {K5_FWD_OPS} ops/pair), backward "
-            f"{t['bwd']:.4f} ms (bound {t['bwd_bound'][0]:.6f} ms, {t['bwd_bound'][1]}, "
-            f"{K5_BWD_OPS} ops/pair); plain forward {t['plain']:.4f} ms, autograd backward "
-            f"{t['plain_bwd']:.4f} ms, the two together {t['plain_both']:.4f} ms, on {card}")
+        parts = []
+        for key, label in (("loss", "loss-only forward"), ("sums", "forward with sums"),
+                           ("bwd", "backward"), ("pair", "trainer's pair")):
+            b_ms, b_by = t["bounds"][key]
+            parts.append(f"{label} {t[key]:.4f} ms (plain {t['plain_' + key]:.4f}, bound "
+                         f"{b_ms:.6f}, {b_by})")
+        log(f"  K5 [{kB}, {kN}] ({t['pairs']:.4g} pairs; {K5_LOSS_INSTR} and {K5_SUMS_INSTR} "
+            f"instructions a pair): " + "; ".join(parts) + f", on {card}")
     k5_main = k5_timing[K5_SHAPES[0]]
 
     log("phase 14: offline QR-DQN workflow at full width through K5")
     with tempfile.TemporaryDirectory() as tmp:
-        qr_launches, _, _ = qr_workflow_phase(torch, tmp, k5_main["fwd"] + k5_main["bwd"])
+        qr_launches, _, _ = qr_workflow_phase(torch, tmp, k5_main["pair"])
 
     log("phase 15: QR-DQN train steps, card against CPU")
     qr_lockstep_phase(torch)
@@ -1910,6 +1978,9 @@ def main() -> int:
         "K5 quantile_huber_backward": {
             "offline QR-DQN workflow": qr_launches["quantile_huber_backward"],
             "online QR-DQN loop": qr_online_launches["quantile_huber_backward"]},
+        "K5 quantile_huber_sums": {
+            "offline QR-DQN workflow": qr_launches["quantile_huber_sums"],
+            "online QR-DQN loop": qr_online_launches["quantile_huber_sums"]},
     }
     sources = {"K3": "reagent_tpu_torch/ops/csrc/fused_mlp.cu",
                "K4": "reagent_tpu_torch/ops/csrc/nstep_replay.cu",
@@ -1934,12 +2005,15 @@ def main() -> int:
          online_timing["K3 [1, 4]"]),
         ("K4 nstep_rewards", None, "reagent_tpu/ops/nstep_replay.py:92", err_k4,
          online_timing["K4 loop"]),
-        # K5's two launches, each at the offline path's [4096, 51]; the TPU
-        # kernel has no backward (XLA differentiates its plain formulation)
+        # K5's two launches, each at the offline path's [4096, 51]: the
+        # forward on the gradient route, the main path's, and the backward
+        # scaling its sums; the TPU kernel has no backward (XLA
+        # differentiates its plain formulation)
         ("K5 quantile_huber_loss", None, "reagent_tpu/ops/quantile_huber.py:77", err_k5,
-         (k5_main["fwd"], k5_main["plain"], *k5_main["fwd_bound"])),
+         (k5_main["sums"], k5_main["plain_sums"], *k5_main["bounds"]["sums"])),
         ("K5 quantile_huber_backward", None, "reagent_tpu/ops/quantile_huber.py:77",
-         err_k5_grad, (k5_main["bwd"], k5_main["plain_bwd"], *k5_main["bwd_bound"])),
+         max(err_k5_grad, err_k5_scale),
+         (k5_main["bwd"], k5_main["plain_bwd"], *k5_main["bounds"]["bwd"])),
     ):
         ms, plain_ms, b_ms, b_by = times[:4]
         row = {
@@ -1953,12 +2027,19 @@ def main() -> int:
             # forward, an n-step window sum or a pairwise quantile-Huber loss
             "library_ms": None,
         }
+        if kname.startswith("K5"):
+            # each route at each shape; the forward's row also carries the
+            # loss-only route and the trainer's pair (forward with sums, then
+            # the backward) as one function
+            keys = {"K5 quantile_huber_loss": ("sums", "loss", "pair"),
+                    "K5 quantile_huber_backward": ("bwd",)}[kname]
+            row["by_shape"] = {
+                shape: {key: {"ms": t[key], "plain_ms": t["plain_" + key],
+                              "bound_ms": t["bounds"][key][0], "bound_by": t["bounds"][key][1]}
+                        for key in keys}
+                for shape, t in k5_shapes.items()}
         if kname == "K5 quantile_huber_loss":
-            row["by_shape"] = {k: {"ms": t["fwd"], "plain_ms": t["plain"],
-                                   "bound_ms": t["fwd_bound"][0]} for k, t in k5_shapes.items()}
-        if kname == "K5 quantile_huber_backward":
-            row["by_shape"] = {k: {"ms": t["bwd"], "plain_ms": t["plain_bwd"],
-                                   "bound_ms": t["bwd_bound"][0]} for k, t in k5_shapes.items()}
+            row["launches_on_the_gradient_route"] = sum(by_path["K5 quantile_huber_sums"].values())
         if fn is not None:
             row["cuda_kernels_per_launch"] = fn.kernels_per_update
         if kname.startswith("K2"):

@@ -67,8 +67,8 @@ _SIGNATURES = {
         "quantile_huber_error_string": (ctypes.c_char_p, [_I]),
         "quantile_huber_max_atoms": (_I, []),
         "quantile_huber_forward": (_I, [_P, _LL, _P, _LL, _I, _I, _I, _F, _P, _P]),
-        "quantile_huber_backward": (
-            _I, [_P, _LL, _P, _LL, _I, _I, _I, _F, _P, _LL, _P, _P]),
+        "quantile_huber_forward_sums": (_I, [_P, _LL, _P, _LL, _I, _I, _I, _F, _P, _P, _P]),
+        "quantile_huber_scale": (_I, [_P, _I, _I, _I, _P, _LL, _P, _P]),
     },
 }
 

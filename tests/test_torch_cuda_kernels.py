@@ -598,21 +598,28 @@ def _k5_inputs(device, B, N, dtype, seed, ties):
     return put(target), put(current)
 
 
+K5_SHAPES = [(512, 11), (37, 51), (9, 201), (1, 1), (3, 32), (5, 33), (2, 64), (9, 65),
+             (1, 256), (3, 257), (2, 1536)]
+
+
 @pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("kappa", [1.0, 0.5])
-@pytest.mark.parametrize("B,N", [(512, 11), (37, 51), (9, 201), (1, 1), (3, 32), (5, 33)])
+@pytest.mark.parametrize("B,N", K5_SHAPES)
 def test_k5_matches_plain_version(card, B, N, kappa, dtype, ties):
     """Forward and backward against the plain version and its autograd, over
-    block tails (B not a multiple of 8), warp tails (N not a multiple of 32)
-    and ties.  float32 sums in another order, with fma contraction: rtol
-    1e-5, atol 1e-6; a bfloat16 gradient is one more rounding to 8 bits."""
+    block tails (B not a multiple of 8), warp tails (N not a multiple of 32),
+    each register block of atoms (N up to 256 in one walk, past it in blocks
+    of 256), the 16-byte target loads' tails and ties.  float32 sums in
+    another order, with fma contraction: rtol 1e-5, atol 1e-6; a bfloat16
+    gradient is one more rounding to 8 bits.  One forward launch, on the
+    gradient route, and one backward launch."""
     from reagent_tpu_torch.ops import quantile_huber as qh
 
     target, current = _k5_inputs(card, B, N, dtype, seed=B + N, ties=ties)
     c_kern = current.clone().requires_grad_(True)
     c_plain = current.clone().requires_grad_(True)
-    fwd, bwd = qh.quantile_huber_loss.launches, qh.quantile_huber_loss.backward_launches
+    counts = _k5_counts(qh)
     weights = torch.linspace(-1.0, 2.0, B, device=card)
     per_kern = qh.quantile_huber_per_sample(target, c_kern, kappa)
     per_plain = qh.quantile_huber_per_sample_reference(target, c_plain, kappa)
@@ -620,13 +627,104 @@ def test_k5_matches_plain_version(card, B, N, kappa, dtype, ties):
     torch.testing.assert_close(per_kern, per_plain, rtol=1e-5, atol=1e-6)
     (per_kern * weights).sum().backward()
     (per_plain * weights).sum().backward()
-    assert qh.quantile_huber_loss.launches == fwd + 1
-    assert qh.quantile_huber_loss.backward_launches == bwd + 1
+    assert _k5_counts(qh) == tuple(n + 1 for n in counts)
     assert c_kern.grad.dtype == dtype
     tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else dict(rtol=1.6e-2, atol=1e-5)
     torch.testing.assert_close(c_kern.grad, c_plain.grad, **tol)
     analytic = qh.quantile_huber_grad_reference(target, current, kappa, weights)
     torch.testing.assert_close(c_kern.grad, analytic, **tol)
+
+
+def _k5_counts(qh):
+    """(forward launches, of them on the gradient route, backward launches)."""
+    f = qh.quantile_huber_loss
+    return f.launches, f.sums_launches, f.backward_launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,N", [(4096, 51), (512, 11), (37, 201), (1, 65), (3, 1536)])
+def test_k5_each_kernel_matches_its_plain_twin(card, B, N, dtype):
+    """The loss-only forward and the forward with gradient sums give the same
+    losses bit for bit; the sums within rtol 1e-5, atol 1e-6 N^2 of the plain
+    sums (the gradient's bound in the sums' units); the backward scales the
+    kernel's own sums within rtol 1e-6 of the plain scaling in float32 (a
+    division against PyTorch's product with the reciprocal), rtol 1.6e-2,
+    atol 1e-5 in bfloat16 (one more rounding to 8 bits)."""
+    from reagent_tpu_torch.ops import quantile_huber as qh
+
+    target, current = _k5_inputs(card, B, N, dtype, seed=N, ties=False)
+    loss_only, none = qh._launch_forward(target, current, 0.5, sums=False)
+    per, sums = qh._launch_forward(target, current, 0.5, sums=True)
+    assert none is None and sums.dtype == torch.float32 and sums.shape == (B, N)
+    assert torch.equal(loss_only, per)
+    torch.testing.assert_close(per, qh.quantile_huber_per_sample_reference(target, current, 0.5),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(sums, qh.quantile_huber_sums_reference(target, current, 0.5),
+                               rtol=1e-5, atol=1e-6 * N * N)
+    for gps in (torch.linspace(-1.0, 2.0, B, device=card),
+                torch.full((1,), 0.25, device=card).expand(B)):  # a broadcast, stride 0
+        grad = qh._launch_scale(sums, gps, dtype)
+        assert grad.dtype == dtype and grad.shape == (B, N)
+        tol = dict(rtol=1e-6, atol=0.0) if dtype == torch.float32 else dict(rtol=1.6e-2, atol=1e-5)
+        torch.testing.assert_close(grad, qh.quantile_huber_scale_reference(sums, gps, dtype), **tol)
+
+
+@pytest.mark.parametrize("why", ["no_grad", "inference_mode", "no_requires_grad"])
+def test_k5_without_a_gradient_takes_the_loss_only_route(card, why):
+    """No [B, N] buffer where no gradient will be taken: one allocation (the
+    [B] losses), no launch on the gradient route, the same losses bit for bit
+    as the gradient route's."""
+    from reagent_tpu_torch.ops import quantile_huber as qh
+
+    B, N = 4096, 51
+    target, current = _k5_inputs(card, B, N, torch.float32, seed=5, ties=False)
+    want = qh.quantile_huber_per_sample(target, current.clone().requires_grad_(True)).detach()
+    c = current.clone().requires_grad_(why != "no_requires_grad")
+    ctx = {"no_grad": torch.no_grad, "inference_mode": torch.inference_mode,
+           "no_requires_grad": torch.enable_grad}[why]
+    torch.cuda.synchronize()
+    counts = _k5_counts(qh)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with ctx():
+        assert not qh.takes_gradient_route(c)
+        got = qh.quantile_huber_per_sample(target, c)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - allocs == 1
+    assert torch.cuda.max_memory_allocated() - base < B * N * 4
+    assert _k5_counts(qh) == (counts[0] + 1, counts[1], counts[2])
+    assert got.grad_fn is None and torch.equal(got, want)
+
+
+def test_k5_launches_once_each_way_per_train_step(card):
+    """A QRDQNTrainer step on the card: one forward launch, on the gradient
+    route, and one backward launch."""
+    from reagent_tpu_torch.core import types as rlt
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.net_builder.quantile_dqn import QuantileFullyConnected
+    from reagent_tpu_torch.ops import quantile_huber as qh
+    from reagent_tpu_torch.training.qrdqn_trainer import QRDQNTrainer
+
+    B, D, A, atoms = 64, 6, 3, 11
+    net = QuantileFullyConnected(sizes=[16], activations=["relu"], num_atoms=atoms)
+    trainer = QRDQNTrainer(net.build_q_network(None, A, state_dim=D), atoms,
+                           rl=RLParameters(gamma=0.9, target_update_rate=0.05), device="cuda")
+    state = trainer.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    put = lambda a: torch.tensor(a, dtype=torch.float32, device=card)
+    action = put(np.eye(A)[rng.integers(0, A, B)])
+    batch = rlt.DiscreteDqnInput(
+        state=rlt.FeatureData(put(rng.normal(size=(B, D)))),
+        next_state=rlt.FeatureData(put(rng.normal(size=(B, D)))), action=action,
+        next_action=action, reward=put(rng.normal(size=(B, 1))), time_diff=None, step=None,
+        not_terminal=put(np.ones((B, 1))), possible_actions_mask=put(np.ones((B, A))),
+        possible_next_actions_mask=put(np.ones((B, A))))
+    for _ in range(2):
+        counts = _k5_counts(qh)
+        state, metrics = trainer.train_step(state, batch)
+        assert _k5_counts(qh) == tuple(n + 1 for n in counts)
+        assert torch.isfinite(metrics["td_loss"])
 
 
 def test_k5_mean_strided_rows_and_determinism(card):

@@ -1,10 +1,13 @@
-"""K5's plain version and analytic gradient against the JAX package.
+"""K5's plain versions and analytic gradient against the JAX package.
 
 The plain PyTorch pairwise formulation is held to the Pallas kernel in
 interpret mode and to ``quantile_huber_loss_xla``; the analytic gradient (the
-formula the CUDA backward kernel implements) to ``jax.grad`` of the XLA
-formulation and to autograd of the plain version, on inputs that include
-ties (``td == 0``, ``|td| == kappa``, whole target rows equal).
+formula the CUDA kernels implement: the gradient sums the forward writes,
+then the backward's scaling, each with its plain twin) to ``jax.grad`` and
+``jax.vjp`` of the XLA formulation and to autograd of the plain version, on
+inputs that include ties (``td == 0``, ``|td| == kappa``, whole target rows
+equal).  The route the wrapper takes on a CUDA tensor (gradient sums or the
+loss alone) is decided here too.
 """
 
 import jax
@@ -22,6 +25,9 @@ from reagent_tpu_torch.ops.quantile_huber import (
     quantile_huber_loss,
     quantile_huber_loss_reference,
     quantile_huber_per_sample,
+    quantile_huber_scale_reference,
+    quantile_huber_sums_reference,
+    takes_gradient_route,
 )
 
 SHAPES = [(64, 11), (37, 51), (8, 201)]  # 37 is no multiple of the TPU row block
@@ -140,3 +146,63 @@ def test_strided_rows_and_checks():
         quantile_huber_loss(torch.tensor(target), _bf16(current))
     with pytest.raises(TypeError, match="float32 or both bfloat16"):
         quantile_huber_loss(torch.tensor(target).double(), torch.tensor(current).double())
+
+
+def _per_sample_xla(target, current, kappa):
+    """Per-sample losses [B] of the XLA formulation: its mean over one row."""
+    return jax.vmap(lambda t, c: quantile_huber_loss_xla(t[None], c[None], kappa))(
+        jnp.asarray(target), current)
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("kappa", [1.0, 0.5])
+@pytest.mark.parametrize("B,N", SHAPES)
+def test_split_gradient_references_match_jax_vjp(B, N, kappa, ties):
+    """The forward's plain gradient sums and the backward's plain scaling
+    against ``jax.vjp`` of the per-sample XLA formulation.  The sums are
+    ``-N^2`` times the vjp of a ones cotangent: each a float32 sum of N terms
+    within kappa, rtol 1e-5, atol 1e-6 N; the scaled sums are the vjp of a
+    cotangent with both signs, one of them a zero, and a broadcast one:
+    rtol 1e-5, atol 1e-7 (as the analytic gradient above)."""
+    target, current = _inputs(B, N, seed=5 * B + N, ties=ties)
+    _, vjp = jax.vjp(lambda c: _per_sample_xla(target, c, kappa), jnp.asarray(current))
+    sums = quantile_huber_sums_reference(torch.tensor(target), torch.tensor(current), kappa)
+    assert sums.dtype == torch.float32 and sums.shape == (B, N)
+    (ones,) = vjp(jnp.ones((B,), jnp.float32))
+    np.testing.assert_allclose(sums.numpy(), -np.asarray(ones) * N * N, rtol=1e-5, atol=1e-6 * N)
+    gps = np.linspace(-1.0, 2.0, B).astype(np.float32)
+    gps[0] = 0.0
+    for g in (torch.tensor(gps), torch.full((1,), 0.25).expand(B)):
+        (want,) = vjp(jnp.asarray(g.numpy()))
+        got = quantile_huber_scale_reference(sums, g, torch.float32)
+        assert got.dtype == torch.float32 and got.shape == (B, N)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-7)
+    assert not quantile_huber_scale_reference(sums, torch.tensor(gps), torch.float32)[0].any()
+
+
+@pytest.mark.parametrize("mode,requires_grad,want", [
+    ("grad", True, True),
+    ("grad", False, False),
+    ("no_grad", True, False),
+    ("inference_mode", True, False),
+])
+def test_gradient_route_only_where_autograd_will_ask(mode, requires_grad, want):
+    """On a CUDA tensor the forward writes the [B, N] gradient sums only with
+    grad mode on and ``current.requires_grad``; under ``torch.no_grad()``
+    autograd's ``needs_input_grad`` would still read True, so the wrapper
+    decides before it.  A CPU tensor takes the plain version on every route
+    and launches nothing."""
+    target, current = _inputs(4, 11, seed=6)
+    c = torch.tensor(current, requires_grad=requires_grad)
+    ctx = {"grad": torch.enable_grad, "no_grad": torch.no_grad,
+           "inference_mode": torch.inference_mode}[mode]
+    launches = (quantile_huber_loss.launches, quantile_huber_loss.sums_launches,
+                quantile_huber_loss.backward_launches)
+    calls = quantile_huber_loss_reference.calls
+    with ctx():
+        assert takes_gradient_route(c) is want
+        per = quantile_huber_per_sample(torch.tensor(target), c)
+    assert per.requires_grad is want
+    assert quantile_huber_loss_reference.calls == calls + 1
+    assert launches == (quantile_huber_loss.launches, quantile_huber_loss.sums_launches,
+                        quantile_huber_loss.backward_launches)

@@ -20,6 +20,7 @@ keep the C interface of ``csrc/fused_dqn.cu``.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import subprocess
 import sys
@@ -46,6 +47,20 @@ def ptxas_report(src: Path, kernel: str) -> str:
     lines = proc.stderr.splitlines()
     keep = [i for i, line in enumerate(lines) if kernel in line]
     return "\n".join(lines[j] for i in keep for j in range(i, min(i + 3, len(lines))))
+
+
+def bind(src: Path, name: str, extra_signatures=None) -> ctypes.CDLL:
+    """``_build.bind`` for a source that may lack entries this checkout's
+    ``csrc/<name>.cu`` has added since, or have entries it has dropped
+    (``extra_signatures``, ``{entry: (restype, argtypes)}``): binds those it has."""
+    from reagent_tpu_torch.ops import _build
+
+    lib = ctypes.CDLL(str(_build._compile(src)))
+    for fn, (restype, argtypes) in {**_build._SIGNATURES[name], **(extra_signatures or {})}.items():
+        if hasattr(lib, fn):
+            f = getattr(lib, fn)
+            f.restype, f.argtypes = restype, argtypes
+    return lib
 
 
 def use(lib) -> None:

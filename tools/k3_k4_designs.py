@@ -36,7 +36,6 @@ compared; their times show what the kernel's time is made of.
 
 from __future__ import annotations
 
-import ctypes
 import sys
 from pathlib import Path
 
@@ -47,7 +46,7 @@ sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(REPO / "tools"))
 
 import chip_smoke as cs  # noqa: E402
-from k2_designs import ptxas_report  # noqa: E402
+from k2_designs import bind, ptxas_report  # noqa: E402
 
 ACTS = ("relu", "leaky_relu", "tanh", "linear")
 
@@ -83,20 +82,6 @@ def anatomy_sources(src: Path):
         path.write_text(t)
         out[f"anatomy: {label}"] = path
     return out
-
-
-def bind(src: Path, name: str) -> ctypes.CDLL:
-    """``_build.bind`` for a source that may lack entries this checkout's
-    ``csrc/<name>.cu`` has added since: binds those it has."""
-    from reagent_tpu_torch.ops import _build
-
-    lib = ctypes.CDLL(str(_build._compile(src)))
-    for fn, (restype, argtypes) in _build._SIGNATURES[name].items():
-        if hasattr(lib, fn):
-            f = getattr(lib, fn)
-            f.restype = restype
-            f.argtypes = argtypes
-    return lib
 
 
 def use(libs) -> None:
