@@ -67,12 +67,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      state and the same indices, and q_values on 64 rows through K3;
  20. the unfused scan path: make_sampled_train_fn(DQNTrainer, ...) on the
      same table with compute_dtype float32 and bfloat16, 200 steps each;
- 21. one JSON line describing each ported kernel (K1's rows with the CUDA
+ 21. K3 against its plain version at the evaluation's shapes, a batch of
+     512 rows of the sample config's net (resident route) and 4,096 rows of
+     the full-width net (streamed), timed beside one torch.addmm per layer
+     (a yardstick only) and the bound;
+ 22. the flagship sample config unchanged (4->128->64->2 leaky_relu,
+     minibatch 512, Adam lr 0.01, gamma 0.99, tau 0.2, double-Q, CPE on, 20
+     epochs, 90/10 split) through identify_and_train_network on a 4,096-row
+     table with uniform(0, 1) rewards: the unfused DQNTrainer with its
+     reward and CPE Q heads, then the eval split's page through K3 (three
+     launches a batch) and DM, IPS, DR, seq-DR, WDR and MAGIC on the card;
+     train steps/s, eval_seconds and the evaluation taken apart (host
+     decode, the forwards, the page, each estimator), the estimates;
+ 23. the same at the full offline width (D=128, 512, 256, A=8, CPE heads
+     as wide, minibatch 4096, 16,384 rows, 2 epochs);
+ 24. CPE card against CPU: 5 train steps with the CPE heads at full width
+     from one state on the same batches, then the page and every estimate
+     of phases 22 and 23's trained states on both, np.random seeded alike;
+ 25. one JSON line describing each ported kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
      wrapper's host time; K3's and K4's with the wrapper's host time, the
-     launch floor and their other shape, K3's with its torch.addmm
-     yardstick).
+     launch floor and their other shapes, K3's with its torch.addmm
+     yardstick and the evaluation's two shapes).
+Each phase's heading carries the seconds since the script started.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
 The last line is {"ok": true, "device": {...}}.  It needs no network, and it
@@ -148,6 +166,14 @@ UNFUSED_STEPS = 200
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_START = time.perf_counter()
+
+
+def phase(msg: str) -> None:
+    """A phase's heading, with the seconds since the script started."""
+    log(f"{msg}  [{time.perf_counter() - _START:.1f} s]")
 
 
 def card_line() -> str:
@@ -400,10 +426,12 @@ def products_library_ms(cfg, torch, bf16_products=False):
 # ---------------------------------------------------------------- workflow
 
 
-def make_table(path, n_rows, n_features, n_actions, seed):
+def make_table(path, n_rows, n_features, n_actions, seed, rewards="normal"):
     """A logged-transition table (the timeline operator's columns) from a
     numpy seed: episodes of 10 steps, so ~10% terminals, and ~20% of the
-    next actions impossible."""
+    next actions impossible.  ``rewards`` "normal" draws N(0, 1), "uniform"
+    uniform(0, 1) from the same place in the stream (CPE's normalised
+    estimates need a logged policy worth more than 1e-6)."""
     rng = np.random.default_rng(seed)
     import pandas as pd
 
@@ -432,7 +460,8 @@ def make_table(path, n_rows, n_features, n_actions, seed):
         "next_state_features": [feats(states[r + 1]) for r in range(n_rows)],
         "action": [names[a] for a in actions[:n_rows]],
         "next_action": [names[a] for a in actions[1:n_rows + 1]],
-        "reward": rng.normal(size=n_rows).astype(np.float32),
+        "reward": (rng.normal(size=n_rows) if rewards == "normal"
+                   else rng.uniform(0.0, 1.0, size=n_rows)).astype(np.float32),
         "not_terminal": (~terminal).astype(np.int64),
         "time_diff": np.ones(n_rows, np.int64),
         "action_probability": np.full(n_rows, 1.0 / n_actions),
@@ -442,11 +471,13 @@ def make_table(path, n_rows, n_features, n_actions, seed):
     return df
 
 
-def run_workflow(cfg, n_rows, epochs, torch, tmp, label, model=None):
+def run_workflow(cfg, n_rows, epochs, torch, tmp, label, model=None, split=None,
+                 rewards="normal"):
     """identify_and_train_network on a synthetic table; returns the output,
     the table, the in-process serving module with the arguments it was built
     from (trainer, trainer state, normalization), the batch preprocessor and
-    the wall time.  ``model`` defaults to the fused DiscreteDQN of ``cfg``."""
+    the wall time.  ``model`` defaults to the fused DiscreteDQN of ``cfg``;
+    ``split`` is the table spec's (table_sample, eval_table_sample)."""
     from unittest import mock
 
     from reagent_tpu_torch.core.registry import MODEL_MANAGERS
@@ -454,7 +485,7 @@ def run_workflow(cfg, n_rows, epochs, torch, tmp, label, model=None):
     from reagent_tpu_torch.workflow.training import identify_and_train_network
 
     table = os.path.join(tmp, f"{label}.pkl")
-    df = make_table(table, n_rows, cfg["D"], cfg["A"], seed=7)
+    df = make_table(table, n_rows, cfg["D"], cfg["A"], seed=7, rewards=rewards)
     model = model or {"DiscreteDQN": {
         "trainer_param": {
             "actions": [str(a) for a in range(cfg["A"])],
@@ -485,11 +516,16 @@ def run_workflow(cfg, n_rows, epochs, torch, tmp, label, model=None):
     with capturing("build_serving_module"), capturing("build_batch_preprocessor"):
         t0 = time.perf_counter()
         out = identify_and_train_network(
-            TableSpec(table_name=label, path=table), model, num_epochs=epochs,
+            TableSpec(table_name=label, path=table, **table_split(split)), model,
+            num_epochs=epochs,
             output_dir=os.path.join(tmp, label), seed=0, device=DEVICE)
         wall = time.perf_counter() - t0
     return (out, df, captured["build_serving_module"], captured["build_serving_module_args"],
             captured["build_batch_preprocessor"], wall)
+
+
+def table_split(split):
+    return {} if split is None else dict(zip(("table_sample", "eval_table_sample"), split))
 
 
 def check_artifact(out, df, serving, torch):
@@ -1794,6 +1830,373 @@ def compare_td_paths(torch, tds):
             raise AssertionError(f"{label}: td_loss parts from the fused f32 loop by {rel:.3e}")
 
 
+# --------------------------------------------------------------- CPE slice
+
+# reagent_tpu/workflow/sample_configs/discrete_dqn_cartpole_offline.yaml, the
+# parts the run reads, as a dict: the machine with the card has no PyYAML
+# (tests/test_torch_cpe_workflow.py holds this equal to the file)
+SAMPLE_CONFIG = {
+    "table_sample": 90.0,
+    "eval_table_sample": 10.0,
+    "model": {"DiscreteDQN": {
+        "trainer_param": {
+            "actions": ["0", "1"],
+            "rl": {"gamma": 0.99, "target_update_rate": 0.2, "maxq_learning": True},
+            "double_q_learning": True,
+            "minibatch_size": 512,
+            "optimizer": {"Adam": {"lr": 0.01}},
+        },
+        "net_builder": {"FullyConnected": {
+            "sizes": [128, 64], "activations": ["leaky_relu", "leaky_relu"]}},
+        "eval_parameters": {"calc_cpe_in_training": True},
+    }},
+    "num_epochs": 20,
+}
+SAMPLE_CPE_ROWS = 4096  # ~410 evaluation rows after the 90/10 split
+FULL_CPE_ROWS, FULL_CPE_EPOCHS = 16384, 2  # as phase 6
+# K3 at the evaluation's forwards: a batch of the sample config's net (the
+# resident route) and a full evaluation batch of the full-width net (streamed)
+K3_EVAL_SHAPES = {"[512, 4->128->64->2]": (512, [4, 128, 64, 2]),
+                  "[4096, 128->512->256->8]": (4096, [128, 512, 256, 8])}
+
+
+def full_cpe_model():
+    """The full offline width (FULL) on the unfused DQNTrainer with CPE on;
+    the CPE heads take the q-network's widths."""
+    cfg = FULL
+    net = {"FullyConnected": {
+        "sizes": cfg["widths"], "activations": [cfg["act"]] * len(cfg["widths"])}}
+    return {"DiscreteDQN": {
+        "trainer_param": {
+            "actions": [str(a) for a in range(cfg["A"])],
+            "rl": {"gamma": cfg["gamma"], "target_update_rate": cfg["tau"],
+                   "maxq_learning": True},
+            "double_q_learning": True,
+            "minibatch_size": cfg["B"],
+            "optimizer": {"Adam": {"lr": cfg["lr"]}},
+        },
+        "net_builder": net,
+        "cpe_net_builder": net,
+        "eval_parameters": {"calc_cpe_in_training": True},
+    }}
+
+
+def k3_eval_inputs(torch, rows, sizes, seed):
+    """Weights as functional.score passes them (W^T views of [out, in]
+    tensors, N(0, 2/fan_in)) and ``rows`` normal observations."""
+    rng = np.random.default_rng(seed)
+    weights = []
+    for i, o in zip(sizes[:-1], sizes[1:]):
+        w = torch.tensor((rng.normal(size=(o, i)) * np.sqrt(2.0 / i)).astype(np.float32),
+                         device=DEVICE)
+        b = torch.tensor((rng.normal(size=o) * 0.1).astype(np.float32), device=DEVICE)
+        weights.append((w.T, b))
+    x = torch.tensor(rng.normal(size=(rows, sizes[0])).astype(np.float32), device=DEVICE)
+    return x, weights, ["leaky_relu"] * (len(sizes) - 2) + ["linear"]
+
+
+def k3_eval_phase(torch, name):
+    """K3 at the evaluation's two shapes against its plain version (rtol
+    1e-5, atol 1e-5, as phase 8), each route checked, then CUDA-event
+    times of the kernel, the plain version and one torch.addmm per layer (a
+    yardstick only) beside the bound."""
+    from reagent_tpu_torch.ops import fused_mlp
+    from reagent_tpu_torch.ops.fused_dqn import _act
+
+    out = {}
+    for label, (rows, sizes) in K3_EVAL_SHAPES.items():
+        x, weights, acts = k3_eval_inputs(torch, rows, sizes, rows)
+        resident = fused_mlp.takes_resident_route(rows, weights)
+        if resident != (sizes[1] == 128):
+            raise AssertionError(f"K3 {label}: resident route {resident}")
+        y = fused_mlp.fused_mlp_forward(x, weights, acts)
+        yp = fused_mlp.fused_mlp_forward_reference(x, weights, acts)
+        torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
+        err = (y - yp).abs().max().item()
+
+        def addmm():
+            h = x
+            for (w, b), a in zip(weights, acts):
+                h = _act(a, torch.addmm(b, h, w))
+            return h
+
+        torch.testing.assert_close(addmm(), y, rtol=1e-5, atol=1e-5)
+        macs = sum(i * o for i, o in zip(sizes[:-1], sizes[1:]))
+        flops = 2.0 * rows * macs
+        nbytes = 4.0 * (rows * sizes[0] + macs + sum(sizes[1:]) + rows * sizes[-1])
+        b_ms, b_by = roofline(flops, nbytes, name)
+        t = dict(
+            ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward(x, weights, acts)),
+            plain_ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward_reference(
+                x, weights, acts)),
+            products_library_ms=time_ms(torch, addmm), bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err, route="resident" if resident else "streamed")
+        log(f"  K3 {label} ({t['route']} route): kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, one torch.addmm per layer (a yardstick only) "
+            f"{t['products_library_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {flops:.4g} "
+            f"FLOP, {nbytes:.4g} B), max abs {err:.3e}, on {card_line()}")
+        out[label] = t
+    return out
+
+
+def eval_split(df, split):
+    from reagent_tpu_torch.data.data_module import (
+        TableSpec,
+        get_sample_range,
+        split_by_sample_range,
+    )
+
+    ranges = get_sample_range(TableSpec(**table_split(split)), True)
+    return split_by_sample_range(df, ranges.eval_sample_range)
+
+
+def evaluation_parts(torch, trainer, tstate, batch_pre, eval_df, bs, names):
+    """Where ``eval_seconds`` goes, by the host clock, in a run of the
+    workflow's evaluation taken apart: decoding the eval split's batches, the
+    page's three forwards (K3) with their copies to the host, assembling the
+    page, DM/IPS/DR, the padding, seq-DR, WDR and MAGIC (each ends in host
+    values, so each time holds its device work)."""
+    from reagent_tpu_torch.data.data_module import iterate_minibatches
+    from reagent_tpu_torch.evaluation import EvaluationDataPage, Evaluator
+    from reagent_tpu_torch.evaluation.torch_sequential_estimators import pad_edp_trajectories
+
+    t = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t[key] = time.perf_counter() - t0
+        return out
+
+    batches = timed("host decode", lambda: [batch_pre(b) for b in iterate_minibatches(
+        eval_df, min(bs, len(eval_df)), drop_last=False)])
+    pages = timed("three forwards (K3)", lambda: [
+        EvaluationDataPage.create_from_tensors_dqn(
+            trainer, tstate, b.extras.mdp_id, b.extras.sequence_number,
+            b.state.float_features, b.action,
+            torch.clamp(b.extras.action_probability, min=1e-6), b.reward,
+            b.possible_actions_mask) for b in batches])
+
+    def assemble():
+        edp = pages[0]
+        for p in pages[1:]:
+            edp = edp.append(p)
+        edp = edp.sort().compute_values(trainer.gamma)
+        edp.validate()
+        return edp
+
+    edp = timed("page assembly", assemble)
+    ev = Evaluator(names, trainer.gamma, device=trainer.device)
+    np.random.seed(0)
+    timed("DM, IPS, DR", lambda: ev.doubly_robust_estimator.estimate(edp))
+    padded = timed("padding", lambda: pad_edp_trajectories(edp, trainer.device))
+    timed("seq-DR", lambda: ev.sequential_doubly_robust_estimator.estimate_padded(padded))
+    wdr = ev.weighted_sequential_doubly_robust_estimator
+    timed("WDR", lambda: wdr.estimate_padded(padded, 1, True))
+    timed("MAGIC", lambda: wdr.estimate_padded(padded, ev.NUM_J_STEPS_FOR_MAGIC_ESTIMATOR, True))
+    return t, tuple(padded.rewards.shape)
+
+
+def log_estimates(label, details):
+    for name in details.reward_estimates._fields:
+        e = getattr(details.reward_estimates, name)
+        log(f"    {label} {name}: raw {e.raw:.6g} +/- {e.raw_std_error:.4g}, normalized "
+            f"{e.normalized:.6g} +/- {e.normalized_std_error:.4g}")
+    log(f"    {label} q-value means {details.q_value_means}, stds {details.q_value_stds}, "
+        f"action distribution {details.action_distribution}")
+
+
+def check_details(label, details, names):
+    """Every estimate finite and on the normalised branch (rewards in
+    (0, 1)), the q-value statistics finite, the action distribution a
+    distribution over ``names``."""
+    for name in details.reward_estimates._fields:
+        e = getattr(details.reward_estimates, name)
+        if e is None or not np.isfinite(list(e)).all() or e.normalized == 0.0:
+            raise AssertionError(f"{label}: estimate {name} is {e}")
+    for stat in (details.q_value_means, details.q_value_stds):
+        if list(stat) != names or not np.isfinite(list(stat.values())).all():
+            raise AssertionError(f"{label}: q-value statistics {stat}")
+    dist = details.action_distribution
+    if list(dist) != names or abs(sum(dist.values()) - 1.0) > 1e-9:
+        raise AssertionError(f"{label}: action distribution {dist}")
+
+
+def cpe_workflow_phase(torch, tmp, label, cfg, model, n_rows, epochs, split):
+    """identify_and_train_network with CPE on: the unfused DQNTrainer with
+    its three heads, then the eval split's page through K3 (three launches
+    a batch, no plain version) and the estimators on the card; the
+    artifact against the in-process module; eval_seconds taken apart."""
+    reset_counts()
+    out, df, serving, (trainer, tstate, _), batch_pre, wall = run_workflow(
+        cfg, n_rows, epochs, torch, tmp, label, model=model, split=split, rewards="uniform")
+    launches, plain_calls = read_counts()
+    steps, secs = out.logger_data["train_steps"], out.logger_data["train_seconds"]
+    eval_s, td = out.logger_data["eval_seconds"], out.training_report.td_loss
+    names = model["DiscreteDQN"]["trainer_param"]["actions"]
+    bs = model["DiscreteDQN"]["trainer_param"]["minibatch_size"]
+    eval_df = eval_split(df, split)
+    n_batches = -(-len(eval_df) // min(bs, len(eval_df)))
+    log(f"  {label}: {steps} train steps in {secs:.3f} s ({steps / secs:.2f} steps/s, host "
+        f"time included), td_loss {td}; evaluation of {len(eval_df)} rows in {n_batches} "
+        f"batch(es): eval_seconds {eval_s:.3f}; whole workflow {wall:.1f} s; launches "
+        f"{launches}, plain-version calls {plain_calls}")
+    expected = {k: 0 for k in launches}
+    expected["fused_mlp_forward"] = 3 * n_batches
+    if launches != expected or plain_calls:
+        raise AssertionError(f"{label}: launches {launches} (expected {expected}), plain "
+                             f"calls {plain_calls}")
+    if td is None or not np.isfinite(td) or steps == 0:
+        raise AssertionError(f"{label}: td_loss {td} after {steps} steps")
+    details = out.training_report.cpe_details
+    check_details(label, details, names)
+    log_estimates(label, details)
+    diff = check_artifact(out, df, serving, torch)
+    parts, padded = evaluation_parts(torch, trainer, tstate, batch_pre, eval_df, bs, names)
+    log(f"  {label}: artifact vs in-process serving module on 64 rows: max abs {diff:.3e}; "
+        f"the evaluation taken apart ({padded[0]} episodes padded to {padded[1]} steps), "
+        f"seconds: " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.4f}")
+    return dict(launches=launches["fused_mlp_forward"], steps=steps, secs=secs,
+                eval_seconds=eval_s, parts=parts, trainer=trainer, tstate=tstate,
+                batch_pre=batch_pre, eval_df=eval_df, bs=bs, names=names, details=details)
+
+
+def cpu_twin(trainer):
+    """The same DQNTrainer on the CPU: copies of its networks, its RL
+    parameters (no optimizer: the twin only scores)."""
+    import copy
+
+    from reagent_tpu_torch.training.dqn_trainer import DQNTrainer
+
+    return DQNTrainer(
+        copy.deepcopy(trainer.q_network).cpu(), rl=trainer.rl,
+        double_q_learning=trainer.double_q_learning,
+        reward_network=copy.deepcopy(trainer.reward_network).cpu(),
+        q_network_cpe=copy.deepcopy(trainer.q_network_cpe).cpu(), device="cpu")
+
+
+# the page and estimates, card against CPU: float32 forwards in another
+# order (K3's sums against the CPU's), the estimates' float32 device sums
+# against the CPU's; MAGIC twice as loose as WDR (its SLSQP).  The target
+# policy's propensities are softmax(Q / T) at the configs' temperature
+# (RLParameters' 0.01): a propensity moves by up to 2 |dQ| / T of itself,
+# 2e-3 for the 1e-5 by which the two sides' Q-values may part
+EDP_TOL = dict(rtol=1e-4, atol=1e-5)
+PROPENSITY_TOL = dict(rtol=2e-3, atol=1e-6)
+EST_TOL = dict(rtol=1e-4, atol=1e-6)
+MAGIC_EST_TOL = dict(rtol=2e-4, atol=2e-6)
+STD_EST_TOL = dict(rtol=1e-3, atol=1e-6)
+
+
+def cpe_edp_against_cpu(torch, run, label):
+    """The evaluation page and every estimate from one trained state on the
+    card and on the CPU (its twin), ``np.random`` seeded alike; argmax
+    flips counted where the top two Q-values are within 1e-4."""
+    from reagent_tpu_torch.evaluation import Evaluator
+    from reagent_tpu_torch.workflow.training import _build_edp
+
+    trainer, bs = run["trainer"], run["bs"]
+    twin, state_c = cpu_twin(trainer), copy_state(run["tstate"], "cpu")
+    batch_pre = run["batch_pre"]
+    reset_counts()
+    edp_g = _build_edp(trainer, run["tstate"], batch_pre, run["eval_df"], bs)
+    edp_c = _build_edp(twin, state_c, lambda d: batch_pre(d).to("cpu"), run["eval_df"], bs)
+    worst = 0.0
+    for name in ("optimal_q_values", "model_values", "model_rewards",
+                 "model_rewards_for_logged_action", "logged_values"):
+        a, b = getattr(edp_g, name), getattr(edp_c, name)
+        np.testing.assert_allclose(a, b, **EDP_TOL, err_msg=f"{label} page {name}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    a, b = edp_g.model_propensities, edp_c.model_propensities
+    np.testing.assert_allclose(a, b, **PROPENSITY_TOL, err_msg=f"{label} page propensities")
+    above = b >= PROPENSITY_TOL["atol"]
+    worst_p = float((np.abs(a - b)[above] / b[above]).max())
+    top2 = np.sort(edp_c.optimal_q_values, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 1e-4
+    flips = int((edp_g.eval_action_idxs != edp_c.eval_action_idxs).sum())
+    np.testing.assert_array_equal(edp_g.eval_action_idxs[clear], edp_c.eval_action_idxs[clear])
+    details = {}
+    for dev, edp in ((DEVICE, edp_g), ("cpu", edp_c)):
+        np.random.seed(5)
+        details[dev] = Evaluator(run["names"], trainer.gamma, device=dev).evaluate_post_training(edp)
+    worst_est = 0.0
+    for name in details["cpu"].reward_estimates._fields:
+        g = getattr(details[DEVICE].reward_estimates, name)
+        c = getattr(details["cpu"].reward_estimates, name)
+        tol = MAGIC_EST_TOL if name == "magic" else EST_TOL
+        np.testing.assert_allclose(g[:2], c[:2], **tol, err_msg=f"{label} {name}")
+        np.testing.assert_allclose(g[2:], c[2:], **STD_EST_TOL, err_msg=f"{label} {name} std")
+        worst_est = max(worst_est, max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(g, c)))
+    launches, plain_calls = read_counts()
+    log(f"  {label}: page card vs CPU max abs {worst:.3e} (Q-values, rewards, values), "
+        f"propensities above 1e-6 max rel {worst_p:.3e}, greedy-action flips {flips} of "
+        f"{len(clear)} ({int((~clear).sum())} rows within 1e-4 of a tie); estimates max rel "
+        f"{worst_est:.3e}; K3 launches on the card {launches['fused_mlp_forward']}, "
+        f"plain-version calls (the CPU side) {plain_calls}")
+    return worst, worst_est
+
+
+def cpe_lockstep_phase(torch, n=5):
+    """``n`` DQNTrainer steps with the CPE heads at the full offline width on
+    the card and on the CPU from one initial state and the same batches:
+    td_loss, reward_loss and cpe_td_loss per step to rtol 1e-4, atol 1e-5
+    (as phase 15), the five parameter trees to rtol 1e-3, atol 1e-4."""
+    import copy
+
+    from reagent_tpu_torch.core import types as rlt
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.net_builder.discrete_dqn import FullyConnected
+    from reagent_tpu_torch.training.dqn_trainer import DQNTrainer
+
+    cfg = FULL
+    build = FullyConnected(sizes=cfg["widths"], activations=[cfg["act"]] * len(cfg["widths"]))
+    nets = [build.build_q_network(None, cfg["A"], state_dim=cfg["D"]) for _ in range(3)]
+    kw = dict(rl=RLParameters(gamma=cfg["gamma"], target_update_rate=cfg["tau"]),
+              optimizer={"Adam": {"lr": cfg["lr"]}})
+    trainers = {
+        "cpu": DQNTrainer(copy.deepcopy(nets[0]), reward_network=copy.deepcopy(nets[1]),
+                          q_network_cpe=copy.deepcopy(nets[2]), device="cpu", **kw),
+        DEVICE: DQNTrainer(nets[0], reward_network=nets[1], q_network_cpe=nets[2],
+                           device=DEVICE, **kw)}
+    first = trainers[DEVICE].init(torch.Generator().manual_seed(13))
+    states = {dev: copy_state(first, dev) for dev in trainers}
+    rng = np.random.default_rng(17)
+    worst = {k: 0.0 for k in ("td_loss", "reward_loss", "cpe_td_loss")}
+    for step in range(n):
+        _, b, _ = make_inputs(cfg, 700 + step, torch, "cpu")
+        obs, nobs, action, _, not_terminal, mask = b
+        reward = torch.tensor(rng.uniform(0, 1, (cfg["B"], 1)).astype(np.float32))
+        metrics = {}
+        for dev, trainer in trainers.items():
+            batch = rlt.DiscreteDqnInput(
+                state=rlt.FeatureData(obs), next_state=rlt.FeatureData(nobs), action=action,
+                next_action=action, reward=reward, time_diff=None, step=None,
+                not_terminal=not_terminal, possible_actions_mask=torch.ones_like(mask),
+                possible_next_actions_mask=mask).to(dev)
+            states[dev], m = trainer.train_step(states[dev], batch)
+            metrics[dev] = {k: m[k].cpu() for k in worst}
+        for k in worst:
+            torch.testing.assert_close(metrics[DEVICE][k], metrics["cpu"][k],
+                                       rtol=1e-4, atol=1e-5)
+            worst[k] = max(worst[k], (metrics[DEVICE][k] - metrics["cpu"][k]).abs().item())
+    worst_p = 0.0
+    g, c = states[DEVICE], states["cpu"]
+    for tree in ("q_params", "q_target_params", "reward_params", "cpe_params",
+                 "cpe_target_params"):
+        for k, v in getattr(c, tree).items():
+            a = getattr(g, tree)[k].cpu()
+            torch.testing.assert_close(a, v, rtol=1e-3, atol=1e-4)
+            worst_p = max(worst_p, (a - v).abs().max().item())
+    log(f"  card vs CPU, {n} lockstep train steps with the CPE heads: max abs "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (last {', '.join(f'{k} {metrics[DEVICE][k].item():.6f}' for k in worst)}); "
+        f"the five parameter trees max abs {worst_p:.3e}")
+    return worst, worst_p
+
+
 def main() -> int:
     import torch
 
@@ -1807,27 +2210,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("phase 1: device")
+    phase("phase 1: device")
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log(card)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
 
-    log("phase 2: build")
+    phase("phase 2: build")
     t0 = time.perf_counter()
     libs = _build.build_all()
     for lib in ("fused_dqn", "fused_mlp", "nstep_replay", "quantile_huber"):
         _build.load_library(lib)
     log(f"  built {[os.path.basename(p) for p in libs]} in {time.perf_counter() - t0:.2f} s")
 
-    log("phase 3: K1 against its plain version (full width)")
+    phase("phase 3: K1 against its plain version (full width)")
     err_k1 = compare_kernel("K1", FULL, torch, LAUNCH_SEQUENCE)
-    log("phase 4: K2 against its plain version: one launch at the CartPole sample shapes, "
+    phase("phase 4: K2 against its plain version: one launch at the CartPole sample shapes, "
         "the launch sequence at the full offline width")
     err_k2 = compare_kernel("K2", CARTPOLE, torch, ONE_LAUNCH)
     err_k2_seq = compare_kernel("K2 (launch sequence)", K2_LARGE, torch, LAUNCH_SEQUENCE)
 
-    log("phase 5: timing (CUDA events, 3 warm-ups, median of 20)")
+    phase("phase 5: timing (CUDA events, 3 warm-ups, median of 20)")
     timing = {}
     for kname, cfg in (("K1", FULL), ("K2", CARTPOLE), ("K2 (launch sequence)", K2_LARGE)):
         timing[kname] = time_kernel(cfg, torch, name)
@@ -1844,19 +2247,19 @@ def main() -> int:
         gemm_us[kname] = profile_update(cfg, torch)[1]
 
     with tempfile.TemporaryDirectory() as tmp:
-        log("phase 6: workflow at full width through K1")
+        phase("phase 6: workflow at full width through K1")
         k1_launches, k1_steps, _ = workflow_phase(
             FULL, 16384, 2, "fused_dqn_offline_update", torch, tmp, "full_width")
-        log("phase 7: workflow at the CartPole sample config's shapes through K2")
+        phase("phase 7: workflow at the CartPole sample config's shapes through K2")
         k2_launches, _, _ = workflow_phase(
             CARTPOLE, 2048, 2, "fused_dqn_update", torch, tmp, "cartpole_sample")
 
-    log("phase 8: K2's packed interface, K3 and K4 against their plain versions")
+    phase("phase 8: K2's packed interface, K3 and K4 against their plain versions")
     err_k2p = compare_k2_packed(torch)
     err_k3 = compare_k3(torch)
     err_k4 = compare_k4(torch)
 
-    log("phase 9: timing of K2-packed, K3 and K4 (CUDA events, 3 warm-ups, median of 20)")
+    phase("phase 9: timing of K2-packed, K3 and K4 (CUDA events, 3 warm-ups, median of 20)")
     online_timing = time_online_kernels(torch, name)
     for kname, (ms, plain_ms, b_ms, b_by, flops, nbytes, shapes) in online_timing.items():
         log(f"  {kname} ({shapes}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -1880,17 +2283,17 @@ def main() -> int:
     log("  K2-packed device time by CUDA kernel (torch.profiler, mean of 5 updates):")
     profile_calls(torch, k2_packed_call(torch)[0])
 
-    log(f"phase 10: fused online loop at the bench's width ({FUSED_STEPS} steps)")
+    phase(f"phase 10: fused online loop at the bench's width ({FUSED_STEPS} steps)")
     fused_launches, fused_rate, _ = fused_loop_phase(torch, FUSED_STEPS)
 
-    log(f"phase 11: generic online loop ({GENERIC_STEPS} steps) and evaluate_policy")
+    phase(f"phase 11: generic online loop ({GENERIC_STEPS} steps) and evaluate_policy")
     generic_launches, eval_launches, _ = generic_loop_phase(torch, GENERIC_STEPS)
 
-    log("phase 12: K5 (quantile-Huber loss: two forward routes and the backward) against "
+    phase("phase 12: K5 (quantile-Huber loss: two forward routes and the backward) against "
         "its plain versions")
     err_k5, err_k5_grad, err_k5_scale = compare_k5(torch)
 
-    log("phase 13: timing of K5 (CUDA events, 3 warm-ups, median of 20)")
+    phase("phase 13: timing of K5 (CUDA events, 3 warm-ups, median of 20)")
     k5_timing = time_k5(torch, name)
     for (kB, kN), t in k5_timing.items():
         parts = []
@@ -1903,22 +2306,22 @@ def main() -> int:
             f"instructions a pair): " + "; ".join(parts) + f", on {card}")
     k5_main = k5_timing[K5_SHAPES[0]]
 
-    log("phase 14: offline QR-DQN workflow at full width through K5")
+    phase("phase 14: offline QR-DQN workflow at full width through K5")
     with tempfile.TemporaryDirectory() as tmp:
         qr_launches, _, _ = qr_workflow_phase(torch, tmp, k5_main["pair"])
 
-    log("phase 15: QR-DQN train steps, card against CPU")
+    phase("phase 15: QR-DQN train steps, card against CPU")
     qr_lockstep_phase(torch)
 
-    log(f"phase 16: online QR-DQN loop ({QR_ONLINE['steps']} steps) and evaluate_policy")
+    phase(f"phase 16: online QR-DQN loop ({QR_ONLINE['steps']} steps) and evaluate_policy")
     qr_online_launches, _ = qr_online_phase(torch)
 
     bf16, f32 = torch.bfloat16, torch.float32
-    log("phase 17: K1 with its bfloat16 options against its plain version (full width)")
+    phase("phase 17: K1 with its bfloat16 options against its plain version (full width)")
     err_k1_bf16 = compare_k1_bf16(torch, (bf16, bf16), "K1-bf16 (matmul bf16, save bf16)")
     err_k1_save = compare_k1_bf16(torch, (f32, bf16), "K1 (matmul f32, save bf16)")
 
-    log("phase 18: timing of K1-bf16 (CUDA events, 3 warm-ups, median of 20)")
+    phase("phase 18: timing of K1-bf16 (CUDA events, 3 warm-ups, median of 20)")
     timing["K1-bf16"] = time_kernel(FULL, torch, name, (bf16, bf16))
     timing["K1 again"] = time_kernel(FULL, torch, name)
     for kname in ("K1-bf16", "K1 again"):
@@ -1932,7 +2335,7 @@ def main() -> int:
     log("  K1-bf16 device time by CUDA kernel (torch.profiler, mean of 5 updates):")
     gemm_us["K1-bf16"] = profile_update(FULL, torch, dtypes=(bf16, bf16))[1]
 
-    log(f"phase 19: device-resident fused loop ({TABLE_ROWS} rows on the card, minibatch "
+    phase(f"phase 19: device-resident fused loop ({TABLE_ROWS} rows on the card, minibatch "
         f"{FULL['B']}, block {SCAN_BLOCK})")
     dataset = offline_dataset(torch, DEVICE)
     trainer_bf16, state_bf16, scan_bf16, rates_bf16, td_bf16 = device_resident_fused_phase(
@@ -1942,7 +2345,7 @@ def main() -> int:
     fused_lockstep_against_cpu(torch, dataset)
     k3_scan_launches = q_values_phase(torch, trainer_bf16, state_bf16, dataset)
 
-    log(f"phase 20: unfused scan path (DQNTrainer, {UNFUSED_STEPS} steps each)")
+    phase(f"phase 20: unfused scan path (DQNTrainer, {UNFUSED_STEPS} steps each)")
     unfused = {label: unfused_scan_phase(torch, dataset, dtype, f"unfused scan, {label}")
                for label, dtype in (("compute f32", None), ("compute bf16", bf16))}
     compare_td_paths(torch, {"fused f32": td_f32, "fused bf16": td_bf16,
@@ -1953,7 +2356,29 @@ def main() -> int:
         + "; ".join(f"{k} {v[0]:.2f}" for k, v in unfused.items()))
     del dataset
 
-    log("phase 21: kernels")
+    phase("phase 21: K3 at the evaluation's shapes against its plain version, timed")
+    k3_eval = k3_eval_phase(torch, name)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("phase 22: the flagship sample config unchanged (CPE on) through "
+              "identify_and_train_network")
+        sample_cfg = dict(CARTPOLE, B=SAMPLE_CONFIG["model"]["DiscreteDQN"]["trainer_param"][
+            "minibatch_size"])
+        split = (SAMPLE_CONFIG["table_sample"], SAMPLE_CONFIG["eval_table_sample"])
+        cpe_sample = cpe_workflow_phase(
+            torch, tmp, "cpe_sample_config", sample_cfg, SAMPLE_CONFIG["model"],
+            SAMPLE_CPE_ROWS, SAMPLE_CONFIG["num_epochs"], split)
+        phase("phase 23: the full offline width with CPE (unfused DQNTrainer, three heads)")
+        cpe_full = cpe_workflow_phase(
+            torch, tmp, "cpe_full_width", FULL, full_cpe_model(), FULL_CPE_ROWS,
+            FULL_CPE_EPOCHS, split)
+
+    phase("phase 24: CPE, card against CPU")
+    cpe_lockstep_phase(torch)
+    for label, run in (("sample config", cpe_sample), ("full width", cpe_full)):
+        cpe_edp_against_cpu(torch, run, label)
+
+    phase("phase 25: kernels")
     by_path = {
         "K1 fused_dqn_offline_update": {
             "offline workflow, full width": k1_launches,
@@ -1969,7 +2394,9 @@ def main() -> int:
             "generic online loop": generic_launches["fused_mlp_forward"],
             "evaluate_policy": eval_launches["fused_mlp_forward"],
             "offline QR-DQN workflow (q_values)": qr_launches["fused_mlp_forward"],
-            "device-resident fused loop (q_values)": k3_scan_launches},
+            "device-resident fused loop (q_values)": k3_scan_launches,
+            "CPE evaluation, sample config": cpe_sample["launches"],
+            "CPE evaluation, full width": cpe_full["launches"]},
         "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
                              "online QR-DQN loop": qr_online_launches["nstep_rewards"]},
         "K5 quantile_huber_loss": {
@@ -2062,6 +2489,8 @@ def main() -> int:
             # the same forward as one torch.addmm per layer, at [1, 4]
             row["products_library_ms"] = k3_addmm_ms
             row["wrapper_host_us_by_shape"] = {"x [20, 4]": host_us["K3 [20, 4]"]}
+            # the evaluation's forwards (phase 21), each with its addmm yardstick
+            row["by_shape"].update({f"evaluation {k}": v for k, v in k3_eval.items()})
         if kname.startswith("K1"):
             # the same products through cuBLAS, and the kernel's own GEMM share
             key = "K1-bf16" if kname.endswith("(bf16)") else "K1"

@@ -3,8 +3,11 @@
 Port of ``reagent_tpu/model_managers/discrete_dqn.py``: builds the q-network
 from the net-builder union, the trainer, the batch preprocessor and the
 serving artifact.  With ``trainer_param.use_fused_kernel: true`` the trainer
-is ``FusedDQNTrainer`` (K1 above 512 rows, else K2), otherwise ``DQNTrainer``.
-CPE heads and the reporter are not ported yet (``ROADMAP.md`` §1).
+is ``FusedDQNTrainer`` (K1 above 512 rows, else K2), otherwise ``DQNTrainer``,
+with the reward and CPE Q heads from ``cpe_net_builder`` when
+``eval_parameters.calc_cpe_in_training`` is set (the fused trainer has no
+CPE heads and refuses them).  The reporter is not ported yet (``ROADMAP.md``
+§1 item 2).
 """
 
 from __future__ import annotations
@@ -124,20 +127,21 @@ class DiscreteDQN(ModelManager):
     ) -> Union[DQNTrainer, FusedDQNTrainer]:
         """``use_gpu`` is accepted so the JAX package's configs load; it has
         no effect — ``device`` places the trainer."""
-        if self.eval_params.calc_cpe_in_training:
-            if self._param.use_fused_kernel:
-                raise ValueError(
-                    "use_fused_kernel does not support CPE heads; set "
-                    "eval_parameters.calc_cpe_in_training: false"
-                )
-            raise NotImplementedError(
-                "the CPE heads are not ported yet (ROADMAP.md §1 item 2); set "
+        if self.eval_params.calc_cpe_in_training and self._param.use_fused_kernel:
+            raise ValueError(
+                "use_fused_kernel does not support CPE heads; set "
                 "eval_parameters.calc_cpe_in_training: false"
             )
         state_norm = normalization_data_map[NormalizationKey.STATE]
+        num_actions = len(self._param.actions)
         builder = DISCRETE_DQN_NET_BUILDERS.build(self.net_builder)
-        q_network = builder.build_q_network(state_norm, output_dim=len(self._param.actions))
+        q_network = builder.build_q_network(state_norm, output_dim=num_actions)
         if not self._param.use_fused_kernel:
+            reward_network = q_network_cpe = None
+            if self.eval_params.calc_cpe_in_training:
+                cpe_builder = DISCRETE_DQN_NET_BUILDERS.build(self.cpe_net_builder)
+                reward_network = cpe_builder.build_q_network(state_norm, output_dim=num_actions)
+                q_network_cpe = cpe_builder.build_q_network(state_norm, output_dim=num_actions)
             return DQNTrainer(
                 emit_reporter_arrays=self.get_reporter() is not None,
                 q_network=q_network,
@@ -145,6 +149,8 @@ class DiscreteDQN(ModelManager):
                 double_q_learning=self._param.double_q_learning,
                 optimizer=self._param.optimizer,
                 action_names=tuple(self._param.actions),
+                reward_network=reward_network,
+                q_network_cpe=q_network_cpe,
                 device=device,
             )
         B = self._param.minibatch_size

@@ -69,7 +69,7 @@ class FullyConnectedNetwork(nn.Module):
         if use_batch_norm or dropout_ratio > 0.0 or use_layer_norm or use_skip_connections:
             raise NotImplementedError(
                 "batch norm, dropout, layer norm and skip connections are not "
-                "ported yet (ROADMAP.md §1, item 1)"
+                "ported yet (ROADMAP.md §1 item 3)"
             )
         for a in activations:
             apply_activation(a, torch.zeros(()))  # reject unknown names early

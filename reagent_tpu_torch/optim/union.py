@@ -191,9 +191,9 @@ def make_optimizer(config: Any):
         name, kwargs = next(iter(config.items()))
         if name in UNPORTED:
             raise NotImplementedError(
-                f"optimizer {name!r} is not ported yet (ROADMAP.md §1 item 1); "
+                f"optimizer {name!r} is not ported yet (ROADMAP.md §1 item 3); "
                 "the port has Adam, AdamW and SGD")
         if isinstance(kwargs, dict) and "lr_scheduler" in kwargs:
             raise NotImplementedError(
-                "lr_scheduler (optim/scheduler.py) is not ported yet (ROADMAP.md §1 item 1)")
+                "lr_scheduler (optim/scheduler.py) is not ported yet (ROADMAP.md §1 item 3)")
     return OPTIMIZERS.build(config).make_optimizer()

@@ -119,10 +119,23 @@ def qrdqn_state_from_arrays(
 
 
 def dqn_state_from_arrays(
-    q_params: Mapping, q_target_params: Mapping, opt_state: OptState, step, device="cpu"
+    q_params: Mapping, q_target_params: Mapping, opt_state: OptState, step, device="cpu",
+    *, reward_params: Optional[Mapping] = None, reward_opt_state: Optional[OptState] = None,
+    cpe_params: Optional[Mapping] = None, cpe_target_params: Optional[Mapping] = None,
+    cpe_opt_state: Optional[OptState] = None,
 ) -> DQNTrainerState:
-    """The port's ``DQNTrainerState``, as ``qrdqn_state_from_arrays``."""
-    return _unfused_state(DQNTrainerState, q_params, q_target_params, opt_state, step, device)
+    """The port's ``DQNTrainerState``, as ``qrdqn_state_from_arrays``; the
+    CPE heads' parameter trees (flax, numpy leaves) and optimizer states
+    (from ``opt_state_from_arrays``) where the JAX state has them."""
+    state = _unfused_state(DQNTrainerState, q_params, q_target_params, opt_state, step, device)
+
+    def tree(x):
+        return None if x is None else _params_on(x, device)
+
+    return dataclasses.replace(
+        state, reward_params=tree(reward_params), reward_opt_state=reward_opt_state,
+        cpe_params=tree(cpe_params), cpe_target_params=tree(cpe_target_params),
+        cpe_opt_state=cpe_opt_state)
 
 
 def _scalar_i32(x, device) -> torch.Tensor:

@@ -2,10 +2,10 @@
 
 Port of ``reagent_tpu/workflow/training.py`` (reference:
 reagent/workflow/training.py:59-323): feature identification -> query/split
-data -> train -> export the serving artifact, for the managers the port has
-(``DiscreteDQN``, fused or unfused, and ``DiscreteQRDQN``); CPE, warm start,
-reward options, validators and publishers are not ported yet (``ROADMAP.md``
-§1).
+data -> train -> counterfactual policy evaluation (CPE) on the eval split ->
+export the serving artifact, for the managers the port has (``DiscreteDQN``,
+fused or unfused, and ``DiscreteQRDQN``); warm start, reward options,
+validators and publishers are not ported yet (``ROADMAP.md`` §1 item 2).
 
 Every entry point takes ``device`` (default ``"cuda"``; raises when no card
 is present rather than dropping to the CPU).  ``use_gpu`` is accepted so the
@@ -30,6 +30,7 @@ from reagent_tpu_torch.data.data_module import (
     iterate_minibatches,
     split_by_sample_range,
 )
+from reagent_tpu_torch.evaluation import EvaluationDataPage, Evaluator
 from reagent_tpu_torch.utils.device import resolve_device
 from reagent_tpu_torch.workflow.types import RLTrainingOutput, RLTrainingReport
 
@@ -97,7 +98,8 @@ def query_and_train(
     device = resolve_device(device)
     if reward_options:
         raise NotImplementedError(
-            "reward_options (data/reward_options.py) are not ported yet (ROADMAP.md §1)")
+            "reward_options (data/reward_options.py) are not ported yet "
+            "(ROADMAP.md §1 item 2)")
     manager = _manager or MODEL_MANAGERS.build(model)
     df = _df if _df is not None else _load_table(input_table_spec)
     calc_cpe = getattr(manager, "eval_params", None) and manager.eval_params.calc_cpe_in_training
@@ -136,13 +138,16 @@ def train_workflow(
     The trainer state comes from ``manager.init_trainer_state(trainer,
     generator, state_dim)`` where the manager defines it, else from
     ``trainer.init(generator)``; ``generator`` is a CPU ``torch.Generator``
-    seeded with ``seed``.  ``eval_df`` feeds CPE, which is not ported yet.
+    seeded with ``seed``.  Where the trainer has CPE heads and ``eval_df``
+    rows, the report's ``cpe_details`` come from the ``Evaluator`` on the
+    eval split; ``logger_data`` holds ``eval_seconds`` beside
+    ``train_seconds`` (0.0 without CPE).
     """
     device = resolve_device(device)
     if warm_start_path:
         raise NotImplementedError(
             "warm-start checkpointing (utils/checkpointing.py) is not ported yet "
-            "(ROADMAP.md §1)")
+            "(ROADMAP.md §1 item 2)")
     if normalization_data_map is None:
         normalization_data_map = manager.run_feature_identification(train_df)
 
@@ -180,12 +185,45 @@ def train_workflow(
     train_seconds = time.perf_counter() - t0  # float() above waited for the device
     logger.info("training took %.1fs", train_seconds)
 
+    report = RLTrainingReport(td_loss=last_loss)
+    eval_seconds = 0.0
+    if len(eval_df) > 0 and getattr(trainer, "calc_cpe_in_training", False):
+        t0 = time.perf_counter()
+        edp = _build_edp(trainer, trainer_state, batch_preprocessor, eval_df, bs)
+        evaluator = Evaluator(manager.action_names, trainer.gamma, device=trainer.device)
+        report.cpe_details = evaluator.evaluate_post_training(edp)
+        eval_seconds = time.perf_counter() - t0  # the estimates are host floats
+
     serving = manager.build_serving_module(trainer, trainer_state, normalization_data_map)
     os.makedirs(output_dir, exist_ok=True)
     model_path = os.path.join(output_dir, "serving_model")
     serving.save(model_path)
     return RLTrainingOutput(
         output_paths={"default_model": model_path},
-        training_report=RLTrainingReport(td_loss=last_loss),
-        logger_data={"train_steps": train_steps, "train_seconds": train_seconds},
+        training_report=report,
+        logger_data={"train_steps": train_steps, "train_seconds": train_seconds,
+                     "eval_seconds": eval_seconds},
     )
+
+
+def _build_edp(trainer, trainer_state, batch_preprocessor, eval_df, bs) -> EvaluationDataPage:
+    """An EvaluationDataPage over the eval split, in order, in minibatches of
+    at most ``bs`` rows (reference dqn_trainer_base.py:455-495)."""
+    edp = None
+    for batch_df in iterate_minibatches(eval_df, min(bs, len(eval_df)), drop_last=False):
+        batch = batch_preprocessor(batch_df)
+        page = EvaluationDataPage.create_from_tensors_dqn(
+            trainer,
+            trainer_state,
+            batch.extras.mdp_id,
+            batch.extras.sequence_number,
+            batch.state.float_features,
+            batch.action,
+            torch.clamp(batch.extras.action_probability, min=1e-6),
+            batch.reward,
+            batch.possible_actions_mask,
+        )
+        edp = page if edp is None else edp.append(page)
+    edp = edp.sort().compute_values(trainer.gamma)
+    edp.validate()
+    return edp

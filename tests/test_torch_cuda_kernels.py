@@ -464,6 +464,43 @@ def test_k3_input_widths_not_a_multiple_of_4(card, transposed, B):
     _k3_matches(x, weights, ["leaky_relu", "relu", "linear"])
 
 
+@pytest.mark.parametrize("rows,sizes,resident", [
+    (512, [4, 128, 64, 2], True), (4096, [128, 512, 256, 8], False)],
+    ids=["sample_config_resident", "full_width_streamed"])
+def test_k3_at_the_evaluation_shapes(card, rows, sizes, resident):
+    """The evaluation page's three forwards go through functional.score:
+    one K3 launch each, on the route the net's size picks, no plain
+    version; the page itself launches K3 three times."""
+    from reagent_tpu_torch.evaluation import EvaluationDataPage
+    from reagent_tpu_torch.net_builder.discrete_dqn import FullyConnected
+    from reagent_tpu_torch.training.dqn_trainer import DQNTrainer
+
+    build = FullyConnected(sizes=sizes[1:-1], activations=["leaky_relu"] * (len(sizes) - 2))
+    nets = [build.build_q_network(None, sizes[-1], state_dim=sizes[0]) for _ in range(3)]
+    trainer = DQNTrainer(nets[0], reward_network=nets[1], q_network_cpe=nets[2], device=card)
+    state = trainer.init(torch.Generator().manual_seed(rows))
+    rng = np.random.default_rng(rows)
+    x = torch.tensor(rng.normal(size=(rows, sizes[0])).astype(np.float32), device=card)
+    weights = [(state.q_params[f"net.layers.{i}.weight"].T, state.q_params[f"net.layers.{i}.bias"])
+               for i in range(len(sizes) - 1)]
+    assert fused_mlp.takes_resident_route(rows, weights) == resident
+    plain = fused_mlp.fused_mlp_forward_reference.calls
+    y = _k3_matches(x, weights, trainer.q_network.activations)
+    assert torch.equal(trainer.q_values(state, x), y)
+    actions = torch.tensor(np.eye(sizes[-1], dtype=np.float32)[rng.integers(0, sizes[-1], rows)],
+                           device=card)
+    launches = fused_mlp.fused_mlp_forward.launches
+    calls = fused_mlp.fused_mlp_forward_reference.calls
+    page = EvaluationDataPage.create_from_tensors_dqn(
+        trainer, state, np.zeros((rows, 1)), np.zeros((rows, 1)), x, actions,
+        torch.full((rows, 1), 0.5, device=card), torch.ones((rows, 1), device=card),
+        torch.ones_like(actions))
+    assert fused_mlp.fused_mlp_forward.launches == launches + 3
+    assert fused_mlp.fused_mlp_forward_reference.calls == calls
+    np.testing.assert_array_equal(page.optimal_q_values, y.cpu().numpy())
+    assert fused_mlp.fused_mlp_forward_reference.calls == plain + 1  # _k3_matches' own
+
+
 def _nstep_inputs(device, capacity, R, term_dtype, seed, p_terminal=0.2):
     rng = np.random.default_rng(seed)
     rewards = rng.normal(size=(capacity,) if R == 1 else (capacity, 2, R // 2)).astype(np.float32)

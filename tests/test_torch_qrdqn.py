@@ -307,12 +307,18 @@ def test_dqn_trainer_step_matches_the_fused_trainer(double_q):
 
 
 def test_dqn_trainer_unported_options_raise():
+    """BCQ and the CPE heads are ported (tests/test_torch_cpe.py); what
+    still raises is an incomplete set of them: a BCQ threshold without an
+    imitator, one CPE head without the other."""
     net = dqn_builders.FullyConnected(sizes=SIZES, activations=ACTS).build_q_network(
         None, A, state_dim=D)
-    for kwargs in (dict(bcq_drop_threshold=0.1), dict(reward_network=net),
-                   dict(q_network_cpe=net)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
+    with pytest.raises(ValueError, match="bcq_imitator"):
+        DQNTrainer(net, bcq_drop_threshold=0.1, device="cpu")
+    for kwargs in (dict(reward_network=net), dict(q_network_cpe=net)):
+        with pytest.raises(ValueError, match="reward_network and q_network_cpe"):
             DQNTrainer(net, device="cpu", **kwargs)
+    DQNTrainer(net, bcq_drop_threshold=0.1, bcq_imitator=net, reward_network=net,
+               q_network_cpe=net, device="cpu")
 
 
 # ----------------------------------------------------------- rl_trainer_base
