@@ -17,8 +17,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      yardstick only), and each update's device time by CUDA kernel
      (torch.profiler);
   6. the offline workflow (identify_and_train_network) at full width through
-     K1, with the exported artifact scored against the in-process module and
-     the host's batch preprocessing timed beside the train step;
+     K1 (8 updates: 8,192 rows, 4 epochs), with the exported artifact scored
+     against the in-process module and the host's batch preprocessing timed
+     beside the train step;
   7. the workflow at the sample config's shapes through K2;
   8. K2's packed interface (one launch), K3 (fused MLP forward) and K4
      (n-step replay rewards) against their plain versions at the online
@@ -30,10 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      device time by CUDA kernel;
  10. the fused online DQN loop at bench.py's width (CartPole, 4-128-64-2,
      minibatch 512, packed replay of 100,000): prefill 1,000, a 32-step
-     lockstep check against the plain versions on the CPU, then 5,000 steps
+     lockstep check against the plain versions on the CPU, then 1,500 steps
      through K2-packed and K3;
  11. the generic online loop (ReplayBuffer of 50,000, softmax acting through
-     the K3 scorer, tensor K2, K4 in every sample) for 1,000 steps, then
+     the K3 scorer, tensor K2, K4 in every sample) for 500 steps, then
      evaluate_policy over 20 greedy episodes through K3;
  12. K5 (pairwise quantile-Huber loss) against its plain versions at
      [4096, 51], [8192, 201], [512, 11], in bfloat16 and on inputs built to
@@ -44,13 +45,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      trainer's pair (forward with sums, then backward), and of the plain
      versions, at the three shapes, beside the bound;
  14. the offline QR-DQN workflow at full width (D=128, 512, 256, A=8, 51
-     atoms, minibatch 4096) through K5, the artifact scored against the
+     atoms, minibatch 4096, 8 updates as phase 6) through K5, the artifact
+     scored against the
      in-process module and against the trainer's q_values (K3), and a train
      step's time by CUDA kernel and host operator (torch.profiler);
  15. 5 QR-DQN train steps at that width on the card (K5) against 5 on the
      CPU (the plain version) from one state and the same batches;
  16. the online QR-DQN loop (dueling 64, 64 with 11 atoms, ReplayBuffer of
-     50,000, minibatch 512) for 1,000 steps through K4 and K5, then
+     50,000, minibatch 512) for 300 steps through K4 and K5, then
      evaluate_policy over 20 greedy episodes and a profiled window;
  17. K1 with its bfloat16 options against its plain version at full width,
      double-Q and single-Q, 5 updates each compared from one state, for
@@ -80,11 +82,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      train steps/s, eval_seconds and the evaluation taken apart (host
      decode, the forwards, the page, each estimator), the estimates;
  23. the same at the full offline width (D=128, 512, 256, A=8, CPE heads
-     as wide, minibatch 4096, 16,384 rows, 2 epochs);
+     as wide, minibatch 4096, 8,192 rows, 4 epochs);
  24. CPE card against CPU: 5 train steps with the CPE heads at full width
      from one state on the same batches, then the page and every estimate
      of phases 22 and 23's trained states on both, np.random seeded alike;
- 25. one JSON line describing each ported kernel (K1's rows with the CUDA
+ 25. the reference's dqn_cartpole_e2e job through the four functions reagent
+     run calls, with the arguments it builds from the sample config and the
+     job's overrides: 12,000 random CartPole transitions (gymnasium where it
+     imports, else the port's functional CartPole on the host), the timeline
+     operator, the sample config unchanged (20 epochs, CPE on) with the
+     DiscreteDQNReporter writing to a recording summary writer (its tags
+     checked), K3 three launches an eval batch, the artifact against the
+     in-process module, device-to-host copies a step with and without the
+     reporter (torch.profiler), then 20 greedy episodes of at most 200 steps
+     through load_predictor against the 120 bar;
+ 26. warm start and reward options at full width: identify_and_train_network
+     twice through K1 (8 updates a run) with a warm-start checkpoint and
+     metric-weighted rewards (the saved step doubles, each run's final state
+     restored bit for bit on the card, K1 launched 16 times), then phase
+     24's DQNTrainerState with its five CPE fields saved and restored on the
+     card;
+ 27. one JSON line describing each ported kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
      wrapper's host time; K3's and K4's with the wrapper's host time, the
@@ -99,6 +117,8 @@ imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import importlib.util
 import json
 import os
 import statistics
@@ -139,12 +159,17 @@ def launch_sequence(n_layers, bf16_products=False):
 
 
 LAUNCH_SEQUENCE = {dq: launch_sequence(len(FULL["widths"]) + 1) for dq in (True, False)}
-FUSED_STEPS = 5000  # bench.py's online_dqn runs 30,000; cut to fit the time limit
-GENERIC_STEPS = 1000
+# bench.py's online_dqn runs 30,000 steps; cut to fit the time limit
+FUSED_STEPS = 1500
+GENERIC_STEPS = 500
 # tests/test_gym_all_algos.py:98-115 prefills 20,000 and runs 30,000 steps; cut
-# to the generic loop's depth to fit the time limit
+# to fit the time limit
 QR_ONLINE = dict(widths=[64, 64], act="leaky_relu", atoms=11, gamma=0.9, tau=0.05,
-                 B=512, prefill=1000, steps=1000)
+                 B=512, prefill=1000, steps=300)
+# the offline workflows at full width: 8 updates of 4,096 rows from a table of
+# 8,192 rows over 4 epochs (the host's feature identification, which takes
+# most of such a phase, grows with the rows)
+FULL_ROWS, FULL_EPOCHS = 8192, 4
 QR_ATOMS = 51  # QuantileFullyConnected's default num_atoms
 QR_OPTIMIZER = {"Adam": {"lr": 0.001, "amsgrad": True}}
 K5_SHAPES = [(4096, 51), (8192, 201), (512, 11)]  # offline, the largest named, online
@@ -426,12 +451,14 @@ def products_library_ms(cfg, torch, bf16_products=False):
 # ---------------------------------------------------------------- workflow
 
 
-def make_table(path, n_rows, n_features, n_actions, seed, rewards="normal"):
+def make_table(path, n_rows, n_features, n_actions, seed, rewards="normal", metrics=False):
     """A logged-transition table (the timeline operator's columns) from a
     numpy seed: episodes of 10 steps, so ~10% terminals, and ~20% of the
     next actions impossible.  ``rewards`` "normal" draws N(0, 1), "uniform"
     uniform(0, 1) from the same place in the stream (CPE's normalised
-    estimates need a logged policy worth more than 1e-6)."""
+    estimates need a logged policy worth more than 1e-6).  ``metrics`` adds
+    a ``metrics`` column of {"ctr": uniform(0, 1), "watch": exponential}
+    maps, drawn after every other column."""
     rng = np.random.default_rng(seed)
     import pandas as pd
 
@@ -467,6 +494,9 @@ def make_table(path, n_rows, n_features, n_actions, seed, rewards="normal"):
         "action_probability": np.full(n_rows, 1.0 / n_actions),
         "possible_next_actions": possible_next,
     })
+    if metrics:
+        ctr, watch = rng.uniform(0.0, 1.0, n_rows), rng.exponential(1.0, n_rows)
+        df["metrics"] = [{"ctr": float(c), "watch": float(w)} for c, w in zip(ctr, watch)]
     df.to_pickle(path)
     return df
 
@@ -478,15 +508,27 @@ def run_workflow(cfg, n_rows, epochs, torch, tmp, label, model=None, split=None,
     from (trainer, trainer state, normalization), the batch preprocessor and
     the wall time.  ``model`` defaults to the fused DiscreteDQN of ``cfg``;
     ``split`` is the table spec's (table_sample, eval_table_sample)."""
-    from unittest import mock
-
-    from reagent_tpu_torch.core.registry import MODEL_MANAGERS
     from reagent_tpu_torch.data.data_module import TableSpec
     from reagent_tpu_torch.workflow.training import identify_and_train_network
 
     table = os.path.join(tmp, f"{label}.pkl")
     df = make_table(table, n_rows, cfg["D"], cfg["A"], seed=7, rewards=rewards)
-    model = model or {"DiscreteDQN": {
+    model = model or fused_model(cfg)
+    with capturing_manager(model) as captured:
+        t0 = time.perf_counter()
+        out = identify_and_train_network(
+            TableSpec(table_name=label, path=table, **table_split(split)), model,
+            num_epochs=epochs,
+            output_dir=os.path.join(tmp, label), seed=0, device=DEVICE)
+        wall = time.perf_counter() - t0
+    return (out, df, captured["build_serving_module"], captured["build_serving_module_args"],
+            captured["build_batch_preprocessor"], wall)
+
+
+def fused_model(cfg):
+    """The fused DiscreteDQN of ``cfg`` (no CPE heads; K1 with ``block_size``
+    where ``cfg`` has a block)."""
+    model = {"DiscreteDQN": {
         "trainer_param": {
             "actions": [str(a) for a in range(cfg["A"])],
             "rl": {"gamma": cfg["gamma"], "target_update_rate": cfg["tau"],
@@ -500,7 +542,20 @@ def run_workflow(cfg, n_rows, epochs, torch, tmp, label, model=None, split=None,
             "sizes": cfg["widths"], "activations": [cfg["act"]] * len(cfg["widths"])}},
         "eval_parameters": {"calc_cpe_in_training": False},
     }}
-    # keep what the manager builds, to score and time it afterwards
+    if cfg["block"] is not None:
+        model["DiscreteDQN"]["trainer_param"]["block_size"] = cfg["block"]
+    return model
+
+
+@contextlib.contextmanager
+def capturing_manager(model):
+    """Keep what the model manager of ``model`` builds in the block (the
+    serving module with its arguments, the batch preprocessor, the
+    reporter), to score and time it afterwards."""
+    from unittest import mock
+
+    from reagent_tpu_torch.core.registry import MODEL_MANAGERS
+
     manager_cls = MODEL_MANAGERS.get(next(iter(model)))
     captured = {}
 
@@ -513,15 +568,9 @@ def run_workflow(cfg, n_rows, epochs, torch, tmp, label, model=None, split=None,
             return captured[method]
         return mock.patch.object(manager_cls, method, wrapper)
 
-    with capturing("build_serving_module"), capturing("build_batch_preprocessor"):
-        t0 = time.perf_counter()
-        out = identify_and_train_network(
-            TableSpec(table_name=label, path=table, **table_split(split)), model,
-            num_epochs=epochs,
-            output_dir=os.path.join(tmp, label), seed=0, device=DEVICE)
-        wall = time.perf_counter() - t0
-    return (out, df, captured["build_serving_module"], captured["build_serving_module_args"],
-            captured["build_batch_preprocessor"], wall)
+    with capturing("build_serving_module"), capturing("build_batch_preprocessor"), \
+            capturing("get_reporter"):
+        yield captured
 
 
 def table_split(split):
@@ -1300,7 +1349,7 @@ def qr_workflow_phase(torch, tmp, k5_step_ms):
     cfg, label = FULL, "qr_full_width"
     reset_counts()
     out, df, serving, (trainer, tstate, _), batch_pre, wall = run_workflow(
-        cfg, 16384, 2, torch, tmp, label, model=qr_offline_model())
+        cfg, FULL_ROWS, FULL_EPOCHS, torch, tmp, label, model=qr_offline_model())
     launches, plain_calls = read_counts()
     steps, secs = out.logger_data["train_steps"], out.logger_data["train_seconds"]
     td = out.training_report.td_loss
@@ -1853,7 +1902,7 @@ SAMPLE_CONFIG = {
     "num_epochs": 20,
 }
 SAMPLE_CPE_ROWS = 4096  # ~410 evaluation rows after the 90/10 split
-FULL_CPE_ROWS, FULL_CPE_EPOCHS = 16384, 2  # as phase 6
+FULL_CPE_ROWS, FULL_CPE_EPOCHS = 8192, 4  # 4 train steps, ~850 evaluation rows
 # K3 at the evaluation's forwards: a batch of the sample config's net (the
 # resident route) and a full evaluation batch of the full-width net (streamed)
 K3_EVAL_SHAPES = {"[512, 4->128->64->2]": (512, [4, 128, 64, 2]),
@@ -2143,7 +2192,8 @@ def cpe_lockstep_phase(torch, n=5):
     """``n`` DQNTrainer steps with the CPE heads at the full offline width on
     the card and on the CPU from one initial state and the same batches:
     td_loss, reward_loss and cpe_td_loss per step to rtol 1e-4, atol 1e-5
-    (as phase 15), the five parameter trees to rtol 1e-3, atol 1e-4."""
+    (as phase 15), the five parameter trees to rtol 1e-3, atol 1e-4.
+    Returns the card's trainer and its trained state."""
     import copy
 
     from reagent_tpu_torch.core import types as rlt
@@ -2194,7 +2244,306 @@ def cpe_lockstep_phase(torch, n=5):
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
         + f" (last {', '.join(f'{k} {metrics[DEVICE][k].item():.6f}' for k in worst)}); "
         f"the five parameter trees max abs {worst_p:.3e}")
-    return worst, worst_p
+    return trainers[DEVICE], states[DEVICE]
+
+# ------------------------------------------------- batch-RL slice: the e2e job
+
+# The reference's dqn_cartpole_e2e job (tests/test_offline_e2e.py:75-140): the
+# flagship sample config with the CI job's overrides; its four reagent run
+# commands, called here as functions (tests/test_torch_cli.py holds their
+# arguments to the ones reagent run builds from the YAML)
+E2E_JOB = dict(env_name="CartPole-v1", num_train_transitions=12000, max_steps=200,
+               num_eval_episodes=20, passing_score_bar=120.0)
+HOST_PACKAGES = ("gymnasium", "click", "yaml", "tensorboard")
+
+
+def e2e_overrides(tmp):
+    """The job's --extra-options, its files under ``tmp``."""
+    return {
+        **E2E_JOB,
+        "pkl_path": os.path.join(tmp, "pre_timeline.pkl"),
+        "input_table_spec": {
+            "table_name": "cartpole_offline", "path": os.path.join(tmp, "table.pkl"),
+            "table_sample": SAMPLE_CONFIG["table_sample"],
+            "eval_table_sample": SAMPLE_CONFIG["eval_table_sample"]},
+        "output_dir": os.path.join(tmp, "model"),
+        "model_path": os.path.join(tmp, "model", "serving_model"),
+        "device": DEVICE,
+    }
+
+
+def e2e_config(tmp):
+    """The sample config as reagent run reads it, updated with the overrides."""
+    return {"model": SAMPLE_CONFIG["model"], "num_epochs": SAMPLE_CONFIG["num_epochs"],
+            **e2e_overrides(tmp)}
+
+
+def e2e_funcs():
+    from reagent_tpu_torch.workflow import gym_batch_rl, training
+
+    return (gym_batch_rl.offline_gym_random, gym_batch_rl.timeline_operator,
+            training.identify_and_train_network, gym_batch_rl.evaluate_gym)
+
+
+def e2e_kwargs(tmp):
+    """Each command's keyword arguments, as reagent run builds them."""
+    from reagent_tpu_torch.core.configuration import kwargs_from_config
+
+    config = e2e_config(tmp)
+    return [kwargs_from_config(f, config) for f in e2e_funcs()]
+
+
+class HostCartPole:
+    """The port's functional CartPole on the host behind the ``Gym``
+    adapter's interface: the job's env where gymnasium is not installed.
+    A reset draws the state's uniforms from a numpy generator, reseeded by
+    a seeded reset."""
+
+    class action_space:
+        n = 2
+
+    def __init__(self, max_steps):
+        from reagent_tpu_torch.gym.envs import CartPole
+
+        self.env = CartPole(max_steps=max_steps, device="cpu")
+        self.rng = np.random.default_rng(0)
+
+    def reset(self, seed=None):
+        import torch
+
+        if seed is not None:
+            self.rng = np.random.default_rng(seed)
+        self.state, obs = self.env.reset_from_uniform(
+            torch.tensor(self.rng.random(4), dtype=torch.float32))
+        return obs.numpy()
+
+    def step(self, action):
+        import torch
+
+        self.state, obs, reward, done = self.env.step(self.state, torch.tensor(int(action)))
+        return obs.numpy(), float(reward), bool(done)
+
+    def close(self):
+        pass
+
+
+class RecordingWriter:
+    """A summary writer that keeps what it is given (no tensorboard needed)."""
+
+    def __init__(self):
+        self.scalars, self.histograms = {}, {}
+
+    def add_scalar(self, tag, value, global_step=None):
+        self.scalars.setdefault(tag, []).append((global_step, float(value)))
+
+    def add_histogram(self, tag, values, global_step=None):
+        self.histograms.setdefault(tag, []).append((global_step, np.asarray(values).shape))
+
+
+def reporter_copies(torch, trainer, tstate, batches, reporter):
+    """Device-to-host copies per train step, without and with the reporter's
+    log (torch.profiler, the CUDA copies), and the reporter's host ms per
+    log of a finished step's metrics (no wait on the queue)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    for with_reporter in (False, True):
+        state = tstate
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for batch in batches:
+                state, metrics = trainer.train_step(state, batch)
+                if with_reporter:
+                    reporter.log(**metrics)
+            torch.cuda.synchronize()
+        rows, _ = profiled_rows(prof, len(batches))
+        counts[with_reporter] = sum(count for _, count, key in rows if "DtoH" in key)
+    host_ms = []
+    state = tstate
+    for batch in batches:
+        state, metrics = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reporter.log(**metrics)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    return counts[False], counts[True], statistics.median(host_ms)
+
+
+def e2e_phase(torch, tmp):
+    """The dqn_cartpole_e2e job on the card: random CartPole rows, the
+    timeline operator, the flagship sample config (unfused DQNTrainer with
+    its CPE heads, the DiscreteDQNReporter writing to a recording summary
+    writer), the artifact, and 20 greedy episodes against the 120 bar.
+    gymnasium's CartPole-v1 where it imports, else the port's functional
+    CartPole on the host (the same columns, seeded numpy actions)."""
+    import inspect
+
+    import pandas as pd
+
+    from reagent_tpu_torch.core.tracker import summary_writer_context
+    from reagent_tpu_torch.data.data_module import iterate_minibatches
+    from reagent_tpu_torch.prediction.predictor_wrapper import load_predictor
+    from reagent_tpu_torch.workflow import gym_batch_rl
+
+    have = {m: importlib.util.find_spec(m) is not None for m in HOST_PACKAGES}
+    log(f"  host packages importable on this machine: {have}")
+    collect, timeline, train, evaluate = e2e_kwargs(tmp)
+    t0 = time.perf_counter()
+    if have["gymnasium"]:
+        route = "gymnasium CartPole-v1"
+        gym_batch_rl.offline_gym_random(**collect)
+    else:
+        route = "the port's functional CartPole on the host"
+        seed = collect.get("seed", inspect.signature(
+            gym_batch_rl.offline_gym_random).parameters["seed"].default)
+        gym_batch_rl.random_rollouts(
+            HostCartPole(collect["max_steps"]), collect["num_train_transitions"], seed,
+        ).to_pickle(collect["pkl_path"])
+    collect_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gym_batch_rl.timeline_operator(**timeline)
+    timeline_s = time.perf_counter() - t0
+    spec = timeline["input_table_spec"]
+    df = pd.read_pickle(spec.path)
+    log(f"  env: {route}; {collect['num_train_transitions']} random transitions in "
+        f"{collect_s:.2f} s, {df.mdp_id.nunique()} episodes; timeline: {len(df)} rows in "
+        f"{timeline_s:.2f} s")
+
+    writer = RecordingWriter()
+    reset_counts()
+    with capturing_manager(train["model"]) as captured, summary_writer_context(writer):
+        out = e2e_funcs()[2](**train)
+    launches, plain_calls = read_counts()
+    data = out.logger_data
+    steps, secs = data["train_steps"], data["train_seconds"]
+    bs = train["model"]["DiscreteDQN"]["trainer_param"]["minibatch_size"]
+    eval_df = eval_split(df, (spec.table_sample, spec.eval_table_sample))
+    n_batches = -(-len(eval_df) // min(bs, len(eval_df)))
+    log(f"  {steps} train steps in {secs:.3f} s ({steps / secs:.2f} steps/s, host time and "
+        f"the reporter included), the reporter's log and flush {data['report_seconds']:.3f} s "
+        f"({data['report_seconds'] / steps * 1e3:.3f} ms a step, each log waiting for its "
+        f"step), td_loss {out.training_report.td_loss}; evaluation of {len(eval_df)} rows in "
+        f"{n_batches} batch(es): eval_seconds {data['eval_seconds']:.3f}; launches "
+        f"{launches}, plain-version calls {plain_calls}")
+    expected = {k: 0 for k in launches}
+    expected["fused_mlp_forward"] = 3 * n_batches
+    if launches != expected or plain_calls or n_batches == 0:
+        raise AssertionError(f"e2e: launches {launches} (expected {expected}), plain calls "
+                             f"{plain_calls}")
+    tags = (sorted(writer.scalars), sorted(writer.histograms))
+    log(f"  summary writer: {len(tags[0])} scalar tags, {len(tags[1])} histogram tags: "
+        f"scalars {tags[0]}; histograms {tags[1]}")
+    if not ({"actions/logged/0", "actions/logged/1"} <= set(writer.scalars)
+            and "td_loss" in writer.histograms):
+        raise AssertionError("e2e: the reporter's action counts or td_loss histogram are "
+                             "missing")
+    details = out.training_report.cpe_details
+    dm = details.reward_estimates.direct_method.raw
+    if not np.isfinite(dm):
+        raise AssertionError(f"e2e: direct method estimate {dm}")
+    log_estimates("e2e", details)
+    diff = check_artifact(out, df, captured["build_serving_module"], torch)
+    trainer, tstate, _ = captured["build_serving_module_args"]
+    batches = [captured["build_batch_preprocessor"](b)
+               for b, _ in zip(iterate_minibatches(df, bs, seed=0), range(5))]
+    bare, reported, log_ms = reporter_copies(torch, trainer, tstate, batches,
+                                             captured["get_reporter"])
+    log(f"  artifact vs in-process serving module on 64 rows: max abs {diff:.3e}; "
+        f"device-to-host copies a train step (torch.profiler, 5 steps): {bare:.1f} without "
+        f"the reporter, {reported:.1f} with it; the reporter's log of a finished step "
+        f"{log_ms:.3f} ms on the host (median of 5), on {card_line()}")
+    if reported - bare != 1:
+        raise AssertionError(f"e2e: the reporter made {reported - bare} copies a step")
+
+    bar = evaluate["passing_score_bar"]
+    t0 = time.perf_counter()
+    if have["gymnasium"]:
+        mean = gym_batch_rl.evaluate_gym(**evaluate)
+    else:
+        returns = gym_batch_rl.greedy_returns(
+            load_predictor(evaluate["model_path"]), HostCartPole(evaluate["max_steps"]),
+            evaluate["num_eval_episodes"])
+        mean = float(np.mean(returns))
+        if not mean >= bar:
+            raise AssertionError(f"{mean} <= {bar}, eval failed")
+    log(f"  {evaluate['num_eval_episodes']} greedy episodes of at most "
+        f"{evaluate['max_steps']} steps ({route}) through load_predictor: mean reward "
+        f"{mean:.2f} against the bar {bar} in {time.perf_counter() - t0:.2f} s")
+    return dict(launches=launches["fused_mlp_forward"], steps=steps, secs=secs,
+                report_seconds=data["report_seconds"], eval_seconds=data["eval_seconds"],
+                copies=(bare, reported), log_ms=log_ms, mean_reward=mean, route=route)
+
+
+# -------------------------------- batch-RL slice: warm start at full width
+
+# two minibatches of 4,096 an epoch, 4 epochs: 8 K1 updates a run
+WARM_ROWS, WARM_EPOCHS = 8192, 4
+WARM_METRIC_REWARDS = {"ctr": 1.0, "watch": 0.5}
+
+
+def warm_start_phase(torch, tmp, cpe_trainer, cpe_state):
+    """identify_and_train_network twice at the full offline width through
+    K1 (fused, block_size set) with a warm-start checkpoint and
+    metric-weighted rewards: the saved step doubles, the checkpoint restores
+    each run's final state bit for bit on the card, and K1 launches once a
+    step.  Then an unfused DQNTrainerState with its five CPE fields (phase
+    24's) saved and restored on the card."""
+    from reagent_tpu_torch.data.data_module import TableSpec
+    from reagent_tpu_torch.utils.checkpointing import (
+        flatten_state,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from reagent_tpu_torch.workflow.training import identify_and_train_network
+
+    def assert_restores(path, template, state, label):
+        got, want = flatten_state(restore_checkpoint(path, template)), flatten_state(state)
+        for key, w in want.items():
+            if not (got[key].device == w.device and torch.equal(got[key], w)):
+                raise AssertionError(f"{label}: {key} restored as {got[key].device} "
+                                     f"{got[key].dtype}, not bit for bit")
+        return len(want)
+
+    cfg = FULL
+    table = os.path.join(tmp, "warm_start.pkl")
+    make_table(table, WARM_ROWS, cfg["D"], cfg["A"], seed=7, metrics=True)
+    model = fused_model(cfg)
+    warm = os.path.join(tmp, "warm_start.ckpt")
+    reset_counts()
+    saved, total_steps = [], 0
+    for run in (1, 2):
+        with capturing_manager(model) as captured:
+            out = identify_and_train_network(
+                TableSpec(table_name="warm_start", path=table), model, num_epochs=WARM_EPOCHS,
+                output_dir=os.path.join(tmp, f"warm_start_{run}"), warm_start_path=warm,
+                reward_options={"metric_reward_values": WARM_METRIC_REWARDS}, device=DEVICE)
+        trainer, tstate, _ = captured["build_serving_module_args"]
+        n = assert_restores(warm, trainer.init(torch.Generator().manual_seed(run)), tstate,
+                            f"warm start run {run}")
+        saved.append(int(tstate.step))
+        steps, secs = out.logger_data["train_steps"], out.logger_data["train_seconds"]
+        total_steps += steps
+        log(f"  run {run}: {steps} train steps in {secs:.3f} s ({steps / secs:.2f} steps/s, "
+            f"host time included), td_loss {out.training_report.td_loss}, saved step "
+            f"{saved[-1]}; the checkpoint restores its {n} tensors bit for bit on "
+            f"{tstate.step.device}")
+    launches, plain_calls = read_counts()
+    expected = {k: 0 for k in launches}
+    expected["fused_dqn_offline_update"] = total_steps
+    log(f"  launches {launches}, plain-version calls {plain_calls}")
+    if saved[1] != 2 * saved[0] or saved[0] != total_steps // 2 or total_steps != 16:
+        raise AssertionError(f"warm start: saved steps {saved} after {total_steps} updates")
+    if launches != expected or plain_calls:
+        raise AssertionError(f"warm start: launches {launches} (expected {expected}), plain "
+                             f"calls {plain_calls}")
+    path = os.path.join(tmp, "cpe_state.ckpt")
+    save_checkpoint(path, cpe_state)
+    n = assert_restores(path, cpe_trainer.init(torch.Generator().manual_seed(1)), cpe_state,
+                        "DQNTrainerState with CPE heads")
+    log(f"  DQNTrainerState with its five CPE fields (phase 24's, step "
+        f"{int(cpe_state.step)}): {n} tensors restored bit for bit on {cpe_state.step.device}")
+    return dict(launches=launches["fused_dqn_offline_update"], saved=saved)
+
 
 
 def main() -> int:
@@ -2249,7 +2598,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase("phase 6: workflow at full width through K1")
         k1_launches, k1_steps, _ = workflow_phase(
-            FULL, 16384, 2, "fused_dqn_offline_update", torch, tmp, "full_width")
+            FULL, FULL_ROWS, FULL_EPOCHS, "fused_dqn_offline_update", torch, tmp, "full_width")
         phase("phase 7: workflow at the CartPole sample config's shapes through K2")
         k2_launches, _, _ = workflow_phase(
             CARTPOLE, 2048, 2, "fused_dqn_update", torch, tmp, "cartpole_sample")
@@ -2374,15 +2723,23 @@ def main() -> int:
             FULL_CPE_EPOCHS, split)
 
     phase("phase 24: CPE, card against CPU")
-    cpe_lockstep_phase(torch)
+    cpe_trainer, cpe_state = cpe_lockstep_phase(torch)
     for label, run in (("sample config", cpe_sample), ("full width", cpe_full)):
         cpe_edp_against_cpu(torch, run, label)
 
-    phase("phase 25: kernels")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("phase 25: the dqn_cartpole_e2e job (offline_gym_random, timeline_operator, "
+              "identify_and_train_network with the reporter, evaluate_gym)")
+        e2e = e2e_phase(torch, tmp)
+        phase("phase 26: warm start and reward options at full width through K1")
+        warm = warm_start_phase(torch, tmp, cpe_trainer, cpe_state)
+
+    phase("phase 27: kernels")
     by_path = {
         "K1 fused_dqn_offline_update": {
             "offline workflow, full width": k1_launches,
-            "device-resident fused loop, f32 twin": scan_f32["fused_dqn_offline_update"]},
+            "device-resident fused loop, f32 twin": scan_f32["fused_dqn_offline_update"],
+            "warm start and reward options, full width": warm["launches"]},
         "K1 fused_dqn_offline_update (bf16)": {
             "device-resident fused loop": scan_bf16["fused_dqn_offline_update_bf16"]},
         "K2 fused_dqn_update": {"offline workflow, CartPole sample": k2_launches,
@@ -2396,7 +2753,8 @@ def main() -> int:
             "offline QR-DQN workflow (q_values)": qr_launches["fused_mlp_forward"],
             "device-resident fused loop (q_values)": k3_scan_launches,
             "CPE evaluation, sample config": cpe_sample["launches"],
-            "CPE evaluation, full width": cpe_full["launches"]},
+            "CPE evaluation, full width": cpe_full["launches"],
+            "dqn_cartpole_e2e job (CPE evaluation)": e2e["launches"]},
         "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
                              "online QR-DQN loop": qr_online_launches["nstep_rewards"]},
         "K5 quantile_huber_loss": {

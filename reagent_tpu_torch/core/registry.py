@@ -98,4 +98,7 @@ def _resolve_dataclass_type(tp: Any) -> Optional[type]:
 DISCRETE_DQN_NET_BUILDERS: Registry = Registry("net_builder.discrete_dqn")
 QR_DQN_NET_BUILDERS: Registry = Registry("net_builder.quantile_dqn")
 MODEL_MANAGERS: Registry = Registry("model_manager")
+ENVS: Registry = Registry("env")
+VALIDATORS: Registry = Registry("validator")
+PUBLISHERS: Registry = Registry("publisher")
 OPTIMIZERS: Registry = Registry("optimizer")

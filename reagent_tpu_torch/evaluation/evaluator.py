@@ -10,6 +10,7 @@ here, ``device`` places the padded estimators' arrays, and it takes no
 from __future__ import annotations
 
 import logging
+from typing import Dict, List, Optional
 
 from reagent_tpu_torch.core.tracker import ObservableMixin
 from reagent_tpu_torch.evaluation.cpe import CpeDetails, CpeEstimateSet
@@ -29,6 +30,12 @@ from reagent_tpu_torch.evaluation.weighted_sequential_doubly_robust_estimator im
 from reagent_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
+
+
+def get_metrics_to_score(metric_reward_values: Optional[Dict[str, float]]) -> List[str]:
+    if metric_reward_values is None:
+        return []
+    return sorted(metric_reward_values.keys())
 
 
 class Evaluator(ObservableMixin):

@@ -1,4 +1,5 @@
-"""Functional environments (the online loops' device-resident envs)."""
+"""Functional environments (the online loops' device-resident envs) and the
+host gymnasium adapter ``Gym`` (registered in ``ENVS``)."""
 
 from reagent_tpu_torch.gym.envs.functional import (
     CartPole,
@@ -6,5 +7,6 @@ from reagent_tpu_torch.gym.envs.functional import (
     FunctionalEnvState,
     where_state,
 )
+from reagent_tpu_torch.gym.envs.gym_env import Gym
 
-__all__ = ["CartPole", "FunctionalEnv", "FunctionalEnvState", "where_state"]
+__all__ = ["CartPole", "FunctionalEnv", "FunctionalEnvState", "Gym", "where_state"]

@@ -1,5 +1,10 @@
-"""Policies = scorer . sampler (the online DQN slice's part of them)."""
+"""Policies = scorer . sampler (the online DQN slice's part of them), and the
+policy over an exported artifact."""
 
+from reagent_tpu_torch.gym.policies.predictor_policies import (
+    DiscreteDqnPredictorPolicy,
+    create_predictor_policy_from_model,
+)
 from reagent_tpu_torch.gym.policies.samplers import (
     GreedyActionSampler,
     SoftmaxActionSampler,
@@ -10,6 +15,8 @@ from reagent_tpu_torch.gym.policies.scorers import (
 )
 
 __all__ = [
+    "DiscreteDqnPredictorPolicy",
+    "create_predictor_policy_from_model",
     "GreedyActionSampler",
     "SoftmaxActionSampler",
     "apply_possible_actions_mask",

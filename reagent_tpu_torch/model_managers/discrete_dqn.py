@@ -6,8 +6,9 @@ serving artifact.  With ``trainer_param.use_fused_kernel: true`` the trainer
 is ``FusedDQNTrainer`` (K1 above 512 rows, else K2), otherwise ``DQNTrainer``,
 with the reward and CPE Q heads from ``cpe_net_builder`` when
 ``eval_parameters.calc_cpe_in_training`` is set (the fused trainer has no
-CPE heads and refuses them).  The reporter is not ported yet (``ROADMAP.md``
-§1 item 2).
+CPE heads and refuses them).  The reporter is a ``DiscreteDQNReporter``
+over the action names, so the unfused trainer emits its per-sample reporter
+arrays, as the JAX manager's does.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from reagent_tpu_torch.preprocessing.normalization import (
     get_num_output_features,
 )
 from reagent_tpu_torch.preprocessing.preprocessor import Preprocessor
+from reagent_tpu_torch.reporting.reporters import DiscreteDQNReporter
 from reagent_tpu_torch.training.dqn_trainer import DQNTrainer
 from reagent_tpu_torch.training.fused_dqn_trainer import FusedDQNTrainer
 from reagent_tpu_torch.utils.device import resolve_device
@@ -119,6 +121,9 @@ class DiscreteDQN(ModelManager):
     def action_names(self) -> List[str]:
         return self._param.actions
 
+    def get_reporter(self) -> DiscreteDQNReporter:
+        return DiscreteDQNReporter(actions=list(self._param.actions))
+
     def build_trainer(
         self,
         normalization_data_map: Dict[str, NormalizationData],
@@ -143,7 +148,7 @@ class DiscreteDQN(ModelManager):
                 reward_network = cpe_builder.build_q_network(state_norm, output_dim=num_actions)
                 q_network_cpe = cpe_builder.build_q_network(state_norm, output_dim=num_actions)
             return DQNTrainer(
-                emit_reporter_arrays=self.get_reporter() is not None,
+                emit_reporter_arrays=True,
                 q_network=q_network,
                 rl=self.rl_parameters,
                 double_q_learning=self._param.double_q_learning,

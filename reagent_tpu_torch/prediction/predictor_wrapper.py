@@ -3,7 +3,9 @@
 Port of the discrete-DQN part of ``reagent_tpu/prediction/predictor_wrapper.py``
 (``DiscreteDqnWithPreprocessor`` :57, ``DiscreteDqnPredictorWrapper`` :74)
 and of its distributional wrapper (``CategoricalDqnPredictorWrapper`` :323,
-``make_quantile_dqn_predictor_wrapper`` :401), described at that class.
+``make_quantile_dqn_predictor_wrapper`` :401), described at that class, and
+``load_predictor`` (:273), which loads a discrete-DQN artifact by its
+manifest's ``model_type``.
 
 Export format (framework-free, loaded unchanged by the C++ scorer in
 ``serving/``, and the same files the JAX package writes):
@@ -257,3 +259,37 @@ def make_quantile_dqn_predictor_wrapper(
     :401-408).  ``q_network`` holds the weights to serve."""
     head = _QuantileMeanHead(q_network, len(action_names), num_atoms)
     return CategoricalDqnPredictorWrapper(head, state_preprocessor, action_names)
+
+
+class Predictor:
+    """A loaded artifact: ``predict(features)`` scores one row given as a
+    sparse feature dict ``{fid: value}`` and returns ``(action_names, q
+    [1, A])``."""
+
+    def __init__(self, forward, sorted_features: Sequence[int], model_type: str):
+        self._forward = forward
+        self.sorted_features = list(sorted_features)
+        self.model_type = model_type
+
+    def predict(self, features: Dict[int, float]):
+        values = np.array([[features.get(f, 0.0) for f in self.sorted_features]], np.float32)
+        presence = np.array([[f in features for f in self.sorted_features]], np.bool_)
+        return self._forward(values, presence)
+
+
+def load_predictor(path: str) -> Predictor:
+    """Load an exported artifact by its manifest's ``model_type`` (reference
+    :273-320): ``discrete_dqn`` through ``DiscreteDqnPredictorWrapper.load``
+    (a numpy forward on the host, as the C++ scorer's).  The actor artifact
+    waits for the actor-critic slice."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    model_type = manifest.get("model_type", "discrete_dqn")
+    if model_type == "actor":
+        raise NotImplementedError(
+            "actor artifacts wait for the actor-critic slice (ROADMAP.md §1 item 9)")
+    if model_type != "discrete_dqn":
+        raise ValueError(f"{path}: load_predictor reads discrete_dqn artifacts, not "
+                         f"{model_type!r}")
+    return Predictor(DiscreteDqnPredictorWrapper.load(path), manifest["sorted_features"],
+                     model_type)

@@ -71,6 +71,7 @@ class DQNTrainer:
         action_names: Optional[Tuple[str, ...]] = None,
         reward_network: Optional[nn.Module] = None,
         q_network_cpe: Optional[nn.Module] = None,
+        metrics_to_score: Optional[Tuple[str, ...]] = None,
         emit_reporter_arrays: bool = False,
         device="cuda",
     ) -> None:
@@ -92,12 +93,14 @@ class DQNTrainer:
         self.bcq_imitator = None if bcq_imitator is None else bcq_imitator.to(self.device)
         self.optimizer = make_optimizer(optimizer)
         self.loss_fn = q_network_loss_fn(rl.q_network_loss)
+        self.action_names = action_names
         boosts = reward_boost_array(rl.reward_boost, action_names)
         self.reward_boosts = None if boosts is None else boosts.to(self.device)
         # CPE heads (reference dqn_trainer_base.py:244 _initialize_cpe)
         self.calc_cpe_in_training = reward_network is not None
         self.reward_network = None if reward_network is None else reward_network.to(self.device)
         self.q_network_cpe = None if q_network_cpe is None else q_network_cpe.to(self.device)
+        self.metrics_to_score = metrics_to_score or ()
 
     # ------------------------------------------------------------------ init
 

@@ -3,9 +3,10 @@
 Port of ``reagent_tpu/workflow/training.py`` (reference:
 reagent/workflow/training.py:59-323): feature identification -> query/split
 data -> train -> counterfactual policy evaluation (CPE) on the eval split ->
-export the serving artifact, for the managers the port has (``DiscreteDQN``,
-fused or unfused, and ``DiscreteQRDQN``); warm start, reward options,
-validators and publishers are not ported yet (``ROADMAP.md`` §1 item 2).
+export the serving artifact -> validate -> publish, for the managers the
+port has (``DiscreteDQN``, fused or unfused, and ``DiscreteQRDQN``), with
+reward options, warm start from a checkpoint (``utils/checkpointing.py``)
+and the manager's reporter, which every train step's metrics go through.
 
 Every entry point takes ``device`` (default ``"cuda"``; raises when no card
 is present rather than dropping to the CPU).  ``use_gpu`` is accepted so the
@@ -23,14 +24,18 @@ import pandas as pd
 import torch
 
 import reagent_tpu_torch.model_managers  # noqa: F401 — registers model managers
-from reagent_tpu_torch.core.registry import MODEL_MANAGERS
+import reagent_tpu_torch.publishers  # noqa: F401 — registers publishers
+import reagent_tpu_torch.validators  # noqa: F401 — registers validators
+from reagent_tpu_torch.core.registry import MODEL_MANAGERS, PUBLISHERS, VALIDATORS
 from reagent_tpu_torch.data.data_module import (
     TableSpec,
     get_sample_range,
     iterate_minibatches,
     split_by_sample_range,
 )
+from reagent_tpu_torch.data.reward_options import RewardOptions, apply_reward_options
 from reagent_tpu_torch.evaluation import EvaluationDataPage, Evaluator
+from reagent_tpu_torch.utils.checkpointing import restore_checkpoint, save_checkpoint
 from reagent_tpu_torch.utils.device import resolve_device
 from reagent_tpu_torch.workflow.types import RLTrainingOutput, RLTrainingReport
 
@@ -41,7 +46,7 @@ def identify_and_train_network(
     input_table_spec: TableSpec,
     model: Dict[str, Any],
     num_epochs: int,
-    output_dir: str,
+    output_dir: str = "/tmp/reagent_tpu_model",
     use_gpu: bool = False,
     seed: int = 0,
     minibatch_size: Optional[int] = None,
@@ -49,7 +54,8 @@ def identify_and_train_network(
     reward_options: Optional[Dict[str, Any]] = None,
     device="cuda",
 ) -> RLTrainingOutput:
-    """Reference: training.py:59-122."""
+    """Reference: training.py:59-122 (``output_dir``'s default is the JAX
+    package's, so the two CLIs print one schema apart from ``device``)."""
     device = resolve_device(device)
     manager = MODEL_MANAGERS.build(model)
     df = _load_table(input_table_spec)
@@ -96,12 +102,15 @@ def query_and_train(
 ) -> RLTrainingOutput:
     """Reference: training.py:106-213."""
     device = resolve_device(device)
-    if reward_options:
-        raise NotImplementedError(
-            "reward_options (data/reward_options.py) are not ported yet "
-            "(ROADMAP.md §1 item 2)")
     manager = _manager or MODEL_MANAGERS.build(model)
     df = _df if _df is not None else _load_table(input_table_spec)
+    if reward_options:
+        opts = (
+            reward_options
+            if isinstance(reward_options, RewardOptions)
+            else RewardOptions(**reward_options)
+        )
+        df = apply_reward_options(df, opts)
     calc_cpe = getattr(manager, "eval_params", None) and manager.eval_params.calc_cpe_in_training
     sample_range = get_sample_range(input_table_spec, bool(calc_cpe))
     train_df = split_by_sample_range(df, sample_range.train_sample_range)
@@ -135,19 +144,23 @@ def train_workflow(
 ) -> RLTrainingOutput:
     """Reference: training.py:214-323.
 
+    ``warm_start_path``: incremental training — if the file exists, the
+    trainer state (params, optimizer state, targets, step) is restored from
+    it before training, and it is OVERWRITTEN with the final state after
+    (the reference's resume_from_checkpoint + save-after-fit semantics,
+    workflow/utils.py:161,173-176 there).
+
     The trainer state comes from ``manager.init_trainer_state(trainer,
     generator, state_dim)`` where the manager defines it, else from
     ``trainer.init(generator)``; ``generator`` is a CPU ``torch.Generator``
     seeded with ``seed``.  Where the trainer has CPE heads and ``eval_df``
     rows, the report's ``cpe_details`` come from the ``Evaluator`` on the
     eval split; ``logger_data`` holds ``eval_seconds`` beside
-    ``train_seconds`` (0.0 without CPE).
+    ``train_seconds`` (0.0 without CPE) and ``report_seconds``, the part of
+    ``train_seconds`` spent in the reporter (its copy of each step's metrics
+    to the host waits for the step).
     """
     device = resolve_device(device)
-    if warm_start_path:
-        raise NotImplementedError(
-            "warm-start checkpointing (utils/checkpointing.py) is not ported yet "
-            "(ROADMAP.md §1 item 2)")
     if normalization_data_map is None:
         normalization_data_map = manager.run_feature_identification(train_df)
 
@@ -162,10 +175,15 @@ def train_workflow(
     else:
         trainer_state = trainer.init(generator)
 
+    if warm_start_path and os.path.exists(warm_start_path):
+        trainer_state = restore_checkpoint(warm_start_path, trainer_state)
+        logger.info("warm-started trainer state from %s", warm_start_path)
+
     reporter = manager.get_reporter()
     t0 = time.perf_counter()
     last_loss = None
     train_steps = 0
+    report_seconds = 0.0
     for epoch in range(num_epochs):
         metrics = None
         for batch_df in iterate_minibatches(train_df, bs, seed=seed + epoch):
@@ -173,14 +191,21 @@ def train_workflow(
             trainer_state, metrics = trainer.train_step(trainer_state, batch)
             train_steps += 1
             if reporter is not None:
+                t_report = time.perf_counter()
                 reporter.log(**metrics)
+                report_seconds += time.perf_counter() - t_report
         if reporter is not None:
+            t_report = time.perf_counter()
             reporter.flush(epoch)
+            report_seconds += time.perf_counter() - t_report
         if metrics is None:
             raise ValueError(
                 f"epoch {epoch}: {len(train_df)} training rows make no minibatch "
                 f"of {bs}")
-        last_loss = float(metrics["td_loss"])
+        loss_key = "td_loss" if "td_loss" in metrics else (
+            "q1_loss" if "q1_loss" in metrics else next(iter(metrics))
+        )
+        last_loss = float(metrics[loss_key])
         logger.info("epoch %d td_loss=%.4f", epoch, last_loss)
     train_seconds = time.perf_counter() - t0  # float() above waited for the device
     logger.info("training took %.1fs", train_seconds)
@@ -194,15 +219,23 @@ def train_workflow(
         report.cpe_details = evaluator.evaluate_post_training(edp)
         eval_seconds = time.perf_counter() - t0  # the estimates are host floats
 
+    if warm_start_path:
+        os.makedirs(os.path.dirname(warm_start_path) or ".", exist_ok=True)
+        save_checkpoint(warm_start_path, trainer_state)
+        logger.info("saved warm-start state to %s", warm_start_path)
+
     serving = manager.build_serving_module(trainer, trainer_state, normalization_data_map)
     os.makedirs(output_dir, exist_ok=True)
     model_path = os.path.join(output_dir, "serving_model")
-    serving.save(model_path)
+    if hasattr(serving, "save"):
+        serving.save(model_path)
+    else:
+        model_path = ""
     return RLTrainingOutput(
         output_paths={"default_model": model_path},
         training_report=report,
         logger_data={"train_steps": train_steps, "train_seconds": train_seconds,
-                     "eval_seconds": eval_seconds},
+                     "report_seconds": report_seconds, "eval_seconds": eval_seconds},
     )
 
 
@@ -227,3 +260,28 @@ def _build_edp(trainer, trainer_state, batch_preprocessor, eval_df, bs) -> Evalu
     edp = edp.sort().compute_values(trainer.gamma)
     edp.validate()
     return edp
+
+
+def run_validator(validator_config, training_output: RLTrainingOutput) -> RLTrainingOutput:
+    """Reference: training.py:326-336."""
+    validator = VALIDATORS.build(validator_config)
+    result = validator.validate(training_output)
+    return RLTrainingOutput(
+        output_paths=training_output.output_paths,
+        validation_result=result,
+        training_report=training_output.training_report,
+    )
+
+
+def run_publisher(
+    publisher_config, model_config, training_output: RLTrainingOutput, recurring_period=None
+) -> RLTrainingOutput:
+    """Reference: training.py:337-360."""
+    publisher = PUBLISHERS.build(publisher_config)
+    result = publisher.publish(model_config, training_output, recurring_period)
+    return RLTrainingOutput(
+        output_paths=training_output.output_paths,
+        validation_result=training_output.validation_result,
+        publishing_result=result,
+        training_report=training_output.training_report,
+    )

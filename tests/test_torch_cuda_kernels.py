@@ -1,6 +1,8 @@
 """The CUDA kernels K1 (float32 and with its bfloat16 options), K2 (tensor and
 packed, on its one-launch route and on the launch sequence), K3, K4 and K5
-(forward and backward) against their plain versions, on the card.
+(forward and backward) against their plain versions, on the card; and the
+trainer states' checkpoints and the reporter's one copy of a step's metrics
+on the card.
 
 Skipped without an NVIDIA card.  On the machine with the card run
 
@@ -847,3 +849,96 @@ def test_argmax_takes_the_first_of_equal_maxima_on_the_card(card):
             torch.tensor(mask, device=card), double_q)
         assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_q.cpu(), want_q)
         assert int(want_i[4]) == 0
+
+
+# --------------------------------------- checkpoints and the reporter's copy
+
+
+def _card_states(device):
+    """Trained states of the three trainer kinds on the card: the unfused
+    DQNTrainer with its CPE heads, QRDQNTrainer (K5), FusedDQNTrainer on K1
+    and on K2, each after two steps on a seeded batch."""
+    from reagent_tpu_torch.core import types as rlt
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+    from reagent_tpu_torch.net_builder.quantile_dqn import QuantileFullyConnected
+    from reagent_tpu_torch.training.dqn_trainer import DQNTrainer
+    from reagent_tpu_torch.training.fused_dqn_trainer import FusedDQNTrainer
+    from reagent_tpu_torch.training.qrdqn_trainer import QRDQNTrainer
+
+    D, A, B = 9, 3, 64
+    rng = np.random.default_rng(3)
+    put = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    batch = rlt.DiscreteDqnInput(
+        state=rlt.FeatureData(put(rng.normal(size=(B, D)))),
+        next_state=rlt.FeatureData(put(rng.normal(size=(B, D)))),
+        action=put(np.eye(A)[rng.integers(0, A, B)]),
+        next_action=put(np.eye(A)[rng.integers(0, A, B)]),
+        reward=put(rng.normal(size=(B, 1))), time_diff=None, step=None,
+        not_terminal=put(rng.random((B, 1)) > 0.1),
+        possible_actions_mask=put(np.ones((B, A))), possible_next_actions_mask=put(np.ones((B, A))))
+    net = lambda: FullyConnectedDQN(state_dim=D, action_dim=A, sizes=[16, 8],
+                                    activations=["relu", "relu"])
+    kw = dict(rl=RLParameters(gamma=0.9), optimizer={"Adam": {"lr": 0.01}}, device=device)
+    trainers = {
+        "unfused_cpe": DQNTrainer(net(), reward_network=net(), q_network_cpe=net(), **kw),
+        "qrdqn": QRDQNTrainer(
+            QuantileFullyConnected(sizes=[8], activations=["relu"], num_atoms=5)
+            .build_q_network(None, A, state_dim=D), num_atoms=5, **kw),
+        "fused_K1": FusedDQNTrainer(net(), minibatch_size=B, block_size=32, **kw),
+        "fused_K2": FusedDQNTrainer(net(), minibatch_size=B, **kw),
+    }
+    for name, trainer in trainers.items():
+        state = trainer.init(torch.Generator().manual_seed(0))
+        for _ in range(2):
+            state, _ = trainer.train_step(state, batch)
+        yield name, trainer, state
+
+
+def test_checkpoint_round_trip_on_the_card(card, tmp_path):
+    """Each state restored from its checkpoint on the card, into a fresh
+    template: every tensor equal (``torch.equal``) and on the card, the step
+    counter int32."""
+    from reagent_tpu_torch.utils.checkpointing import (
+        flatten_state,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    for name, trainer, state in _card_states(card):
+        path = str(tmp_path / name)
+        save_checkpoint(path, state)
+        restored = restore_checkpoint(path, trainer.init(torch.Generator().manual_seed(1)))
+        got, want = flatten_state(restored), flatten_state(state)
+        assert got.keys() == want.keys() and len(want) > 8, name
+        for key, w in want.items():
+            assert got[key].device == w.device and got[key].device.type == "cuda", (name, key)
+            assert torch.equal(got[key], w), (name, key)
+        assert restored.step.dtype == torch.int32 and int(restored.step) == 2, name
+
+
+def test_values_to_host_on_the_card(card, monkeypatch):
+    """A step's metrics on the card come to the host through one copy, each
+    array equal to its tensor, of its dtype and shape."""
+    from reagent_tpu_torch.core.tracker import values_to_host
+
+    values = {"loss": torch.tensor(0.5, device=card),
+              "idx": torch.tensor([3, 0, 2**40], device=card),
+              "q": torch.randn(64, 3, device=card), "mask": torch.rand(5, device=card) > 0.5,
+              "half": torch.ones(3, device=card, dtype=torch.bfloat16), "none": None}
+    calls = []
+    real_cpu = torch.Tensor.cpu
+
+    def counting_cpu(self, *args, **kwargs):
+        calls.append(self.device.type)
+        return real_cpu(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", counting_cpu)
+    host = values_to_host(values)
+    monkeypatch.undo()
+    assert calls == ["cuda"] and host["none"] is None
+    for key in ("loss", "idx", "q", "mask"):
+        want = values[key].cpu().numpy()
+        assert host[key].dtype == want.dtype and host[key].shape == want.shape, key
+        np.testing.assert_array_equal(host[key], want)
+    np.testing.assert_array_equal(host["half"], np.ones(3, np.float32))

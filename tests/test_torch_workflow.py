@@ -166,20 +166,12 @@ def test_unported_paths_raise(tmp_path):
     table = str(tmp_path / "table.pkl")
     _make_table(table, n=64)
     # the CPE heads are ported on the unfused trainer
-    # (tests/test_torch_cpe_workflow.py); the fused trainer has none
+    # (tests/test_torch_cpe_workflow.py); the fused trainer has none.  Warm
+    # start and reward options are ported (tests/test_torch_checkpointing.py,
+    # tests/test_torch_timeline_rewards.py)
     fused_cpe = _model(["relu", "relu"], None)
     fused_cpe["DiscreteDQN"]["eval_parameters"] = {"calc_cpe_in_training": True}
     with pytest.raises(ValueError, match="use_fused_kernel does not support CPE heads"):
         identify_and_train_network(
             TableSpec(path=table, table_sample=80.0, eval_table_sample=20.0), fused_cpe,
             num_epochs=1, output_dir=str(tmp_path / "out"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-        identify_and_train_network(
-            TableSpec(path=table), _model(["relu", "relu"], None), num_epochs=1,
-            output_dir=str(tmp_path / "out"), warm_start_path=str(tmp_path / "ckpt"),
-            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
-        identify_and_train_network(
-            TableSpec(path=table), _model(["relu", "relu"], None), num_epochs=1,
-            output_dir=str(tmp_path / "out"), reward_options={"metric_reward_values": {}},
-            device="cpu")
