@@ -102,7 +102,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      restored bit for bit on the card, K1 launched 16 times), then phase
      24's DQNTrainerState with its five CPE fields saved and restored on the
      card;
- 27. one JSON line describing each ported kernel (K1's rows with the CUDA
+ 27. SAC and TD3 card against CPU: the sample config's SAC trainer (twin Q,
+     autotuned temperature, actor and critics 64, 64 leaky_relu, minibatch
+     1,024, Adam 1e-3, gamma 0.9, tau 0.5) for 5 train steps and its TD3
+     twin for 4 (two delayed actor updates), from one state with the same
+     batches and the same explicit noise; every metric and every state
+     tensor compared, no K1-K5 launch;
+ 28. the reference's sac_pendulum_e2e job through the port's reagent run
+     and sac_pendulum_offline.yaml (widths, minibatch, optimizers, gamma,
+     tau, seed and bar unchanged; num_epochs, num_train_transitions,
+     num_eval_episodes and max_steps cut to SAC_JOB_CUT): random Pendulum
+     rows (gymnasium where it imports, else the port's functional Pendulum
+     on the host), the timeline operator, SAC with the ActorCriticReporter,
+     the actor artifact (model_type "actor", actions in [-2, 2], against
+     the in-process module), then train steps/s, the host's decode against
+     a train step, CUDA kernels a step and the device's idle share (a
+     profiled window), device-to-host copies a step with and without the
+     reporter, the greedy episodes' seconds and mean reward (the -1000 bar
+     printed, not held at the cut depth);
+ 29. one JSON line describing each ported kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
      wrapper's host time; K3's and K4's with the wrapper's host time, the
@@ -2293,19 +2311,14 @@ def e2e_kwargs(tmp):
     return [kwargs_from_config(f, config) for f in e2e_funcs()]
 
 
-class HostCartPole:
-    """The port's functional CartPole on the host behind the ``Gym``
-    adapter's interface: the job's env where gymnasium is not installed.
-    A reset draws the state's uniforms from a numpy generator, reseeded by
-    a seeded reset."""
+class HostEnv:
+    """One of the port's functional envs on the host behind the ``Gym``
+    adapter's interface: a job's env where gymnasium is not installed.  A
+    reset draws the state's uniforms from a numpy generator, reseeded by a
+    seeded reset."""
 
-    class action_space:
-        n = 2
-
-    def __init__(self, max_steps):
-        from reagent_tpu_torch.gym.envs import CartPole
-
-        self.env = CartPole(max_steps=max_steps, device="cpu")
+    def __init__(self, env):
+        self.env = env
         self.rng = np.random.default_rng(0)
 
     def reset(self, seed=None):
@@ -2314,17 +2327,41 @@ class HostCartPole:
         if seed is not None:
             self.rng = np.random.default_rng(seed)
         self.state, obs = self.env.reset_from_uniform(
-            torch.tensor(self.rng.random(4), dtype=torch.float32))
+            torch.tensor(self.rng.random(self.env.reset_noise_dim), dtype=torch.float32))
         return obs.numpy()
 
     def step(self, action):
         import torch
 
-        self.state, obs, reward, done = self.env.step(self.state, torch.tensor(int(action)))
+        self.state, obs, reward, done = self.env.step(
+            self.state, torch.as_tensor(np.asarray(action)))
         return obs.numpy(), float(reward), bool(done)
 
     def close(self):
         pass
+
+
+class HostCartPole(HostEnv):
+    class action_space:
+        n = 2
+
+    def __init__(self, max_steps):
+        from reagent_tpu_torch.gym.envs import CartPole
+
+        super().__init__(CartPole(max_steps=max_steps, device="cpu"))
+
+
+class HostPendulum(HostEnv):
+    """Pendulum-v1's box of torques, as ``random_rollouts`` reads it."""
+
+    class action_space:
+        low = np.array([-2.0], np.float32)
+        high = np.array([2.0], np.float32)
+
+    def __init__(self, max_steps):
+        from reagent_tpu_torch.gym.envs import Pendulum
+
+        super().__init__(Pendulum(max_steps=max_steps, device="cpu"))
 
 
 class RecordingWriter:
@@ -2545,6 +2582,306 @@ def warm_start_phase(torch, tmp, cpe_trainer, cpe_state):
     return dict(launches=launches["fused_dqn_offline_update"], saved=saved)
 
 
+# ------------------------------------------- actor-critic slice: SAC and TD3
+
+SAC_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "reagent_tpu_torch",
+                        "workflow", "sample_configs", "sac_pendulum_offline.yaml")
+# the job's depth cuts on the card (PERF.md §4): the rest of the sample
+# config (widths, minibatch, optimizers, gamma, tau, seed, the bar) unchanged
+SAC_JOB_CUT = dict(num_epochs=20, num_train_transitions=20000, num_eval_episodes=5,
+                   max_steps=1000)
+AC_STEP_TOL = dict(rtol=1e-4, atol=1e-5)
+AC_PARAM_TOL = dict(rtol=1e-3, atol=1e-4)
+
+
+def sac_sample_config():
+    """The sample config as ``reagent run`` reads it."""
+    import yaml
+
+    with open(SAC_YAML) as f:
+        return yaml.safe_load(f)
+
+
+def sac_job_overrides(tmp, cut=True):
+    """The job's --extra-options: its files under ``tmp``, the depth cuts
+    (none where ``cut`` is False: the sample config unchanged), the card."""
+    spec = dict(sac_sample_config()["input_table_spec"])
+    spec["path"] = os.path.join(tmp, "table.pkl")
+    return {
+        **(SAC_JOB_CUT if cut else {}),
+        "pkl_path": os.path.join(tmp, "pre_timeline.pkl"),
+        "input_table_spec": spec,
+        "output_dir": os.path.join(tmp, "model"),
+        "model_path": os.path.join(tmp, "model", "serving_model"),
+        "device": DEVICE,
+    }
+
+
+def reagent_run(entry, overrides):
+    """``reagent run <entry> sac_pendulum_offline.yaml --extra-options ...``
+    in this process (the port's CLI, click's own parsing)."""
+    from reagent_tpu_torch.workflow.cli import reagent
+
+    reagent.main(["run", entry, SAC_YAML, "--extra-options", json.dumps(overrides)],
+                 standalone_mode=False)
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """Keep each return of ``module.name`` called in the block."""
+    from unittest import mock
+
+    original, results = getattr(module, name), []
+
+    def wrapper(*args, **kwargs):
+        results.append(original(*args, **kwargs))
+        return results[-1]
+
+    with mock.patch.object(module, name, wrapper):
+        yield results
+
+
+def ac_lockstep_trainers(torch, name):
+    """The sample config's manager (SAC) or its TD3 twin built twice, on the
+    CPU and on the card, for 3 state features and 1 action; the CPU
+    trainer's init (seed 12) copied to the card."""
+    import copy
+
+    import reagent_tpu_torch.model_managers  # noqa: F401 — registers the managers
+    from reagent_tpu_torch.core.parameters import NormalizationData, NormalizationParameters
+    from reagent_tpu_torch.core.registry import MODEL_MANAGERS
+
+    model = copy.deepcopy(sac_sample_config()["model"])
+    if name == "TD3":
+        sac = model.pop("SAC")
+        trainer_param = {k: v for k, v in sac["trainer_param"].items()
+                         if k != "entropy_temperature"}
+        model["TD3"] = dict(trainer_param=trainer_param,
+                            actor_net_builder={"FullyConnected": next(iter(
+                                sac["actor_net_builder"].values()))},
+                            critic_net_builder=sac["critic_net_builder"])
+    manager = MODEL_MANAGERS.build(model)
+    ndm = {"state": NormalizationData({i: NormalizationParameters(
+               "CONTINUOUS", mean=0.0, stddev=1.0) for i in range(3)}),
+           "action": NormalizationData({0: NormalizationParameters("DO_NOT_PREPROCESS")})}
+    trainers = {dev: manager.build_trainer(ndm, device=dev) for dev in ("cpu", DEVICE)}
+    first = trainers["cpu"].init(torch.Generator().manual_seed(12))
+    return model, manager, trainers, {dev: copy_state(first, dev) for dev in trainers}
+
+
+def ac_lockstep_phase(torch, name, n):
+    """``n`` train steps of the sample config's SAC trainer (twin Q,
+    autotuned temperature, 64, 64 leaky_relu, minibatch 1024) or of its TD3
+    twin on the card and on the CPU from one state, the same batches (3
+    state features, actions in [-2, 2] as the Pendulum table logs them) and
+    the same explicit noise.  Each step's metrics to rtol 1e-4, atol 1e-5;
+    the final parameters, targets, Adam moments and log-alpha to rtol 1e-3,
+    atol 1e-4 (float32 sums in another order, cuBLAS against the CPU, which
+    Adam turns into steps of about lr wherever a gradient is near 0)."""
+    from reagent_tpu_torch.core import types as rlt
+    from reagent_tpu_torch.utils.checkpointing import flatten_state
+
+    model, manager, trainers, states = ac_lockstep_trainers(torch, name)
+    B = next(iter(model.values()))["trainer_param"]["minibatch_size"]
+    rng = np.random.default_rng(40)
+    reset_counts()
+    worst_m, moved = 0.0, []
+    for step in range(n):
+        cols = dict(s=rng.normal(size=(B, 3)), ns=rng.normal(size=(B, 3)),
+                    a=rng.uniform(-2, 2, (B, 1)), r=-rng.uniform(0, 16, (B, 1)),
+                    nt=(rng.random((B, 1)) > 0.005))
+        noise = rng.normal(size=(2, B, 1) if name == "SAC" else (B, 1))
+        t = {k: torch.tensor(v, dtype=torch.float32) for k, v in cols.items()}
+        metrics = {}
+        for dev, trainer in trainers.items():
+            batch = rlt.PolicyNetworkInput(
+                state=rlt.FeatureData(t["s"]), next_state=rlt.FeatureData(t["ns"]),
+                action=rlt.FeatureData(t["a"]), next_action=rlt.FeatureData(t["a"]),
+                reward=t["r"], time_diff=None, step=None, not_terminal=t["nt"]).to(dev)
+            before = states[dev].actor_params["net.layers.0.weight"]
+            states[dev], m = trainer.train_step(
+                states[dev], batch, torch.tensor(noise, dtype=torch.float32, device=dev))
+            metrics[dev] = {k: v.cpu() for k, v in m.items()}
+            if dev == DEVICE:
+                moved.append(not torch.equal(before, states[dev].actor_params[
+                    "net.layers.0.weight"]))
+        for k, want in metrics["cpu"].items():
+            torch.testing.assert_close(metrics[DEVICE][k], want, **AC_STEP_TOL, msg=k)
+            worst_m = max(worst_m, (metrics[DEVICE][k] - want).abs().item())
+    launches, plain_calls = read_counts()
+    if any(launches.values()) or plain_calls:
+        raise AssertionError(f"{name} lockstep: launches {launches}, plain calls {plain_calls}")
+    if name == "TD3" and moved != [step % 2 == 0 for step in range(n)]:
+        raise AssertionError(f"TD3 lockstep: the actor moved on steps {moved}")
+    worst_p = 0.0
+    card, cpu = flatten_state(states[DEVICE]), flatten_state(states["cpu"])
+    for key, want in cpu.items():
+        got = card[key].cpu()
+        if got.dtype == torch.int32:
+            torch.testing.assert_close(got, want, rtol=0, atol=0, msg=key)
+            continue
+        torch.testing.assert_close(got, want, **AC_PARAM_TOL, msg=key)
+        worst_p = max(worst_p, (got - want).abs().max().item())
+    log(f"  {name}, card vs CPU, {n} lockstep train steps (minibatch {B}): metrics max abs "
+        f"{worst_m:.3e} (last q1_loss {metrics[DEVICE]['q1_loss'].item():.6f}, actor_loss "
+        f"{metrics[DEVICE]['actor_loss'].item():.6f}); {len(cpu)} state tensors max abs "
+        f"{worst_p:.3e}; the actor moved on steps {moved}; K1-K5 launches 0, plain calls 0")
+    return worst_m, worst_p
+
+
+def sac_job_phase(torch, tmp, cut=True):
+    """The reference's sac_pendulum_e2e job on the card through the port's
+    ``reagent run`` and the sample config (``cut`` False: unchanged, else
+    with ``SAC_JOB_CUT``'s depths): random Pendulum rows (gymnasium where it
+    imports, else the port's functional Pendulum on the host), the timeline,
+    SAC with its ``ActorCriticReporter``, the actor artifact, greedy
+    episodes.  Then steps/s, the host's decode against a train step, CUDA
+    kernels and device-to-host copies a step, the device's idle share."""
+    import inspect
+
+    import pandas as pd
+
+    from reagent_tpu_torch.core.configuration import kwargs_from_config
+    from reagent_tpu_torch.data.data_module import iterate_minibatches
+    from reagent_tpu_torch.prediction.predictor_wrapper import load_predictor
+    from reagent_tpu_torch.preprocessing.batch_preprocessor import sparse_to_dense
+    from reagent_tpu_torch.utils.checkpointing import flatten_state
+    from reagent_tpu_torch.workflow import gym_batch_rl, training
+
+    have_gym = importlib.util.find_spec("gymnasium") is not None
+    overrides = sac_job_overrides(tmp, cut)
+    config = {**sac_sample_config(), **overrides}
+    entry = "reagent_tpu_torch.workflow.{}".format
+    cuts = {k: config[k] for k in SAC_JOB_CUT}
+    log(f"  depth {'cut' if cut else 'unchanged'}: {cuts}; gymnasium importable: {have_gym}")
+    t0 = time.perf_counter()
+    if have_gym:
+        route = "gymnasium Pendulum-v1"
+        reagent_run(entry("gym_batch_rl.offline_gym_random"), overrides)
+    else:
+        route = "the port's functional Pendulum on the host"
+        collect = kwargs_from_config(gym_batch_rl.offline_gym_random, config)
+        seed = collect.get("seed", inspect.signature(
+            gym_batch_rl.offline_gym_random).parameters["seed"].default)
+        gym_batch_rl.random_rollouts(
+            HostPendulum(collect["max_steps"]), collect["num_train_transitions"], seed,
+        ).to_pickle(collect["pkl_path"])
+    collect_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reagent_run(entry("gym_batch_rl.timeline_operator"), overrides)
+    timeline_s = time.perf_counter() - t0
+    df = pd.read_pickle(overrides["input_table_spec"]["path"])
+    log(f"  env: {route}; {config['num_train_transitions']} random transitions in "
+        f"{collect_s:.2f} s, {df.mdp_id.nunique()} episodes; timeline: {len(df)} rows in "
+        f"{timeline_s:.2f} s")
+
+    reset_counts()
+    with capturing_manager(config["model"]) as captured, \
+            recording(training, "train_workflow") as results:
+        reagent_run(entry("training.identify_and_train_network"), overrides)
+    launches, plain_calls = read_counts()
+    out = results[-1]
+    data = out.logger_data
+    steps, secs = data["train_steps"], data["train_seconds"]
+    log(f"  {steps} train steps in {secs:.3f} s ({steps / secs:.2f} steps/s, host decode and "
+        f"the reporter included; the reporter {data['report_seconds']:.3f} s), q1_loss "
+        f"{out.training_report.td_loss}; K1-K5 launches {sum(launches.values())}, "
+        f"plain-version calls {plain_calls} (the actor-critic path has no TPU kernel)")
+    if any(launches.values()) or plain_calls:
+        raise AssertionError(f"sac job: launches {launches}, plain calls {plain_calls}")
+    if not np.isfinite(out.training_report.td_loss):
+        raise AssertionError(f"sac job: q1_loss {out.training_report.td_loss}")
+
+    trainer, tstate, _ = captured["build_serving_module_args"]
+    serving, batch_pre = captured["build_serving_module"], captured["build_batch_preprocessor"]
+    finite = {k: bool(torch.isfinite(v).all()) for k, v in flatten_state(tstate).items()
+              if v.is_floating_point()}
+    if not all(finite.values()) or not np.isfinite(float(tstate.log_alpha)):
+        bad = [k for k, f in finite.items() if not f]
+        raise AssertionError(f"sac job: non-finite state {bad}")
+    bs = config["model"]["SAC"]["trainer_param"]["minibatch_size"]
+    frames = [b for b, _ in zip(iterate_minibatches(df, bs, seed=0), range(8))]
+    decode_ms, dense_ms = [], []
+    for frame in frames:
+        t0 = time.perf_counter()
+        for col, pre in (("state_features", batch_pre.state_preprocessor),
+                         ("next_state_features", batch_pre.state_preprocessor),
+                         ("action", batch_pre.action_preprocessor),
+                         ("next_action", batch_pre.action_preprocessor)):
+            sparse_to_dense(frame[col].tolist(), pre.sorted_features)
+        dense_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        batch_pre(frame)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    batches = [batch_pre(frame) for frame in frames]
+
+    def run(state=tstate):
+        for batch in batches:
+            state, _ = trainer.train_step(state, batch)
+        return state
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    step_us = (time.perf_counter() - t0) / len(batches) * 1e6
+    dev_us, launches_per_step = profile_loop(torch, run, len(batches), step_us, "SAC train")
+    bare, reported, log_ms = reporter_copies(torch, trainer, tstate, batches[:5],
+                                             captured["get_reporter"])
+    decode = statistics.median(decode_ms)
+    log(f"  a train step {step_us / 1e3:.3f} ms ({len(batches)} pre-decoded batches, "
+        f"synchronised at the end) beside the host's decode of its {bs}-row batch "
+        f"{decode:.3f} ms (median of {len(batches)}; sparse_to_dense's four Python loops "
+        f"alone {statistics.median(dense_ms):.3f} ms): decode is "
+        f"{decode / (decode + step_us / 1e3) * 100:.1f}% of a decoded step; "
+        f"{launches_per_step:.1f} CUDA kernels a step; device-to-host copies a step: "
+        f"{bare:.1f} without the reporter, {reported:.1f} with it (log {log_ms:.3f} ms), on "
+        f"{card_line()}")
+    if bare != 0 or reported != 1:
+        raise AssertionError(f"sac job: {bare} copies a step without the reporter, "
+                             f"{reported} with it")
+
+    path = config["model_path"]
+    predictor = load_predictor(path)
+    values, presence = sparse_to_dense(df["state_features"].tolist()[:64],
+                                       predictor.sorted_features)
+    artifact = np.concatenate([predictor.predict(
+        {f: float(v) for f, v in zip(predictor.sorted_features, row)}) for row in values])
+    live = serving(torch.tensor(values, device=DEVICE),
+                   torch.tensor(presence, device=DEVICE)).cpu().numpy()
+    diff = float(np.abs(artifact - live).max())
+    log(f"  artifact: model_type {predictor.model_type!r}; 64 rows' actions in "
+        f"[{artifact.min():.4f}, {artifact.max():.4f}], against the in-process serving "
+        f"module max abs {diff:.3e}")
+    if predictor.model_type != "actor" or artifact.shape != (64, 1):
+        raise AssertionError(f"sac job: artifact {predictor.model_type} {artifact.shape}")
+    if not (np.isfinite(artifact).all() and np.abs(artifact).max() <= 2.0):
+        raise AssertionError(f"sac job: artifact actions {artifact.min()}, {artifact.max()}")
+    np.testing.assert_allclose(artifact, live, atol=1e-4, rtol=0)
+
+    evaluate = kwargs_from_config(gym_batch_rl.evaluate_gym, config)
+    bar = evaluate.pop("passing_score_bar")
+    t0 = time.perf_counter()
+    if have_gym:
+        mean = gym_batch_rl.evaluate_gym(**evaluate)
+    else:
+        mean = float(np.mean(gym_batch_rl.greedy_returns(
+            predictor, HostPendulum(evaluate["max_steps"]), evaluate["num_eval_episodes"])))
+    eval_seconds = time.perf_counter() - t0
+    log(f"  {evaluate['num_eval_episodes']} greedy episodes of {evaluate['max_steps']} steps "
+        f"({route}) through load_predictor: eval_seconds {eval_seconds:.2f}, mean reward "
+        f"{mean:.2f} "
+        f"(the sample config's bar {bar}: {'met' if mean >= bar else 'missed'}"
+        f"{'; not held at the cut depth' if cut else ''})")
+    if not np.isfinite(mean):
+        raise AssertionError(f"sac job: mean reward {mean}")
+    return dict(steps=steps, steps_per_s=steps / secs, step_ms=step_us / 1e3,
+                decode_ms=decode, device_us=dev_us, launches_per_step=launches_per_step,
+                copies=(bare, reported), eval_seconds=eval_seconds, mean_reward=mean,
+                bar=bar, route=route)
+
 
 def main() -> int:
     import torch
@@ -2734,7 +3071,16 @@ def main() -> int:
         phase("phase 26: warm start and reward options at full width through K1")
         warm = warm_start_phase(torch, tmp, cpe_trainer, cpe_state)
 
-    phase("phase 27: kernels")
+    phase("phase 27: SAC and TD3 train steps at the sample config's widths, card against CPU")
+    ac_lockstep_phase(torch, "SAC", 5)
+    ac_lockstep_phase(torch, "TD3", 4)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("phase 28: the sac_pendulum_e2e job through reagent run (offline_gym_random, "
+              "timeline_operator, identify_and_train_network, evaluate_gym)")
+        sac_job_phase(torch, tmp)
+
+    phase("phase 29: kernels")
     by_path = {
         "K1 fused_dqn_offline_update": {
             "offline workflow, full width": k1_launches,

@@ -1,8 +1,9 @@
 """Hyper-parameter dataclasses (reference: reagent/core/parameters.py).
 
 The port's copy of the five classes of ``reagent_tpu/core/parameters.py`` the
-offline DQN path uses, kept identical so configs and normalization specs
-compare equal across the two packages.
+offline DQN path uses and of ``CONTINUOUS_TRAINING_ACTION_RANGE`` (:17),
+kept identical so configs and normalization specs compare equal across the
+two packages.
 Plain frozen dataclasses — hashable so they can serve as cache keys.
 Field names and defaults keep the reference's config contract
 (reagent/core/parameters.py:47 ``RLParameters`` etc.) so YAML configs carry over.
@@ -13,6 +14,10 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import field
 from typing import Dict, Optional, Tuple
+
+# TD3/SAC train on normalized actions in this range, rescaled at serving time
+# (reference: parameters.py:21).
+CONTINUOUS_TRAINING_ACTION_RANGE: Tuple[float, float] = (-1.0, 1.0)
 
 
 def _tuple_safe(x):

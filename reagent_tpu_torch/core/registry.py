@@ -96,7 +96,10 @@ def _resolve_dataclass_type(tp: Any) -> Optional[type]:
 
 # The roles the port fills so far (the JAX package has fourteen).
 DISCRETE_DQN_NET_BUILDERS: Registry = Registry("net_builder.discrete_dqn")
+PARAMETRIC_DQN_NET_BUILDERS: Registry = Registry("net_builder.parametric_dqn")
 QR_DQN_NET_BUILDERS: Registry = Registry("net_builder.quantile_dqn")
+CONTINUOUS_ACTOR_NET_BUILDERS: Registry = Registry("net_builder.continuous_actor")
+VALUE_NET_BUILDERS: Registry = Registry("net_builder.value")
 MODEL_MANAGERS: Registry = Registry("model_manager")
 ENVS: Registry = Registry("env")
 VALIDATORS: Registry = Registry("validator")

@@ -1,9 +1,10 @@
 """Typed training batches as tensor dataclasses.
 
-Port of the batch types the DQN paths use from ``reagent_tpu/core/types.py``
-(``FeatureData`` :179, ``ActorOutput`` :246, ``ExtraData`` :255,
-``DiscreteDqnInput`` :290).  Fields hold ``torch.Tensor``s (or ``None``);
-``.to(device)`` moves every tensor field, recursing into nested batches.
+Port of the batch types the DQN and actor-critic paths use from
+``reagent_tpu/core/types.py`` (``FeatureData`` :179, ``ActorOutput`` :246,
+``ExtraData`` :255, ``DiscreteDqnInput`` :290, ``PolicyNetworkInput``
+:329).  Fields hold ``torch.Tensor``s (or ``None``); ``.to(device)`` moves
+every tensor field, recursing into nested batches.
 """
 
 from __future__ import annotations
@@ -69,4 +70,20 @@ class DiscreteDqnInput(_TensorDataClass):
     next_action: Tensor = None
     possible_actions_mask: Tensor = None
     possible_next_actions_mask: Tensor = None
+    extras: ExtraData = dataclasses.field(default_factory=ExtraData)
+
+
+@dataclasses.dataclass
+class PolicyNetworkInput(_TensorDataClass):
+    """Continuous-control transition batch (reference types.py:901):
+    ``action`` and ``next_action`` hold the dense action features."""
+
+    state: FeatureData
+    next_state: FeatureData
+    reward: Tensor
+    time_diff: Optional[Tensor]
+    step: Optional[Tensor]
+    not_terminal: Tensor
+    action: FeatureData = None
+    next_action: FeatureData = None
     extras: ExtraData = dataclasses.field(default_factory=ExtraData)

@@ -5,8 +5,9 @@ from reagent_tpu_torch.gym.envs.functional import (
     CartPole,
     FunctionalEnv,
     FunctionalEnvState,
+    Pendulum,
     where_state,
 )
 from reagent_tpu_torch.gym.envs.gym_env import Gym
 
-__all__ = ["CartPole", "FunctionalEnv", "FunctionalEnvState", "Gym", "where_state"]
+__all__ = ["CartPole", "FunctionalEnv", "FunctionalEnvState", "Gym", "Pendulum", "where_state"]

@@ -1,12 +1,13 @@
 """Functional environments: classic-control dynamics as tensor step functions.
 
 Port of ``reagent_tpu/gym/envs/functional.py`` (``FunctionalEnv``,
-``FunctionalEnvState`` and ``CartPole``, :22-114).  The physics is a float32
-tensor on the env's device, so the online loops step the env, insert into
-replay and train without the host reading a value.  ``reset``,
+``FunctionalEnvState``, ``CartPole`` and ``Pendulum``, :22-171).  The physics
+is a float32 tensor on the env's device, so the online loops step the env,
+insert into replay and train without the host reading a value.  ``reset``,
 ``reset_from_uniform`` and ``step`` also take a leading batch dimension
-(physics ``[E, 4]``), which stands in for the JAX package's ``vmap``
-(``evaluate_policy`` steps all its episodes as one batch).
+(physics ``[E, 4]`` for CartPole, ``[E, 2]`` for Pendulum), which stands in
+for the JAX package's ``vmap`` (``evaluate_policy`` steps all its episodes
+as one batch).
 """
 
 from __future__ import annotations
@@ -123,3 +124,57 @@ class CartPole(FunctionalEnv):
         done = terminated | (t >= self.max_steps)
         reward = torch.ones(t.shape, dtype=torch.float32, device=t.device)
         return FunctionalEnvState(physics=physics, t=t), physics, reward, done
+
+
+class Pendulum(FunctionalEnv):
+    """Pendulum-v1 swing-up: obs [cos th, sin th, thdot], torque in [-2, 2],
+    reward minus the cost, truncation at ``max_steps``.  The physics is
+    [th, thdot]; the float32 operations are those of the JAX env, in its
+    order."""
+
+    observation_dim = 3
+    action_dim = 1
+    discrete = False
+
+    MAX_SPEED = 8.0
+    MAX_TORQUE = 2.0
+    DT = 0.05
+    G = 10.0
+    M = 1.0
+    L = 1.0
+
+    reset_noise_dim = 2
+
+    def __init__(self, max_steps: int = 200, device="cuda"):
+        self.max_steps = max_steps
+        self.device = resolve_device(device)
+
+    @staticmethod
+    def _obs(physics: Tensor) -> Tensor:
+        th, thdot = physics.unbind(-1)
+        return torch.stack([torch.cos(th), torch.sin(th), thdot], dim=-1)
+
+    def reset_from_uniform(self, u: Tensor):
+        th = -math.pi + 2.0 * math.pi * u[..., 0]
+        thdot = -1.0 + 2.0 * u[..., 1]
+        physics = torch.stack([th, thdot], dim=-1)
+        t = torch.zeros(u.shape[:-1], dtype=torch.int32, device=u.device)
+        return FunctionalEnvState(physics=physics, t=t), self._obs(physics)
+
+    def step(self, state: FunctionalEnvState, action: Tensor, generator=None):
+        """``action`` holds one torque per env (``[E]``, ``[E, 1]``, or one
+        value for an unbatched env)."""
+        th, thdot = state.physics.unbind(-1)
+        u = torch.clamp(action.reshape(th.shape).to(th.dtype), -self.MAX_TORQUE, self.MAX_TORQUE)
+        angle_norm = torch.remainder(th + math.pi, 2 * math.pi) - math.pi
+        cost = angle_norm**2 + 0.1 * thdot**2 + 0.001 * u**2
+        newthdot = thdot + (
+            3.0 * self.G / (2.0 * self.L) * torch.sin(th)
+            + 3.0 / (self.M * self.L**2) * u
+        ) * self.DT
+        newthdot = torch.clamp(newthdot, -self.MAX_SPEED, self.MAX_SPEED)
+        newth = th + newthdot * self.DT
+        physics = torch.stack([newth, newthdot], dim=-1)
+        t = state.t + 1
+        done = t >= self.max_steps
+        return FunctionalEnvState(physics=physics, t=t), self._obs(physics), -cost, done

@@ -1,1 +1,5 @@
-from reagent_tpu_torch.model_managers import discrete, discrete_dqn  # noqa: F401 — registers managers
+from reagent_tpu_torch.model_managers import (  # noqa: F401 — registers managers
+    actor_critic,
+    discrete,
+    discrete_dqn,
+)

@@ -26,13 +26,10 @@ from reagent_tpu_torch.core.parameters import (
     RLParameters,
 )
 from reagent_tpu_torch.core.registry import DISCRETE_DQN_NET_BUILDERS, MODEL_MANAGERS
-from reagent_tpu_torch.model_managers.model_manager import ModelManager
+from reagent_tpu_torch.model_managers.model_manager import ModelManager, identify_dense
 from reagent_tpu_torch.models.dqn import FullyConnectedDQN
 from reagent_tpu_torch.preprocessing.batch_preprocessor import DiscreteDqnBatchPreprocessor
-from reagent_tpu_torch.preprocessing.normalization import (
-    get_feature_norm_metadata,
-    get_num_output_features,
-)
+from reagent_tpu_torch.preprocessing.normalization import get_num_output_features
 from reagent_tpu_torch.preprocessing.preprocessor import Preprocessor
 from reagent_tpu_torch.reporting.reporters import DiscreteDQNReporter
 from reagent_tpu_torch.training.dqn_trainer import DQNTrainer
@@ -91,29 +88,8 @@ class DiscreteDQN(ModelManager):
 
     def run_feature_identification(self, df: pd.DataFrame) -> Dict[str, NormalizationData]:
         """Fit normalization from state_features (ref identify_types_flow.py:24)."""
-        by_feature: Dict[int, List[float]] = {}
-        for d in df["state_features"]:
-            if not d:
-                continue
-            for fid, v in d.items():
-                by_feature.setdefault(int(fid), []).append(float(v))
-        norm_params = {}
-        for fid, values in by_feature.items():
-            p = get_feature_norm_metadata(
-                str(fid),
-                values,
-                {
-                    "feature_overrides": None,
-                    "max_unique_enum_values": 10,
-                    "quantile_size": 20,
-                    "quantile_k2_threshold": 1000.0,
-                    "skip_box_cox": False,
-                    "skip_quantiles": True,
-                },
-            )
-            if p is not None:
-                norm_params[fid] = p
-        return {NormalizationKey.STATE: NormalizationData(dense_normalization_parameters=norm_params)}
+        return {NormalizationKey.STATE: NormalizationData(
+            dense_normalization_parameters=identify_dense(df["state_features"]))}
 
     # ---------------------------------------------------------------- build
 

@@ -1,1 +1,7 @@
-from reagent_tpu_torch.net_builder import discrete_dqn, quantile_dqn  # noqa: F401 — registers builders
+from reagent_tpu_torch.net_builder import (  # noqa: F401 — registers builders
+    continuous_actor,
+    discrete_dqn,
+    parametric_dqn,
+    quantile_dqn,
+    value,
+)

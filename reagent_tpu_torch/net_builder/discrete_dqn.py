@@ -14,17 +14,7 @@ from reagent_tpu_torch.core.parameters import NormalizationData
 from reagent_tpu_torch.core.registry import DISCRETE_DQN_NET_BUILDERS
 from reagent_tpu_torch.models.dqn import FullyConnectedDQN
 from reagent_tpu_torch.models.dueling_q_network import DuelingQNetwork
-from reagent_tpu_torch.preprocessing.normalization import get_num_output_features
-
-
-def state_dim_of(
-    normalization_data: Optional[NormalizationData], fallback: Optional[int] = None
-) -> int:
-    if normalization_data is not None and normalization_data.dense_normalization_parameters:
-        return get_num_output_features(normalization_data.dense_normalization_parameters)
-    if fallback is None:
-        raise ValueError("need normalization data or an explicit state_dim")
-    return fallback
+from reagent_tpu_torch.net_builder.base import state_dim_of
 
 
 @DISCRETE_DQN_NET_BUILDERS.register()

@@ -13,7 +13,7 @@ from reagent_tpu_torch.core.parameters import NormalizationData
 from reagent_tpu_torch.core.registry import QR_DQN_NET_BUILDERS
 from reagent_tpu_torch.models.dqn import FullyConnectedDQN
 from reagent_tpu_torch.models.dueling_q_network import DuelingQNetwork
-from reagent_tpu_torch.net_builder.discrete_dqn import state_dim_of
+from reagent_tpu_torch.net_builder.base import state_dim_of
 
 
 @QR_DQN_NET_BUILDERS.register()

@@ -1,11 +1,12 @@
 """Predictor wrapper: preprocessor + q-network in one exportable module.
 
 Port of the discrete-DQN part of ``reagent_tpu/prediction/predictor_wrapper.py``
-(``DiscreteDqnWithPreprocessor`` :57, ``DiscreteDqnPredictorWrapper`` :74)
-and of its distributional wrapper (``CategoricalDqnPredictorWrapper`` :323,
-``make_quantile_dqn_predictor_wrapper`` :401), described at that class, and
-``load_predictor`` (:273), which loads a discrete-DQN artifact by its
-manifest's ``model_type``.
+(``DiscreteDqnWithPreprocessor`` :57, ``DiscreteDqnPredictorWrapper`` :74),
+of its distributional wrapper (``CategoricalDqnPredictorWrapper`` :323,
+``make_quantile_dqn_predictor_wrapper`` :401), described at that class, of
+the actor's (``ActorWithPreprocessor`` :185, ``ActorPredictorWrapper`` :209),
+described at that class, and ``load_predictor`` (:273), which loads a
+discrete-DQN or an actor artifact by its manifest's ``model_type``.
 
 Export format (framework-free, loaded unchanged by the C++ scorer in
 ``serving/``, and the same files the JAX package writes):
@@ -27,6 +28,7 @@ from torch import nn
 
 from reagent_tpu_torch.ops.fused_dqn import extract_mlp_layout
 from reagent_tpu_torch.preprocessing.normalization import deserialize, serialize
+from reagent_tpu_torch.preprocessing.postprocessor import Postprocessor
 from reagent_tpu_torch.preprocessing.preprocessor import Preprocessor
 
 
@@ -74,9 +76,7 @@ class DiscreteDqnPredictorWrapper:
         manifest: Dict[str, Any] = {
             "model_type": "discrete_dqn",
             "action_names": self.action_names,
-            "normalization": {
-                str(k): v for k, v in serialize(pre.normalization_parameters).items()
-            },
+            "normalization": _normalization_json(pre.normalization_parameters),
             "sorted_features": pre.sorted_features,
             "layers": [
                 {"in": int(k.shape[0]), "out": int(k.shape[1])} for k, _ in layers
@@ -149,12 +149,24 @@ class _QuantileMeanHead(nn.Module):
         return out.reshape(obs.shape[0], self.num_actions, self.num_atoms).mean(dim=2)
 
 
-# q-network classes an artifact may name; load() builds nothing else
+# module classes an artifact may name; load() builds nothing else
 def _artifact_modules() -> Dict[str, type]:
+    from reagent_tpu_torch.models.actor import (
+        DirichletFullyConnectedActor,
+        FullyConnectedActor,
+        GaussianFullyConnectedActor,
+    )
     from reagent_tpu_torch.models.dqn import FullyConnectedDQN
     from reagent_tpu_torch.models.dueling_q_network import DuelingQNetwork
 
-    return {"FullyConnectedDQN": FullyConnectedDQN, "DuelingQNetwork": DuelingQNetwork}
+    return {"FullyConnectedDQN": FullyConnectedDQN, "DuelingQNetwork": DuelingQNetwork,
+            "GaussianFullyConnectedActor": GaussianFullyConnectedActor,
+            "FullyConnectedActor": FullyConnectedActor,
+            "DirichletFullyConnectedActor": DirichletFullyConnectedActor}
+
+
+# an actor's constructor arguments, kept on the module as attributes
+_ACTOR_KWARGS = ("state_dim", "action_dim", "sizes", "activations")
 
 
 def _module_spec(module: nn.Module) -> Dict[str, Any]:
@@ -170,14 +182,22 @@ def _module_spec(module: nn.Module) -> Dict[str, Any]:
             "sizes": [l.out_features for l in linears[:-1]],
             "activations": list(module.activations[:-1]),
         }
-    else:
+    elif name == "DuelingQNetwork":
         kwargs = {
             "state_dim": module.state_dim, "action_dim": module.action_dim,
             "layers": [l.out_features for l in module.shared.layers],
             "activations": list(module.shared.activations),
             "num_atoms": module.num_atoms,
         }
+    else:
+        extra = (("action_activation", "exploration_variance")
+                 if name == "FullyConnectedActor" else ())
+        kwargs = {k: getattr(module, k) for k in _ACTOR_KWARGS + extra}
     return {"class": name, "kwargs": kwargs}
+
+
+def _normalization_json(normalization_parameters) -> Dict[str, str]:
+    return {str(k): v for k, v in serialize(normalization_parameters).items()}
 
 
 class CategoricalDqnPredictorWrapper:
@@ -214,9 +234,7 @@ class CategoricalDqnPredictorWrapper:
             )
         head = self.q_network
         payload: Dict[str, Any] = {
-            "normalization": {
-                str(k): v for k, v in serialize(self.preprocessor.normalization_parameters).items()
-            },
+            "normalization": _normalization_json(self.preprocessor.normalization_parameters),
             "action_names": self.action_names,
         }
         if isinstance(head, _QuantileMeanHead):
@@ -261,10 +279,85 @@ def make_quantile_dqn_predictor_wrapper(
     return CategoricalDqnPredictorWrapper(head, state_preprocessor, action_names)
 
 
+class ActorWithPreprocessor(nn.Module):
+    """raw (values, presence) -> the actor's action in serving units
+    (reference :260-300): the state preprocessor, the actor without noise
+    (the squashed mean of a gaussian actor), the action postprocessor."""
+
+    def __init__(self, actor_network: nn.Module, state_preprocessor: Preprocessor,
+                 action_postprocessor: Optional[Postprocessor] = None):
+        super().__init__()
+        self.actor_network = actor_network
+        self.preprocessor = state_preprocessor
+        self.action_postprocessor = action_postprocessor
+
+    @torch.no_grad()
+    def forward(self, values: torch.Tensor, presence: torch.Tensor) -> torch.Tensor:
+        action = self.actor_network(self.preprocessor(values, presence)).action
+        if self.action_postprocessor is not None:
+            action = self.action_postprocessor(action)
+        return action
+
+
+class ActorPredictorWrapper:
+    """Serving for actors (reference :209-271).  The artifact is
+    ``manifest.json`` (``{"model_type": "actor"}``, as JAX writes it) plus
+    ``actor.pt``: the state normalization spec, the actor's class name and
+    constructor arguments, its ``state_dict`` and, where there is one, the
+    action normalization spec — tensors and JSON values only, read back with
+    ``weights_only=True``.  The JAX artifact pickles a flax module
+    (``actor.pkl``); the two payloads are not interchangeable."""
+
+    def __init__(self, actor_with_preprocessor: ActorWithPreprocessor):
+        self.model = actor_with_preprocessor
+
+    def __call__(self, values, presence) -> torch.Tensor:
+        return self.model(values, presence)
+
+    def save(self, path: str) -> None:
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "manifest.json"), "w") as f:
+            json.dump({"model_type": "actor"}, f, indent=2)
+        actor = self.model.actor_network
+        payload: Dict[str, Any] = {
+            "normalization": _normalization_json(self.model.preprocessor.normalization_parameters),
+            "module": _module_spec(actor),
+            "state_dict": {k: v.detach().cpu() for k, v in actor.state_dict().items()},
+        }
+        post = self.model.action_postprocessor
+        if post is not None:
+            payload["action_normalization"] = _normalization_json(post.normalization_parameters)
+        torch.save(payload, os.path.join(path, "actor.pt"))
+
+    @staticmethod
+    def load(path: str):
+        """``(forward(values, presence) -> action [B, action_dim] numpy,
+        sorted state features)`` from an artifact, on the CPU."""
+        payload = torch.load(
+            os.path.join(path, "actor.pt"), map_location="cpu", weights_only=True)
+        spec = payload["module"]
+        actor = _artifact_modules()[spec["class"]](**spec["kwargs"])
+        actor.load_state_dict(payload["state_dict"])
+        pre = Preprocessor(deserialize(payload["normalization"]))
+        post = None
+        if "action_normalization" in payload:
+            post = Postprocessor(deserialize(payload["action_normalization"]))
+        model = ActorWithPreprocessor(actor, pre, post)
+
+        def forward(values, presence):
+            return model(
+                torch.as_tensor(np.asarray(values, np.float32)),
+                torch.as_tensor(np.asarray(presence, np.float32)),
+            ).numpy()
+
+        return forward, pre.sorted_features
+
+
 class Predictor:
     """A loaded artifact: ``predict(features)`` scores one row given as a
     sparse feature dict ``{fid: value}`` and returns ``(action_names, q
-    [1, A])``."""
+    [1, A])``, or for an actor the action ``[1, action_dim]`` in serving
+    units."""
 
     def __init__(self, forward, sorted_features: Sequence[int], model_type: str):
         self._forward = forward
@@ -280,16 +373,15 @@ class Predictor:
 def load_predictor(path: str) -> Predictor:
     """Load an exported artifact by its manifest's ``model_type`` (reference
     :273-320): ``discrete_dqn`` through ``DiscreteDqnPredictorWrapper.load``
-    (a numpy forward on the host, as the C++ scorer's).  The actor artifact
-    waits for the actor-critic slice."""
+    (a numpy forward on the host, as the C++ scorer's), ``actor`` through
+    ``ActorPredictorWrapper.load`` (the actor on the host's CPU)."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     model_type = manifest.get("model_type", "discrete_dqn")
     if model_type == "actor":
-        raise NotImplementedError(
-            "actor artifacts wait for the actor-critic slice (ROADMAP.md §1 item 9)")
+        return Predictor(*ActorPredictorWrapper.load(path), model_type)
     if model_type != "discrete_dqn":
-        raise ValueError(f"{path}: load_predictor reads discrete_dqn artifacts, not "
-                         f"{model_type!r}")
+        raise ValueError(f"{path}: load_predictor reads discrete_dqn and actor artifacts, "
+                         f"not {model_type!r}")
     return Predictor(DiscreteDqnPredictorWrapper.load(path), manifest["sorted_features"],
                      model_type)

@@ -1,7 +1,8 @@
 """Batch preprocessor: raw timeline columns -> a typed batch on the device.
 
 Port of ``reagent_tpu/preprocessing/batch_preprocessor.py`` (``sparse_to_dense``
-:23, ``DiscreteDqnBatchPreprocessor`` :49-129).  The column decoding runs in
+:23, ``DiscreteDqnBatchPreprocessor`` :49-129, ``PolicyNetworkBatchPreprocessor``
+:132-165).  The column decoding runs in
 numpy on the host, as in the JAX package; the normalization runs on the
 preprocessor's device.
 """
@@ -125,4 +126,40 @@ class DiscreteDqnBatchPreprocessor:
             possible_actions_mask=put(pam),
             possible_next_actions_mask=put(pnam),
             extras=extras,
+        )
+
+
+class PolicyNetworkBatchPreprocessor:
+    """Continuous actions as map<fid, value> (reference batch_preprocessor.py:96):
+    four ``sparse_to_dense`` decodes a batch (state, next state, action, next
+    action), each normalized on ``device``."""
+
+    def __init__(self, state_preprocessor: Preprocessor, action_preprocessor: Preprocessor,
+                 device="cpu"):
+        """Both preprocessors must already live on ``device``."""
+        self.state_preprocessor = state_preprocessor
+        self.action_preprocessor = action_preprocessor
+        self.device = torch.device(device)
+
+    def __call__(self, batch_df: pd.DataFrame) -> rlt.PolicyNetworkInput:
+        dev = self.device
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.tensor(a, device=dev)
+
+        def dense(column, preprocessor):
+            values, presence = sparse_to_dense(
+                batch_df[column].tolist(), preprocessor.sorted_features)
+            return rlt.FeatureData(float_features=preprocessor(put(values), put(presence)))
+
+        B = len(batch_df)
+        return rlt.PolicyNetworkInput(
+            state=dense("state_features", self.state_preprocessor),
+            next_state=dense("next_state_features", self.state_preprocessor),
+            action=dense("action", self.action_preprocessor),
+            next_action=dense("next_action", self.action_preprocessor),
+            reward=put(batch_df["reward"].to_numpy(np.float32).reshape(-1, 1)),
+            time_diff=put(batch_df["time_diff"].to_numpy(np.float32).reshape(-1, 1)),
+            step=torch.ones((B, 1), dtype=torch.int32, device=dev),
+            not_terminal=put(batch_df["not_terminal"].to_numpy(np.float32).reshape(-1, 1)),
         )

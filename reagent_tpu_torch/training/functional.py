@@ -1,4 +1,4 @@
-"""A q-network as a pure function of a parameter dict.
+"""A network as a pure function of a parameter dict.
 
 The unfused trainers keep their parameters in the training state, as the JAX
 trainers do (``{name: tensor}``, the module's ``named_parameters`` names),
@@ -25,9 +25,39 @@ def params_of(q_network: nn.Module) -> Params:
     return {k: p.detach().clone() for k, p in q_network.named_parameters()}
 
 
-def apply(q_network: nn.Module, params: Params, obs: Tensor) -> Tensor:
+def apply(module: nn.Module, params: Params, *inputs):
     """The module's forward on ``params`` (differentiable through them)."""
-    return torch.func.functional_call(q_network, params, (obs,))
+    return torch.func.functional_call(module, params, inputs)
+
+
+class _Method(nn.Module):
+    """Calls one named method of ``module`` as its forward."""
+
+    def __init__(self, module: nn.Module, method: str):
+        super().__init__()
+        self.module = module
+        self.method = method
+
+    def forward(self, *inputs):
+        return getattr(self.module, self.method)(*inputs)
+
+
+def apply_method(module: nn.Module, params: Params, method: str, *inputs):
+    """``module.<method>(*inputs)`` on ``params`` (flax's ``apply(...,
+    method=...)``), differentiable through them."""
+    return torch.func.functional_call(
+        _Method(module, method), {f"module.{k}": v for k, v in params.items()}, inputs)
+
+
+def value_and_grad(loss_fn, params: Params, has_aux: bool = False):
+    """``(loss, gradients by name, aux)`` of ``loss_fn(params)`` (which
+    returns ``(loss, aux)`` where ``has_aux``), as ``jax.value_and_grad``;
+    ``loss`` comes back detached from the graph."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    out = loss_fn(leaves)
+    loss, aux = out if has_aux else (out, None)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    return loss.detach(), grads, aux
 
 
 def score(q_network: nn.Module, params: Params, obs: Tensor) -> Tensor:

@@ -5,10 +5,13 @@ Numpy in, torch out (and back); no JAX import.  The flax tree of a
 ``FullyConnectedDQN`` is
 ``{'params': {'FullyConnectedNetwork_0': {'Dense_i': {'kernel': [in, out],
 'bias': [out]}}}}``; the port's ``FullyConnectedDQN`` keeps ``nn.Linear``
-weights ``[out, in]`` under ``net.layers.i``.  A ``DuelingQNetwork``'s tree
+weights ``[out, in]`` under ``net.layers.i``.  The critic, the value net and
+the deterministic and Dirichlet actors have the same one scope; the gaussian
+actor's is ``fc``; each is the port's ``net``.  A ``DuelingQNetwork``'s tree
 has three such scopes, ``FullyConnectedNetwork_0/1/2``: the port's
 ``shared``, ``advantage`` and ``value``.  An optax moment tree has its
-parameters' layout and is carried the same way.
+parameters' layout and is carried the same way; SAC's scalar log-alpha and
+its moments are carried under the name ``log_alpha``.
 """
 
 from __future__ import annotations
@@ -26,14 +29,17 @@ from reagent_tpu_torch.replay.packed import PackedReplayBufferState
 from reagent_tpu_torch.training.dqn_trainer import DQNTrainerState
 from reagent_tpu_torch.training.fused_dqn_trainer import FusedDQNTrainerState
 from reagent_tpu_torch.training.qrdqn_trainer import QRDQNTrainerState
+from reagent_tpu_torch.training.sac_trainer import SACTrainerState
+from reagent_tpu_torch.training.td3_trainer import TD3TrainerState
 
 _NET = "FullyConnectedNetwork_0"
 # flax scope -> the port's submodule, by network
-_SCOPES = {
-    1: {_NET: "net"},
-    3: {_NET: "shared", "FullyConnectedNetwork_1": "advantage",
-        "FullyConnectedNetwork_2": "value"},
-}
+_SCOPES = (
+    {_NET: "net"},
+    {"fc": "net"},  # GaussianFullyConnectedActor's setup-named trunk
+    {_NET: "shared", "FullyConnectedNetwork_1": "advantage",
+     "FullyConnectedNetwork_2": "value"},
+)
 
 
 def _dense_index(name: str) -> int:
@@ -44,11 +50,12 @@ def _dense_index(name: str) -> int:
 
 
 def q_network_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax ``FullyConnectedDQN`` or ``DuelingQNetwork`` params (numpy
-    leaves) -> the state dict of the port's module of the same name."""
+    """Flax ``FullyConnectedDQN``, ``DuelingQNetwork``, critic, value or
+    actor params (numpy leaves) -> the state dict of the port's module of
+    the same name."""
     tree = params_np["params"]
-    scopes = _SCOPES.get(len(tree))
-    if scopes is None or set(tree) != set(scopes):
+    scopes = next((m for m in _SCOPES if set(tree) == set(m)), None)
+    if scopes is None:
         raise ValueError(f"unexpected scopes {sorted(tree)} in a q-network tree")
     out: Dict[str, torch.Tensor] = {}
     for scope, prefix in scopes.items():
@@ -65,7 +72,7 @@ def q_network_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
 def flax_from_q_network_state(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """Inverse of ``q_network_state_from_flax`` (numpy leaves)."""
     prefixes = {k.split(".")[0] for k in state_dict}
-    scopes = next((m for m in _SCOPES.values() if set(m.values()) == prefixes), None)
+    scopes = next((m for m in _SCOPES if set(m.values()) == prefixes), None)
     if scopes is None:
         raise ValueError(f"unexpected submodules {sorted(prefixes)} in a q-network state dict")
     scope_of = {prefix: scope for scope, prefix in scopes.items()}
@@ -84,6 +91,11 @@ def flax_from_q_network_state(state_dict: Mapping[str, torch.Tensor]) -> Dict:
 
 
 def _params_on(params_np: Mapping, device) -> Dict[str, torch.Tensor]:
+    """A flax tree's parameters by the port's names, or a flat ``{name:
+    array}`` dict (log-alpha's) as it is."""
+    if "params" not in params_np:
+        return {k: torch.tensor(np.asarray(v, np.float32), device=device)
+                for k, v in params_np.items()}
     return {k: v.to(device) for k, v in q_network_state_from_flax(params_np).items()}
 
 
@@ -94,7 +106,7 @@ def opt_state_from_arrays(
     """The port's optimizer state from the fields of an optax
     ``ScaleByAdamState`` / ``ScaleByAmsgradState`` (``count``, ``mu``, ``nu``,
     ``nu_max``) or ``TraceState`` (``trace``), each moment a flax tree with
-    numpy leaves."""
+    numpy leaves (or ``{"log_alpha": array}`` for SAC's temperature)."""
     def tree(x):
         return None if x is None else _params_on(x, device)
 
@@ -136,6 +148,51 @@ def dqn_state_from_arrays(
         state, reward_params=tree(reward_params), reward_opt_state=reward_opt_state,
         cpe_params=tree(cpe_params), cpe_target_params=tree(cpe_target_params),
         cpe_opt_state=cpe_opt_state)
+
+
+def sac_state_from_arrays(
+    actor_params: Mapping, q1_params: Mapping, q1_target_params: Mapping,
+    actor_opt_state: OptState, q1_opt_state: OptState, step, device="cpu", *,
+    q2_params: Optional[Mapping] = None, q2_target_params: Optional[Mapping] = None,
+    q2_opt_state: Optional[OptState] = None, log_alpha=None,
+    alpha_opt_state: Optional[OptState] = None, value_params: Optional[Mapping] = None,
+    value_target_params: Optional[Mapping] = None, value_opt_state: Optional[OptState] = None,
+) -> SACTrainerState:
+    """The port's ``SACTrainerState`` from a ``reagent_tpu`` one: flax
+    parameter trees with numpy leaves, optimizer states from
+    ``opt_state_from_arrays``, ``log_alpha`` a numpy scalar.  JAX's ``rng``
+    has no field here: the port's trainer holds its noise stream."""
+    def tree(x):
+        return None if x is None else _params_on(x, device)
+
+    return SACTrainerState(
+        actor_params=tree(actor_params), q1_params=tree(q1_params),
+        q1_target_params=tree(q1_target_params), actor_opt_state=actor_opt_state,
+        q1_opt_state=q1_opt_state, step=_scalar_i32(step, device),
+        q2_params=tree(q2_params), q2_target_params=tree(q2_target_params),
+        q2_opt_state=q2_opt_state,
+        log_alpha=None if log_alpha is None else torch.tensor(
+            np.asarray(log_alpha, np.float32), device=device),
+        alpha_opt_state=alpha_opt_state, value_params=tree(value_params),
+        value_target_params=tree(value_target_params), value_opt_state=value_opt_state)
+
+
+def td3_state_from_arrays(
+    actor_params: Mapping, actor_target_params: Mapping, q1_params: Mapping,
+    q1_target_params: Mapping, actor_opt_state: OptState, q1_opt_state: OptState, step,
+    device="cpu", *, q2_params: Optional[Mapping] = None,
+    q2_target_params: Optional[Mapping] = None, q2_opt_state: Optional[OptState] = None,
+) -> TD3TrainerState:
+    """The port's ``TD3TrainerState``, as ``sac_state_from_arrays``."""
+    def tree(x):
+        return None if x is None else _params_on(x, device)
+
+    return TD3TrainerState(
+        actor_params=tree(actor_params), actor_target_params=tree(actor_target_params),
+        q1_params=tree(q1_params), q1_target_params=tree(q1_target_params),
+        actor_opt_state=actor_opt_state, q1_opt_state=q1_opt_state,
+        step=_scalar_i32(step, device), q2_params=tree(q2_params),
+        q2_target_params=tree(q2_target_params), q2_opt_state=q2_opt_state)
 
 
 def _scalar_i32(x, device) -> torch.Tensor:

@@ -99,16 +99,21 @@ def timeline_operator(pkl_path: str, input_table_spec: TableSpec) -> None:
 def greedy_returns(predictor, env, num_eval_episodes: int, seed: int = 0) -> list:
     """The return of each of ``num_eval_episodes`` episodes of ``env`` (a
     ``Gym``-like ``reset(seed) -> obs``, ``step(action) -> (obs, reward,
-    done)``), acting by the argmax of ``predictor``'s action scores; episode
-    ``i`` resets with ``seed + i``."""
+    done)``), acting by ``predictor``: an actor's action as it is, else the
+    argmax of the action scores; episode ``i`` resets with ``seed + i``."""
+    continuous = predictor.model_type == "actor"
     returns = []
     for ep in range(num_eval_episodes):
         obs = env.reset(seed=seed + ep)
         total, done = 0.0, False
         while not done:
             features = {i: float(v) for i, v in enumerate(np.asarray(obs).reshape(-1))}
-            _, q = predictor.predict(features)
-            obs, reward, done = env.step(int(np.argmax(np.asarray(q).reshape(-1))))
+            if continuous:
+                action = np.asarray(predictor.predict(features)).reshape(-1)
+            else:
+                _, q = predictor.predict(features)
+                action = int(np.argmax(np.asarray(q).reshape(-1)))
+            obs, reward, done = env.step(action)
             total += reward
         returns.append(total)
     return returns
@@ -125,7 +130,8 @@ def evaluate_gym(
     """Load the exported serving artifact, run greedy episodes (reference
     gym_batch_rl.py:173-220); raises ``AssertionError`` below
     ``passing_score_bar``.  ``load_predictor`` dispatches on the artifact's
-    model_type; the discrete-DQN artifact acts by the argmax of its scores."""
+    model_type: the discrete-DQN artifact acts by the argmax of its scores,
+    the actor artifact by its action (continuous control)."""
     predictor = load_predictor(model_path)
     env = Gym(env_name=env_name, set_max_steps=max_steps)
     returns = greedy_returns(predictor, env, num_eval_episodes, seed)

@@ -1,10 +1,10 @@
 """The port's ``reagent`` CLI, its sample configs, validators, publishers and
 workflow helpers against the JAX package.
 
-The reference's 4-command ``dqn_cartpole_e2e`` pipeline runs through the
-port's ``reagent run`` (``CliRunner``) on the port's copy of the flagship
-sample config with small overrides (1,200 transitions, one epoch, two eval
-episodes, ``device: cpu``).  ``print-schema`` of each entry point equals
+The reference's 4-command ``dqn_cartpole_e2e`` and ``sac_pendulum_e2e``
+pipelines run through the port's ``reagent run`` (``CliRunner``) on the
+port's copies of the two sample configs with small overrides (1,200
+transitions, one epoch, two eval episodes, ``device: cpu``).  ``print-schema`` of each entry point equals
 JAX's apart from the port's ``device`` field; the sample configs equal
 JAX's YAML files; ``chip_smoke.py``'s card job calls the entry points with
 the arguments ``reagent run`` builds; the validators and publishers give
@@ -53,29 +53,51 @@ def test_sample_configs_equal_jax(name):
         assert f.read() == g.read()
 
 
-def test_reagent_run_pipeline(tmp_path):
+# each sample config's job at a small depth: its env, table and split
+PIPELINES = {
+    "discrete_dqn_cartpole_offline.yaml": dict(
+        env_name="CartPole-v1", table_name="cartpole_offline", split=(90.0, 10.0)),
+    # 100-step episodes of a one-update actor cannot meet the config's -1000 bar
+    "sac_pendulum_offline.yaml": dict(
+        env_name="Pendulum-v1", table_name="pendulum_offline", split=(95.0, 5.0),
+        passing_score_bar=-100000.0),
+}
+
+
+@pytest.mark.parametrize("config", CONFIGS)
+def test_reagent_run_pipeline(tmp_path, config):
+    job = dict(PIPELINES[config])
+    table_sample, eval_table_sample = job.pop("split")
     overrides = {
-        "env_name": "CartPole-v1",
+        "env_name": job.pop("env_name"),
         "pkl_path": str(tmp_path / "pre.pkl"),
-        "input_table_spec": {"table_name": "cartpole_offline", "path": str(tmp_path / "t.pkl"),
-                             "table_sample": 90.0, "eval_table_sample": 10.0},
+        "input_table_spec": {"table_name": job.pop("table_name"),
+                             "path": str(tmp_path / "t.pkl"), "table_sample": table_sample,
+                             "eval_table_sample": eval_table_sample},
         "num_train_transitions": 1200, "max_steps": 100, "num_epochs": 1,
         "num_eval_episodes": 2, "output_dir": str(tmp_path / "model"),
-        "model_path": str(tmp_path / "model" / "serving_model"), "device": "cpu",
+        "model_path": str(tmp_path / "model" / "serving_model"), "device": "cpu", **job,
     }
     runner = CliRunner()
     outputs = []
     for entry in ENTRIES:
         result = runner.invoke(
             reagent, ["run", f"reagent_tpu_torch.{entry}",
-                      _sample_config("reagent_tpu_torch", CONFIGS[0]),
+                      _sample_config("reagent_tpu_torch", config),
                       "--extra-options", json.dumps(overrides)],
             catch_exceptions=False)
         assert result.exit_code == 0, (entry, result.output)
         outputs.append(result.output)
-    assert "RLTrainingOutput" in outputs[2] and "cpe_details=CpeDetails" in outputs[2]
-    assert float(outputs[3]) > 0  # evaluate_gym's mean reward
+    assert "RLTrainingOutput" in outputs[2]
     predictor = load_predictor(overrides["model_path"])
+    if config.startswith("sac"):
+        assert predictor.model_type == "actor" and "train_steps': 1" in outputs[2]
+        assert float(outputs[3]) < 0  # evaluate_gym's mean reward: costs
+        act = predictor.predict({0: 1.0, 1: 0.0, 2: -0.5})
+        assert act.shape == (1, 1) and -1.0 <= float(act[0, 0]) <= 1.0
+        return
+    assert "cpe_details=CpeDetails" in outputs[2]
+    assert float(outputs[3]) > 0  # evaluate_gym's mean reward
     names, q = predictor.predict({0: 0.0, 1: 0.1, 2: -0.02, 3: 0.0})
     assert names == ["0", "1"] and q.shape == (1, 2)
 

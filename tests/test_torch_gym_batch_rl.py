@@ -194,7 +194,7 @@ def test_gym_env_and_artifact_types(tmp_path):
     actor = tmp_path / "actor"
     actor.mkdir()
     (actor / "manifest.json").write_text(json.dumps({"model_type": "actor"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9"):
+    with pytest.raises(FileNotFoundError, match="actor.pt"):
         load_predictor(str(actor))
     (actor / "manifest.json").write_text(json.dumps({"model_type": "categorical_dqn"}))
     with pytest.raises(ValueError, match="categorical_dqn"):
