@@ -120,12 +120,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      profiled window), device-to-host copies a step with and without the
      reporter, the greedy episodes' seconds and mean reward (the -1000 bar
      printed, not held at the cut depth);
- 29. one JSON line describing each ported kernel (K1's rows with the CUDA
+ 29. discrete CRR card against CPU: 5 train steps at the online config's
+     widths (actor and q1 128, 64 leaky_relu, minibatch 256, gamma 0.99,
+     tau 0.2, Adam 3e-3, beta 1) from one state on the same batches, every
+     metric and state tensor compared, no K1-K5 launch;
+ 30. the offline CRR job (tests/test_offline_managers.py's flow): 10,000
+     random CartPole transitions, the timeline with a 95/5 split,
+     identify_and_train_network with the DiscreteCRR block (64, 64 relu
+     actor and twin critics, Adam 3e-3, gamma 0.99, tau 0.1, beta 1) for
+     CRR_OFFLINE["epochs"] epochs, the actor artifact against the
+     in-process actor (and actor_logits through K3) on 64 raw rows, train
+     steps/s, the host's decode, CUDA kernels a step and the idle share, 20
+     greedy episodes through load_predictor (the 100 bar read at 20 epochs
+     only);
+ 31. online discrete CRR through the generic loop (ReplayBuffer of 50,000,
+     prefill 3,000, minibatch 256, the actor acting through K3, K4 in every
+     sample) for CRR_ONLINE["steps"] steps, a profiled window (kernels a
+     step, idle share, host reads), evaluate_policy of the actor;
+ 32. REINFORCE (64, 64 leaky_relu, Adam 5e-3, normalize, subtract_mean)
+     and PPO (32, 32 leaky_relu, Adam 1e-3 with weight decay 1e-3, epsilon
+     0.2, 1 epoch) on the functional CartPole with episodes padded to 200
+     steps: 3 episodes each card against CPU from one noise tape (actions
+     and returns exact), then PG_CONFIGS' episodes each: episodes/s, env
+     steps/s, K3 launches an episode, a profiled episode (host reads: 0 or
+     the script fails), evaluate_policy;
+ 33. one JSON line describing each ported kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
      wrapper's host time; K3's and K4's with the wrapper's host time, the
      launch floor and their other shapes, K3's with its torch.addmm
-     yardstick and the evaluation's two shapes).
+     yardstick and the evaluation's two shapes, K3's and K4's with their
+     share of a step on the discrete-actor paths).
 Each phase's heading carries the seconds since the script started.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
@@ -796,18 +821,22 @@ def k3_inputs(torch, rows, seed):
 
 
 def compare_k3(torch):
-    """The act step ([1, 4]) and evaluate_policy ([20, 4]); float32 sums in
-    another order: rtol 1e-5, atol 1e-5."""
+    """The act step ([1, 4]) and evaluate_policy ([20, 4]) of the online
+    loops, and the policy-gradient act steps ([1, 4] at PG_CONFIGS' widths);
+    float32 sums in another order: rtol 1e-5, atol 1e-5."""
     from reagent_tpu_torch.ops import fused_mlp
 
+    cases = [(f"[{rows}, 4]", *k3_inputs(torch, rows, 5 + rows)) for rows in (1, EVAL_EPISODES)]
+    cases += [(f"{name}'s act step [1, 4→{'→'.join(map(str, cfg['widths']))}→2]",
+               *k3_eval_inputs(torch, 1, [CARTPOLE["D"], *cfg["widths"], CARTPOLE["A"]], 41))
+              for name, cfg in PG_CONFIGS.items()]
     worst = 0.0
-    for rows in (1, EVAL_EPISODES):
-        x, weights, acts = k3_inputs(torch, rows, 5 + rows)
+    for label, x, weights, acts in cases:
         y = fused_mlp.fused_mlp_forward(x, weights, acts)
         yp = fused_mlp.fused_mlp_forward_reference(x, weights, acts)
         torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
         worst = max(worst, (y - yp).abs().max().item())
-        log(f"  K3 [{rows}, 4]: {y[0].tolist()} max abs {(y - yp).abs().max().item():.3e}")
+        log(f"  K3 {label}: {y[0].tolist()} max abs {(y - yp).abs().max().item():.3e}")
     return worst
 
 
@@ -892,9 +921,10 @@ def time_online_kernels(torch, name):
         macs = sum(i * o for i, o in zip(sizes[:-1], sizes[1:]))
         flops = 2.0 * rows_k3 * macs
         nbytes = 4.0 * (rows_k3 * sizes[0] + macs + sum(sizes[1:]) + rows_k3 * sizes[-1])
+        plain_w = [(w.contiguous(), b) for w, b in weights]  # timed without its copies
         out[f"K3 [{rows_k3}, 4]"] = (
             time_ms(torch, lambda: fused_mlp.fused_mlp_forward(x, weights, acts)),
-            time_ms(torch, lambda: fused_mlp.fused_mlp_forward_reference(x, weights, acts)),
+            time_ms(torch, lambda: fused_mlp.fused_mlp_forward_reference(x, plain_w, acts)),
             *roofline(flops, nbytes, name), flops, nbytes, f"x [{rows_k3}, 4]")
 
     for label, (capacity, B, H) in K4_SHAPES.items():
@@ -1679,11 +1709,13 @@ def fused_offline_trainer(torch, matmul_dtype, device):
         matmul_dtype=matmul_dtype, device=device)
 
 
-def profile_loop(torch, run, n, wall_step_us, label):
+def profile_loop(torch, run, n, wall_step_us, label, ported=None):
     """A profiled window of ``n`` steps of ``run()``: device time per step by
     CUDA kernel, launches per step, the gathers' share, the device's idle
     share against the unprofiled wall time per step, and the host reads of
-    device values (``aten::_local_scalar_dense``; 0 expected in the loop)."""
+    device values (``aten::_local_scalar_dense``; 0 expected in the loop).
+    ``ported``, a dict, receives the device us per step of K3's and K4's
+    CUDA kernels (``fused_mlp``, ``nstep``)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1704,6 +1736,12 @@ def profile_loop(torch, run, n, wall_step_us, label):
         log(f"    device {us:8.2f} us  x{count:<5.1f} {key[:80]}")
     for us, count, key in cpu_us[:5]:
         log(f"    host   {us:8.2f} us  x{count:<5.1f} {key[:80]}")
+    if ported is not None:
+        for name in ("fused_mlp", "nstep"):
+            ported[name] = sum(us for us, _, key in device_us if name in key)
+        log(f"    K3 {ported['fused_mlp']:.2f} us, K4 {ported['nstep']:.2f} us of device time a "
+            f"step: {ported['fused_mlp'] / wall_step_us * 100:.2f}% and "
+            f"{ported['nstep'] / wall_step_us * 100:.2f}% of its wall time")
     if reads:
         raise AssertionError(f"{label}: {reads} host reads of device values inside the loop")
     return dev_step, launches
@@ -1992,10 +2030,11 @@ def k3_eval_phase(torch, name):
         flops = 2.0 * rows * macs
         nbytes = 4.0 * (rows * sizes[0] + macs + sum(sizes[1:]) + rows * sizes[-1])
         b_ms, b_by = roofline(flops, nbytes, name)
+        plain_w = [(w.contiguous(), b) for w, b in weights]  # timed without its copies
         t = dict(
             ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward(x, weights, acts)),
             plain_ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward_reference(
-                x, weights, acts)),
+                x, plain_w, acts)),
             products_library_ms=time_ms(torch, addmm), bound_ms=b_ms, bound_by=b_by,
             max_abs_err=err, route="resident" if resident else "streamed")
         log(f"  K3 {label} ({t['route']} route): kernel {t['ms']:.4f} ms, plain "
@@ -2588,7 +2627,7 @@ SAC_YAML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "reagent_tpu
                         "workflow", "sample_configs", "sac_pendulum_offline.yaml")
 # the job's depth cuts on the card (PERF.md §4): the rest of the sample
 # config (widths, minibatch, optimizers, gamma, tau, seed, the bar) unchanged
-SAC_JOB_CUT = dict(num_epochs=20, num_train_transitions=20000, num_eval_episodes=5,
+SAC_JOB_CUT = dict(num_epochs=10, num_train_transitions=20000, num_eval_episodes=5,
                    max_steps=1000)
 AC_STEP_TOL = dict(rtol=1e-4, atol=1e-5)
 AC_PARAM_TOL = dict(rtol=1e-3, atol=1e-4)
@@ -2669,6 +2708,25 @@ def ac_lockstep_trainers(torch, name):
     return model, manager, trainers, {dev: copy_state(first, dev) for dev in trainers}
 
 
+def compare_states(torch, card_state, cpu_state, tol, label):
+    """Every state tensor of the card's run against the CPU's: floats within
+    ``tol``, integer leaves exactly; returns (count, max abs)."""
+    from reagent_tpu_torch.utils.checkpointing import flatten_state
+
+    card, cpu = flatten_state(card_state), flatten_state(cpu_state)
+    if card.keys() != cpu.keys():
+        raise AssertionError(f"{label}: the states hold other fields")
+    worst = 0.0
+    for key, want in cpu.items():
+        got = card[key].cpu()
+        if not want.is_floating_point():
+            torch.testing.assert_close(got, want, rtol=0, atol=0, msg=f"{label} {key}")
+            continue
+        torch.testing.assert_close(got, want, **tol, msg=f"{label} {key}")
+        worst = max(worst, (got - want).abs().max().item())
+    return len(cpu), worst
+
+
 def ac_lockstep_phase(torch, name, n):
     """``n`` train steps of the sample config's SAC trainer (twin Q,
     autotuned temperature, 64, 64 leaky_relu, minibatch 1024) or of its TD3
@@ -2679,7 +2737,6 @@ def ac_lockstep_phase(torch, name, n):
     atol 1e-4 (float32 sums in another order, cuBLAS against the CPU, which
     Adam turns into steps of about lr wherever a gradient is near 0)."""
     from reagent_tpu_torch.core import types as rlt
-    from reagent_tpu_torch.utils.checkpointing import flatten_state
 
     model, manager, trainers, states = ac_lockstep_trainers(torch, name)
     B = next(iter(model.values()))["trainer_param"]["minibatch_size"]
@@ -2713,18 +2770,10 @@ def ac_lockstep_phase(torch, name, n):
         raise AssertionError(f"{name} lockstep: launches {launches}, plain calls {plain_calls}")
     if name == "TD3" and moved != [step % 2 == 0 for step in range(n)]:
         raise AssertionError(f"TD3 lockstep: the actor moved on steps {moved}")
-    worst_p = 0.0
-    card, cpu = flatten_state(states[DEVICE]), flatten_state(states["cpu"])
-    for key, want in cpu.items():
-        got = card[key].cpu()
-        if got.dtype == torch.int32:
-            torch.testing.assert_close(got, want, rtol=0, atol=0, msg=key)
-            continue
-        torch.testing.assert_close(got, want, **AC_PARAM_TOL, msg=key)
-        worst_p = max(worst_p, (got - want).abs().max().item())
+    count, worst_p = compare_states(torch, states[DEVICE], states["cpu"], AC_PARAM_TOL, name)
     log(f"  {name}, card vs CPU, {n} lockstep train steps (minibatch {B}): metrics max abs "
         f"{worst_m:.3e} (last q1_loss {metrics[DEVICE]['q1_loss'].item():.6f}, actor_loss "
-        f"{metrics[DEVICE]['actor_loss'].item():.6f}); {len(cpu)} state tensors max abs "
+        f"{metrics[DEVICE]['actor_loss'].item():.6f}); {count} state tensors max abs "
         f"{worst_p:.3e}; the actor moved on steps {moved}; K1-K5 launches 0, plain calls 0")
     return worst_m, worst_p
 
@@ -2881,6 +2930,482 @@ def sac_job_phase(torch, tmp, cut=True):
                 decode_ms=decode, device_us=dev_us, launches_per_step=launches_per_step,
                 copies=(bare, reported), eval_seconds=eval_seconds, mean_reward=mean,
                 bar=bar, route=route)
+
+
+# ------------------------------------------- discrete-actor slice (PR 13)
+
+# tests/test_gym_all_algos.py:292-323 (discrete_crr_cartpole_online.yaml):
+# actor and q1 128, 64 leaky_relu, gamma 0.99, tau 0.2, Adam 3e-3 both, beta
+# 1; prefill 3,000 into a ReplayBuffer of 50,000, minibatch 256, 15,000
+# steps, bar 100 over 20 greedy episodes of the actor; cut to ``steps`` here
+CRR_ONLINE = dict(D=4, A=2, widths=[128, 64], act="leaky_relu", B=256, gamma=0.99, tau=0.2,
+                  lr=3e-3, beta=1.0, prefill=3000, capacity=50_000, steps=100,
+                  full_steps=15_000, bar=100.0)
+# tests/test_offline_managers.py:16-57: 10,000 random CartPole transitions
+# (seed 3, episodes of at most 200 steps), a 95/5 split, this model block, 20
+# epochs, 20 greedy episodes of the actor artifact against 100; cut here to
+# ``epochs``
+CRR_OFFLINE = dict(transitions=10_000, max_steps=200, seed=3, split=(95.0, 5.0), epochs=2,
+                   full_epochs=20, episodes=20, bar=100.0)
+CRR_OFFLINE_MODEL = {"DiscreteCRR": {
+    "trainer_param": {"actions": ["0", "1"], "rl": {"gamma": 0.99, "target_update_rate": 0.1},
+                      "optimizer": {"Adam": {"lr": 0.003}}, "beta": 1.0},
+    "net_builder": {"FullyConnected": {"sizes": [64, 64], "activations": ["relu", "relu"]}},
+    "actor_net_builder": {"FullyConnected": {"sizes": [64, 64],
+                                             "activations": ["relu", "relu"]}},
+}}
+# tests/test_policy_gradient_trainers.py:151-213 (discrete_reinforce/ppo_
+# cartpole_online.yaml): CartPole episodes of max_steps 200, the bar 180
+# over 20 greedy episodes; cut here to ``episodes``
+PG_CONFIGS = {
+    "REINFORCE": dict(widths=[64, 64], optimizer={"Adam": {"lr": 5e-3}},
+                      kw=dict(gamma=0.99, normalize=True, subtract_mean=True),
+                      episodes=4, full_episodes=300, bar=180.0),
+    "PPO": dict(widths=[32, 32], optimizer={"Adam": {"lr": 1e-3, "weight_decay": 1e-3}},
+                kw=dict(gamma=0.99, ppo_epsilon=0.2, update_epochs=1, normalize=True,
+                        subtract_mean=True),
+                episodes=4, full_episodes=700, bar=180.0),
+}
+PG_MAX_STEPS = 200
+
+
+def crr_online_trainer(torch, device):
+    """The online CRR trainer (actor and q1 only, as the reference's test)."""
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+    from reagent_tpu_torch.training.discrete_crr_trainer import DiscreteCRRTrainer
+
+    cfg = CRR_ONLINE
+
+    def net():
+        return FullyConnectedDQN(state_dim=cfg["D"], action_dim=cfg["A"], sizes=cfg["widths"],
+                                 activations=[cfg["act"]] * len(cfg["widths"]))
+
+    return DiscreteCRRTrainer(
+        actor_network=net(), q1_network=net(),
+        rl=RLParameters(gamma=cfg["gamma"], target_update_rate=cfg["tau"]),
+        q_network_optimizer={"Adam": {"lr": cfg["lr"]}},
+        actor_network_optimizer={"Adam": {"lr": cfg["lr"]}}, beta=cfg["beta"], device=device)
+
+
+def crr_lockstep_phase(torch, n=5):
+    """``n`` CRR train steps at the online config's widths on the card and on
+    the CPU from one state, on the same numpy batches (CartPole-like states,
+    logged actions, rewards of 1, a few terminals): each step's metrics to
+    rtol 1e-4, atol 1e-5, every state tensor to rtol 1e-3, atol 1e-4, the
+    integer leaves exactly (``AC_STEP_TOL``, ``AC_PARAM_TOL``, as phase 27).
+    The trainer's forwards are autograd modules: no K1-K5 launch."""
+    from reagent_tpu_torch.core import types as rlt
+
+    cfg = CRR_ONLINE
+    trainers = {dev: crr_online_trainer(torch, dev) for dev in ("cpu", DEVICE)}
+    first = trainers["cpu"].init(torch.Generator().manual_seed(21))
+    states = {dev: copy_state(first, dev) for dev in trainers}
+    rng = np.random.default_rng(22)
+    reset_counts()
+    worst_m = 0.0
+    for _ in range(n):
+        B = cfg["B"]
+        cols = dict(s=rng.normal(0, 0.5, (B, cfg["D"])), ns=rng.normal(0, 0.5, (B, cfg["D"])),
+                    a=np.eye(cfg["A"])[rng.integers(0, cfg["A"], B)], r=np.ones((B, 1)),
+                    nt=(rng.random((B, 1)) > 0.05))
+        t = {k: torch.tensor(v, dtype=torch.float32) for k, v in cols.items()}
+        metrics = {}
+        for dev, trainer in trainers.items():
+            batch = rlt.DiscreteDqnInput(
+                state=rlt.FeatureData(t["s"]), next_state=rlt.FeatureData(t["ns"]),
+                reward=t["r"], time_diff=None, step=None, not_terminal=t["nt"],
+                action=t["a"], next_action=t["a"],
+                possible_actions_mask=torch.ones_like(t["a"]),
+                possible_next_actions_mask=torch.ones_like(t["a"])).to(dev)
+            states[dev], m = trainer.train_step(states[dev], batch)
+            metrics[dev] = {k: v.cpu() for k, v in m.items()}
+        for k, want in metrics["cpu"].items():
+            torch.testing.assert_close(metrics[DEVICE][k], want, **AC_STEP_TOL, msg=k)
+            worst_m = max(worst_m, (metrics[DEVICE][k] - want).abs().item())
+    launches, plain_calls = read_counts()
+    if any(launches.values()) or plain_calls:
+        raise AssertionError(f"CRR lockstep: launches {launches}, plain calls {plain_calls}")
+    count, worst_p = compare_states(torch, states[DEVICE], states["cpu"], AC_PARAM_TOL, "CRR")
+    log(f"  CRR, card vs CPU, {n} lockstep train steps (minibatch {cfg['B']}, "
+        f"{cfg['widths']} {cfg['act']}): metrics max abs {worst_m:.3e} (last q1_loss "
+        f"{metrics[DEVICE]['q1_loss'].item():.6f}, actor_loss "
+        f"{metrics[DEVICE]['actor_loss'].item():.6f}); {count} state tensors max abs "
+        f"{worst_p:.3e}; K1-K5 launches 0, plain calls 0")
+    return worst_m, worst_p
+
+
+def crr_offline_job_phase(torch, tmp, epochs):
+    """The flow of tests/test_offline_managers.py::test_crr_offline_e2e on
+    the card: random CartPole rows (gymnasium where it imports, else the
+    port's functional CartPole on the host), the timeline with a 95/5
+    split, ``identify_and_train_network`` with the DiscreteCRR block for
+    ``epochs`` epochs, the actor artifact against the in-process actor (its
+    serving module, and ``actor_logits``, one K3 launch) on 64 raw rows, the
+    greedy episodes through ``load_predictor``.  Train steps/s, the host's
+    decode of a minibatch, a train step's CUDA kernels and the device's idle
+    share (a profiled window), the mean reward (the bar read at 20 epochs
+    only)."""
+    import pandas as pd
+
+    from reagent_tpu_torch.data.data_module import TableSpec, iterate_minibatches
+    from reagent_tpu_torch.prediction.predictor_wrapper import load_predictor
+    from reagent_tpu_torch.preprocessing.batch_preprocessor import sparse_to_dense
+    from reagent_tpu_torch.workflow import gym_batch_rl
+    from reagent_tpu_torch.workflow.training import identify_and_train_network
+
+    cfg = CRR_OFFLINE
+    have_gym = importlib.util.find_spec("gymnasium") is not None
+    pkl, table = os.path.join(tmp, "crr_pre.pkl"), os.path.join(tmp, "crr_table.pkl")
+    t0 = time.perf_counter()
+    if have_gym:
+        route = "gymnasium CartPole-v1"
+        gym_batch_rl.offline_gym_random("CartPole-v1", pkl, cfg["transitions"],
+                                        cfg["max_steps"], cfg["seed"])
+    else:
+        route = "the port's functional CartPole on the host"
+        gym_batch_rl.random_rollouts(HostCartPole(cfg["max_steps"]), cfg["transitions"],
+                                     cfg["seed"]).to_pickle(pkl)
+    spec = TableSpec(table_name="cp", path=table, table_sample=cfg["split"][0],
+                     eval_table_sample=cfg["split"][1])
+    gym_batch_rl.timeline_operator(pkl, spec)
+    df = pd.read_pickle(table)
+    log(f"  env: {route}; {cfg['transitions']} random transitions and the timeline in "
+        f"{time.perf_counter() - t0:.2f} s, {len(df)} rows")
+
+    reset_counts()
+    with capturing_manager(CRR_OFFLINE_MODEL) as captured:
+        out = identify_and_train_network(spec, CRR_OFFLINE_MODEL, num_epochs=epochs,
+                                         output_dir=os.path.join(tmp, "crr_out"), device=DEVICE)
+    launches, plain_calls = read_counts()
+    data = out.logger_data
+    steps, secs = data["train_steps"], data["train_seconds"]
+    log(f"  {steps} CRR train steps ({epochs} epochs) in {secs:.3f} s ({steps / secs:.2f} "
+        f"steps/s, host decode and the reporter included), q1_loss "
+        f"{out.training_report.td_loss}; eval_seconds {data['eval_seconds']} (no CPE for a "
+        f"CRR trainer, as in JAX); K1-K5 launches {sum(launches.values())}, plain calls "
+        f"{plain_calls}")
+    if any(launches.values()) or plain_calls or out.training_report.cpe_details is not None:
+        raise AssertionError(f"CRR job: launches {launches}, plain calls {plain_calls}")
+    if not np.isfinite(out.training_report.td_loss):
+        raise AssertionError(f"CRR job: q1_loss {out.training_report.td_loss}")
+
+    trainer, tstate, _ = captured["build_serving_module_args"]
+    serving, batch_pre = captured["build_serving_module"], captured["build_batch_preprocessor"]
+    path = out.output_paths["default_model"]
+    predictor = load_predictor(path)
+    values, presence = sparse_to_dense(df["state_features"].tolist()[:64],
+                                       predictor.sorted_features)
+    artifact = np.concatenate([predictor.predict(
+        {f: float(v) for f, v in zip(predictor.sorted_features, row)})[1] for row in values])
+    v_t, p_t = (torch.tensor(x, device=DEVICE) for x in (values, presence))
+    _, live = serving(v_t, p_t)
+    reset_counts()
+    k3_logits = trainer.actor_logits(tstate, serving.model.preprocessor(v_t, p_t))
+    k3_launches, plain_calls = read_counts()
+    live, k3_logits = live.cpu().numpy(), k3_logits.cpu().numpy()
+    diff, diff_k3 = (float(np.abs(artifact - x).max()) for x in (live, k3_logits))
+    with open(os.path.join(path, "manifest.json")) as f:
+        acts = json.load(f)["activations"]
+    log(f"  actor artifact: model_type {predictor.model_type!r}, activations {acts}; 64 raw "
+        f"rows' logits against the in-process serving module max abs {diff:.3e}, against "
+        f"actor_logits (K3, {k3_launches['fused_mlp_forward']} launch) {diff_k3:.3e}")
+    if (predictor.model_type != "discrete_dqn" or artifact.shape != (64, 2)
+            or k3_launches["fused_mlp_forward"] != 1 or plain_calls):
+        raise AssertionError(f"CRR job: artifact {predictor.model_type} {artifact.shape}, "
+                             f"K3 {k3_launches}, plain {plain_calls}")
+    np.testing.assert_allclose(artifact, live, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(artifact, k3_logits, atol=1e-4, rtol=0)
+
+    bs = CRR_OFFLINE_MODEL["DiscreteCRR"]["trainer_param"].get("minibatch_size", 512)
+    frames = [b for b, _ in zip(iterate_minibatches(df, bs, seed=0), range(8))]
+    decode_ms = []
+    for frame in frames:
+        t0 = time.perf_counter()
+        batch_pre(frame)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    batches = [batch_pre(frame) for frame in frames]
+
+    def run(state=tstate):
+        for batch in batches:
+            state, _ = trainer.train_step(state, batch)
+        return state
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    step_us = (time.perf_counter() - t0) / len(batches) * 1e6
+    dev_us, kernels = profile_loop(torch, run, len(batches), step_us, "CRR train")
+    decode = statistics.median(decode_ms)
+    log(f"  a CRR train step {step_us / 1e3:.3f} ms (pre-decoded), the host's decode of its "
+        f"{bs}-row batch {decode:.3f} ms (median of {len(frames)}), {kernels:.1f} CUDA kernels "
+        f"a step, on {card_line()}")
+
+    t0 = time.perf_counter()
+    if have_gym:
+        mean = gym_batch_rl.evaluate_gym("CartPole-v1", path, cfg["episodes"],
+                                         max_steps=cfg["max_steps"])
+    else:
+        mean = float(np.mean(gym_batch_rl.greedy_returns(
+            predictor, HostCartPole(cfg["max_steps"]), cfg["episodes"])))
+    full = epochs == cfg["full_epochs"]
+    log(f"  {cfg['episodes']} greedy episodes of at most {cfg['max_steps']} steps ({route}) "
+        f"through load_predictor in {time.perf_counter() - t0:.2f} s: mean reward {mean:.2f} "
+        f"(the reference's bar {cfg['bar']}: {'met' if mean >= cfg['bar'] else 'missed'}"
+        f"{'' if full else '; not held at the cut depth'})")
+    if not np.isfinite(mean):
+        raise AssertionError(f"CRR job: mean reward {mean}")
+    return dict(steps=steps, steps_per_s=steps / secs, step_ms=step_us / 1e3, decode_ms=decode,
+                device_us=dev_us, kernels_per_step=kernels,
+                idle=1 - dev_us / step_us, mean_reward=mean, bar=cfg["bar"], epochs=epochs,
+                k3_launches=k3_launches["fused_mlp_forward"], route=route)
+
+
+def crr_online_phase(torch, steps):
+    """Online CRR through the generic loop (``run_online_training``), as the
+    reference's test runs it: a ReplayBuffer of 50,000 prefilled with 3,000
+    random transitions, the actor's softmax acting through K3, one sample
+    (K4) and one CRR update a step, minibatch 256; then a profiled window of
+    10 steps (CUDA kernels a step, the device's idle share, host reads) and
+    evaluate_policy over 20 greedy episodes of the actor through K3."""
+    from reagent_tpu_torch.gym.envs import CartPole
+    from reagent_tpu_torch.gym.online_loop import (
+        OnlineLoopConfig,
+        evaluate_policy,
+        prefill_replay_buffer,
+        run_online_training,
+    )
+    from reagent_tpu_torch.gym.policies import SoftmaxActionSampler
+    from reagent_tpu_torch.gym.preprocessors import make_discrete_dqn_batch
+    from reagent_tpu_torch.replay import ReplayBuffer
+
+    cfg = CRR_ONLINE
+    env = CartPole(max_steps=200, device=DEVICE)
+    trainer = crr_online_trainer(torch, DEVICE)
+    tstate = trainer.init(torch.Generator().manual_seed(0))
+    rb = ReplayBuffer(replay_capacity=cfg["capacity"], update_horizon=1, gamma=cfg["gamma"],
+                      device=DEVICE)
+    rb_state = rb.init(**example_transition(torch))
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    t0 = time.perf_counter()
+    rb_state = prefill_replay_buffer(env, rb, rb_state, gen, cfg["prefill"])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    sampler = SoftmaxActionSampler(temperature=1.0)
+
+    def policy_act(ts, obs, g):
+        out = sampler.sample_action(trainer.actor_logits(ts, obs[None]), g)
+        idx = torch.argmax(out.action[0]).to(torch.int32)
+        return idx, idx
+
+    def greedy_act(ts, obs, g):
+        return torch.argmax(trainer.actor_logits(ts, obs), dim=1).to(torch.int32)
+
+    def loop(state, buffer, n):
+        return run_online_training(
+            env, trainer, state, rb, buffer, policy_act,
+            lambda d: make_discrete_dqn_batch(d, cfg["A"]), gen,
+            OnlineLoopConfig(num_steps=n, minibatch_size=cfg["B"]))
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tstate, rb_state, aux = loop(tstate, rb_state, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    losses = aux["td_losses"].cpu()
+    log(f"  online CRR: prefill {cfg['prefill']} in {prefill_s:.2f} s; {steps} env steps + "
+        f"{steps} updates in {wall:.3f} s = {steps / wall:.2f} env steps/s, episodes "
+        f"{int(aux['episodes_completed'])}, last q1_loss {losses[-1].item():.6g}, launches "
+        f"{launches}, plain calls {plain_calls}")
+    for kernel in ("nstep_rewards", "fused_mlp_forward"):
+        if launches[kernel] != steps:
+            raise AssertionError(f"online CRR: {kernel} launched {launches[kernel]} times for "
+                                 f"{steps} steps")
+    if plain_calls or losses.shape != (steps,) or not torch.isfinite(losses).all():
+        raise AssertionError(f"online CRR: plain calls {plain_calls}, losses {losses.shape}")
+    n = 10
+    ported = {}
+    dev_us, kernels = profile_loop(torch, lambda: loop(tstate, rb_state, n), n,
+                                   wall / steps * 1e6, "online CRR", ported)
+    reset_counts()
+    t0 = time.perf_counter()
+    returns = evaluate_policy(env, greedy_act, tstate, gen, num_episodes=EVAL_EPISODES).cpu()
+    eval_launches, plain_calls = read_counts()
+    mean = returns.mean().item()
+    full = steps == cfg["full_steps"]
+    log(f"  evaluate_policy: {EVAL_EPISODES} greedy episodes of the actor in "
+        f"{time.perf_counter() - t0:.2f} s, mean {mean:.2f} (the reference's bar "
+        f"{cfg['bar']}: {'met' if mean >= cfg['bar'] else 'missed'}"
+        f"{'' if full else '; not held at the cut depth'}), K3 launches "
+        f"{eval_launches['fused_mlp_forward']}, on {card_line()}")
+    if eval_launches["fused_mlp_forward"] != env.max_steps or plain_calls:
+        raise AssertionError(f"online CRR eval: launches {eval_launches}, plain {plain_calls}")
+    return dict(launches=launches, eval_launches=eval_launches, steps=steps,
+                steps_per_s=steps / wall, device_us=dev_us, kernels_per_step=kernels,
+                k3_us=ported["fused_mlp"], k4_us=ported["nstep"],
+                idle=1 - dev_us / (wall / steps * 1e6), mean_reward=mean, bar=cfg["bar"])
+
+
+def pg_trainer(torch, name, device):
+    """The reference config's REINFORCE or PPO trainer on ``device``."""
+    from reagent_tpu_torch.gym.policies import SoftmaxActionSampler
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+    from reagent_tpu_torch.training.ppo_trainer import PPOTrainer
+    from reagent_tpu_torch.training.reinforce_trainer import ReinforceTrainer
+
+    cfg = PG_CONFIGS[name]
+    net = FullyConnectedDQN(state_dim=4, action_dim=2, sizes=cfg["widths"],
+                            activations=["leaky_relu"] * len(cfg["widths"]))
+    cls = ReinforceTrainer if name == "REINFORCE" else PPOTrainer
+    return cls(scorer=net, sampler=SoftmaxActionSampler(temperature=1.0),
+               optimizer=cfg["optimizer"], device=device, **cfg["kw"])
+
+
+def act_log_prob_err(torch, trainer, state, ep):
+    """The episode's log-probs, each from one K3 launch at [1, 4], against
+    the sampler's log-probs of K3's plain version's scores for the same
+    observations, parameters and actions: rtol 1e-5, atol 1e-5 (float32
+    sums in another order).  Max abs."""
+    from reagent_tpu_torch.ops import fused_mlp
+
+    net, params = trainer.scorer, state.policy_params
+    weights = [(params[f"net.layers.{i}.weight"].T, params[f"net.layers.{i}.bias"])
+               for i in range(len(net.net.layers))]
+    scores = fused_mlp.fused_mlp_forward_reference(ep.state.float_features, weights,
+                                                   net.activations)
+    want = trainer.sampler.log_prob(scores, ep.action)
+    torch.testing.assert_close(ep.log_prob, want, rtol=1e-5, atol=1e-5, msg="act log-probs")
+    return (ep.log_prob - want).abs().max().item()
+
+
+def pg_lockstep_phase(torch, name, episodes=3):
+    """``episodes`` episodes of collection and training with the config's
+    trainer on the card and on the CPU from one state and one noise tape
+    (numpy reset uniforms and gumbel draws): actions, alive masks and
+    returns exactly, each step's losses to rtol 1e-4, atol 1e-5, every state
+    tensor to rtol 1e-3, atol 1e-4 (``AC_STEP_TOL``, ``AC_PARAM_TOL``).  The
+    card's act steps are K3 launches, the CPU's K3's plain version: the
+    card's log-probs are held to the plain version's on the card's own
+    parameters (``act_log_prob_err``) and, in the first episode, where both
+    sides start from one state, to the CPU's, each at rtol 1e-5, atol 1e-5."""
+    from reagent_tpu_torch.gym.envs import CartPole
+    from reagent_tpu_torch.gym.episodic import collect_episode
+    from reagent_tpu_torch.gym.policies import discrete_q_scorer
+
+    trainers = {dev: pg_trainer(torch, name, dev) for dev in ("cpu", DEVICE)}
+    first = trainers["cpu"].init(torch.Generator().manual_seed(31))
+    states = {dev: copy_state(first, dev) for dev in trainers}
+    envs = {dev: CartPole(max_steps=PG_MAX_STEPS, device=dev) for dev in trainers}
+    rng = np.random.default_rng(32)
+    worst_m, worst_lp, returns = 0.0, 0.0, []
+    launches = plain_calls = None
+    for episode in range(episodes):
+        u = rng.random(4).astype(np.float32)
+        g = -np.log(-np.log(np.maximum(rng.random((PG_MAX_STEPS, 2)), 1e-30))).astype(np.float32)
+        out = {}
+        for dev, trainer in trainers.items():
+            noise = (torch.tensor(u, device=dev), torch.tensor(g, device=dev))
+            if dev == DEVICE:
+                reset_counts()
+            ep, ret = collect_episode(envs[dev], discrete_q_scorer(trainer.scorer),
+                                      trainer.sampler, states[dev].policy_params,
+                                      PG_MAX_STEPS, noise=noise)
+            if dev == DEVICE:
+                launches, plain_calls = read_counts()
+                worst_lp = max(worst_lp, act_log_prob_err(torch, trainer, states[dev], ep))
+            states[dev], m = trainer.train_step(states[dev], ep)
+            out[dev] = (ep.to("cpu"), float(ret), {k: v.cpu() for k, v in m.items()})
+        (ep_c, ret_c, m_c), (ep_g, ret_g, m_g) = out["cpu"], out[DEVICE]
+        torch.testing.assert_close(ep_g.action, ep_c.action, rtol=0, atol=0, msg="actions")
+        torch.testing.assert_close(ep_g.valid_mask, ep_c.valid_mask, rtol=0, atol=0,
+                                   msg="alive mask")
+        if ret_g != ret_c:
+            raise AssertionError(f"{name}: returns {ret_g} on the card, {ret_c} on the CPU")
+        if episode == 0:
+            torch.testing.assert_close(ep_g.log_prob, ep_c.log_prob, rtol=1e-5, atol=1e-5,
+                                       msg="first episode's log-probs, card vs CPU")
+            worst_lp = max(worst_lp, (ep_g.log_prob - ep_c.log_prob).abs().max().item())
+        for k, want in m_c.items():
+            torch.testing.assert_close(m_g[k], want, **AC_STEP_TOL, msg=k)
+            worst_m = max(worst_m, (m_g[k] - want).abs().item())
+        returns.append(ret_g)
+        if launches["fused_mlp_forward"] != PG_MAX_STEPS or plain_calls:
+            raise AssertionError(f"{name}: an episode's launches {launches}, plain "
+                                 f"{plain_calls}")
+    count, worst_p = compare_states(torch, states[DEVICE], states["cpu"], AC_PARAM_TOL, name)
+    log(f"  {name}, card vs CPU, {episodes} episodes from one noise tape: returns {returns} "
+        f"on both, actions and alive masks equal; act log-probs (K3) max abs {worst_lp:.3e}; "
+        f"metrics max abs {worst_m:.3e}; {count} state "
+        f"tensors max abs {worst_p:.3e}; K3 {PG_MAX_STEPS} launches an episode")
+    return worst_m, worst_p
+
+
+def pg_run_phase(torch, name, episodes):
+    """``episodes`` episodes of the config (each collected with the current
+    policy through K3 and trained on), then a profiled episode and update
+    (CUDA kernels, the device's idle share, host reads: 0 or the script
+    fails) and evaluate_policy over 20 greedy episodes through K3."""
+    from reagent_tpu_torch.gym.envs import CartPole
+    from reagent_tpu_torch.gym.episodic import make_episodic_trainer_step
+    from reagent_tpu_torch.gym.online_loop import evaluate_policy
+    from reagent_tpu_torch.gym.policies import discrete_q_scorer
+
+    cfg = PG_CONFIGS[name]
+    trainer = pg_trainer(torch, name, DEVICE)
+    state = trainer.init(torch.Generator().manual_seed(0))
+    env = CartPole(max_steps=PG_MAX_STEPS, device=DEVICE)
+    greedy = discrete_q_scorer(trainer.scorer)
+    step = make_episodic_trainer_step(env, greedy, trainer.sampler, trainer, PG_MAX_STEPS)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rets = []
+    for _ in range(episodes):
+        state, ret, _ = step(state, gen)
+        rets.append(ret)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    rets = torch.stack(rets).cpu()
+    per_episode = launches["fused_mlp_forward"] / episodes
+    log(f"  {name}: {episodes} episodes of {PG_MAX_STEPS} steps (padded) and updates in "
+        f"{wall:.3f} s = {episodes / wall:.2f} episodes/s, {episodes * PG_MAX_STEPS / wall:.1f} "
+        f"env steps/s ({int(rets.sum())} of them alive), returns first {rets[:3].tolist()} "
+        f"last {rets[-3:].tolist()}; K3 {per_episode:.1f} launches an episode, plain calls "
+        f"{plain_calls}")
+    if per_episode != PG_MAX_STEPS or plain_calls or any(
+            v for k, v in launches.items() if k != "fused_mlp_forward"):
+        raise AssertionError(f"{name}: launches {launches}, plain calls {plain_calls}")
+
+    state_p, ported = state, {}
+    dev_us, kernels = profile_loop(torch, lambda: step(state_p, gen), 1, wall / episodes * 1e6,
+                                   f"{name} episode", ported)
+    def greedy_act(ts, obs, g):
+        return torch.argmax(greedy(ts.policy_params, obs), dim=1).to(torch.int32)
+
+    reset_counts()
+    returns = evaluate_policy(env, greedy_act, state, torch.Generator(device=DEVICE)
+                              .manual_seed(2), num_episodes=EVAL_EPISODES).cpu()
+    eval_launches, plain_calls = read_counts()
+    mean = returns.mean().item()
+    full = episodes == cfg["full_episodes"]
+    log(f"  {name} evaluate_policy: {EVAL_EPISODES} greedy episodes, mean {mean:.2f} (the "
+        f"reference's bar {cfg['bar']}: {'met' if mean >= cfg['bar'] else 'missed'}"
+        f"{'' if full else '; not held at the cut depth'}), K3 launches "
+        f"{eval_launches['fused_mlp_forward']}, on {card_line()}")
+    if eval_launches["fused_mlp_forward"] != env.max_steps or plain_calls:
+        raise AssertionError(f"{name} eval: launches {eval_launches}, plain {plain_calls}")
+    return dict(launches=launches, eval_launches=eval_launches, episodes=episodes,
+                episodes_per_s=episodes / wall, env_steps_per_s=episodes * PG_MAX_STEPS / wall,
+                k3_per_episode=per_episode, device_us=dev_us, kernels_per_episode=kernels,
+                k3_us=ported["fused_mlp"],
+                idle=1 - dev_us / (wall / episodes * 1e6), mean_reward=mean, bar=cfg["bar"])
 
 
 def main() -> int:
@@ -3080,7 +3605,28 @@ def main() -> int:
               "timeline_operator, identify_and_train_network, evaluate_gym)")
         sac_job_phase(torch, tmp)
 
-    phase("phase 29: kernels")
+    phase("phase 29: discrete CRR train steps at the online config's widths, card against CPU")
+    crr_lockstep_phase(torch)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase(f"phase 30: the offline CRR job (offline_gym_random, timeline_operator, "
+              f"identify_and_train_network with DiscreteCRR, {CRR_OFFLINE['epochs']} epochs, "
+              "evaluate_gym)")
+        crr_job = crr_offline_job_phase(torch, tmp, CRR_OFFLINE["epochs"])
+
+    phase(f"phase 31: online discrete CRR through the generic loop ({CRR_ONLINE['steps']} "
+          "steps) and evaluate_policy")
+    crr_online = crr_online_phase(torch, CRR_ONLINE["steps"])
+
+    phase("phase 32: REINFORCE and PPO on the functional CartPole: card against CPU, then "
+          "the configs' runs")
+    pg = {}
+    for pg_name in PG_CONFIGS:
+        pg_lockstep_phase(torch, pg_name)
+    for pg_name, pg_cfg in PG_CONFIGS.items():
+        pg[pg_name] = pg_run_phase(torch, pg_name, pg_cfg["episodes"])
+
+    phase("phase 33: kernels")
     by_path = {
         "K1 fused_dqn_offline_update": {
             "offline workflow, full width": k1_launches,
@@ -3100,9 +3646,17 @@ def main() -> int:
             "device-resident fused loop (q_values)": k3_scan_launches,
             "CPE evaluation, sample config": cpe_sample["launches"],
             "CPE evaluation, full width": cpe_full["launches"],
-            "dqn_cartpole_e2e job (CPE evaluation)": e2e["launches"]},
+            "dqn_cartpole_e2e job (CPE evaluation)": e2e["launches"],
+            "online CRR loop (the actor's act step)": crr_online["launches"]["fused_mlp_forward"],
+            "online CRR evaluate_policy": crr_online["eval_launches"]["fused_mlp_forward"],
+            "offline CRR job (actor_logits on 64 rows)": crr_job["k3_launches"],
+            **{f"{k} episodes (act steps)": v["launches"]["fused_mlp_forward"]
+               for k, v in pg.items()},
+            **{f"{k} evaluate_policy": v["eval_launches"]["fused_mlp_forward"]
+               for k, v in pg.items()}},
         "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
-                             "online QR-DQN loop": qr_online_launches["nstep_rewards"]},
+                             "online QR-DQN loop": qr_online_launches["nstep_rewards"],
+                             "online CRR loop": crr_online["launches"]["nstep_rewards"]},
         "K5 quantile_huber_loss": {
             "offline QR-DQN workflow": qr_launches["quantile_huber_loss"],
             "online QR-DQN loop": qr_online_launches["quantile_huber_loss"]},
@@ -3189,6 +3743,16 @@ def main() -> int:
             other = online_timing["K3 [20, 4]" if kname.startswith("K3") else "K4 kernel phase"]
             row["by_shape"] = {other[-1]: {"ms": other[0], "plain_ms": other[1],
                                            "bound_ms": other[2], "bound_by": other[3]}}
+        if kname.startswith(("K3", "K4")):
+            # the kernel's device time in a step of the discrete-actor paths
+            # (profiled windows of phases 31-32), as a share of its wall time
+            key = "k3_us" if kname.startswith("K3") else "k4_us"
+            paths = {"online CRR loop": (crr_online, "steps_per_s")}
+            if kname.startswith("K3"):
+                paths.update({f"{k} episodes": (v, "episodes_per_s") for k, v in pg.items()})
+            row["share_of_step"] = {
+                path: {"device_us": run[key], "share": run[key] * run[rate] / 1e6}
+                for path, (run, rate) in paths.items()}
         if kname.startswith("K3"):
             # the same forward as one torch.addmm per layer, at [1, 4]
             row["products_library_ms"] = k3_addmm_ms

@@ -99,6 +99,7 @@ DISCRETE_DQN_NET_BUILDERS: Registry = Registry("net_builder.discrete_dqn")
 PARAMETRIC_DQN_NET_BUILDERS: Registry = Registry("net_builder.parametric_dqn")
 QR_DQN_NET_BUILDERS: Registry = Registry("net_builder.quantile_dqn")
 CONTINUOUS_ACTOR_NET_BUILDERS: Registry = Registry("net_builder.continuous_actor")
+DISCRETE_ACTOR_NET_BUILDERS: Registry = Registry("net_builder.discrete_actor")
 VALUE_NET_BUILDERS: Registry = Registry("net_builder.value")
 MODEL_MANAGERS: Registry = Registry("model_manager")
 ENVS: Registry = Registry("env")

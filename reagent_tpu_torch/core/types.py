@@ -3,7 +3,7 @@
 Port of the batch types the DQN and actor-critic paths use from
 ``reagent_tpu/core/types.py`` (``FeatureData`` :179, ``ActorOutput`` :246,
 ``ExtraData`` :255, ``DiscreteDqnInput`` :290, ``PolicyNetworkInput``
-:329).  Fields hold ``torch.Tensor``s (or ``None``); ``.to(device)`` moves
+:329, ``PolicyGradientInput`` :338).  Fields hold ``torch.Tensor``s (or ``None``); ``.to(device)`` moves
 every tensor field, recursing into nested batches.
 """
 
@@ -87,3 +87,23 @@ class PolicyNetworkInput(_TensorDataClass):
     action: FeatureData = None
     next_action: FeatureData = None
     extras: ExtraData = dataclasses.field(default_factory=ExtraData)
+
+
+@dataclasses.dataclass
+class PolicyGradientInput(_TensorDataClass):
+    """One full episode, padded to a fixed length (reference types.py:920).
+
+    ``action`` is one-hot [T, num_actions]; ``reward`` and ``log_prob`` are
+    [T].  ``valid_mask`` [T] marks the real steps of an episode padded to
+    ``max_steps`` (the JAX package's static shapes, kept so an episode stays
+    on the device); None means every step is real."""
+
+    state: FeatureData
+    action: Tensor
+    reward: Tensor
+    log_prob: Tensor
+    possible_actions_mask: Optional[Tensor] = None
+    valid_mask: Optional[Tensor] = None
+
+    def batch_size(self) -> int:
+        return self.state.float_features.shape[0]

@@ -103,7 +103,8 @@ def run_online_training(
     every ``train_every`` env steps are followed by one sample and one
     ``trainer.train_step``.  Returns ``(trainer_state, rb_state, aux)``, aux
     holding the ring of recent episode returns, the episode count and the
-    per-update td-losses.
+    per-update losses (``td_loss``, else ``q1_loss``, else the first
+    metric).
     """
     stats = EpisodeStats(config.episode_return_buffer, env.device)
     env_state, obs = env.reset(generator)
@@ -127,7 +128,10 @@ def run_online_training(
             env_state, obs, rb_state = env_step(env_state, obs, rb_state, trainer_state)
         batch = batch_maker(rb.sample(rb_state, generator, config.minibatch_size))
         trainer_state, metrics = trainer.train_step(trainer_state, batch)
-        losses.append(metrics["td_loss"])
+        # a DQN's td_loss, else a CRR critic's q1_loss, else the first metric
+        # (reagent_tpu/gym/online_loop.py:176-178)
+        loss = metrics.get("td_loss", metrics.get("q1_loss"))
+        losses.append(next(iter(metrics.values())) if loss is None else loss)
     td_losses = (torch.stack(losses) if losses
                  else torch.zeros((0,), dtype=torch.float32, device=env.device))
     return trainer_state, rb_state, {**stats.aux(), "td_losses": td_losses}

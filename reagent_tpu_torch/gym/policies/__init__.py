@@ -1,6 +1,7 @@
-"""Policies = scorer . sampler (the online DQN slice's part of them), and the
-policy over an exported artifact."""
+"""Policies = scorer . sampler (the online DQN and policy-gradient slices'
+part of them), and the policy over an exported artifact."""
 
+from reagent_tpu_torch.gym.policies.policy import Policy, actor_scorer, discrete_q_scorer
 from reagent_tpu_torch.gym.policies.predictor_policies import (
     DiscreteDqnPredictorPolicy,
     create_predictor_policy_from_model,
@@ -15,6 +16,9 @@ from reagent_tpu_torch.gym.policies.scorers import (
 )
 
 __all__ = [
+    "Policy",
+    "actor_scorer",
+    "discrete_q_scorer",
     "DiscreteDqnPredictorPolicy",
     "create_predictor_policy_from_model",
     "GreedyActionSampler",

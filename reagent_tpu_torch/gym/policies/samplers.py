@@ -2,9 +2,10 @@
 
 Port of ``SoftmaxActionSampler`` and ``GreedyActionSampler`` from
 ``reagent_tpu/gym/policies/samplers.py`` (:23-60).  Randomness comes from an
-explicit ``torch.Generator`` on the scores' device; the softmax draw is a
-gumbel-max (``argmax(logits + gumbel)``), which samples the same
-categorical distribution as ``jax.random.categorical`` without a host sync.
+explicit ``torch.Generator`` on the scores' device, or from the draws
+themselves (``noise``); the softmax draw is a gumbel-max (``argmax(logits +
+gumbel)``), which is how ``jax.random.categorical`` samples, so JAX's gumbel
+draws give JAX's actions, and it needs no host sync.
 """
 
 from __future__ import annotations
@@ -33,9 +34,16 @@ class SoftmaxActionSampler:
             raise ValueError(f"Invalid non-positive temperature {temperature}.")
         self.temperature = temperature
 
-    def sample_action(self, scores: Tensor, generator: torch.Generator) -> rlt.ActorOutput:
+    def sample_action(
+        self, scores: Tensor, generator: Optional[torch.Generator] = None,
+        noise: Optional[Tensor] = None,
+    ) -> rlt.ActorOutput:
+        """``noise``: standard gumbel draws shaped like ``scores``; drawn
+        from ``generator`` when not given."""
         logits = scores / self.temperature
-        raw_action = torch.argmax(logits + gumbel(logits.shape, generator, logits.device), dim=-1)
+        if noise is None:
+            noise = gumbel(logits.shape, generator, logits.device)
+        raw_action = torch.argmax(logits + noise, dim=-1)
         log_prob = torch.gather(F.log_softmax(logits, dim=-1), 1, raw_action[:, None])[:, 0]
         action = F.one_hot(raw_action, scores.shape[-1]).to(torch.float32)
         return rlt.ActorOutput(action=action, log_prob=log_prob)
@@ -53,8 +61,10 @@ class GreedyActionSampler:
     """Deterministic argmax, first index on ties (ref discrete_sampler.py:75)."""
 
     def sample_action(
-        self, scores: Tensor, generator: Optional[torch.Generator] = None
+        self, scores: Tensor, generator: Optional[torch.Generator] = None,
+        noise: Optional[Tensor] = None,
     ) -> rlt.ActorOutput:
+        """Draws nothing: ``generator`` and ``noise`` are ignored."""
         raw_action = torch.argmax(scores, dim=-1)
         action = F.one_hot(raw_action, scores.shape[-1]).to(torch.float32)
         return rlt.ActorOutput(

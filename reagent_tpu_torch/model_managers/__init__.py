@@ -1,5 +1,21 @@
-from reagent_tpu_torch.model_managers import (  # noqa: F401 — registers managers
-    actor_critic,
-    discrete,
-    discrete_dqn,
-)
+"""Model managers: per-algorithm orchestration (the port's part of
+``reagent_tpu/model_managers/``); importing the package registers them."""
+
+from reagent_tpu_torch.model_managers.actor_critic import SAC, TD3, ActorCriticBase
+from reagent_tpu_torch.model_managers.discrete import DiscreteQRDQN
+from reagent_tpu_torch.model_managers.discrete_crr import DiscreteCRR
+from reagent_tpu_torch.model_managers.discrete_dqn import DiscreteDQN
+from reagent_tpu_torch.model_managers.model_manager import ModelManager
+from reagent_tpu_torch.model_managers.policy_gradient import PPO, Reinforce
+
+__all__ = [
+    "ModelManager",
+    "DiscreteDQN",
+    "DiscreteCRR",
+    "SAC",
+    "TD3",
+    "ActorCriticBase",
+    "DiscreteQRDQN",
+    "PPO",
+    "Reinforce",
+]

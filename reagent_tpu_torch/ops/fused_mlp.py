@@ -44,11 +44,14 @@ def mlp_weight_list(q_network: nn.Module) -> List[Tuple[torch.Tensor, torch.Tens
 
 
 def fused_mlp_forward_reference(x, weights, activations) -> torch.Tensor:
-    """Plain PyTorch version of K3."""
+    """Plain PyTorch version of K3.  Each product is taken on a contiguous
+    ``[in, out]`` weight, so a ``W.T`` view scores bit for bit like its
+    contiguous copy (the CPU's BLAS sums a transposed operand in another
+    order)."""
     fused_mlp_forward_reference.calls += 1
     h = x.to(torch.float32)
     for (w, b), a in zip(weights, activations):
-        h = _act(a, h @ w + b)
+        h = _act(a, h @ w.contiguous() + b)
     return h
 
 

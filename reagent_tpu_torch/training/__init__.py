@@ -6,8 +6,11 @@ q-network, exposing ``init(generator) -> TrainerState`` and
 ``train_step(state, batch) -> (state, metrics)``.
 """
 
+from reagent_tpu_torch.training.discrete_crr_trainer import CRRTrainerState, DiscreteCRRTrainer
 from reagent_tpu_torch.training.dqn_trainer import DQNTrainer, DQNTrainerState
+from reagent_tpu_torch.training.ppo_trainer import PPOTrainer, PPOTrainerState
 from reagent_tpu_torch.training.qrdqn_trainer import QRDQNTrainer, QRDQNTrainerState
+from reagent_tpu_torch.training.reinforce_trainer import ReinforceTrainer, ReinforceTrainerState
 from reagent_tpu_torch.training.scan_loop import (
     make_sampled_train_fn,
     make_scanned_train_fn,
@@ -20,4 +23,10 @@ __all__ = [
     "DQNTrainerState",
     "QRDQNTrainer",
     "QRDQNTrainerState",
+    "DiscreteCRRTrainer",
+    "CRRTrainerState",
+    "ReinforceTrainer",
+    "ReinforceTrainerState",
+    "PPOTrainer",
+    "PPOTrainerState",
 ]

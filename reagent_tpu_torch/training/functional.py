@@ -8,6 +8,7 @@ and run the module on them with ``torch.func.functional_call``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import Dict
 
 import torch
@@ -58,6 +59,21 @@ def value_and_grad(loss_fn, params: Params, has_aux: bool = False):
     loss, aux = out if has_aux else (out, None)
     grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
     return loss.detach(), grads, aux
+
+
+def select(flag: Tensor, new, old):
+    """``new`` where the device bool ``flag`` holds, else ``old``, leaf by
+    leaf (tensors, dicts of them, an ``OptState``), as ``jnp.where`` over a
+    tree: a delayed update takes no branch on the host."""
+    if old is None:
+        return None
+    if isinstance(old, Tensor):
+        return torch.where(flag, new, old)
+    if isinstance(old, dict):
+        return {k: select(flag, new[k], v) for k, v in old.items()}
+    return dataclasses.replace(old, **{
+        f.name: select(flag, getattr(new, f.name), getattr(old, f.name))
+        for f in dataclasses.fields(old)})
 
 
 def score(q_network: nn.Module, params: Params, obs: Tensor) -> Tensor:

@@ -43,20 +43,6 @@ class TD3TrainerState:
     q2_opt_state: Optional[OptState] = None
 
 
-def _select(flag: Tensor, new, old):
-    """``new`` where ``flag`` holds, else ``old``, leaf by leaf (tensors,
-    dicts of them, an ``OptState``)."""
-    if old is None:
-        return None
-    if isinstance(old, Tensor):
-        return torch.where(flag, new, old)
-    if isinstance(old, dict):
-        return {k: _select(flag, new[k], v) for k, v in old.items()}
-    return dataclasses.replace(old, **{
-        f.name: _select(flag, getattr(new, f.name), getattr(old, f.name))
-        for f in dataclasses.fields(old)})
-
-
 class TD3Trainer:
     """``device`` defaults to ``"cuda"`` and raises if no card is present."""
 
@@ -172,22 +158,22 @@ class TD3Trainer:
         with torch.no_grad():
             new_actor, new_actor_opt_state = self.actor_opt.update(
                 a_grads, state.actor_opt_state, state.actor_params)
-            actor_params = _select(flag, new_actor, state.actor_params)
+            actor_params = functional.select(flag, new_actor, state.actor_params)
             new_state = TD3TrainerState(
                 actor_params=actor_params,
-                actor_target_params=_select(
+                actor_target_params=functional.select(
                     flag, soft_update(actor_params, state.actor_target_params, self.tau),
                     state.actor_target_params),
                 q1_params=q1_params,
-                q1_target_params=_select(
+                q1_target_params=functional.select(
                     flag, soft_update(q1_params, state.q1_target_params, self.tau),
                     state.q1_target_params),
-                actor_opt_state=_select(flag, new_actor_opt_state, state.actor_opt_state),
+                actor_opt_state=functional.select(flag, new_actor_opt_state, state.actor_opt_state),
                 q1_opt_state=q1_opt_state,
                 step=state.step + 1,
                 q2_params=q2_params,
                 q2_target_params=(
-                    _select(flag, soft_update(q2_params, state.q2_target_params, self.tau),
+                    functional.select(flag, soft_update(q2_params, state.q2_target_params, self.tau),
                             state.q2_target_params)
                     if self.q2_network is not None else state.q2_target_params),
                 q2_opt_state=q2_opt_state,

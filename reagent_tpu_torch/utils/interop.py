@@ -26,9 +26,11 @@ import torch
 from reagent_tpu_torch.optim import OptState
 from reagent_tpu_torch.replay.circular import ReplayBufferState
 from reagent_tpu_torch.replay.packed import PackedReplayBufferState
+from reagent_tpu_torch.training.discrete_crr_trainer import CRRTrainerState
 from reagent_tpu_torch.training.dqn_trainer import DQNTrainerState
 from reagent_tpu_torch.training.fused_dqn_trainer import FusedDQNTrainerState
 from reagent_tpu_torch.training.qrdqn_trainer import QRDQNTrainerState
+from reagent_tpu_torch.training.reinforce_trainer import PolicyGradientTrainerState
 from reagent_tpu_torch.training.sac_trainer import SACTrainerState
 from reagent_tpu_torch.training.td3_trainer import TD3TrainerState
 
@@ -193,6 +195,43 @@ def td3_state_from_arrays(
         actor_opt_state=actor_opt_state, q1_opt_state=q1_opt_state,
         step=_scalar_i32(step, device), q2_params=tree(q2_params),
         q2_target_params=tree(q2_target_params), q2_opt_state=q2_opt_state)
+
+
+def crr_state_from_arrays(
+    actor_params: Mapping, actor_target_params: Mapping, q1_params: Mapping,
+    q1_target_params: Mapping, actor_opt_state: OptState, q1_opt_state: OptState, step,
+    device="cpu", *, q2_params: Optional[Mapping] = None,
+    q2_target_params: Optional[Mapping] = None, q2_opt_state: Optional[OptState] = None,
+) -> CRRTrainerState:
+    """The port's ``CRRTrainerState`` from a ``reagent_tpu`` one, as
+    ``sac_state_from_arrays``."""
+    def tree(x):
+        return None if x is None else _params_on(x, device)
+
+    return CRRTrainerState(
+        actor_params=tree(actor_params), actor_target_params=tree(actor_target_params),
+        q1_params=tree(q1_params), q1_target_params=tree(q1_target_params),
+        actor_opt_state=actor_opt_state, q1_opt_state=q1_opt_state,
+        step=_scalar_i32(step, device), q2_params=tree(q2_params),
+        q2_target_params=tree(q2_target_params), q2_opt_state=q2_opt_state)
+
+
+def reinforce_state_from_arrays(
+    policy_params: Mapping, opt_state: OptState, step, device="cpu", *,
+    value_params: Optional[Mapping] = None, value_opt_state: Optional[OptState] = None,
+) -> PolicyGradientTrainerState:
+    """The port's REINFORCE or PPO state from a ``reagent_tpu``
+    ``ReinforceTrainerState`` or ``PPOTrainerState``: flax parameter trees
+    with numpy leaves, optimizer states from ``opt_state_from_arrays``."""
+    def tree(x):
+        return None if x is None else _params_on(x, device)
+
+    return PolicyGradientTrainerState(
+        policy_params=tree(policy_params), opt_state=opt_state, step=_scalar_i32(step, device),
+        value_params=tree(value_params), value_opt_state=value_opt_state)
+
+
+ppo_state_from_arrays = reinforce_state_from_arrays
 
 
 def _scalar_i32(x, device) -> torch.Tensor:

@@ -63,16 +63,54 @@ def _port_trainer(B):
                            minibatch_size=B, device="cpu")
 
 
+def _jax_loop_step(jenv, jtr, jrb, cols, carry, tape_row, B):
+    """One step of ``run_fused_online_dqn``'s scan body
+    (``reagent_tpu/gym/fused_dqn_loop.py:103-145``), taken on its own with
+    JAX's jitted pieces: act, env step, insert, auto-reset, tape indices,
+    packed update.  ``carry`` is (env state, obs, buffer, trainer state)."""
+    env_state, obs, rs, ts = carry
+    gumbel, reset_u, sample_u = tape_row
+    cap = jrb.capacity
+    action = jnp.argmax(jtr.q_values(ts, obs[None])[0] + gumbel).astype(jnp.int32)
+    env_state, next_obs, reward, done = jenv.step(env_state, action, None)
+    rs = jrb.add(rs, observation=obs, action=action, reward=reward, terminal=done)
+    reset_state, reset_obs = jenv.reset_from_uniform(reset_u)
+    env_state = jax.tree_util.tree_map(lambda a, b: jnp.where(done, a, b), reset_state, env_state)
+    next_obs = jnp.where(done, reset_obs, next_obs)
+    cur = rs.add_count % cap
+    t_excl = jnp.where(done, 0, jnp.minimum(rs.episode_len, 1))
+    valid = jnp.maximum(jnp.minimum(rs.add_count, cap) - t_excl, 1)
+    u = jnp.floor(sample_u * valid.astype(jnp.float32)).astype(jnp.int32)
+    idx = ((cur - t_excl - 1 - u) % cap).astype(jnp.int32)
+    ts, metrics = jtr.train_step_packed(ts, rs.rows[idx], rs.rows[(idx + 1) % cap], cols)
+    return (env_state, next_obs, rs, ts), float(metrics["td_loss"])
+
+
 def test_fused_loop_lockstep_with_jax():
-    """64 steps, 4->32->16->2, B=64.  Tolerances: the per-step update is K2's
-    plain version against the Pallas kernel (float32 sums in another order,
-    td_loss rtol 1e-4, atol 1e-5); after 64 Adam steps the params carry
-    the Adam tolerance of tests/test_torch_fused_dqn.py (rtol 5e-4, atol
-    5e-5: Adam's m/sqrt(v) turns a tiny gradient difference into a visible
-    step where |g| is small);
-    observations to atol 1e-5 (sin/cos may differ by an ulp between XLA and
-    PyTorch and the env integrates them); actions, terminals, episode counts
-    and returns exactly (any drift there would change the transitions)."""
+    """64 steps, 4->32->16->2, B=64, in two parts.
+
+    Free run: the port's loop against JAX's ``run_fused_online_dqn`` from
+    one starting state and tape.  Actions, terminals, rewards, episode
+    counts and returns exactly (any drift there would change the
+    transitions); observations to atol 1e-5 (sin/cos may differ by an ulp
+    between XLA and PyTorch and the env integrates them).
+
+    Lockstep: each of the 64 steps of the port's loop starts from JAX's
+    state of that step (trainer, buffer, env, observation), JAX's taken one
+    step at a time along the same tape, and is held to JAX's step: td_loss
+    rtol 1e-4, atol 1e-5 (K2's plain version against the Pallas kernel:
+    float32 sums in another order); the updated params rtol 5e-4, atol 5e-5
+    (the Adam tolerance of tests/test_torch_fused_dqn.py: m/sqrt(v) turns a
+    tiny gradient difference into a visible step where |g| is small); the
+    row each step writes as in the free run.  The free run's td_losses and
+    params are not held to JAX's: a free trajectory parts at a float32
+    near-tie.  In JAX's scan, step 42 samples replay row 224 twice (rows 13
+    and 14 of the minibatch), whose next observation the online net scores
+    [7.4332495, 7.4332504], two ulps apart; JAX's scanned env wrote that
+    observation one ulp away from the port's (and JAX's own step-by-step)
+    env, where the scores come out [7.43325, 7.4332495].  The double-Q
+    argmax then picks action 1 in one and 0 in the other, the two targets
+    part by 0.093, and every later update carries it."""
     N, B, cap = 64, 64, 2048
     jenv = JaxCartPole(max_steps=100)
     jnet = JaxFullyConnectedDQN(state_dim=4, action_dim=2, sizes=SIZES, activations=ACTS)
@@ -84,25 +122,34 @@ def test_fused_loop_lockstep_with_jax():
     jrs = jrb.init(**{k: jnp.asarray(v) for k, v in _example().items()})
     jrs = jax_prefill_replay_buffer(jenv, jrb, jrs, r_fill, num_steps=200)
 
-    # carry the starting state across before JAX runs
+    def port_trainer_state(jstate):
+        return fused_state_from_arrays(
+            *[tuple(np.asarray(x) for x in getattr(jstate, f)) for f in FIELDS],
+            np.asarray(jstate.step))
+
+    def port_replay_state(jstate):
+        return packed_replay_state_from_arrays(
+            np.asarray(jstate.rows), np.asarray(jstate.add_count), np.asarray(jstate.episode_len))
+
+    # carry the starting state across before JAX runs (its update donates it)
     tr = _port_trainer(B)
-    ps = fused_state_from_arrays(
-        *[tuple(np.asarray(x) for x in getattr(jts, f)) for f in FIELDS], np.asarray(jts.step))
+    ps = port_trainer_state(jts)
     rb = PackedReplayBuffer(replay_capacity=cap, device="cpu")
     rb.init(**_example())
-    prs = packed_replay_state_from_arrays(
-        np.asarray(jrs.rows), np.asarray(jrs.add_count), np.asarray(jrs.episode_len))
+    prs = port_replay_state(jrs)
     start_rows = np.asarray(jrs.rows).copy()
+    jts_copy, jrs_copy = jax.tree_util.tree_map(jnp.copy, (jts, jrs))  # for the lockstep
 
     # _invoke's draws, reproduced
     rng = jax.random.PRNGKey(1)
     r0, r_gumbel, r_reset, r_sample = jax.random.split(rng, 4)
-    jenv_state, _ = jenv.reset(r0)
+    jenv_state, jobs = jenv.reset(r0)
     tape = (
         jax.random.gumbel(r_gumbel, (N, 2), jnp.float32),
         jax.random.uniform(r_reset, (N, jenv.reset_noise_dim), jnp.float32),
         jax.random.uniform(r_sample, (N, B), jnp.float32),
     )
+    ttape = tuple(torch.tensor(np.asarray(x)) for x in tape)
     jts_out, jrs_out, jaux = jax_run_fused_online_dqn(
         jenv, jtr, jts, jrb, jrs, rng, JaxFusedLoopConfig(num_steps=N, minibatch_size=B))
 
@@ -113,34 +160,54 @@ def test_fused_loop_lockstep_with_jax():
     ts, rs, aux = run_fused_loop_from_tape(
         env, tr, ps, rb, prs,
         FunctionalEnvState(physics=physics, t=torch.zeros((), dtype=torch.int32)), physics,
-        tuple(torch.tensor(np.asarray(x)) for x in tape),
-        FusedLoopConfig(num_steps=N, minibatch_size=B))
+        ttape, FusedLoopConfig(num_steps=N, minibatch_size=B))
     # every step: one act (K3) and one packed update (K2), plain on the CPU
     assert (fused_dqn.fused_dqn_update_packed_reference.calls - calls[0],
             fused_mlp.fused_mlp_forward_reference.calls - calls[1]) == (N, N)
 
-    rows, jrows = rs.rows.numpy(), np.asarray(jrs_out.rows)
     act_col, term_col = rb.column("action"), rb.column("terminal")
     obs_col, rew_col = rb.column("observation"), rb.column("reward")
+
+    def assert_rows_equal(rows, jrows):
+        np.testing.assert_array_equal(rows[:, act_col], jrows[:, act_col])
+        np.testing.assert_array_equal(rows[:, term_col], jrows[:, term_col])
+        np.testing.assert_array_equal(rows[:, rew_col], jrows[:, rew_col])
+        np.testing.assert_allclose(rows[:, obs_col:obs_col + 4],
+                                   jrows[:, obs_col:obs_col + 4], atol=1e-5, rtol=0)
+
+    jrows = np.asarray(jrs_out.rows)
     assert not np.array_equal(jrows, start_rows)
-    np.testing.assert_array_equal(rows[:, act_col], jrows[:, act_col])
-    np.testing.assert_array_equal(rows[:, term_col], jrows[:, term_col])
-    np.testing.assert_array_equal(rows[:, rew_col], jrows[:, rew_col])
-    np.testing.assert_allclose(rows[:, obs_col:obs_col + 4], jrows[:, obs_col:obs_col + 4],
-                               atol=1e-5, rtol=0)
+    assert_rows_equal(rs.rows.numpy(), jrows)
     assert int(rs.add_count) == int(jrs_out.add_count) == 200 + N
     assert int(rs.episode_len) == int(jrs_out.episode_len)
-
-    np.testing.assert_allclose(aux["td_losses"].numpy(), np.asarray(jaux["td_losses"]),
-                               rtol=1e-4, atol=1e-5)
-    assert aux["td_losses"].shape == (N,)
-    for f in FIELDS:
-        for p, j in zip(getattr(ts, f), getattr(jts_out, f)):
-            np.testing.assert_allclose(p.numpy(), np.asarray(j), rtol=5e-4, atol=5e-5, err_msg=f)
+    assert aux["td_losses"].shape == (N,) and bool(torch.isfinite(aux["td_losses"]).all())
     assert int(ts.step) == int(jts_out.step) == N
     assert int(aux["episodes_completed"]) == int(jaux["episodes_completed"]) >= 1
     np.testing.assert_array_equal(aux["recent_episode_returns"].numpy(),
                                   np.asarray(jaux["recent_episode_returns"]))
+
+    # lockstep: each port step from JAX's state of that step
+    carry = (jenv_state, jobs, jrs_copy, jts_copy)
+    cols = jtr.configure_packed(jrb)
+    one = FusedLoopConfig(num_steps=1, minibatch_size=B)
+    for i in range(N):
+        env_state_i, obs_i, rs_i, ts_i = carry
+        state_i = port_trainer_state(ts_i)
+        replay_i = port_replay_state(rs_i)
+        env_i = FunctionalEnvState(physics=torch.tensor(np.asarray(env_state_i.physics)),
+                                   t=torch.tensor(np.asarray(env_state_i.t)))
+        ts_p, rs_p, aux_p = run_fused_loop_from_tape(
+            env, tr, state_i, rb, replay_i, env_i, torch.tensor(np.asarray(obs_i)),
+            tuple(x[i:i + 1] for x in ttape), one)
+        carry, td = _jax_loop_step(jenv, jtr, jrb, cols, carry,
+                                   tuple(x[i] for x in tape), B)
+        np.testing.assert_allclose(float(aux_p["td_losses"][0]), td, rtol=1e-4, atol=1e-5,
+                                   err_msg=f"step {i}")
+        for f in FIELDS:
+            for p, j in zip(getattr(ts_p, f), getattr(carry[3], f)):
+                np.testing.assert_allclose(p.numpy(), np.asarray(j), rtol=5e-4, atol=5e-5,
+                                           err_msg=f"step {i} {f}")
+        assert_rows_equal(rs_p.rows.numpy(), np.asarray(carry[2].rows))
 
 
 def _softmax_policy(trainer, scorer):

@@ -397,5 +397,6 @@ def test_training_package_exports():
 
     assert set(training.__all__) == {
         "make_sampled_train_fn", "make_scanned_train_fn", "DQNTrainer", "DQNTrainerState",
-        "QRDQNTrainer", "QRDQNTrainerState"}
+        "QRDQNTrainer", "QRDQNTrainerState", "DiscreteCRRTrainer", "CRRTrainerState",
+        "ReinforceTrainer", "ReinforceTrainerState", "PPOTrainer", "PPOTrainerState"}
     assert training.make_sampled_train_fn is scan_loop.make_sampled_train_fn
