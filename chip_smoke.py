@@ -144,13 +144,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      and returns exact), then PG_CONFIGS' episodes each: episodes/s, env
      steps/s, K3 launches an episode, a profiled episode (host reads: 0 or
      the script fails), evaluate_policy;
- 33. one JSON line describing each ported kernel (K1's rows with the CUDA
+ 33. C51 (128, 64 leaky_relu, 51 atoms on 0..200, minibatch 256, Adam
+     3e-3, tau 0.2) and parametric DQN and SARSA (a critic 128, 64
+     leaky_relu over state and one-hot action, minibatch 512, Adam 1e-3
+     with amsgrad, tau 0.1): 5 train steps each at the online configs'
+     widths card against CPU from one state, every metric and state tensor
+     compared (phase 29's tolerances), no K1-K5 launch;
+ 34. K3 at those paths' four shapes (C51's act step [1, 4->128->64->102]
+     and evaluate_policy [20, 4]; the parametric scorer's tiled rows [2,
+     6->128->64->1] and [40, 6]), each on the resident route, and K4 at
+     C51's minibatch of 256, against their plain versions and timed beside
+     the launch floor and the bound;
+ 35. online C51, parametric DQN and parametric SARSA through the generic
+     loop (ReplayBuffer of 50,000, prefill 1,000, 150 steps each; the
+     reference's 3,000 / 10,000 and 15,000 / 20,000 in
+     tools/dqn_family_jobs.py), K3 and K4 exactly once a step, a profiled
+     window (kernels a step, idle share, host reads: 0 or the script
+     fails), evaluate_policy over 20 greedy episodes through K3;
+ 36. the DiscreteC51DQN (64, 64 relu, 21 atoms, Adam 2e-3) and
+     ParametricDQN (64, 64 relu, Adam 3e-3) managers through
+     identify_and_train_network on random CartPole tables of 3,000 and
+     10,000 transitions for 2 epochs each (the parametric test's 10 cut to
+     2): train steps/s, td_loss, the C51 artifact against the in-process
+     module and q_values (K3) on 64 raw rows within 1e-4, ParametricDQN's
+     default_model "" (no artifact, as in JAX);
+ 37. one JSON line describing each ported kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
      wrapper's host time; K3's and K4's with the wrapper's host time, the
      launch floor and their other shapes, K3's with its torch.addmm
      yardstick and the evaluation's two shapes, K3's and K4's with their
-     share of a step on the discrete-actor paths).
+     share of a step on the discrete-actor, C51 and parametric paths).
 Each phase's heading carries the seconds since the script started.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
@@ -3408,6 +3432,387 @@ def pg_run_phase(torch, name, episodes):
                 idle=1 - dev_us / (wall / episodes * 1e6), mean_reward=mean, bar=cfg["bar"])
 
 
+# ---------------------------------- the rest of the DQN family: C51, parametric
+
+# tests/test_gym_all_algos.py:76-94 (discrete_c51_cartpole_online.yaml): 128,
+# 64 leaky_relu, 51 atoms on 0..200, gamma 0.99, tau 0.2, Adam 3e-3; prefill
+# 3,000 into a ReplayBuffer of 50,000, minibatch 256, 15,000 steps; and
+# :120-147, :261-288 (parametric_dqn / parametric_sarsa_cartpole_online.yaml):
+# a critic 128, 64 leaky_relu over (state, one-hot action), gamma 0.99, tau
+# 0.1, Adam 1e-3 with amsgrad, prefill 10,000, minibatch 512, 20,000 steps;
+# each bar 100 over 20 greedy episodes.  Cut here to ``prefill`` and ``steps``.
+DQN_FAMILY_ONLINE = {
+    "C51": dict(widths=[128, 64], act="leaky_relu", atoms=51, qmin=0, qmax=200, B=256,
+                gamma=0.99, tau=0.2, optimizer={"Adam": {"lr": 0.003}}, maxq=True,
+                prefill=1000, full_prefill=3000, steps=150, full_steps=15_000),
+    "parametric DQN": dict(widths=[128, 64], act="leaky_relu", B=512, gamma=0.99, tau=0.1,
+                           optimizer={"Adam": {"lr": 0.001, "amsgrad": True}}, maxq=True,
+                           prefill=1000, full_prefill=10_000, steps=150, full_steps=20_000),
+    "parametric SARSA": dict(widths=[128, 64], act="leaky_relu", B=512, gamma=0.99, tau=0.1,
+                             optimizer={"Adam": {"lr": 0.001, "amsgrad": True}}, maxq=False,
+                             prefill=1000, full_prefill=10_000, steps=150, full_steps=20_000),
+}
+DQN_FAMILY_CAPACITY, DQN_FAMILY_BAR = 50_000, 100.0
+# the offline managers at the JAX tests' configs: tests/test_model_managers_all.py:
+# 75-96 (3,000 random CartPole transitions, seed 11, a 95/5 split, 2 epochs)
+# and tests/test_offline_managers.py:59-75 (10,000, seed 3, 95/5, 10 epochs);
+# cut here to ``epochs``
+DQN_FAMILY_OFFLINE = {
+    "C51": dict(transitions=3000, seed=11, epochs=2, full_epochs=2, model={"DiscreteC51DQN": {
+        "trainer_param": {"actions": ["0", "1"],
+                          "rl": {"gamma": 0.99, "target_update_rate": 0.1},
+                          "optimizer": {"Adam": {"lr": 0.002}}, "minibatch_size": 512},
+        "net_builder": {"Categorical": {"sizes": [64, 64], "activations": ["relu", "relu"],
+                                        "num_atoms": 21, "qmin": 0.0, "qmax": 200.0}}}}),
+    "parametric DQN": dict(transitions=10_000, seed=3, epochs=2, full_epochs=10,
+                           model={"ParametricDQN": {
+                               "trainer_param": {
+                                   "actions": ["0", "1"],
+                                   "rl": {"gamma": 0.99, "target_update_rate": 0.1},
+                                   "optimizer": {"Adam": {"lr": 0.003}}},
+                               "net_builder": {"FullyConnected": {
+                                   "sizes": [64, 64], "activations": ["relu", "relu"]}}}}),
+}
+# K3's forwards on these paths: the act step and evaluate_policy of C51
+# (4 -> 128 -> 64 -> A * N logits) and of the parametric scorer (each state
+# tiled against both one-hot actions: 6 -> 128 -> 64 -> 1); K4 at C51's
+# minibatch (the parametric loops sample at K4_SHAPES["loop"])
+K3_FAMILY_SHAPES = {
+    "C51 act [1, 4->128->64->102]": (1, [4, 128, 64, 102]),
+    "C51 eval [20, 4->128->64->102]": (EVAL_EPISODES, [4, 128, 64, 102]),
+    "parametric act [2, 6->128->64->1]": (2, [6, 128, 64, 1]),
+    "parametric eval [40, 6->128->64->1]": (2 * EVAL_EPISODES, [6, 128, 64, 1]),
+}
+K4_FAMILY_SHAPE = ("C51 loop", (50_000, 256, 1))  # capacity, B, H
+
+
+def dqn_family_trainer(torch, name, device):
+    """The online job's trainer, and its scorer ``(state, obs [B, 4]) -> Q
+    [B, 2]`` (E[Z] of C51's distributions; the parametric scorer's tiled
+    rows), each one K3 launch on the card."""
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.gym.policies import parametric_dqn_scorer
+    from reagent_tpu_torch.models.categorical_dqn import CategoricalDQN
+    from reagent_tpu_torch.models.critic import FullyConnectedCritic
+    from reagent_tpu_torch.training.c51_trainer import C51Trainer
+    from reagent_tpu_torch.training.parametric_dqn_trainer import ParametricDQNTrainer
+
+    cfg = DQN_FAMILY_ONLINE[name]
+    acts = [cfg["act"]] * len(cfg["widths"])
+    rl = RLParameters(gamma=cfg["gamma"], target_update_rate=cfg["tau"],
+                      maxq_learning=cfg["maxq"])
+    if name == "C51":
+        net = CategoricalDQN(state_dim=4, action_dim=2, num_atoms=cfg["atoms"], qmin=cfg["qmin"],
+                             qmax=cfg["qmax"], sizes=cfg["widths"], activations=acts)
+        trainer = C51Trainer(net, rl=rl, optimizer=cfg["optimizer"], device=device)
+        return trainer, trainer.q_values
+    net = FullyConnectedCritic(state_dim=4, action_dim=2, sizes=cfg["widths"], activations=acts)
+    trainer = ParametricDQNTrainer(net, rl=rl, optimizer=cfg["optimizer"], device=device)
+    scorer = parametric_dqn_scorer(2, trainer.q_network)
+    return trainer, lambda ts, obs: scorer(ts.q_params, obs)
+
+
+def dqn_family_batch(torch, name, cols, device):
+    """One numpy-made batch of CartPole-like rows as the job's batch type."""
+    from reagent_tpu_torch.core import types as rlt
+
+    t = {k: torch.tensor(v, dtype=torch.float32) for k, v in cols.items()}
+    ones = torch.ones_like(t["a"])
+    common = dict(state=rlt.FeatureData(t["s"]), next_state=rlt.FeatureData(t["ns"]),
+                  reward=t["r"], time_diff=torch.ones_like(t["r"]), step=None,
+                  not_terminal=t["nt"])
+    if name == "C51":
+        batch = rlt.DiscreteDqnInput(action=t["a"], next_action=t["na"],
+                                     possible_actions_mask=ones,
+                                     possible_next_actions_mask=ones, **common)
+    else:
+        tiled = rlt.FeatureData(torch.eye(2).repeat(t["a"].shape[0], 1))
+        batch = rlt.ParametricDqnInput(
+            action=rlt.FeatureData(t["a"]), next_action=rlt.FeatureData(t["na"]),
+            possible_actions=tiled, possible_actions_mask=ones, possible_next_actions=tiled,
+            possible_next_actions_mask=ones, **common)
+    return batch.to(device)
+
+
+def dqn_family_lockstep_phase(torch, name, n=5):
+    """``n`` train steps of the online job's trainer at its widths and
+    minibatch on the card and on the CPU from one state, on the same numpy
+    batches (CartPole-like states, logged actions and next actions, rewards
+    of 1, a few terminals): each step's metrics to rtol 1e-4, atol 1e-5,
+    every state tensor to rtol 1e-3, atol 1e-4, the integer leaves exactly
+    (``AC_STEP_TOL``, ``AC_PARAM_TOL``, as phases 27 and 29).  The train
+    steps' forwards are autograd modules: no K1-K5 launch."""
+    cfg = DQN_FAMILY_ONLINE[name]
+    trainers = {dev: dqn_family_trainer(torch, name, dev)[0] for dev in ("cpu", DEVICE)}
+    first = trainers["cpu"].init(torch.Generator().manual_seed(31))
+    states = {dev: copy_state(first, dev) for dev in trainers}
+    rng = np.random.default_rng(32)
+    reset_counts()
+    worst_m = 0.0
+    for _ in range(n):
+        B = cfg["B"]
+        cols = dict(s=rng.normal(0, 0.5, (B, 4)), ns=rng.normal(0, 0.5, (B, 4)),
+                    a=np.eye(2)[rng.integers(0, 2, B)], na=np.eye(2)[rng.integers(0, 2, B)],
+                    r=np.ones((B, 1)), nt=(rng.random((B, 1)) > 0.05))
+        metrics = {}
+        for dev, trainer in trainers.items():
+            states[dev], m = trainer.train_step(
+                states[dev], dqn_family_batch(torch, name, cols, dev))
+            metrics[dev] = {k: v.cpu() for k, v in m.items()}
+        for k, want in metrics["cpu"].items():
+            torch.testing.assert_close(metrics[DEVICE][k], want, **AC_STEP_TOL, msg=k)
+            worst_m = max(worst_m, (metrics[DEVICE][k] - want).abs().item())
+    launches, plain_calls = read_counts()
+    if any(launches.values()) or plain_calls:
+        raise AssertionError(f"{name} lockstep: launches {launches}, plain calls {plain_calls}")
+    count, worst_p = compare_states(torch, states[DEVICE], states["cpu"], AC_PARAM_TOL, name)
+    log(f"  {name}, card vs CPU, {n} train steps (minibatch {cfg['B']}, {cfg['widths']} "
+        f"{cfg['act']}): metrics max abs {worst_m:.3e} (last td_loss "
+        f"{metrics[DEVICE]['td_loss'].item():.6f}); {count} state tensors max abs "
+        f"{worst_p:.3e}; K1-K5 launches 0, plain calls 0")
+    return worst_m, worst_p
+
+
+def k3_k4_family_phase(torch, name, launch_floor_ms):
+    """K3 at the new paths' four shapes against its plain version (rtol
+    1e-5, atol 1e-5, as phase 8; the resident route each time: the largest
+    net is 61 KB) and K4 at C51's minibatch (exact), each timed with CUDA
+    events (3 warm-ups, median of 20) beside the launch floor and the bound
+    from this run's inputs; ``{"K3": {shape: times}, "K4": {...}}``."""
+    from reagent_tpu_torch.ops import fused_mlp, nstep_replay
+
+    out = {"K3": {}, "K4": {}}
+    for label, (rows, sizes) in K3_FAMILY_SHAPES.items():
+        x, weights, acts = k3_eval_inputs(torch, rows, sizes, 50 + rows)
+        if not fused_mlp.takes_resident_route(rows, weights):
+            raise AssertionError(f"K3 {label}: not on the resident route")
+        y = fused_mlp.fused_mlp_forward(x, weights, acts)
+        yp = fused_mlp.fused_mlp_forward_reference(x, weights, acts)
+        torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
+        macs = sum(i * o for i, o in zip(sizes[:-1], sizes[1:]))
+        flops = 2.0 * rows * macs
+        nbytes = 4.0 * (rows * sizes[0] + macs + sum(sizes[1:]) + rows * sizes[-1])
+        b_ms, b_by = roofline(flops, nbytes, name)
+        plain_w = [(w.contiguous(), b) for w, b in weights]  # timed without its copies
+        out["K3"][label] = t = dict(
+            ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward(x, weights, acts)),
+            plain_ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward_reference(
+                x, plain_w, acts)),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=(y - yp).abs().max().item(),
+            route="resident")
+        log(f"  K3 {label} (resident route): kernel {t['ms']:.4f} ms (launch floor "
+            f"{launch_floor_ms:.4f}), plain {t['plain_ms']:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}; {flops:.4g} FLOP, {nbytes:.4g} B), max abs {t['max_abs_err']:.3e}, "
+            f"on {card_line()}")
+    label, (capacity, B, H) = K4_FAMILY_SHAPE
+    rewards, terminals, idx = k4_inputs(torch, capacity, B, 7)
+    got = nstep_replay.nstep_rewards(rewards, terminals, idx, H, 0.99)
+    for a, b in zip(got, nstep_replay.nstep_rewards_reference(rewards, terminals, idx, H, 0.99)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    walked = int(got[1].sum())  # this run's windows, as far as each is read
+    flops, nbytes = 2.0 * walked, 8.0 * B + 5.0 * walked + 9.0 * B
+    b_ms, b_by = roofline(flops, nbytes, name)
+    out["K4"][label] = t = dict(
+        ms=time_ms(torch, lambda: nstep_replay.nstep_rewards(rewards, terminals, idx, H, 0.99)),
+        plain_ms=time_ms(torch, lambda: nstep_replay.nstep_rewards_reference(
+            rewards, terminals, idx, H, 0.99)),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
+    log(f"  K4 {label} (capacity {capacity}, B {B}, H {H}): exact; kernel {t['ms']:.4f} ms, "
+        f"plain {t['plain_ms']:.4f} ms, bound {b_ms:.7f} ms ({b_by}), on {card_line()}")
+    return out
+
+
+def dqn_family_online_phase(torch, name, steps, prefill):
+    """One online job through the generic loop (``run_online_training``), as
+    the reference's test runs it: a ReplayBuffer of 50,000 prefilled with
+    ``prefill`` random transitions, softmax acting on the scorer (K3), one
+    sample (K4) and one update a step; then a profiled window of 10 steps
+    (CUDA kernels a step, the device's idle share, host reads: 0 or the
+    script fails) and evaluate_policy over 20 greedy episodes through K3."""
+    from reagent_tpu_torch.gym.envs import CartPole
+    from reagent_tpu_torch.gym.online_loop import (
+        OnlineLoopConfig,
+        evaluate_policy,
+        prefill_replay_buffer,
+        run_online_training,
+    )
+    from reagent_tpu_torch.gym.policies import SoftmaxActionSampler
+    from reagent_tpu_torch.gym.preprocessors import (
+        make_discrete_dqn_batch,
+        make_parametric_dqn_batch,
+    )
+    from reagent_tpu_torch.replay import ReplayBuffer
+
+    cfg = DQN_FAMILY_ONLINE[name]
+    env = CartPole(max_steps=200, device=DEVICE)
+    trainer, q_values = dqn_family_trainer(torch, name, DEVICE)
+    tstate = trainer.init(torch.Generator().manual_seed(0))
+    rb = ReplayBuffer(replay_capacity=DQN_FAMILY_CAPACITY, update_horizon=1,
+                      gamma=cfg["gamma"], device=DEVICE)
+    rb_state = rb.init(**example_transition(torch))
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    t0 = time.perf_counter()
+    rb_state = prefill_replay_buffer(env, rb, rb_state, gen, prefill)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    sampler = SoftmaxActionSampler(temperature=1.0)
+    make_batch = make_discrete_dqn_batch if name == "C51" else make_parametric_dqn_batch
+
+    def policy_act(ts, obs, g):
+        out = sampler.sample_action(q_values(ts, obs[None]), g)
+        idx = torch.argmax(out.action[0]).to(torch.int32)
+        return idx, idx
+
+    def greedy_act(ts, obs, g):
+        return torch.argmax(q_values(ts, obs), dim=1).to(torch.int32)
+
+    def loop(state, buffer, n):
+        return run_online_training(
+            env, trainer, state, rb, buffer, policy_act, lambda d: make_batch(d, 2), gen,
+            OnlineLoopConfig(num_steps=n, minibatch_size=cfg["B"]))
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tstate, rb_state, aux = loop(tstate, rb_state, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    losses = aux["td_losses"].cpu()
+    log(f"  online {name}: prefill {prefill} in {prefill_s:.2f} s; {steps} env steps + "
+        f"{steps} updates in {wall:.3f} s = {steps / wall:.2f} env steps/s, episodes "
+        f"{int(aux['episodes_completed'])}, last td_loss {losses[-1].item():.6g}, launches "
+        f"{launches}, plain calls {plain_calls}")
+    for kernel in ("nstep_rewards", "fused_mlp_forward"):
+        if launches[kernel] != steps:
+            raise AssertionError(f"online {name}: {kernel} launched {launches[kernel]} times "
+                                 f"for {steps} steps")
+    others = {k: v for k, v in launches.items() if k not in ("nstep_rewards", "fused_mlp_forward")}
+    if (any(others.values()) or plain_calls or losses.shape != (steps,)
+            or not torch.isfinite(losses).all()):
+        raise AssertionError(f"online {name}: launches {others}, plain calls {plain_calls}, "
+                             f"losses {losses.shape}")
+    n = 10
+    ported = {}
+    dev_us, kernels = profile_loop(torch, lambda: loop(tstate, rb_state, n), n,
+                                   wall / steps * 1e6, f"online {name}", ported)
+    reset_counts()
+    t0 = time.perf_counter()
+    returns = evaluate_policy(env, greedy_act, tstate, gen, num_episodes=EVAL_EPISODES).cpu()
+    eval_launches, plain_calls = read_counts()
+    mean = returns.mean().item()
+    full = steps == cfg["full_steps"]
+    log(f"  evaluate_policy: {EVAL_EPISODES} greedy episodes in {time.perf_counter() - t0:.2f} "
+        f"s, mean {mean:.2f} (the reference's bar {DQN_FAMILY_BAR}: "
+        f"{'met' if mean >= DQN_FAMILY_BAR else 'missed'}"
+        f"{'' if full else '; not held at the cut depth'}), K3 launches "
+        f"{eval_launches['fused_mlp_forward']}, on {card_line()}")
+    if eval_launches["fused_mlp_forward"] != env.max_steps or plain_calls:
+        raise AssertionError(f"online {name} eval: launches {eval_launches}, "
+                             f"plain {plain_calls}")
+    return dict(launches=launches, eval_launches=eval_launches, steps=steps,
+                steps_per_s=steps / wall, device_us=dev_us, kernels_per_step=kernels,
+                k3_us=ported["fused_mlp"], k4_us=ported["nstep"],
+                idle=1 - dev_us / (wall / steps * 1e6), mean_reward=mean, bar=DQN_FAMILY_BAR)
+
+
+def dqn_family_offline_phase(torch, tmp, name, epochs):
+    """One offline manager at the JAX test's config: random CartPole rows
+    (gymnasium where it imports, else the port's functional CartPole on the
+    host), the timeline with a 95/5 split, ``identify_and_train_network``
+    for ``epochs`` epochs; train steps/s (host decode and the reporter
+    included) and the finite ``td_loss``.  C51: the artifact's ``model.pt``
+    against the in-process serving module and against ``q_values`` (one K3
+    launch) on 64 raw rows, within 1e-4.  ParametricDQN: ``default_model`` is
+    ``""`` (no artifact, as in JAX), and the in-process serving module
+    against the parametric scorer (one K3 launch) on the same rows."""
+    import pandas as pd
+
+    from reagent_tpu_torch.data.data_module import TableSpec
+    from reagent_tpu_torch.gym.policies import parametric_dqn_scorer
+    from reagent_tpu_torch.prediction.predictor_wrapper import CategoricalDqnPredictorWrapper
+    from reagent_tpu_torch.preprocessing.batch_preprocessor import sparse_to_dense
+    from reagent_tpu_torch.workflow import gym_batch_rl
+    from reagent_tpu_torch.workflow.training import identify_and_train_network
+
+    cfg = DQN_FAMILY_OFFLINE[name]
+    have_gym = importlib.util.find_spec("gymnasium") is not None
+    tag = name.replace(" ", "_")
+    pkl, table = os.path.join(tmp, f"{tag}_pre.pkl"), os.path.join(tmp, f"{tag}_table.pkl")
+    t0 = time.perf_counter()
+    if have_gym:
+        route = "gymnasium CartPole-v1"
+        gym_batch_rl.offline_gym_random("CartPole-v1", pkl, cfg["transitions"], 200, cfg["seed"])
+    else:
+        route = "the port's functional CartPole on the host"
+        gym_batch_rl.random_rollouts(HostCartPole(200), cfg["transitions"],
+                                     cfg["seed"]).to_pickle(pkl)
+    spec = TableSpec(table_name=tag, path=table, table_sample=95.0, eval_table_sample=5.0)
+    gym_batch_rl.timeline_operator(pkl, spec)
+    df = pd.read_pickle(table)
+    log(f"  {name} env: {route}; {cfg['transitions']} random transitions and the timeline in "
+        f"{time.perf_counter() - t0:.2f} s, {len(df)} rows")
+
+    reset_counts()
+    with capturing_manager(cfg["model"]) as captured:
+        out = identify_and_train_network(spec, cfg["model"], num_epochs=epochs,
+                                         output_dir=os.path.join(tmp, f"{tag}_out"),
+                                         device=DEVICE)
+    launches, plain_calls = read_counts()
+    data = out.logger_data
+    steps, secs, loss = data["train_steps"], data["train_seconds"], out.training_report.td_loss
+    log(f"  offline {name}: {steps} train steps ({epochs} of the test's {cfg['full_epochs']} "
+        f"epochs) in {secs:.3f} s = {steps / secs:.2f} steps/s (host decode and the reporter "
+        f"included), td_loss {loss:.6g}; K1-K5 launches {sum(launches.values())}, plain calls "
+        f"{plain_calls}, on {card_line()}")
+    if (any(launches.values()) or plain_calls or not np.isfinite(loss)
+            or out.training_report.cpe_details is not None):
+        raise AssertionError(f"offline {name}: launches {launches}, plain {plain_calls}, "
+                             f"td_loss {loss}")
+
+    trainer, tstate, _ = captured["build_serving_module_args"]
+    serving = captured["build_serving_module"]
+    path = out.output_paths["default_model"]
+    if name == "C51":
+        pre = serving.preprocessor
+        values, presence = sparse_to_dense(df["state_features"].tolist()[:64],
+                                           pre.sorted_features)
+        names, served = CategoricalDqnPredictorWrapper.load(path)(values, presence)
+        v_t, p_t = (torch.tensor(x, device=DEVICE) for x in (values, presence))
+        live = serving(v_t, p_t)[1]
+        reset_counts()
+        k3 = trainer.q_values(tstate, pre(v_t, p_t))
+    else:
+        if path != "":
+            raise AssertionError(f"offline {name}: default_model {path!r}, not ''")
+        pre = serving.model.state_preprocessor
+        values, presence = sparse_to_dense(df["state_features"].tolist()[:64],
+                                           pre.sorted_features)
+        v_t, p_t = (torch.tensor(x, device=DEVICE) for x in (values, presence))
+        eye = torch.eye(2, device=DEVICE).repeat(64, 1)
+        names, live = serving(v_t.repeat_interleave(2, 0), p_t.repeat_interleave(2, 0), eye,
+                              torch.ones_like(eye))
+        live = live.reshape(64, 2)
+        served = live.cpu().numpy()
+        reset_counts()
+        k3 = parametric_dqn_scorer(2, trainer.q_network)(tstate.q_params, pre(v_t, p_t))
+    k3_launches, plain_calls = read_counts()
+    live, k3 = live.cpu().numpy(), k3.cpu().numpy()
+    diff, diff_k3 = (float(np.abs(served - x).max()) for x in (live, k3))
+    log(f"  {name} serving: default_model {path!r}, names {names}; 64 raw rows' Q "
+        f"({'the artifact' if path else 'in process'}) against the in-process module max "
+        f"abs {diff:.3e}, against the trainer's forward through K3 "
+        f"({k3_launches['fused_mlp_forward']} launch) {diff_k3:.3e}")
+    if served.shape != (64, 2) or k3_launches["fused_mlp_forward"] != 1 or plain_calls:
+        raise AssertionError(f"offline {name}: Q {served.shape}, K3 {k3_launches}, plain "
+                             f"{plain_calls}")
+    np.testing.assert_allclose(served, live, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(served, k3, atol=1e-4, rtol=0)
+    return dict(steps=steps, steps_per_s=steps / secs, td_loss=loss, epochs=epochs,
+                k3_launches=k3_launches["fused_mlp_forward"], route=route,
+                default_model=path, artifact_err=diff, k3_err=diff_k3)
+
+
 def main() -> int:
     import torch
 
@@ -3626,7 +4031,27 @@ def main() -> int:
     for pg_name, pg_cfg in PG_CONFIGS.items():
         pg[pg_name] = pg_run_phase(torch, pg_name, pg_cfg["episodes"])
 
-    phase("phase 33: kernels")
+    phase("phase 33: C51, parametric DQN and parametric SARSA train steps at the online "
+          "configs' widths, card against CPU")
+    for fam_name in DQN_FAMILY_ONLINE:
+        dqn_family_lockstep_phase(torch, fam_name)
+
+    phase("phase 34: K3 and K4 at the C51 and parametric paths' shapes against their plain "
+          "versions, timed (CUDA events, 3 warm-ups, median of 20)")
+    family_kernels = k3_k4_family_phase(torch, name, launch_floor_ms)
+
+    phase("phase 35: online C51, parametric DQN and parametric SARSA through the generic loop "
+          "and evaluate_policy")
+    fam_online = {fam_name: dqn_family_online_phase(torch, fam_name, cfg["steps"], cfg["prefill"])
+                  for fam_name, cfg in DQN_FAMILY_ONLINE.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("phase 36: the DiscreteC51DQN and ParametricDQN managers through "
+              "identify_and_train_network")
+        fam_offline = {fam_name: dqn_family_offline_phase(torch, tmp, fam_name, cfg["epochs"])
+                       for fam_name, cfg in DQN_FAMILY_OFFLINE.items()}
+
+    phase("phase 37: kernels")
     by_path = {
         "K1 fused_dqn_offline_update": {
             "offline workflow, full width": k1_launches,
@@ -3653,10 +4078,18 @@ def main() -> int:
             **{f"{k} episodes (act steps)": v["launches"]["fused_mlp_forward"]
                for k, v in pg.items()},
             **{f"{k} evaluate_policy": v["eval_launches"]["fused_mlp_forward"]
-               for k, v in pg.items()}},
+               for k, v in pg.items()},
+            **{f"online {k} loop (act steps)": v["launches"]["fused_mlp_forward"]
+               for k, v in fam_online.items()},
+            **{f"online {k} evaluate_policy": v["eval_launches"]["fused_mlp_forward"]
+               for k, v in fam_online.items()},
+            **{f"offline {k} workflow (Q on 64 rows)": v["k3_launches"]
+               for k, v in fam_offline.items()}},
         "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
                              "online QR-DQN loop": qr_online_launches["nstep_rewards"],
-                             "online CRR loop": crr_online["launches"]["nstep_rewards"]},
+                             "online CRR loop": crr_online["launches"]["nstep_rewards"],
+                             **{f"online {k} loop": v["launches"]["nstep_rewards"]
+                                for k, v in fam_online.items()}},
         "K5 quantile_huber_loss": {
             "offline QR-DQN workflow": qr_launches["quantile_huber_loss"],
             "online QR-DQN loop": qr_online_launches["quantile_huber_loss"]},
@@ -3747,7 +4180,8 @@ def main() -> int:
             # the kernel's device time in a step of the discrete-actor paths
             # (profiled windows of phases 31-32), as a share of its wall time
             key = "k3_us" if kname.startswith("K3") else "k4_us"
-            paths = {"online CRR loop": (crr_online, "steps_per_s")}
+            paths = {"online CRR loop": (crr_online, "steps_per_s"),
+                     **{f"online {k} loop": (v, "steps_per_s") for k, v in fam_online.items()}}
             if kname.startswith("K3"):
                 paths.update({f"{k} episodes": (v, "episodes_per_s") for k, v in pg.items()})
             row["share_of_step"] = {
@@ -3759,6 +4193,9 @@ def main() -> int:
             row["wrapper_host_us_by_shape"] = {"x [20, 4]": host_us["K3 [20, 4]"]}
             # the evaluation's forwards (phase 21), each with its addmm yardstick
             row["by_shape"].update({f"evaluation {k}": v for k, v in k3_eval.items()})
+        if kname.startswith(("K3", "K4")):
+            # the C51 and parametric paths' shapes (phase 34)
+            row["by_shape"].update(family_kernels[kname[:2]])
         if kname.startswith("K1"):
             # the same products through cuBLAS, and the kernel's own GEMM share
             key = "K1-bf16" if kname.endswith("(bf16)") else "K1"

@@ -43,6 +43,9 @@ class Registry(Generic[T]):
             )
         return self._members[name]
 
+    def members(self) -> Dict[str, Type[T]]:
+        return dict(self._members)
+
     def build(self, config: Any, **extra_kwargs: Any) -> T:
         """Build an instance from a tagged-union config.
 
@@ -98,6 +101,7 @@ def _resolve_dataclass_type(tp: Any) -> Optional[type]:
 DISCRETE_DQN_NET_BUILDERS: Registry = Registry("net_builder.discrete_dqn")
 PARAMETRIC_DQN_NET_BUILDERS: Registry = Registry("net_builder.parametric_dqn")
 QR_DQN_NET_BUILDERS: Registry = Registry("net_builder.quantile_dqn")
+CATEGORICAL_DQN_NET_BUILDERS: Registry = Registry("net_builder.categorical_dqn")
 CONTINUOUS_ACTOR_NET_BUILDERS: Registry = Registry("net_builder.continuous_actor")
 DISCRETE_ACTOR_NET_BUILDERS: Registry = Registry("net_builder.discrete_actor")
 VALUE_NET_BUILDERS: Registry = Registry("net_builder.value")

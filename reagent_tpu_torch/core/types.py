@@ -2,8 +2,8 @@
 
 Port of the batch types the DQN and actor-critic paths use from
 ``reagent_tpu/core/types.py`` (``FeatureData`` :179, ``ActorOutput`` :246,
-``ExtraData`` :255, ``DiscreteDqnInput`` :290, ``PolicyNetworkInput``
-:329, ``PolicyGradientInput`` :338).  Fields hold ``torch.Tensor``s (or ``None``); ``.to(device)`` moves
+``ExtraData`` :255, ``DiscreteDqnInput`` :290, ``ParametricDqnInput`` :315,
+``PolicyNetworkInput`` :329, ``PolicyGradientInput`` :338).  Fields hold ``torch.Tensor``s (or ``None``); ``.to(device)`` moves
 every tensor field, recursing into nested batches.
 """
 
@@ -34,6 +34,13 @@ class FeatureData(_TensorDataClass):
     """Dense features for one entity (reference types.py:314)."""
 
     float_features: Tensor
+
+    def get_tiled_batch(self, num_tiles: int) -> "FeatureData":
+        """Each row repeated ``num_tiles`` times in place, [b, d] -> [b*t, d]
+        (``[s0, s0, s1, s1, ...]``, as ``jnp.repeat``; reference
+        types.py:350), the layout of max-over-possible-actions Q."""
+        return FeatureData(
+            float_features=self.float_features.repeat_interleave(num_tiles, dim=0))
 
 
 @dataclasses.dataclass
@@ -71,6 +78,28 @@ class DiscreteDqnInput(_TensorDataClass):
     possible_actions_mask: Tensor = None
     possible_next_actions_mask: Tensor = None
     extras: ExtraData = dataclasses.field(default_factory=ExtraData)
+
+
+@dataclasses.dataclass
+class ParametricDqnInput(_TensorDataClass):
+    """Reference types.py:868: actions are feature vectors.  The possible
+    actions are ``[b * max_num_actions, action_dim]``, row ``i * M + j``
+    the j-th possible action of row i."""
+
+    state: FeatureData
+    next_state: FeatureData
+    reward: Tensor
+    time_diff: Optional[Tensor]
+    step: Optional[Tensor]
+    not_terminal: Tensor
+    action: FeatureData = None
+    next_action: FeatureData = None
+    possible_actions: FeatureData = None
+    possible_actions_mask: Tensor = None
+    possible_next_actions: FeatureData = None
+    possible_next_actions_mask: Tensor = None
+    extras: Optional[ExtraData] = None
+    weight: Optional[Tensor] = None
 
 
 @dataclasses.dataclass

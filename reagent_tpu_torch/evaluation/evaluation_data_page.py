@@ -2,12 +2,12 @@
 
 Port of ``reagent_tpu/evaluation/evaluation_data_page.py`` (reference:
 reagent/evaluation/evaluation_data_page.py:30-52 fields,
-create_from_tensors_dqn :309, compute_values :496, validate :542,
-set_metric_as_reward :628).  The page holds numpy arrays on the host, as the
-JAX package's does.  ``create_from_tensors_dqn`` runs its three forwards (Q,
-CPE Q, reward) through ``training.functional.score``: a float32 dense MLP on
-a CUDA tensor is one K3 launch each.  The seq2slate and parametric-DQN pages
-wait for ``ROADMAP.md`` §1 items 10 and 8.
+create_from_tensors_dqn :309, create_from_tensors_parametric_dqn :186,
+compute_values :496, validate :542, set_metric_as_reward :628).  The page
+holds numpy arrays on the host, as the JAX package's does.  Both factories
+run their forwards through ``training.functional.score``: a float32 dense
+MLP or critic on a CUDA tensor is one K3 launch each.  The seq2slate page
+waits for ``ROADMAP.md`` §1 item 10.
 """
 
 from __future__ import annotations
@@ -62,24 +62,38 @@ class EvaluationDataPage:
         cls, tdb, trainer, trainer_state
     ) -> "EvaluationDataPage":
         """A page from a typed batch (reference evaluation_data_page.py:53-88):
-        ``DiscreteDqnInput`` -> ``create_from_tensors_dqn``."""
-        if not isinstance(tdb, rlt.DiscreteDqnInput):
-            raise NotImplementedError(
-                f"an evaluation page from a {type(tdb).__name__} is not ported yet "
-                "(the parametric DQN page waits for ROADMAP.md §1 item 8)")
-        extras = tdb.extras or rlt.ExtraData()
-        return cls.create_from_tensors_dqn(
-            trainer,
-            trainer_state,
-            mdp_ids=extras.mdp_id,
-            sequence_numbers=extras.sequence_number,
-            states=tdb.state.float_features,
-            actions=tdb.action,
-            propensities=extras.action_probability,
-            rewards=tdb.reward,
-            possible_actions_mask=tdb.possible_actions_mask,
-            metrics=extras.metrics,
-        )
+        ``DiscreteDqnInput`` -> ``create_from_tensors_dqn``,
+        ``ParametricDqnInput`` -> ``create_from_tensors_parametric_dqn``."""
+        extras = getattr(tdb, "extras", None) or rlt.ExtraData()
+        if isinstance(tdb, rlt.DiscreteDqnInput):
+            return cls.create_from_tensors_dqn(
+                trainer,
+                trainer_state,
+                mdp_ids=extras.mdp_id,
+                sequence_numbers=extras.sequence_number,
+                states=tdb.state.float_features,
+                actions=tdb.action,
+                propensities=extras.action_probability,
+                rewards=tdb.reward,
+                possible_actions_mask=tdb.possible_actions_mask,
+                metrics=extras.metrics,
+            )
+        if isinstance(tdb, rlt.ParametricDqnInput):
+            return cls.create_from_tensors_parametric_dqn(
+                trainer,
+                trainer_state,
+                mdp_ids=extras.mdp_id,
+                sequence_numbers=extras.sequence_number,
+                states=tdb.state.float_features,
+                actions=tdb.action.float_features,
+                propensities=extras.action_probability,
+                rewards=tdb.reward,
+                possible_actions_mask=tdb.possible_actions_mask,
+                possible_actions=tdb.possible_actions.float_features,
+                max_num_actions=extras.max_num_actions or tdb.possible_actions_mask.shape[1],
+                metrics=extras.metrics,
+            )
+        raise NotImplementedError(f"training_input type: {type(tdb).__name__}")
 
     @classmethod
     def create_from_tensors_dqn(
@@ -133,6 +147,84 @@ class EvaluationDataPage:
             possible_actions_mask=_host(possible_actions_mask),
             optimal_q_values=_host(optimal_q_values),
             eval_action_idxs=_host(eval_action_idxs),
+        )
+
+    @classmethod
+    def create_from_tensors_parametric_dqn(
+        cls,
+        trainer,
+        trainer_state,
+        mdp_ids,
+        sequence_numbers,
+        states: torch.Tensor,
+        actions: torch.Tensor,
+        propensities: torch.Tensor,
+        rewards: torch.Tensor,
+        possible_actions_mask: torch.Tensor,
+        possible_actions: torch.Tensor,  # [B * max_num_actions, action_dim] tiled
+        max_num_actions: int,
+        metrics: Optional[torch.Tensor] = None,
+    ) -> "EvaluationDataPage":
+        """The parametric-DQN page (reference evaluation_data_page.py:186-305):
+        the (state, action) networks score every possible action, each state
+        repeated ``max_num_actions`` times in place.  Each logged action must
+        match exactly one allowed possible action (``isclose``, atol 1e-6),
+        else ``ValueError``; so must a reward network be present."""
+        if trainer.reward_network is None:
+            raise ValueError("CFEval requires a trained reward network")
+        B, M = possible_actions_mask.shape[0], max_num_actions
+        temperature = getattr(trainer.rl, "temperature", 1.0)
+        with torch.no_grad():
+            mask = possible_actions_mask.to(torch.float32)
+            tiled_states = states.repeat_interleave(M, dim=0)  # [B * M, state_dim]
+            # FIXME parity (reference :215-218): model_values should come from
+            # a CPE Q-network once parametric DQN grows one; until then q_network
+            model_values = functional.score(
+                trainer.q_network, trainer_state.q_params, tiled_states,
+                possible_actions).reshape(B, M)
+            model_propensities = torch.softmax(
+                model_values / max(temperature, 1e-9) + torch.log(torch.clamp(mask, 1e-20, 1.0)),
+                dim=1,
+            )
+            rewards_and_metrics = functional.score(
+                trainer.reward_network, trainer_state.reward_params, tiled_states,
+                possible_actions)
+            model_rewards = rewards_and_metrics[:, :1].reshape(B, M)
+            model_metrics = rewards_and_metrics[:, 1:].reshape(B, -1)
+            model_rewards_for_logged_action = functional.score(
+                trainer.reward_network, trainer_state.reward_params, states, actions)[:, :1]
+            # a tolerant match, restricted to the actions the mask allows
+            # (duplicate padded rows outside the mask must not double-match)
+            action_mask = torch.all(
+                torch.isclose(possible_actions.reshape(B, M, actions.shape[1]),
+                              actions[:, None, :], atol=1e-6),
+                dim=2,
+            ).to(torch.float32) * mask
+        if not bool((action_mask.sum(dim=1) == 1).all()):
+            raise ValueError("each logged action must match exactly one allowed possible action")
+        num_metrics = model_metrics.shape[1] // M
+        model_metrics_values = None
+        if num_metrics > 0:
+            # FIXME parity (reference :276-279)
+            model_metrics_values = model_values.repeat(1, num_metrics)
+
+        return cls(
+            mdp_id=_host(mdp_ids),
+            sequence_number=_host(sequence_numbers),
+            logged_propensities=_host(propensities).reshape(-1, 1),
+            logged_rewards=_host(rewards).reshape(-1, 1),
+            action_mask=_host(action_mask),
+            model_rewards=_host(model_rewards),
+            model_rewards_for_logged_action=_host(model_rewards_for_logged_action),
+            model_values=_host(model_values),
+            model_metrics_values=(
+                None if model_metrics_values is None else _host(model_metrics_values)),
+            model_propensities=_host(model_propensities),
+            logged_metrics=None if metrics is None else _host(metrics),
+            model_metrics=None if num_metrics == 0 else _host(model_metrics),
+            possible_actions_mask=_host(possible_actions_mask),
+            optimal_q_values=_host(model_values),
+            eval_action_idxs=None,
         )
 
     # ------------------------------------------------------------ operations

@@ -13,6 +13,7 @@ from reagent_tpu_torch.gym.policies.samplers import (
 from reagent_tpu_torch.gym.policies.scorers import (
     apply_possible_actions_mask,
     discrete_dqn_scorer,
+    parametric_dqn_scorer,
 )
 
 __all__ = [
@@ -25,4 +26,5 @@ __all__ = [
     "SoftmaxActionSampler",
     "apply_possible_actions_mask",
     "discrete_dqn_scorer",
+    "parametric_dqn_scorer",
 ]

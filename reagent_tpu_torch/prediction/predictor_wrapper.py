@@ -5,7 +5,9 @@ Port of the discrete-DQN part of ``reagent_tpu/prediction/predictor_wrapper.py``
 of its distributional wrapper (``CategoricalDqnPredictorWrapper`` :323,
 ``make_quantile_dqn_predictor_wrapper`` :401), described at that class, of
 the actor's (``ActorWithPreprocessor`` :185, ``ActorPredictorWrapper`` :209),
-described at that class, and ``load_predictor`` (:273), which loads a
+described at that class, the parametric DQN's in-process scorer
+(``ParametricDqnWithPreprocessor`` :155, ``ParametricDqnPredictorWrapper``
+:177; no artifact, as in JAX), and ``load_predictor`` (:273), which loads a
 discrete-DQN or an actor artifact by its manifest's ``model_type``.
 
 Export format (framework-free, loaded unchanged by the C++ scorer in
@@ -135,6 +137,35 @@ class DiscreteDqnPredictorWrapper:
         return forward
 
 
+class ParametricDqnWithPreprocessor(nn.Module):
+    """raw state and action (values, presence) -> Q(s, a) [B, 1] (reference
+    :214-250)."""
+
+    def __init__(self, q_network: nn.Module, state_preprocessor: Preprocessor,
+                 action_preprocessor: Preprocessor):
+        super().__init__()
+        self.q_network = q_network
+        self.state_preprocessor = state_preprocessor
+        self.action_preprocessor = action_preprocessor
+
+    @torch.no_grad()
+    def forward(self, sv: torch.Tensor, sp: torch.Tensor, av: torch.Tensor,
+                ap: torch.Tensor) -> torch.Tensor:
+        return self.q_network(self.state_preprocessor(sv, sp), self.action_preprocessor(av, ap))
+
+
+class ParametricDqnPredictorWrapper:
+    """In-process scoring of (state, action) rows.  It has no ``save``, as
+    JAX's has none: the workflow writes no artifact for a parametric DQN and
+    reports ``default_model`` as ``""``."""
+
+    def __init__(self, dqn_with_preprocessor: ParametricDqnWithPreprocessor):
+        self.model = dqn_with_preprocessor
+
+    def __call__(self, sv, sp, av, ap) -> Tuple[List[str], torch.Tensor]:
+        return ["Q"], self.model(sv, sp, av, ap)
+
+
 class _QuantileMeanHead(nn.Module):
     """[B, A * N] or [B, A, N] quantile outputs -> mean over atoms [B, A]."""
 
@@ -156,10 +187,12 @@ def _artifact_modules() -> Dict[str, type]:
         FullyConnectedActor,
         GaussianFullyConnectedActor,
     )
+    from reagent_tpu_torch.models.categorical_dqn import CategoricalDQN
     from reagent_tpu_torch.models.dqn import FullyConnectedDQN
     from reagent_tpu_torch.models.dueling_q_network import DuelingQNetwork
 
     return {"FullyConnectedDQN": FullyConnectedDQN, "DuelingQNetwork": DuelingQNetwork,
+            "CategoricalDQN": CategoricalDQN,
             "GaussianFullyConnectedActor": GaussianFullyConnectedActor,
             "FullyConnectedActor": FullyConnectedActor,
             "DirichletFullyConnectedActor": DirichletFullyConnectedActor}
@@ -188,6 +221,12 @@ def _module_spec(module: nn.Module) -> Dict[str, Any]:
             "layers": [l.out_features for l in module.shared.layers],
             "activations": list(module.shared.activations),
             "num_atoms": module.num_atoms,
+        }
+    elif name == "CategoricalDQN":
+        kwargs = {
+            "state_dim": module.state_dim, "action_dim": module.action_dim,
+            "num_atoms": module.num_atoms, "qmin": module.qmin, "qmax": module.qmax,
+            "sizes": module.sizes, "activations": list(module.activations[:-1]),
         }
     else:
         extra = (("action_activation", "exploration_variance")

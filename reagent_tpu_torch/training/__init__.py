@@ -6,8 +6,13 @@ q-network, exposing ``init(generator) -> TrainerState`` and
 ``train_step(state, batch) -> (state, metrics)``.
 """
 
+from reagent_tpu_torch.training.c51_trainer import C51Trainer, C51TrainerState
 from reagent_tpu_torch.training.discrete_crr_trainer import CRRTrainerState, DiscreteCRRTrainer
 from reagent_tpu_torch.training.dqn_trainer import DQNTrainer, DQNTrainerState
+from reagent_tpu_torch.training.parametric_dqn_trainer import (
+    ParametricDQNTrainer,
+    ParametricDQNTrainerState,
+)
 from reagent_tpu_torch.training.ppo_trainer import PPOTrainer, PPOTrainerState
 from reagent_tpu_torch.training.qrdqn_trainer import QRDQNTrainer, QRDQNTrainerState
 from reagent_tpu_torch.training.reinforce_trainer import ReinforceTrainer, ReinforceTrainerState
@@ -23,6 +28,10 @@ __all__ = [
     "DQNTrainerState",
     "QRDQNTrainer",
     "QRDQNTrainerState",
+    "C51Trainer",
+    "C51TrainerState",
+    "ParametricDQNTrainer",
+    "ParametricDQNTrainerState",
     "DiscreteCRRTrainer",
     "CRRTrainerState",
     "ReinforceTrainer",

@@ -14,6 +14,8 @@ from typing import Dict
 import torch
 from torch import nn
 
+from reagent_tpu_torch.models.categorical_dqn import CategoricalDQN
+from reagent_tpu_torch.models.critic import FullyConnectedCritic
 from reagent_tpu_torch.models.dqn import FullyConnectedDQN
 from reagent_tpu_torch.ops.fused_mlp import fused_mlp_forward
 
@@ -76,20 +78,29 @@ def select(flag: Tensor, new, old):
         for f in dataclasses.fields(old)})
 
 
-def score(q_network: nn.Module, params: Params, obs: Tensor) -> Tensor:
-    """The forward for acting and scoring, without a graph.  A dense MLP
-    (``FullyConnectedDQN``) in float32 goes through K3, one launch on a CUDA
-    tensor; any other module, and one with a reduced ``compute_dtype`` (K3 is
+def score(q_network: nn.Module, params: Params, *inputs: Tensor) -> Tensor:
+    """The forward for acting and scoring, without a graph.  In float32 the
+    MLP of these modules is one K3 launch on a CUDA tensor:
+
+    - ``FullyConnectedDQN``: the Q-values;
+    - ``CategoricalDQN``: the ``[B, A * N]`` logits, then the log-softmax
+      over atoms and E[Z] in torch, as JAX computes them outside any kernel;
+    - ``FullyConnectedCritic`` (state, action): the MLP on ``cat([state,
+      action])``, the ``[B * A, S + A]`` tiled rows of a parametric scorer.
+
+    Any other module, and one with a reduced ``compute_dtype`` (K3 is
     float32), runs its own forward, as the JAX package computes it outside
     any kernel."""
     with torch.no_grad():
-        if (isinstance(q_network, FullyConnectedDQN)
-                and q_network.compute_dtype == torch.float32):
-            n = len(q_network.net.layers)
-            weights = [(params[f"net.layers.{i}.weight"].T, params[f"net.layers.{i}.bias"])
-                       for i in range(n)]
-            return fused_mlp_forward(obs, weights, q_network.activations)
-        return apply(q_network, params, obs)
+        if (not isinstance(q_network, (FullyConnectedDQN, CategoricalDQN, FullyConnectedCritic))
+                or q_network.net.compute_dtype != torch.float32):
+            return apply(q_network, params, *inputs)
+        net = q_network.net
+        weights = [(params[f"net.layers.{i}.weight"].T, params[f"net.layers.{i}.bias"])
+                   for i in range(len(net.layers))]
+        x = inputs[0] if len(inputs) == 1 else torch.cat(inputs, dim=1)
+        out = fused_mlp_forward(x, weights, net.activations)
+        return q_network.q_of_logits(out) if isinstance(q_network, CategoricalDQN) else out
 
 
 def module_with(q_network: nn.Module, params: Params) -> nn.Module:

@@ -9,7 +9,10 @@ weights ``[out, in]`` under ``net.layers.i``.  The critic, the value net and
 the deterministic and Dirichlet actors have the same one scope; the gaussian
 actor's is ``fc``; each is the port's ``net``.  A ``DuelingQNetwork``'s tree
 has three such scopes, ``FullyConnectedNetwork_0/1/2``: the port's
-``shared``, ``advantage`` and ``value``.  An optax moment tree has its
+``shared``, ``advantage`` and ``value``; a ``ParametricDuelingQNetwork``'s
+three are its ``state_emb``, ``value`` and ``advantage``
+(``PARAMETRIC_DUELING_SCOPES``, passed as ``scopes``: the scope names alone
+do not tell the two apart).  An optax moment tree has its
 parameters' layout and is carried the same way; SAC's scalar log-alpha and
 its moments are carried under the name ``log_alpha``.
 """
@@ -26,9 +29,11 @@ import torch
 from reagent_tpu_torch.optim import OptState
 from reagent_tpu_torch.replay.circular import ReplayBufferState
 from reagent_tpu_torch.replay.packed import PackedReplayBufferState
+from reagent_tpu_torch.training.c51_trainer import C51TrainerState
 from reagent_tpu_torch.training.discrete_crr_trainer import CRRTrainerState
 from reagent_tpu_torch.training.dqn_trainer import DQNTrainerState
 from reagent_tpu_torch.training.fused_dqn_trainer import FusedDQNTrainerState
+from reagent_tpu_torch.training.parametric_dqn_trainer import ParametricDQNTrainerState
 from reagent_tpu_torch.training.qrdqn_trainer import QRDQNTrainerState
 from reagent_tpu_torch.training.reinforce_trainer import PolicyGradientTrainerState
 from reagent_tpu_torch.training.sac_trainer import SACTrainerState
@@ -42,6 +47,8 @@ _SCOPES = (
     {_NET: "shared", "FullyConnectedNetwork_1": "advantage",
      "FullyConnectedNetwork_2": "value"},
 )
+PARAMETRIC_DUELING_SCOPES = {_NET: "state_emb", "FullyConnectedNetwork_1": "value",
+                             "FullyConnectedNetwork_2": "advantage"}
 
 
 def _dense_index(name: str) -> int:
@@ -51,12 +58,16 @@ def _dense_index(name: str) -> int:
     return int(m.group(1))
 
 
-def q_network_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax ``FullyConnectedDQN``, ``DuelingQNetwork``, critic, value or
-    actor params (numpy leaves) -> the state dict of the port's module of
-    the same name."""
+def q_network_state_from_flax(
+    params_np: Mapping, scopes: Optional[Mapping[str, str]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Flax ``FullyConnectedDQN``, ``CategoricalDQN``, ``DuelingQNetwork``,
+    critic, value or actor params (numpy leaves) -> the state dict of the
+    port's module of the same name; ``scopes`` (flax scope -> the port's
+    submodule) where the scope names are ambiguous."""
     tree = params_np["params"]
-    scopes = next((m for m in _SCOPES if set(tree) == set(m)), None)
+    if scopes is None:
+        scopes = next((m for m in _SCOPES if set(tree) == set(m)), None)
     if scopes is None:
         raise ValueError(f"unexpected scopes {sorted(tree)} in a q-network tree")
     out: Dict[str, torch.Tensor] = {}
@@ -130,6 +141,28 @@ def qrdqn_state_from_arrays(
     parameter trees with numpy leaves, ``opt_state`` from
     ``opt_state_from_arrays``."""
     return _unfused_state(QRDQNTrainerState, q_params, q_target_params, opt_state, step, device)
+
+
+def c51_state_from_arrays(
+    q_params: Mapping, q_target_params: Mapping, opt_state: OptState, step, device="cpu"
+) -> C51TrainerState:
+    """The port's ``C51TrainerState`` from a ``reagent_tpu`` one, as
+    ``qrdqn_state_from_arrays``."""
+    return _unfused_state(C51TrainerState, q_params, q_target_params, opt_state, step, device)
+
+
+def parametric_dqn_state_from_arrays(
+    q_params: Mapping, q_target_params: Mapping, opt_state: OptState, step, device="cpu",
+    *, reward_params: Optional[Mapping] = None, reward_opt_state: Optional[OptState] = None,
+) -> ParametricDQNTrainerState:
+    """The port's ``ParametricDQNTrainerState`` from a ``reagent_tpu`` one,
+    as ``qrdqn_state_from_arrays``; the optional reward network's parameter
+    tree and optimizer state where the JAX state has them."""
+    state = _unfused_state(
+        ParametricDQNTrainerState, q_params, q_target_params, opt_state, step, device)
+    return dataclasses.replace(
+        state, reward_params=None if reward_params is None else _params_on(reward_params, device),
+        reward_opt_state=reward_opt_state)
 
 
 def dqn_state_from_arrays(

@@ -503,6 +503,42 @@ def test_k3_at_the_evaluation_shapes(card, rows, sizes, resident):
     assert fused_mlp.fused_mlp_forward_reference.calls == plain + 1  # _k3_matches' own
 
 
+@pytest.mark.parametrize("rows", [1, 20], ids=["act_step", "evaluate_policy"])
+@pytest.mark.parametrize("family", ["c51", "parametric"])
+def test_k3_on_the_c51_and_parametric_paths(card, family, rows):
+    """C51's ``q_values`` (the [rows, 102] logits through K3, E[Z] in torch)
+    and the parametric scorer (the [2 * rows, 6] tiled rows through K3): one
+    launch each, no plain version, equal to the modules' own forwards
+    (E[Z] up to 200: atol 1e-4)."""
+    from reagent_tpu_torch.gym.policies import parametric_dqn_scorer
+    from reagent_tpu_torch.models.categorical_dqn import CategoricalDQN
+    from reagent_tpu_torch.models.critic import FullyConnectedCritic
+    from reagent_tpu_torch.training.c51_trainer import C51Trainer
+    from reagent_tpu_torch.training.parametric_dqn_trainer import ParametricDQNTrainer
+
+    acts = ["leaky_relu", "leaky_relu"]
+    x = torch.tensor(np.random.default_rng(rows).normal(size=(rows, 4)).astype(np.float32),
+                     device=card)
+    if family == "c51":
+        trainer = C51Trainer(CategoricalDQN(4, 2, 51, 0, 200, [128, 64], acts), device=card)
+        state = trainer.init(torch.Generator().manual_seed(rows))
+        score = lambda: trainer.q_values(state, x)  # noqa: E731
+        own = trainer.export_q_network(state)(x)
+    else:
+        trainer = ParametricDQNTrainer(FullyConnectedCritic(4, 2, [128, 64], acts), device=card)
+        state = trainer.init(torch.Generator().manual_seed(rows))
+        score = lambda: parametric_dqn_scorer(2, trainer.q_network)(state.q_params, x)  # noqa: E731
+        eye = torch.eye(2, device=card).repeat(rows, 1)
+        own = trainer.export_q_network(state)(x.repeat_interleave(2, 0), eye).reshape(rows, 2)
+    launches = fused_mlp.fused_mlp_forward.launches
+    calls = fused_mlp.fused_mlp_forward_reference.calls
+    y = score()
+    assert fused_mlp.fused_mlp_forward.launches == launches + 1
+    assert fused_mlp.fused_mlp_forward_reference.calls == calls
+    assert y.shape == (rows, 2)
+    torch.testing.assert_close(y, own.detach(), rtol=1e-5, atol=1e-4)
+
+
 def _nstep_inputs(device, capacity, R, term_dtype, seed, p_terminal=0.2):
     rng = np.random.default_rng(seed)
     rewards = rng.normal(size=(capacity,) if R == 1 else (capacity, 2, R // 2)).astype(np.float32)

@@ -398,5 +398,6 @@ def test_training_package_exports():
     assert set(training.__all__) == {
         "make_sampled_train_fn", "make_scanned_train_fn", "DQNTrainer", "DQNTrainerState",
         "QRDQNTrainer", "QRDQNTrainerState", "DiscreteCRRTrainer", "CRRTrainerState",
-        "ReinforceTrainer", "ReinforceTrainerState", "PPOTrainer", "PPOTrainerState"}
+        "ReinforceTrainer", "ReinforceTrainerState", "PPOTrainer", "PPOTrainerState",
+        "C51Trainer", "C51TrainerState", "ParametricDQNTrainer", "ParametricDQNTrainerState"}
     assert training.make_sampled_train_fn is scan_loop.make_sampled_train_fn
