@@ -168,13 +168,40 @@ Phases, in order; any failure raises and the script exits non-zero:
      2): train steps/s, td_loss, the C51 artifact against the in-process
      module and q_values (K3) on 64 raw rows within 1e-4, ParametricDQN's
      default_model "" (no artifact, as in JAX);
- 37. one JSON line describing each ported kernel (K1's rows with the CUDA
+ 37. every member of the optimizer union the port once refused (RMSprop,
+     Adagrad, Lion, Adadelta, Adamax, NAdam, RAdam, Rprop, ASGD,
+     SparseAdam, Lamb, Adafactor) and every LR scheduler, 5 steps card
+     against CPU at the full offline width's parameters (Adafactor factors
+     the wide weights); every parameter and state tensor compared;
+ 38. FullyConnectedNetwork with batch norm, layer norm, dropout and skip
+     connections at the full offline width (D=128, 512, 256, A=8, 4,096
+     rows): the forward, the gradient into every parameter (the batch
+     norm's trained mean and var included) and the forward with
+     training=True and one fed dropout mask, card against CPU; then the
+     offline DQN workflow at that width with a batch-norm, dropout net,
+     RAdam and CosineAnnealingLR for 8 steps (train steps/s, the artifact
+     with the batch norm folded into its layers against the in-process
+     module);
+ 39. the online SAC, TD3 and continuous-CRR trainers (64, 64, minibatch
+     256, Adam 3e-3, tau 0.005), 5 train steps each card against CPU from
+     one state with explicit noise;
+ 40. K3 at the continuous act steps ([1, 3->64->64->2] and ->1 tanh) and
+     evaluate_policy's [10, 3] against its plain version, the gaussian act
+     step and the evaluation timed beside the launch floor, the bound and
+     one torch.addmm a layer (the same check and timing as phase 21); then the three online Pendulum
+     jobs through the generic loop (prefill 500, 100 steps each;
+     PRIORITIZED_JOB on the PrioritizedReplayBuffer): the act
+     step's trunk one K3 launch, every sample one K4 launch, a profiled
+     window (kernels a step, idle share, host reads: 0 or the script
+     fails), evaluate_policy over 10 greedy episodes through K3;
+ 41. one JSON line describing each ported kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
      wrapper's host time; K3's and K4's with the wrapper's host time, the
      launch floor and their other shapes, K3's with its torch.addmm
      yardstick and the evaluation's two shapes, K3's and K4's with their
-     share of a step on the discrete-actor, C51 and parametric paths).
+     share of a step on the discrete-actor, C51, parametric and continuous
+     paths, and K3's continuous shapes with their torch.addmm yardstick).
 Each phase's heading carries the seconds since the script started.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
@@ -1984,9 +2011,12 @@ SAMPLE_CONFIG = {
 SAMPLE_CPE_ROWS = 4096  # ~410 evaluation rows after the 90/10 split
 FULL_CPE_ROWS, FULL_CPE_EPOCHS = 8192, 4  # 4 train steps, ~850 evaluation rows
 # K3 at the evaluation's forwards: a batch of the sample config's net (the
-# resident route) and a full evaluation batch of the full-width net (streamed)
-K3_EVAL_SHAPES = {"[512, 4->128->64->2]": (512, [4, 128, 64, 2]),
-                  "[4096, 128->512->256->8]": (4096, [128, 512, 256, 8])}
+# resident route) and a full evaluation batch of the full-width net (streamed);
+# label -> (rows, sizes, activations, resident route expected, seed)
+K3_EVAL_SHAPES = {
+    "[512, 4->128->64->2]": (512, [4, 128, 64, 2], ["leaky_relu"] * 2 + ["linear"], True, 512),
+    "[4096, 128->512->256->8]": (4096, [128, 512, 256, 8], ["leaky_relu"] * 2 + ["linear"],
+                                 False, 4096)}
 
 
 def full_cpe_model():
@@ -2024,48 +2054,53 @@ def k3_eval_inputs(torch, rows, sizes, seed):
     return x, weights, ["leaky_relu"] * (len(sizes) - 2) + ["linear"]
 
 
-def k3_eval_phase(torch, name):
-    """K3 at the evaluation's two shapes against its plain version (rtol
-    1e-5, atol 1e-5, as phase 8), each route checked, then CUDA-event
-    times of the kernel, the plain version and one torch.addmm per layer (a
-    yardstick only) beside the bound."""
+def k3_shapes_phase(torch, name, shapes, timed, launch_floor_ms):
+    """K3 at ``shapes`` (label -> rows, sizes, activations, the route
+    expected, seed) against its plain version and one torch.addmm per layer
+    (rtol 1e-5, atol 1e-5, as phase 8), each route checked; at the labels in
+    ``timed``, CUDA-event times of the kernel, the plain version and the
+    addmm (a yardstick the port never calls) beside the bound from this
+    run's inputs."""
     from reagent_tpu_torch.ops import fused_mlp
     from reagent_tpu_torch.ops.fused_dqn import _act
 
     out = {}
-    for label, (rows, sizes) in K3_EVAL_SHAPES.items():
-        x, weights, acts = k3_eval_inputs(torch, rows, sizes, rows)
+    for label, (rows, sizes, acts, want_resident, seed) in shapes.items():
+        x, weights, _ = k3_eval_inputs(torch, rows, sizes, seed)
         resident = fused_mlp.takes_resident_route(rows, weights)
-        if resident != (sizes[1] == 128):
+        if resident != want_resident:
             raise AssertionError(f"K3 {label}: resident route {resident}")
+        route = "resident" if resident else "streamed"
         y = fused_mlp.fused_mlp_forward(x, weights, acts)
         yp = fused_mlp.fused_mlp_forward_reference(x, weights, acts)
         torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
         err = (y - yp).abs().max().item()
 
-        def addmm():
+        def addmm(x=x, weights=weights, acts=acts):
             h = x
             for (w, b), a in zip(weights, acts):
                 h = _act(a, torch.addmm(b, h, w))
             return h
 
         torch.testing.assert_close(addmm(), y, rtol=1e-5, atol=1e-5)
+        if label not in timed:
+            log(f"  K3 {label}: max abs {err:.3e} against the plain version ({route} route)")
+            continue
         macs = sum(i * o for i, o in zip(sizes[:-1], sizes[1:]))
         flops = 2.0 * rows * macs
         nbytes = 4.0 * (rows * sizes[0] + macs + sum(sizes[1:]) + rows * sizes[-1])
         b_ms, b_by = roofline(flops, nbytes, name)
         plain_w = [(w.contiguous(), b) for w, b in weights]  # timed without its copies
-        t = dict(
+        out[label] = t = dict(
             ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward(x, weights, acts)),
             plain_ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward_reference(
                 x, plain_w, acts)),
             products_library_ms=time_ms(torch, addmm), bound_ms=b_ms, bound_by=b_by,
-            max_abs_err=err, route="resident" if resident else "streamed")
-        log(f"  K3 {label} ({t['route']} route): kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, one torch.addmm per layer (a yardstick only) "
-            f"{t['products_library_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by}; {flops:.4g} "
-            f"FLOP, {nbytes:.4g} B), max abs {err:.3e}, on {card_line()}")
-        out[label] = t
+            max_abs_err=err, route=route)
+        log(f"  K3 {label} ({route} route): kernel {t['ms']:.4f} ms (launch floor "
+            f"{launch_floor_ms:.4f}), plain {t['plain_ms']:.4f} ms, one torch.addmm per layer "
+            f"(a yardstick only) {t['products_library_ms']:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}; {flops:.4g} FLOP, {nbytes:.4g} B), max abs {err:.3e}, on {card_line()}")
     return out
 
 
@@ -3813,6 +3848,432 @@ def dqn_family_offline_phase(torch, tmp, name, epochs):
                 default_model=path, artifact_err=diff, k3_err=diff_k3)
 
 
+# ------------------------------------------ the rest of the unfused stack
+
+# phase 37: every member the port once refused and every scheduler, at the
+# full offline width's parameter shapes (the wide weights factor under
+# Adafactor); card against CPU within these tolerances (float32 elementwise
+# rules: one rsqrt or pow of the card's against the CPU's, and the card's
+# reductions of Lamb's norms and Adafactor's means in another order)
+OPTIMIZER_CONFIGS = {
+    "RMSprop": {"RMSprop": {"lr": 0.01, "momentum": 0.9, "centered": True}},
+    "Adagrad": {"Adagrad": {"lr": 0.05}},
+    "Lion": {"Lion": {"lr": 0.001, "weight_decay": 0.1}},
+    "Adadelta": {"Adadelta": {"lr": 1.0, "weight_decay": 0.01}},
+    "Adamax": {"Adamax": {"lr": 0.01, "weight_decay": 0.05}},
+    "NAdam": {"NAdam": {"lr": 0.01, "weight_decay": 0.05}},
+    "RAdam": {"RAdam": {"lr": 0.01, "betas": [0.9, 0.9]}},
+    "Rprop": {"Rprop": {"lr": 0.01}},
+    "ASGD": {"ASGD": {"lr": 0.05, "weight_decay": 0.01}},
+    "SparseAdam": {"SparseAdam": {"lr": 0.01}},
+    "Lamb": {"Lamb": {"lr": 0.01, "weight_decay": 0.01}},
+    "Adafactor": {"Adafactor": {}},
+    "StepLR": {"Adam": {"lr": 0.01, "lr_scheduler": {"StepLR": {"step_size": 2, "gamma": 0.5}}}},
+    "MultiStepLR": {"SGD": {"lr": 0.05, "momentum": 0.9, "lr_scheduler": {
+        "MultiStepLR": {"milestones": [1, 3], "gamma": 0.3}}}},
+    "ExponentialLR": {"AdamW": {"lr": 0.01, "lr_scheduler": {"ExponentialLR": {"gamma": 0.8}}}},
+    "LinearLR": {"RMSprop": {"lr": 0.01, "lr_scheduler": {"LinearLR": {"total_iters": 3}}}},
+    "CosineAnnealingLR": {"RAdam": {"lr": 0.01, "lr_scheduler": {
+        "CosineAnnealingLR": {"T_max": 4}}}},
+    "OneCycleLR": {"Lamb": {"lr": 0.01, "lr_scheduler": {
+        "OneCycleLR": {"max_lr_factor": 5.0, "total_steps": 6, "pct_start": 0.5}}}},
+}
+OPT_TOL = dict(rtol=1e-5, atol=1e-6)
+# phase 38: FullyConnectedNetwork's options at the full offline width
+FCN_OPTIONS = dict(use_batch_norm=True, use_layer_norm=True, dropout_ratio=0.1,
+                   use_skip_connections=True)
+FCN_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+FCN_GRAD_TOL = 1e-4  # max |card - CPU| over the gradient's largest entry
+OPTIONS_WORKFLOW_STEPS = 8
+
+
+def full_width_params(torch, seed):
+    """The full offline width's parameters, as the unfused trainer holds
+    them ([out, in] weights and biases), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    sizes = [FULL["D"], *FULL["widths"], FULL["A"]]
+    params = {}
+    for i, (n_in, n_out) in enumerate(zip(sizes[:-1], sizes[1:])):
+        params[f"net.layers.{i}.weight"] = rng.normal(0, np.sqrt(2 / n_in), (n_out, n_in))
+        params[f"net.layers.{i}.bias"] = rng.normal(0, 0.1, n_out)
+    return {k: torch.tensor(v, dtype=torch.float32) for k, v in params.items()}
+
+
+def optimizers_phase(torch, n=5):
+    """Each of OPTIMIZER_CONFIGS' rules steps ``n`` times (RAdam 8, past
+    its rectification threshold) on the card and on the CPU from the same
+    parameters with the same gradients; every
+    parameter and every optimizer state tensor (moments, counts, the
+    schedule's count, Adafactor's row and column factors) compared
+    (``OPT_TOL``, integer leaves exactly).  Adafactor must factor the
+    [512, 128] and [256, 512] weights."""
+    from reagent_tpu_torch.optim import make_optimizer
+
+    params = full_width_params(torch, 70)
+    rng = np.random.default_rng(71)
+    grads = [{k: torch.tensor(rng.normal(size=v.shape) * 0.7 ** i, dtype=torch.float32)
+              for k, v in params.items()} for i in range(n)]
+    grads += [{k: torch.tensor(rng.normal(size=v.shape) * 0.7 ** (n + i), dtype=torch.float32)
+               for k, v in params.items()} for i in range(3)]
+    worst = {}
+    for name, config in OPTIMIZER_CONFIGS.items():
+        # RAdam (b2 0.9) rectifies from its 6th step: 8 steps where it runs
+        steps = n + 3 if "RAdam" in config or name == "CosineAnnealingLR" else n
+        out = {}
+        for dev in ("cpu", DEVICE):
+            opt = make_optimizer(config)
+            p = {k: v.to(dev) for k, v in params.items()}
+            state = opt.init(p)
+            for g in grads[:steps]:
+                p, state = opt.update({k: v.to(dev) for k, v in g.items()}, state, p)
+            out[dev] = (p, state)
+        count, err_p = compare_states(torch, out[DEVICE][0], out["cpu"][0], OPT_TOL, name)
+        n_state, err_s = compare_states(torch, out[DEVICE][1], out["cpu"][1], OPT_TOL, name)
+        worst[name] = max(err_p, err_s)
+        moved = max((out["cpu"][0][k] - params[k]).abs().max().item() for k in params)
+        if name == "Adafactor" and out["cpu"][1].v_row["net.layers.0.weight"].shape != (128,):
+            raise AssertionError("Adafactor did not factor the [512, 128] weight")
+        log(f"  {name}: {steps} steps, {count} parameters and {n_state} state tensors card vs "
+            f"CPU max abs {worst[name]:.3e} (largest move {moved:.4g})")
+    return worst
+
+
+def fcn_options_phase(torch):
+    """FullyConnectedNetwork(D=128, 512, 256, A=8) with FCN_OPTIONS on 4,096
+    rows: the forward (running-average norms), the gradient of a weighted
+    sum into every parameter (the batch norm's mean and var included), and
+    the forward with ``training=True`` (batch statistics, running averages
+    moved, one fed dropout mask per hidden layer), each card against the
+    CPU from the same weights."""
+    import copy
+
+    from reagent_tpu_torch.models.fully_connected_network import FullyConnectedNetwork
+
+    sizes = [FULL["D"], *FULL["widths"], FULL["A"]]
+    acts = [FULL["act"]] * len(FULL["widths"]) + ["linear"]
+    rng = np.random.default_rng(72)
+    base = FullyConnectedNetwork(sizes, acts, generator=torch.Generator().manual_seed(3),
+                                 **FCN_OPTIONS)
+    with torch.no_grad():
+        for name, p in base.named_parameters():
+            if "norms" in name:
+                noise = torch.tensor(rng.normal(0, 0.2, p.shape), dtype=torch.float32)
+                p.copy_(p.abs() + noise.abs() + 0.5 if name.endswith(".var") else p + noise)
+    x = torch.tensor(rng.normal(size=(FULL["B"], FULL["D"])), dtype=torch.float32)
+    w = torch.tensor(rng.normal(size=(FULL["B"], FULL["A"])), dtype=torch.float32)
+    masks = [torch.tensor(rng.random((FULL["B"], d)) > FCN_OPTIONS["dropout_ratio"])
+             for d in FULL["widths"]]
+    res = {}
+    for dev in ("cpu", DEVICE):
+        net = copy.deepcopy(base).to(dev)
+        params = {k: v.detach().requires_grad_(True) for k, v in net.named_parameters()}
+        out = torch.func.functional_call(net, params, (x.to(dev),))
+        grads = torch.autograd.grad(torch.sum(out * w.to(dev)), list(params.values()))
+        train_out = net(x.to(dev), training=True, dropout_masks=[m.to(dev) for m in masks])
+        stats = {k: v.detach().cpu() for k, v in net.named_parameters()
+                 if k.endswith((".mean", ".var"))}
+        res[dev] = (out.detach().cpu(), dict(zip(params, (g.cpu() for g in grads))),
+                    train_out.detach().cpu(), stats)
+    (o_c, g_c, t_c, s_c), (o_g, g_g, t_g, s_g) = res["cpu"], res[DEVICE]
+    torch.testing.assert_close(o_g, o_c, **FCN_FWD_TOL)
+    torch.testing.assert_close(t_g, t_c, **FCN_FWD_TOL)
+    for k in s_c:
+        torch.testing.assert_close(s_g[k], s_c[k], **FCN_FWD_TOL, msg=k)
+    worst_g = 0.0
+    for k, want in g_c.items():
+        rel = (g_g[k] - want).abs().max().item() / max(1.0, want.abs().max().item())
+        if rel > FCN_GRAD_TOL:
+            raise AssertionError(f"FCN options: gradient {k} card vs CPU {rel:.3e} of its scale")
+        worst_g = max(worst_g, rel)
+    bn_var = sum(g_c[k].abs().sum().item() for k in g_c if k.endswith(".var"))
+    log(f"  FCN {sizes} {FCN_OPTIONS}, B {FULL['B']}: forward max abs "
+        f"{(o_g - o_c).abs().max().item():.3e}, training=True (fed masks) "
+        f"{(t_g - t_c).abs().max().item():.3e}, {len(g_c)} gradients within "
+        f"{worst_g:.3e} of their scale (|d/d var| summed {bn_var:.4g}: the statistics train)")
+    return max((o_g - o_c).abs().max().item(), (t_g - t_c).abs().max().item()), worst_g
+
+
+def options_model():
+    """The unfused DiscreteDQN at the full offline width with batch norm and
+    dropout, RAdam and a cosine schedule over the run's 8 steps."""
+    cfg = FULL
+    return {"DiscreteDQN": {
+        "trainer_param": {
+            "actions": [str(a) for a in range(cfg["A"])],
+            "rl": {"gamma": cfg["gamma"], "target_update_rate": cfg["tau"],
+                   "maxq_learning": True},
+            "double_q_learning": True,
+            "minibatch_size": cfg["B"],
+            "optimizer": {"RAdam": {"lr": cfg["lr"], "lr_scheduler": {
+                "CosineAnnealingLR": {"T_max": OPTIONS_WORKFLOW_STEPS}}}},
+        },
+        "net_builder": {"FullyConnected": {
+            "sizes": cfg["widths"], "activations": [cfg["act"]] * len(cfg["widths"]),
+            "use_batch_norm": True, "dropout_ratio": 0.1}},
+        "eval_parameters": {"calc_cpe_in_training": False},
+    }}
+
+
+def options_workflow_phase(torch, tmp):
+    """identify_and_train_network on OPTIONS_WORKFLOW_STEPS full-width
+    batches (8,192 rows, 4 epochs of the 90% split as phase 6) with
+    ``options_model``: train steps/s with the host's decode, the finite
+    td_loss, the trained batch-norm statistics moved off their init, the
+    schedule's count, no K1-K5 launch in training (the net is not dense),
+    and the artifact (the batch norm folded into each layer) against the
+    in-process module on 64 raw rows within 1e-4."""
+    reset_counts()
+    out, df, serving, (trainer, tstate, _), _, wall = run_workflow(
+        FULL, FULL_ROWS, FULL_EPOCHS, torch, tmp, "options_width", model=options_model())
+    launches, plain_calls = read_counts()
+    steps, secs = out.logger_data["train_steps"], out.logger_data["train_seconds"]
+    td = out.training_report.td_loss
+    moved = max(tstate.q_params[f"net.batch_norms.{i}.var"].sub(1.0).abs().max().item()
+                for i in range(3))
+    log(f"  options workflow: {steps} train steps in {secs:.3f} s = {steps / secs:.2f} steps/s "
+        f"(host decode included), td_loss {td:.6g}, batch-norm var moved {moved:.3e}, "
+        f"schedule count {int(tstate.opt_state.schedule_count)}; launches "
+        f"{sum(launches.values())}, plain calls {plain_calls}; workflow {wall:.1f} s")
+    if (steps != OPTIONS_WORKFLOW_STEPS or td is None or not np.isfinite(td) or moved == 0.0
+            or int(tstate.opt_state.schedule_count) != steps or any(launches.values())
+            or plain_calls):
+        raise AssertionError(f"options workflow: steps {steps}, td {td}, moved {moved}, "
+                             f"launches {launches}, plain {plain_calls}")
+    diff = check_artifact(out, df, serving, torch)
+    log(f"  options workflow: the artifact (batch norm folded) vs the in-process module on 64 "
+        f"rows: max abs {diff:.3e}, on {card_line()}")
+    return dict(steps=steps, steps_per_s=steps / secs, td_loss=td, artifact_err=diff)
+
+
+# --------------------------------------------- online continuous control
+
+# the reference CI's online Pendulum jobs (tests/test_gym_all_algos.py:
+# 150-258): 64, 64 nets, gamma 0.99, tau 0.005, Adam 3e-3, minibatch 256,
+# ReplayBuffer of 50,000, 10 greedy episodes; this script cuts each to a
+# prefill of 500 and 100 steps with a profiled window of 5 (PERF.md §4;
+# tools/continuous_control_jobs.py runs the reference's depths)
+CONTINUOUS_JOBS = {
+    "SAC": dict(actor="gaussian", act="relu", q2=True, value=False, temperature=0.2,
+                prefill=500, full_prefill=1000, steps=100, full_steps=12_000, bar=-500.0),
+    "TD3": dict(actor="deterministic", act="relu", q2=True, value=False,
+                prefill=500, full_prefill=1000, steps=100, full_steps=12_000, bar=-750.0),
+    "continuous CRR": dict(actor="gaussian", act="leaky_relu", q2=False, value=True,
+                           temperature=0.3, prefill=500, full_prefill=10_000, steps=100,
+                           full_steps=8000, bar=-500.0),
+}
+CONTINUOUS_PROFILED_STEPS = 5
+CONTINUOUS_B, CONTINUOUS_CAPACITY, CONTINUOUS_EVAL_EPISODES = 256, 50_000, 10
+ACTION_SCALE = 2.0  # the actor acts in [-1, 1]; Pendulum's torque is in [-2, 2]
+# phase 40 runs this job on the PrioritizedReplayBuffer (uniform priorities)
+PRIORITIZED_JOB = "TD3"
+# K3 on these paths (label -> rows, sizes, activations, resident route
+# expected, seed): the act steps and evaluate_policy's batch of 10; each held
+# to the plain version, the first and the last timed
+K3_CONTINUOUS_TIMED = ("gaussian act [1, 3->64->64->2]", "gaussian eval [10, 3->64->64->2]")
+K3_CONTINUOUS_SHAPES = {
+    "gaussian act [1, 3->64->64->2]": (1, [3, 64, 64, 2], ["relu", "relu", "linear"], True, 83),
+    "TD3 act [1, 3->64->64->1]": (1, [3, 64, 64, 1], ["relu", "relu", "tanh"], True, 82),
+    "CRR act [1, 3->64->64->2]": (1, [3, 64, 64, 2], ["leaky_relu", "leaky_relu", "linear"],
+                                  True, 83),
+    "gaussian eval [10, 3->64->64->2]": (CONTINUOUS_EVAL_EPISODES, [3, 64, 64, 2],
+                                         ["relu", "relu", "linear"], True,
+                                         80 + CONTINUOUS_EVAL_EPISODES + 2),
+}
+
+
+def continuous_trainer(torch, name, device):
+    """The online job's trainer on ``device``."""
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.models.actor import FullyConnectedActor, GaussianFullyConnectedActor
+    from reagent_tpu_torch.models.critic import FullyConnectedCritic
+    from reagent_tpu_torch.models.value import ValueNetwork
+    from reagent_tpu_torch.training.sac_trainer import CRRWeightFn, SACTrainer
+    from reagent_tpu_torch.training.td3_trainer import TD3Trainer
+
+    cfg = CONTINUOUS_JOBS[name]
+    acts = [cfg["act"]] * 2
+    if cfg["actor"] == "gaussian":
+        actor = GaussianFullyConnectedActor(3, 1, [64, 64], acts)
+    else:
+        actor = FullyConnectedActor(3, 1, [64, 64], acts, exploration_variance=0.2)
+    q1 = FullyConnectedCritic(3, 1, [64, 64], acts)
+    q2 = FullyConnectedCritic(3, 1, [64, 64], acts) if cfg["q2"] else None
+    kw = dict(rl=RLParameters(gamma=0.99, target_update_rate=0.005),
+              q_network_optimizer={"Adam": {"lr": 3e-3}},
+              actor_network_optimizer={"Adam": {"lr": 3e-3}}, device=device)
+    if name == "TD3":
+        return TD3Trainer(actor, q1, q2, **kw)
+    if cfg["value"]:
+        return SACTrainer(actor, q1, q2, value_network=ValueNetwork(3, [64, 64], acts),
+                          value_network_optimizer={"Adam": {"lr": 3e-3}},
+                          entropy_temperature=cfg["temperature"],
+                          crr_config=CRRWeightFn(exponent_beta=1.0, exponent_clamp=20.0), **kw)
+    return SACTrainer(actor, q1, q2, entropy_temperature=cfg["temperature"],
+                      target_entropy=-1.0, **kw)
+
+
+def continuous_transition(torch):
+    return dict(observation=torch.zeros(3), action=torch.zeros(1), reward=torch.tensor(0.0),
+                terminal=torch.tensor(False))
+
+
+def continuous_lockstep_phase(torch, name, n=5):
+    """``n`` train steps of the online job's trainer on the card and on the
+    CPU from one state, on the same numpy batches (Pendulum-like states,
+    actions in [-1, 1) as the loop stores them, rewards in (-16, 0]) and the
+    same explicit noise: metrics and state tensors compared at phase 27's
+    tolerances; no K1-K5 launch in a train step."""
+    from reagent_tpu_torch.core import types as rlt
+
+    trainers = {dev: continuous_trainer(torch, name, dev) for dev in ("cpu", DEVICE)}
+    first = trainers["cpu"].init(torch.Generator().manual_seed(61))
+    states = {dev: copy_state(first, dev) for dev in trainers}
+    rng = np.random.default_rng(62)
+    B = CONTINUOUS_B
+    reset_counts()
+    worst_m = 0.0
+    for _ in range(n):
+        th = rng.uniform(-np.pi, np.pi, B)
+        s = np.stack([np.cos(th), np.sin(th), rng.uniform(-8, 8, B)], 1)
+        ns = s + rng.normal(0, 0.05, s.shape)
+        cols = dict(s=s, ns=ns, a=rng.uniform(-1, 1, (B, 1)), r=-rng.uniform(0, 16, (B, 1)),
+                    nt=np.ones((B, 1)))
+        noise = rng.normal(size=(B, 1) if name == "TD3" else (2, B, 1))
+        t = {k: torch.tensor(v, dtype=torch.float32) for k, v in cols.items()}
+        metrics = {}
+        for dev, trainer in trainers.items():
+            batch = rlt.PolicyNetworkInput(
+                state=rlt.FeatureData(t["s"]), next_state=rlt.FeatureData(t["ns"]),
+                action=rlt.FeatureData(t["a"]), next_action=rlt.FeatureData(t["a"]),
+                reward=t["r"], time_diff=None, step=None, not_terminal=t["nt"]).to(dev)
+            states[dev], m = trainer.train_step(
+                states[dev], batch, torch.tensor(noise, dtype=torch.float32, device=dev))
+            metrics[dev] = {k: v.cpu() for k, v in m.items()}
+        for k, want in metrics["cpu"].items():
+            torch.testing.assert_close(metrics[DEVICE][k], want, **AC_STEP_TOL, msg=k)
+            worst_m = max(worst_m, (metrics[DEVICE][k] - want).abs().max().item())
+    launches, plain_calls = read_counts()
+    if any(launches.values()) or plain_calls:
+        raise AssertionError(f"{name} lockstep: launches {launches}, plain calls {plain_calls}")
+    count, worst_p = compare_states(torch, states[DEVICE], states["cpu"], AC_PARAM_TOL, name)
+    log(f"  {name}, card vs CPU, {n} train steps (minibatch {B}, 64, 64 "
+        f"{CONTINUOUS_JOBS[name]['act']}): metrics max abs {worst_m:.3e} (last q1_loss "
+        f"{metrics[DEVICE]['q1_loss'].item():.6f}); {count} state tensors max abs "
+        f"{worst_p:.3e}; K1-K5 launches 0, plain calls 0")
+    return worst_m, worst_p
+
+
+def continuous_policy(torch, trainer):
+    """(the act step, the greedy act) of an online job: the actor through
+    ``functional.actor_act``, its dense trunk one K3 launch; the act step
+    draws its standard-normal noise from the loop's generator."""
+    from reagent_tpu_torch.training import functional
+
+    actor = trainer.actor_network
+
+    def policy_act(ts, obs, g):
+        noise = torch.randn((1, 1), generator=g, device=obs.device)
+        action = functional.actor_act(actor, ts.actor_params, obs[None], noise).action[0]
+        return action * ACTION_SCALE, action
+
+    def greedy_act(ts, obs, g):
+        return functional.actor_act(actor, ts.actor_params, obs).action * ACTION_SCALE
+
+    return policy_act, greedy_act
+
+
+def continuous_online_phase(torch, name, steps, prefill, prioritized=False, device=None):
+    """One online Pendulum job through the generic loop, as the reference's
+    test runs it: ``prefill`` uniform random transitions, then ``steps`` env
+    steps each with an act step (K3), a sample (K4) and an update,
+    minibatch 256; on the ReplayBuffer, or on the PrioritizedReplayBuffer
+    at uniform priorities (its stratified draw, then the same K4 rows).  On
+    the card a profiled window of CONTINUOUS_PROFILED_STEPS steps follows
+    (kernels a step, the idle share, host reads: 0 or the script fails;
+    the stream synchronisations are printed) and evaluate_policy over
+    10 greedy episodes through K3.  ``device`` "cpu" runs the same job on
+    the CPU (the plain versions), untimed by CUDA."""
+    from reagent_tpu_torch.gym.envs import Pendulum
+    from reagent_tpu_torch.gym.online_loop import (
+        OnlineLoopConfig,
+        evaluate_policy,
+        prefill_replay_buffer,
+        run_online_training,
+    )
+    from reagent_tpu_torch.gym.preprocessors import make_policy_network_batch
+    from reagent_tpu_torch.replay import PrioritizedReplayBuffer, ReplayBuffer
+
+    dev = device or DEVICE
+    on_card = dev != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = CONTINUOUS_JOBS[name]
+    env = Pendulum(device=dev)
+    trainer = continuous_trainer(torch, name, dev)
+    tstate = trainer.init(torch.Generator().manual_seed(0))
+    buffer_cls = PrioritizedReplayBuffer if prioritized else ReplayBuffer
+    rb = buffer_cls(replay_capacity=CONTINUOUS_CAPACITY, update_horizon=1, gamma=0.99,
+                    device=dev)
+    rb_state = rb.init(**continuous_transition(torch))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t0 = time.perf_counter()
+    rb_state = prefill_replay_buffer(env, rb, rb_state, gen, prefill)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    policy_act, greedy_act = continuous_policy(torch, trainer)
+
+    def loop(state, buffer, n):
+        return run_online_training(
+            env, trainer, state, rb, buffer, policy_act, make_policy_network_batch, gen,
+            OnlineLoopConfig(num_steps=n, minibatch_size=CONTINUOUS_B))
+
+    label = f"online {name}{' (prioritized replay)' if prioritized else ''}"
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    tstate, rb_state, aux = loop(tstate, rb_state, steps)
+    sync()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    losses = aux["td_losses"].cpu()
+    log(f"  {label}: prefill {prefill} in {prefill_s:.2f} s; {steps} env steps + {steps} "
+        f"updates in {wall:.3f} s = {steps / wall:.2f} env steps/s, episodes "
+        f"{int(aux['episodes_completed'])}, last q1_loss {losses[-1].item():.6g}, launches "
+        f"{launches}, plain calls {plain_calls}")
+    if losses.shape != (steps,) or not torch.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses {losses.shape}")
+    others = {k: v for k, v in launches.items() if k not in ("nstep_rewards", "fused_mlp_forward")}
+    if on_card and (any(launches[k] != steps for k in ("nstep_rewards", "fused_mlp_forward"))
+                    or any(others.values()) or plain_calls):
+        raise AssertionError(f"{label}: launches {launches} for {steps} steps, plain calls "
+                             f"{plain_calls}")
+    result = dict(launches=launches, steps=steps, steps_per_s=steps / wall, prefill=prefill,
+                  prioritized=prioritized, bar=cfg["bar"])
+    if on_card:
+        ported = {}
+        n = CONTINUOUS_PROFILED_STEPS
+        dev_us, kernels = profile_loop(torch, lambda: loop(tstate, rb_state, n), n,
+                                       wall / steps * 1e6, label, ported)
+        result.update(device_us=dev_us, kernels_per_step=kernels, k3_us=ported["fused_mlp"],
+                      k4_us=ported["nstep"], idle=1 - dev_us / (wall / steps * 1e6),
+                      host_reads=0)
+    reset_counts()
+    t0 = time.perf_counter()
+    returns = evaluate_policy(env, greedy_act, tstate, gen,
+                              num_episodes=CONTINUOUS_EVAL_EPISODES).cpu()
+    eval_launches, plain_calls = read_counts()
+    mean = returns.mean().item()
+    full = steps == cfg["full_steps"]
+    log(f"  evaluate_policy: {CONTINUOUS_EVAL_EPISODES} greedy episodes in "
+        f"{time.perf_counter() - t0:.2f} s, mean {mean:.2f} (the reference's bar {cfg['bar']}: "
+        f"{'met' if mean >= cfg['bar'] else 'missed'}"
+        f"{'' if full else '; not held at the cut depth'}), K3 launches "
+        f"{eval_launches['fused_mlp_forward']}{', on ' + card_line() if on_card else ''}")
+    if on_card and (eval_launches["fused_mlp_forward"] != env.max_steps or plain_calls):
+        raise AssertionError(f"{label} eval: launches {eval_launches}, plain {plain_calls}")
+    result.update(eval_launches=eval_launches, mean_reward=mean)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -3973,7 +4434,7 @@ def main() -> int:
     del dataset
 
     phase("phase 21: K3 at the evaluation's shapes against its plain version, timed")
-    k3_eval = k3_eval_phase(torch, name)
+    k3_eval = k3_shapes_phase(torch, name, K3_EVAL_SHAPES, K3_EVAL_SHAPES, launch_floor_ms)
 
     with tempfile.TemporaryDirectory() as tmp:
         phase("phase 22: the flagship sample config unchanged (CPE on) through "
@@ -4051,7 +4512,31 @@ def main() -> int:
         fam_offline = {fam_name: dqn_family_offline_phase(torch, tmp, fam_name, cfg["epochs"])
                        for fam_name, cfg in DQN_FAMILY_OFFLINE.items()}
 
-    phase("phase 37: kernels")
+    phase("phase 37: the optimizer union's other members and the LR schedulers, card against "
+          "CPU at the full offline width's parameters")
+    optimizers_phase(torch)
+
+    phase("phase 38: FullyConnectedNetwork's options at the full offline width, card against "
+          "CPU, and the offline DQN workflow with batch norm, dropout, RAdam and a cosine "
+          "schedule")
+    fcn_options_phase(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        options_workflow_phase(torch, tmp)
+
+    phase("phase 39: online SAC, TD3 and continuous CRR train steps at the Pendulum jobs' "
+          "widths, card against CPU")
+    for cc_name in CONTINUOUS_JOBS:
+        continuous_lockstep_phase(torch, cc_name)
+
+    phase("phase 40: K3 at the continuous act and eval shapes, timed; the online Pendulum "
+          f"jobs through the generic loop ({PRIORITIZED_JOB} on the prioritized buffer)")
+    continuous_kernels = k3_shapes_phase(
+        torch, name, K3_CONTINUOUS_SHAPES, K3_CONTINUOUS_TIMED, launch_floor_ms)
+    cc_online = {cc_name: continuous_online_phase(
+        torch, cc_name, cfg["steps"], cfg["prefill"], prioritized=cc_name == PRIORITIZED_JOB)
+        for cc_name, cfg in CONTINUOUS_JOBS.items()}
+
+    phase("phase 41: kernels")
     by_path = {
         "K1 fused_dqn_offline_update": {
             "offline workflow, full width": k1_launches,
@@ -4084,12 +4569,19 @@ def main() -> int:
             **{f"online {k} evaluate_policy": v["eval_launches"]["fused_mlp_forward"]
                for k, v in fam_online.items()},
             **{f"offline {k} workflow (Q on 64 rows)": v["k3_launches"]
-               for k, v in fam_offline.items()}},
+               for k, v in fam_offline.items()},
+            **{f"online {k} loop (the actor's act step)": v["launches"]["fused_mlp_forward"]
+               for k, v in cc_online.items()},
+            **{f"online {k} evaluate_policy": v["eval_launches"]["fused_mlp_forward"]
+               for k, v in cc_online.items()}},
         "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
                              "online QR-DQN loop": qr_online_launches["nstep_rewards"],
                              "online CRR loop": crr_online["launches"]["nstep_rewards"],
                              **{f"online {k} loop": v["launches"]["nstep_rewards"]
-                                for k, v in fam_online.items()}},
+                                for k, v in fam_online.items()},
+                             **{f"online {k} loop" + (" (prioritized replay)"
+                                                      if v["prioritized"] else ""):
+                                v["launches"]["nstep_rewards"] for k, v in cc_online.items()}},
         "K5 quantile_huber_loss": {
             "offline QR-DQN workflow": qr_launches["quantile_huber_loss"],
             "online QR-DQN loop": qr_online_launches["quantile_huber_loss"]},
@@ -4181,7 +4673,8 @@ def main() -> int:
             # (profiled windows of phases 31-32), as a share of its wall time
             key = "k3_us" if kname.startswith("K3") else "k4_us"
             paths = {"online CRR loop": (crr_online, "steps_per_s"),
-                     **{f"online {k} loop": (v, "steps_per_s") for k, v in fam_online.items()}}
+                     **{f"online {k} loop": (v, "steps_per_s") for k, v in fam_online.items()},
+                     **{f"online {k} loop": (v, "steps_per_s") for k, v in cc_online.items()}}
             if kname.startswith("K3"):
                 paths.update({f"{k} episodes": (v, "episodes_per_s") for k, v in pg.items()})
             row["share_of_step"] = {
@@ -4196,6 +4689,10 @@ def main() -> int:
         if kname.startswith(("K3", "K4")):
             # the C51 and parametric paths' shapes (phase 34)
             row["by_shape"].update(family_kernels[kname[:2]])
+        if kname.startswith("K3"):
+            # the continuous act and eval steps (phase 40), each with the
+            # torch.addmm yardstick
+            row["by_shape"].update(continuous_kernels)
         if kname.startswith("K1"):
             # the same products through cuBLAS, and the kernel's own GEMM share
             key = "K1-bf16" if kname.endswith("(bf16)") else "K1"

@@ -1,10 +1,12 @@
 """Typed training batches as tensor dataclasses.
 
 Port of the batch types the DQN and actor-critic paths use from
-``reagent_tpu/core/types.py`` (``FeatureData`` :179, ``ActorOutput`` :246,
-``ExtraData`` :255, ``DiscreteDqnInput`` :290, ``ParametricDqnInput`` :315,
-``PolicyNetworkInput`` :329, ``PolicyGradientInput`` :338).  Fields hold ``torch.Tensor``s (or ``None``); ``.to(device)`` moves
-every tensor field, recursing into nested batches.
+``reagent_tpu/core/types.py`` (``FeatureData`` :179, ``GaussianSamplerScore``
+:237, ``ActorOutput`` :246, ``ExtraData`` :255, ``DiscreteDqnInput`` :290,
+``ParametricDqnInput`` :315, ``PolicyNetworkInput`` :329,
+``PolicyGradientInput`` :338).  Fields hold ``torch.Tensor``s (or
+``None``); ``.to(device)`` moves every tensor field, recursing into nested
+batches.
 """
 
 from __future__ import annotations
@@ -41,6 +43,15 @@ class FeatureData(_TensorDataClass):
         types.py:350), the layout of max-over-possible-actions Q."""
         return FeatureData(
             float_features=self.float_features.repeat_interleave(num_tiles, dim=0))
+
+
+@dataclasses.dataclass
+class GaussianSamplerScore(_TensorDataClass):
+    """A gaussian policy head's (loc, log-scale) (reference
+    reagent/gym/types.py GaussianSamplerScore; JAX types.py:237)."""
+
+    loc: Tensor
+    scale_log: Tensor
 
 
 @dataclasses.dataclass

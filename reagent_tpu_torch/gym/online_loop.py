@@ -64,8 +64,9 @@ def prefill_replay_buffer(
     num_steps: int,
     act_fn: Optional[Callable] = None,
 ):
-    """Fill the buffer with uniform-random actions of a discrete env (ref
-    gym/utils.py:43), resetting the env after each episode.
+    """Fill the buffer with uniform-random actions (ref gym/utils.py:43):
+    an index of a discrete env, a vector in [-1, 1) of a continuous one;
+    the env resets after each episode.
 
     ``act_fn(None, obs, generator) -> (action_env, action_store)`` overrides
     the uniform policy.
@@ -74,9 +75,12 @@ def prefill_replay_buffer(
     for _ in range(num_steps):
         if act_fn is not None:
             action, _ = act_fn(None, obs, generator)
-        else:
+        elif env.discrete:
             action = torch.randint(0, env.action_dim, (), generator=generator,
                                    device=env.device, dtype=torch.int32)
+        else:
+            u = torch.rand((env.action_dim,), generator=generator, device=env.device)
+            action = u * 2.0 + -1.0
         env_state, next_obs, reward, done = env.step(env_state, action, generator)
         rb_state = rb.add(rb_state, observation=obs, action=action, reward=reward, terminal=done)
         reset_state, reset_obs = env.reset(generator)

@@ -1,19 +1,29 @@
-"""Policies = scorer . sampler (the online DQN and policy-gradient slices'
-part of them), and the policy over an exported artifact."""
+"""Policies = scorer . sampler, the random policies, and the policy over an
+exported artifact."""
 
 from reagent_tpu_torch.gym.policies.policy import Policy, actor_scorer, discrete_q_scorer
 from reagent_tpu_torch.gym.policies.predictor_policies import (
     DiscreteDqnPredictorPolicy,
     create_predictor_policy_from_model,
 )
+from reagent_tpu_torch.gym.policies.random_policies import (
+    ContinuousRandomPolicy,
+    DiscreteRandomPolicy,
+    MultiDiscreteRandomPolicy,
+    make_random_policy_for_env,
+)
 from reagent_tpu_torch.gym.policies.samplers import (
+    EpsilonGreedyActionSampler,
+    GaussianSampler,
     GreedyActionSampler,
     SoftmaxActionSampler,
+    TopKSampler,
 )
 from reagent_tpu_torch.gym.policies.scorers import (
     apply_possible_actions_mask,
     discrete_dqn_scorer,
     parametric_dqn_scorer,
+    sac_scorer,
 )
 
 __all__ = [
@@ -22,9 +32,17 @@ __all__ = [
     "discrete_q_scorer",
     "DiscreteDqnPredictorPolicy",
     "create_predictor_policy_from_model",
+    "ContinuousRandomPolicy",
+    "DiscreteRandomPolicy",
+    "EpsilonGreedyActionSampler",
+    "GaussianSampler",
     "GreedyActionSampler",
+    "MultiDiscreteRandomPolicy",
     "SoftmaxActionSampler",
+    "TopKSampler",
     "apply_possible_actions_mask",
     "discrete_dqn_scorer",
+    "make_random_policy_for_env",
     "parametric_dqn_scorer",
+    "sac_scorer",
 ]

@@ -1,9 +1,10 @@
 """Scorers: (weights, obs) -> action scores for a policy.
 
-Port of ``apply_possible_actions_mask``, ``discrete_dqn_scorer`` and
-``parametric_dqn_scorer`` from ``reagent_tpu/gym/policies/scorers.py``
-(:22-56).  The DQN scorer runs a dense MLP's forward as one K3 launch
-(``ops/fused_mlp.py``) on the weights it is given:
+Port of ``apply_possible_actions_mask``, ``discrete_dqn_scorer``,
+``parametric_dqn_scorer`` and ``sac_scorer`` from
+``reagent_tpu/gym/policies/scorers.py`` (:22-66; ``slate_q_scorer`` waits
+for ``ROADMAP.md`` §1 item 10).  The DQN scorer runs a dense MLP's forward
+as one K3 launch (``ops/fused_mlp.py``) on the weights it is given:
 ``mlp_weight_list(q_network)`` for a module,
 ``FusedDQNTrainer.mlp_weights(state)`` for a fused trainer state, or the
 ``q_params`` dict of an unfused trainer state, which also serves modules
@@ -11,7 +12,10 @@ that are no flat MLP (``training.functional.score``: a ``CategoricalDQN``'s
 logits through K3 and E[Z] in torch; others their own forward).  A
 ``[B, A, N]`` quantile head is averaged over its atoms.  The parametric
 scorer scores every action of each row in one forward over the tiled rows,
-one K3 launch for a ``FullyConnectedCritic``.
+one K3 launch for a ``FullyConnectedCritic``.  ``sac_scorer`` (:57-66) runs a
+gaussian actor's dense trunk as one K3 launch and takes the split, the layer
+norms and the clip in torch.  A net with a norm or a skip connection runs
+its module's own forward (``training.functional.takes_k3``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from reagent_tpu_torch.core import types as rlt
 from reagent_tpu_torch.ops.fused_mlp import fused_mlp_forward
 from reagent_tpu_torch.training import functional
 
@@ -69,5 +74,19 @@ def parametric_dqn_scorer(max_num_actions: int, q_network: nn.Module) -> Callabl
         tiled = obs.repeat_interleave(max_num_actions, dim=0)
         actions = torch.eye(max_num_actions, device=obs.device).repeat(B, 1)
         return functional.score(q_network, params, tiled, actions).reshape(B, max_num_actions)
+
+    return score
+
+
+def sac_scorer(actor_network: nn.Module) -> Callable:
+    """A gaussian policy head's (loc, log-scale) (ref continuous_scorer.py:
+    12-21): ``score(params, obs [B, D]) -> GaussianSamplerScore``, the
+    float32 dense trunk one K3 launch on a CUDA tensor
+    (``training.functional.loc_and_scale_log``, as the online jobs' act
+    step)."""
+
+    def score(params, obs: Tensor) -> rlt.GaussianSamplerScore:
+        loc, scale_log = functional.loc_and_scale_log(actor_network, params, obs)
+        return rlt.GaussianSamplerScore(loc=loc, scale_log=scale_log)
 
     return score

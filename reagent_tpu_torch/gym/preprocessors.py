@@ -1,13 +1,17 @@
 """Replay sample -> typed batch.
 
-Port of ``make_discrete_dqn_batch`` and ``make_parametric_dqn_batch`` from
-``reagent_tpu/gym/preprocessors.py`` (:20, :45; reference
-trainer_preprocessor.py DiscreteDqnInputMaker, ParametricDqnInputMaker).
+Port of ``make_discrete_dqn_batch``, ``make_parametric_dqn_batch``,
+``make_policy_network_batch`` and ``make_trainer_preprocessor`` from
+``reagent_tpu/gym/preprocessors.py`` (:20, :45, :76, :142; reference
+trainer_preprocessor.py DiscreteDqnInputMaker, ParametricDqnInputMaker,
+PolicyNetworkInputMaker).  ``make_slate_q_batch`` waits for the slate-Q
+trainer (``ROADMAP.md`` §1 item 10).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import typing
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -69,3 +73,46 @@ def make_parametric_dqn_batch(
         not_terminal=1.0 - terminal,
         extras=rlt.ExtraData(),
     )
+
+
+def make_policy_network_batch(batch: Dict[str, Tensor]) -> rlt.PolicyNetworkInput:
+    """A continuous-control sample as SAC's and TD3's batch
+    (trainer_preprocessor.py PolicyNetworkInputMaker): rank-1 actions
+    become ``[B, 1]``."""
+    B = batch["state"].shape[0]
+    dev = batch["state"].device
+    terminal = batch["terminal"].reshape(B, 1).to(torch.float32)
+    action, next_action = batch["action"], batch["next_action"]
+    if action.ndim == 1:
+        action, next_action = action[:, None], next_action[:, None]
+    return rlt.PolicyNetworkInput(
+        state=rlt.FeatureData(float_features=batch["state"]),
+        next_state=rlt.FeatureData(float_features=batch["next_state"]),
+        action=rlt.FeatureData(float_features=action),
+        next_action=rlt.FeatureData(float_features=next_action),
+        reward=batch["reward"].reshape(B, 1),
+        time_diff=torch.ones((B, 1), dtype=torch.float32, device=dev),
+        step=batch["step"].reshape(B, 1),
+        not_terminal=1.0 - terminal,
+        extras=rlt.ExtraData(),
+    )
+
+
+def make_trainer_preprocessor(trainer, num_actions: Optional[int] = None):
+    """The batch maker for ``trainer``, picked from the annotation of its
+    ``train_step``'s ``batch`` (reference trainer_preprocessor.py:32-57)."""
+    hints = typing.get_type_hints(type(trainer).train_step)
+    batch_type = hints.get("batch")
+    name = getattr(batch_type, "__name__", str(batch_type))
+    if name in ("DiscreteDqnInput", "ParametricDqnInput"):
+        if num_actions is None:
+            raise ValueError(f"{name} needs num_actions")
+        maker = make_discrete_dqn_batch if name == "DiscreteDqnInput" else make_parametric_dqn_batch
+        return lambda d: maker(d, num_actions)
+    if name == "PolicyNetworkInput":
+        return make_policy_network_batch
+    if name == "SlateQInput":
+        raise NotImplementedError(
+            "make_slate_q_batch waits for the slate-Q trainer (ROADMAP.md §1 item 10)")
+    raise NotImplementedError(
+        f"no batch maker for trainer {type(trainer).__name__} (batch: {name})")

@@ -12,9 +12,11 @@ the standard-normal draw itself (``noise``, shaped like the action), so a
 caller can feed JAX's draw and compare; ``noise=None`` is the JAX module
 called without a key (no exploration, the mean action).  The Dirichlet
 actor samples with ``torch._sample_dirichlet`` from a ``generator``, a
-stream that cannot match ``jax.random.dirichlet``.  Batch norm and layer
-norm raise until ``FullyConnectedNetwork`` has them (``ROADMAP.md`` §1
-item 3).
+stream that cannot match ``jax.random.dirichlet``.  The deterministic
+actor takes the network's batch norm; the gaussian actor's layer norm
+(``loc_ln``, ``scale_ln``) runs after its trunk on the location and the
+log-scale, as JAX's (:89-100): on ``action_dim = 1`` it returns its bias.
+``training`` is flax's flag, passed to the trunk.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from torch import nn
 
 from reagent_tpu_torch.core.types import ActorOutput
-from reagent_tpu_torch.models.fully_connected_network import FullyConnectedNetwork
+from reagent_tpu_torch.models.fully_connected_network import FullyConnectedNetwork, LayerNorm
 
 Tensor = torch.Tensor
 LOG_PROB_MIN = -2.0
@@ -60,15 +62,22 @@ class FullyConnectedActor(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.net.reset_parameters(generator)
 
-    def forward(self, state: Tensor, noise: Optional[Tensor] = None) -> ActorOutput:
+    def forward(self, state: Tensor, noise: Optional[Tensor] = None,
+                training: bool = False) -> ActorOutput:
         """``noise`` [B, action_dim] standard normal: exploration of scale
         ``exploration_variance`` (ignored without one)."""
-        action = self.net(state)
+        return self.output_of(self.net(state, training=training), noise)
+
+    def output_of(self, action: Tensor, noise: Optional[Tensor] = None) -> ActorOutput:
+        """The actor's output from its net's ``[B, action_dim]`` action."""
         B = action.shape[0]
         if self.exploration_variance is None or noise is None:
             return ActorOutput(action=action, log_prob=torch.zeros(
                 (B, 1), dtype=action.dtype, device=action.device))
-        scale = torch.tensor(self.exploration_variance, dtype=action.dtype, device=action.device)
+        # a fill on the device, not a copy from the host (which would wait for
+        # the queue at every act step)
+        scale = torch.full((), self.exploration_variance, dtype=action.dtype,
+                           device=action.device)
         noise = noise * scale
         log_prob = torch.clamp(
             torch.sum(
@@ -109,36 +118,52 @@ class GaussianFullyConnectedActor(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if use_layer_norm:
-            raise NotImplementedError(
-                "the gaussian actor's layer norm is not ported yet (ROADMAP.md §1 item 3)")
         self.state_dim, self.action_dim = state_dim, action_dim
         self.sizes, self.activations = list(sizes), list(activations)
+        self.use_layer_norm = bool(use_layer_norm)
         self.net = FullyConnectedNetwork(
             [state_dim, *sizes, action_dim * 2], [*activations, "linear"], generator=generator)
+        if self.use_layer_norm:
+            self.loc_ln = LayerNorm(action_dim)
+            self.scale_ln = LayerNorm(action_dim)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.net.reset_parameters(generator)
+        if self.use_layer_norm:
+            self.loc_ln.reset_parameters()
+            self.scale_ln.reset_parameters()
 
-    def _loc_and_scale_log(self, state: Tensor):
-        out = self.net(state)
+    def loc_and_scale_log_of(self, out: Tensor):
+        """The trunk's ``[B, 2 * action_dim]`` output -> (loc, clipped
+        log-scale), each through its layer norm where the actor has one."""
         loc = out[:, : self.action_dim]
-        scale_log = torch.clamp(out[:, self.action_dim:], LOG_PROB_MIN, LOG_PROB_MAX)
-        return loc, scale_log
+        scale_log = out[:, self.action_dim:]
+        if self.use_layer_norm:
+            loc, scale_log = self.loc_ln(loc), self.scale_ln(scale_log)
+        return loc, torch.clamp(scale_log, LOG_PROB_MIN, LOG_PROB_MAX)
 
-    def forward(self, state: Tensor, noise: Optional[Tensor] = None) -> ActorOutput:
+    def _loc_and_scale_log(self, state: Tensor, training: bool = False):
+        return self.loc_and_scale_log_of(self.net(state, training=training))
+
+    def forward(self, state: Tensor, noise: Optional[Tensor] = None,
+                training: bool = False) -> ActorOutput:
         """``noise`` [B, action_dim] standard normal, the reparameterized
         draw; None gives the squashed mean."""
-        loc, scale_log = self._loc_and_scale_log(state)
+        return self.output_of(*self._loc_and_scale_log(state, training), noise)
+
+    def output_of(self, loc: Tensor, scale_log: Tensor,
+                  noise: Optional[Tensor] = None) -> ActorOutput:
+        """The squashed draw and its log-prob from (loc, log-scale)."""
         r = torch.zeros_like(scale_log) if noise is None else noise
         squashed = _squash(loc + r * torch.exp(scale_log))
         log_prob = torch.sum(
             _normal_log_prob(r, scale_log) - _squash_correction(squashed), dim=1, keepdim=True)
         return ActorOutput(action=squashed, log_prob=log_prob, squashed_mean=_squash(loc))
 
-    def get_log_prob(self, state: Tensor, squashed_action: Tensor) -> Tensor:
+    def get_log_prob(self, state: Tensor, squashed_action: Tensor,
+                     training: bool = False) -> Tensor:
         """Log-prob [B, 1] of an externally supplied (tanh-squashed) action."""
-        loc, scale_log = self._loc_and_scale_log(state)
+        loc, scale_log = self._loc_and_scale_log(state, training)
         raw = torch.atanh(torch.clamp(squashed_action, -1.0 + _EPS, 1.0 - _EPS))
         r = (raw - loc) / torch.exp(scale_log)
         return torch.sum(
@@ -166,10 +191,11 @@ class DirichletFullyConnectedActor(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.net.reset_parameters(generator)
 
-    def forward(self, state: Tensor, generator: Optional[torch.Generator] = None) -> ActorOutput:
+    def forward(self, state: Tensor, generator: Optional[torch.Generator] = None,
+                training: bool = False) -> ActorOutput:
         """A sample drawn from ``generator`` (on the state's device), or the
         mean without one."""
-        out = self.net(state)
+        out = self.net(state, training=training)
         # softplus + 1 keeps the concentration above 1 so the log-prob is
         # bounded (reference actor.py:289-296); softplus as flax's logaddexp
         concentration = torch.logaddexp(out, torch.zeros_like(out)) + 1.0

@@ -2,8 +2,7 @@
 
 Port of ``reagent_tpu/models/critic.py:16`` (reference:
 reagent/models/critic.py:37 ``FullyConnectedCritic``): state and action
-concatenated, then an MLP.  Batch norm and layer norm raise until
-``FullyConnectedNetwork`` has them (``ROADMAP.md`` §1 item 3).
+concatenated, then an MLP, with the network's batch norm and layer norm.
 """
 
 from __future__ import annotations
@@ -42,6 +41,7 @@ class FullyConnectedCritic(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.net.reset_parameters(generator)
 
-    def forward(self, state: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+    def forward(self, state: torch.Tensor, action: torch.Tensor,
+                training: bool = False) -> torch.Tensor:
         """state [B, state_dim], action [B, action_dim] -> Q [B, output_dim]."""
-        return self.net(torch.cat([state, action], dim=1))
+        return self.net(torch.cat([state, action], dim=1), training=training)

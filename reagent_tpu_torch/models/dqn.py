@@ -51,6 +51,6 @@ class FullyConnectedDQN(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.net.reset_parameters(generator)
 
-    def forward(self, state: torch.Tensor) -> torch.Tensor:
+    def forward(self, state: torch.Tensor, training: bool = False) -> torch.Tensor:
         """state [B, state_dim] -> Q [B, action_dim]."""
-        return self.net(state)
+        return self.net(state, training=training)

@@ -31,6 +31,6 @@ class ValueNetwork(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.net.reset_parameters(generator)
 
-    def forward(self, state: torch.Tensor) -> torch.Tensor:
+    def forward(self, state: torch.Tensor, training: bool = False) -> torch.Tensor:
         """state [B, state_dim] -> V [B, 1]."""
-        return self.net(state)
+        return self.net(state, training=training)

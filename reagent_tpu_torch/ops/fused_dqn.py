@@ -109,12 +109,14 @@ def _first_argmax_onehot(q: torch.Tensor) -> torch.Tensor:
 def extract_mlp_layout(q_network: nn.Module) -> Tuple[List[nn.Linear], List[Tuple[int, int]]]:
     """The network's ``nn.Linear`` layers in order and dims [(in_i, out_i)].
 
-    Raises if the module holds parameters outside those layers (not a plain
-    dense MLP)."""
+    Raises if the module holds parameters outside those layers, or a
+    network with a skip connection (not a plain dense MLP)."""
     linears = [m for m in q_network.modules() if isinstance(m, nn.Linear)]
     n_params = sum(1 for _ in q_network.parameters())
-    if not linears or n_params != 2 * len(linears) or any(l.bias is None for l in linears):
-        raise ValueError("q-network is not a plain dense MLP")
+    skips = any(getattr(m, "is_dense", True) is False for m in q_network.modules())
+    if (not linears or n_params != 2 * len(linears) or any(l.bias is None for l in linears)
+            or skips):
+        raise ValueError("q-network is not a plain dense MLP (a norm or a skip connection)")
     return linears, [(l.in_features, l.out_features) for l in linears]
 
 

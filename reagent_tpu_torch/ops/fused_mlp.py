@@ -38,7 +38,8 @@ MAX_TILE_ROWS = 16  # csrc/fused_mlp.cu
 
 def mlp_weight_list(q_network: nn.Module) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """A dense MLP's ``nn.Linear`` layers as K3's ``[(W [in, out], b [out])]``
-    (transposed views of the module's weights: no copy)."""
+    (transposed views of the module's weights: no copy); raises for a net
+    with a norm or a skip connection."""
     linears, _ = extract_mlp_layout(q_network)
     return [(l.weight.detach().T, l.bias.detach()) for l in linears]
 

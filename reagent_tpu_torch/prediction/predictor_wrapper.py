@@ -34,6 +34,39 @@ from reagent_tpu_torch.preprocessing.postprocessor import Postprocessor
 from reagent_tpu_torch.preprocessing.preprocessor import Preprocessor
 
 
+def serving_layers(q_network: nn.Module) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """The artifact's ``[(kernel [in, out], bias [out])]`` of a
+    ``FullyConnectedDQN``.  A batch norm on a layer's input, normalising
+    with its running mean and variance as every forward outside
+    ``training=True`` does, is affine, so it is folded into that layer:
+    ``k' = s[:, None] * k`` and ``b' = b + (beta - mean * s) @ k`` with ``s =
+    scale / sqrt(var + 1e-5)``.  Dropout is inactive in serving.  A layer
+    norm or a skip connection has no place in a flat chain of products and
+    raises ``ValueError`` (JAX's export keeps only the Dense layers and so
+    writes a chain that scores otherwise: ``ROADMAP.md`` §3)."""
+    net = getattr(q_network, "net", None)
+    if net is None:
+        linears, _ = extract_mlp_layout(q_network)
+        return [(l.weight.detach().cpu().numpy().T, l.bias.detach().cpu().numpy())
+                for l in linears]
+    if net.layer_norms is not None or net.has_skip_connections:
+        raise ValueError(
+            "the manifest.json + weights.bin artifact holds a flat MLP; a layer norm or a "
+            "skip connection cannot be exported through it")
+    out = []
+    for i, layer in enumerate(net.layers):
+        k = layer.weight.detach().cpu().to(torch.float64).T
+        b = layer.bias.detach().cpu().to(torch.float64)
+        if net.batch_norms is not None:
+            bn = net.batch_norms[i]
+            p = {n: t.detach().cpu().to(torch.float64) for n, t in bn.named_parameters()}
+            s = p["scale"] / torch.sqrt(p["var"] + 1e-5)
+            b = b + (p["bias"] - p["mean"] * s) @ k
+            k = s[:, None] * k
+        out.append((k.to(torch.float32).numpy(), b.to(torch.float32).numpy()))
+    return out
+
+
 class DiscreteDqnWithPreprocessor(nn.Module):
     """raw (values, presence) -> q-values (reference :94-116)."""
 
@@ -69,11 +102,7 @@ class DiscreteDqnPredictorWrapper:
 
     def save(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)
-        linears, _ = extract_mlp_layout(self.model.q_network)
-        layers = [
-            (l.weight.detach().cpu().numpy().T, l.bias.detach().cpu().numpy())
-            for l in linears
-        ]
+        layers = serving_layers(self.model.q_network)
         pre = self.model.preprocessor
         manifest: Dict[str, Any] = {
             "model_type": "discrete_dqn",
@@ -132,6 +161,10 @@ class DiscreteDqnPredictorWrapper:
                     x = np.where(x > 0, x, 0.01 * x)
                 elif act == "tanh":
                     x = np.tanh(x)
+                elif act == "sigmoid":
+                    x = 1.0 / (1.0 + np.exp(-x))
+                elif act == "softplus":
+                    x = np.logaddexp(x, 0.0)
             return manifest["action_names"], x
 
         return forward
@@ -210,10 +243,15 @@ def _module_spec(module: nn.Module) -> Dict[str, Any]:
         raise ValueError(f"cannot export a {name}; known: {sorted(_artifact_modules())}")
     if name == "FullyConnectedDQN":
         linears = list(module.net.layers)
+        net = module.net
         kwargs = {
             "state_dim": module.state_dim, "action_dim": module.action_dim,
             "sizes": [l.out_features for l in linears[:-1]],
             "activations": list(module.activations[:-1]),
+            "use_batch_norm": net.batch_norms is not None,
+            "dropout_ratio": net.dropout_ratio,
+            "use_layer_norm": net.layer_norms is not None,
+            "use_skip_connections": net.use_skip_connections,
         }
     elif name == "DuelingQNetwork":
         kwargs = {
@@ -229,9 +267,11 @@ def _module_spec(module: nn.Module) -> Dict[str, Any]:
             "sizes": module.sizes, "activations": list(module.activations[:-1]),
         }
     else:
-        extra = (("action_activation", "exploration_variance")
-                 if name == "FullyConnectedActor" else ())
+        extra = {"FullyConnectedActor": ("action_activation", "exploration_variance"),
+                 "GaussianFullyConnectedActor": ("use_layer_norm",)}.get(name, ())
         kwargs = {k: getattr(module, k) for k in _ACTOR_KWARGS + extra}
+        if name == "FullyConnectedActor":
+            kwargs["use_batch_norm"] = module.net.batch_norms is not None
     return {"class": name, "kwargs": kwargs}
 
 

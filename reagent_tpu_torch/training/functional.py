@@ -9,11 +9,13 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from reagent_tpu_torch.core import types as rlt
+from reagent_tpu_torch.models.actor import FullyConnectedActor, GaussianFullyConnectedActor
 from reagent_tpu_torch.models.categorical_dqn import CategoricalDQN
 from reagent_tpu_torch.models.critic import FullyConnectedCritic
 from reagent_tpu_torch.models.dqn import FullyConnectedDQN
@@ -78,6 +80,21 @@ def select(flag: Tensor, new, old):
         for f in dataclasses.fields(old)})
 
 
+def takes_k3(module: nn.Module) -> bool:
+    """Whether ``score`` runs ``module``'s MLP as one K3 launch: a float32
+    dense ``FullyConnectedDQN``, ``CategoricalDQN`` or
+    ``FullyConnectedCritic``."""
+    return (isinstance(module, (FullyConnectedDQN, CategoricalDQN, FullyConnectedCritic))
+            and _dense_f32(module.net))
+
+
+def k3_weights(params: Params, prefix: str, n_layers: int):
+    """K3's ``[(W [in, out], b [out])]`` of the dense net at ``prefix`` in a
+    parameter dict (transposed views: no copy)."""
+    return [(params[f"{prefix}.layers.{i}.weight"].T, params[f"{prefix}.layers.{i}.bias"])
+            for i in range(n_layers)]
+
+
 def score(q_network: nn.Module, params: Params, *inputs: Tensor) -> Tensor:
     """The forward for acting and scoring, without a graph.  In float32 the
     MLP of these modules is one K3 launch on a CUDA tensor:
@@ -88,19 +105,54 @@ def score(q_network: nn.Module, params: Params, *inputs: Tensor) -> Tensor:
     - ``FullyConnectedCritic`` (state, action): the MLP on ``cat([state,
       action])``, the ``[B * A, S + A]`` tiled rows of a parametric scorer.
 
-    Any other module, and one with a reduced ``compute_dtype`` (K3 is
-    float32), runs its own forward, as the JAX package computes it outside
-    any kernel."""
+    Any other module, one with a reduced ``compute_dtype`` (K3 is float32)
+    and one whose network is not a dense chain (a batch or layer norm, a
+    skip connection: ``FullyConnectedNetwork.is_dense``) runs its own
+    forward, as the JAX package computes it outside any kernel."""
     with torch.no_grad():
-        if (not isinstance(q_network, (FullyConnectedDQN, CategoricalDQN, FullyConnectedCritic))
-                or q_network.net.compute_dtype != torch.float32):
+        if not takes_k3(q_network):
             return apply(q_network, params, *inputs)
         net = q_network.net
-        weights = [(params[f"net.layers.{i}.weight"].T, params[f"net.layers.{i}.bias"])
-                   for i in range(len(net.layers))]
+        weights = k3_weights(params, "net", len(net.layers))
         x = inputs[0] if len(inputs) == 1 else torch.cat(inputs, dim=1)
         out = fused_mlp_forward(x, weights, net.activations)
         return q_network.q_of_logits(out) if isinstance(q_network, CategoricalDQN) else out
+
+
+def _dense_f32(net: nn.Module) -> bool:
+    return net.compute_dtype == torch.float32 and net.is_dense
+
+
+def loc_and_scale_log(actor: GaussianFullyConnectedActor, params: Params,
+                      obs: Tensor) -> Tuple[Tensor, Tensor]:
+    """A gaussian actor's (loc, clipped log-scale) on ``params`` without a
+    graph.  Its float32 dense trunk is one K3 launch on a CUDA tensor; the
+    split, the layer norms and the clip follow in torch, as the module
+    computes them.  A trunk with a norm or a skip runs the module's own."""
+    with torch.no_grad():
+        if not _dense_f32(actor.net):
+            return apply_method(actor, params, "_loc_and_scale_log", obs)
+        out = fused_mlp_forward(obs, k3_weights(params, "net", len(actor.net.layers)),
+                                actor.net.activations)
+        return apply_method(actor, {k: v for k, v in params.items() if not k.startswith("net.")},
+                            "loc_and_scale_log_of", out)
+
+
+def actor_act(actor: nn.Module, params: Params, obs: Tensor,
+              noise: Optional[Tensor] = None) -> rlt.ActorOutput:
+    """A continuous actor's output on ``params`` without a graph (the act
+    step): the gaussian actor's (loc, log-scale) as ``loc_and_scale_log``,
+    then its squashed draw; the deterministic actor's dense float32 net one
+    K3 launch, then its exploration noise.  Any other actor runs its own
+    forward."""
+    with torch.no_grad():
+        if isinstance(actor, GaussianFullyConnectedActor):
+            return actor.output_of(*loc_and_scale_log(actor, params, obs), noise)
+        if isinstance(actor, FullyConnectedActor) and _dense_f32(actor.net):
+            out = fused_mlp_forward(obs, k3_weights(params, "net", len(actor.net.layers)),
+                                    actor.net.activations)
+            return actor.output_of(out, noise)
+        return apply(actor, params, obs, noise)
 
 
 def module_with(q_network: nn.Module, params: Params) -> nn.Module:

@@ -200,7 +200,7 @@ class SACTrainer:
         r_next, r_actor = noise[0], noise[1]
         zero = torch.zeros((), device=obs.device)
         alpha = (torch.exp(state.log_alpha) if state.log_alpha is not None
-                 else torch.tensor(self.entropy_temperature, device=obs.device))
+                 else torch.full((), self.entropy_temperature, device=obs.device))
 
         # ---- target value (ref sac_trainer.py:215-237)
         with torch.no_grad():

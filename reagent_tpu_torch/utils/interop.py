@@ -12,9 +12,16 @@ has three such scopes, ``FullyConnectedNetwork_0/1/2``: the port's
 ``shared``, ``advantage`` and ``value``; a ``ParametricDuelingQNetwork``'s
 three are its ``state_emb``, ``value`` and ``advantage``
 (``PARAMETRIC_DUELING_SCOPES``, passed as ``scopes``: the scope names alone
-do not tell the two apart).  An optax moment tree has its
-parameters' layout and is carried the same way; SAC's scalar log-alpha and
-its moments are carried under the name ``log_alpha``.
+do not tell the two apart).  Inside a network scope flax numbers its
+``Dense_i``, ``BatchNorm_i`` and ``LayerNorm_i`` scopes by separate
+counters, as the port's ``layers``, ``batch_norms`` and ``layer_norms``
+lists index them; a batch norm's ``mean`` and ``var`` come from the
+``batch_stats`` collection, where the JAX trainers keep them among their
+parameters, and the gaussian actor's ``loc_ln`` and ``scale_ln`` keep their
+names.  An optax moment tree has its parameters' layout and is carried the
+same way; SAC's scalar log-alpha and its moments are carried under the name
+``log_alpha``; ``opt_state_from_optax`` reads any optax chain of the union,
+a schedule's count included.
 """
 
 from __future__ import annotations
@@ -51,56 +58,90 @@ PARAMETRIC_DUELING_SCOPES = {_NET: "state_emb", "FullyConnectedNetwork_1": "valu
                              "FullyConnectedNetwork_2": "advantage"}
 
 
-def _dense_index(name: str) -> int:
-    m = re.fullmatch(r"Dense_(\d+)", name)
+_LAYER = re.compile(r"(Dense|BatchNorm|LayerNorm)_(\d+)")
+# flax layer scope -> the port's list in FullyConnectedNetwork (flax numbers
+# Dense, BatchNorm and LayerNorm scopes by separate counters, as the port's
+# lists index them)
+_LIST = {"Dense": "layers", "BatchNorm": "batch_norms", "LayerNorm": "layer_norms"}
+_FLAX_KIND = {v: k for k, v in _LIST.items()}
+# a norm's flax leaf -> the port's parameter, by collection
+_NORM_LEAVES = {"params": ("scale", "bias"), "batch_stats": ("mean", "var")}
+# the gaussian actor's layer norms after its trunk: flax scope = port name
+_TOP_NORMS = ("loc_ln", "scale_ln")
+
+
+def _layer(name: str):
+    m = _LAYER.fullmatch(name)
     if m is None:
-        raise ValueError(f"unexpected layer {name!r} in a dense flax scope")
-    return int(m.group(1))
+        raise ValueError(f"unexpected layer {name!r} in a flax network scope")
+    return m.group(1), int(m.group(2))
+
+
+def _array(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(np.asarray(x, np.float32), order="C"))
 
 
 def q_network_state_from_flax(
     params_np: Mapping, scopes: Optional[Mapping[str, str]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Flax ``FullyConnectedDQN``, ``CategoricalDQN``, ``DuelingQNetwork``,
-    critic, value or actor params (numpy leaves) -> the state dict of the
-    port's module of the same name; ``scopes`` (flax scope -> the port's
-    submodule) where the scope names are ambiguous."""
+    critic, value or actor variables (numpy leaves; ``batch_stats`` where
+    the net has batch norm) -> the state dict of the port's module of the
+    same name; ``scopes`` (flax scope -> the port's submodule) where the
+    scope names are ambiguous.  ``Dense_i`` becomes ``layers.i`` (kernel
+    transposed), ``BatchNorm_i`` ``batch_norms.i`` (scale, bias; mean and
+    var from ``batch_stats``) and ``LayerNorm_i`` ``layer_norms.i``."""
     tree = params_np["params"]
+    nets = {k: v for k, v in tree.items() if k not in _TOP_NORMS}
     if scopes is None:
-        scopes = next((m for m in _SCOPES if set(tree) == set(m)), None)
+        scopes = next((m for m in _SCOPES if set(nets) == set(m)), None)
     if scopes is None:
         raise ValueError(f"unexpected scopes {sorted(tree)} in a q-network tree")
     out: Dict[str, torch.Tensor] = {}
-    for scope, prefix in scopes.items():
-        layers = tree[scope]
-        for name in sorted(layers, key=_dense_index):
-            i = _dense_index(name)
-            out[f"{prefix}.layers.{i}.weight"] = torch.from_numpy(
-                np.array(np.asarray(layers[name]["kernel"], np.float32).T, order="C"))
-            out[f"{prefix}.layers.{i}.bias"] = torch.from_numpy(
-                np.array(layers[name]["bias"], np.float32))
+    for collection, norm_leaves in _NORM_LEAVES.items():
+        for scope, prefix in scopes.items():
+            for name, leaves in params_np.get(collection, {}).get(scope, {}).items():
+                kind, i = _layer(name)
+                base = f"{prefix}.{_LIST[kind]}.{i}"
+                if kind == "Dense":
+                    out[f"{base}.weight"] = _array(np.asarray(leaves["kernel"], np.float32).T)
+                    out[f"{base}.bias"] = _array(leaves["bias"])
+                else:
+                    for leaf in norm_leaves:
+                        out[f"{base}.{leaf}"] = _array(leaves[leaf])
+    for name in _TOP_NORMS:
+        for leaf in tree.get(name, {}):
+            out[f"{name}.{leaf}"] = _array(tree[name][leaf])
     return out
 
 
 def flax_from_q_network_state(state_dict: Mapping[str, torch.Tensor]) -> Dict:
-    """Inverse of ``q_network_state_from_flax`` (numpy leaves)."""
-    prefixes = {k.split(".")[0] for k in state_dict}
+    """Inverse of ``q_network_state_from_flax`` (numpy leaves; a
+    ``batch_stats`` collection where the net has batch norm)."""
+    prefixes = {k.split(".")[0] for k in state_dict} - set(_TOP_NORMS)
     scopes = next((m for m in _SCOPES if set(m.values()) == prefixes), None)
     if scopes is None:
         raise ValueError(f"unexpected submodules {sorted(prefixes)} in a q-network state dict")
     scope_of = {prefix: scope for scope, prefix in scopes.items()}
-    tree: Dict = {scope: {} for scope in scopes}
+    out: Dict = {"params": {scope: {} for scope in scopes}}
     for key, t in state_dict.items():
-        m = re.fullmatch(r"(\w+)\.layers\.(\d+)\.(weight|bias)", key)
+        a = t.detach().cpu().numpy().astype(np.float32)
+        top = re.fullmatch(r"(loc_ln|scale_ln)\.(scale|bias)", key)
+        if top is not None:
+            out["params"].setdefault(top.group(1), {})[top.group(2)] = a
+            continue
+        m = re.fullmatch(r"(\w+)\.(layers|batch_norms|layer_norms)\.(\d+)\.(\w+)", key)
         if m is None:
             raise ValueError(f"unexpected key {key!r} in a q-network state dict")
-        a = t.detach().cpu().numpy().astype(np.float32)
-        entry = tree[scope_of[m.group(1)]].setdefault(f"Dense_{m.group(2)}", {})
-        if m.group(3) == "weight":
+        prefix, lst, i, leaf = m.groups()
+        collection = "batch_stats" if leaf in ("mean", "var") else "params"
+        scope = out.setdefault(collection, {}).setdefault(scope_of[prefix], {})
+        entry = scope.setdefault(f"{_FLAX_KIND[lst]}_{i}", {})
+        if leaf == "weight":
             entry["kernel"] = np.ascontiguousarray(a.T)
         else:
-            entry["bias"] = a
-    return {"params": tree}
+            entry["bias" if leaf == "bias" and lst == "layers" else leaf] = a
+    return out
 
 
 def _params_on(params_np: Mapping, device) -> Dict[str, torch.Tensor]:
@@ -112,19 +153,80 @@ def _params_on(params_np: Mapping, device) -> Dict[str, torch.Tensor]:
     return {k: v.to(device) for k, v in q_network_state_from_flax(params_np).items()}
 
 
+_MOMENTS = ("mu", "nu", "nu_max", "trace", "sum_of_squares", "e_g", "e_x", "step_sizes",
+            "prev_updates", "v_row", "v_col", "v")
+
+
 def opt_state_from_arrays(
     count, mu: Optional[Mapping] = None, nu: Optional[Mapping] = None,
     nu_max: Optional[Mapping] = None, trace: Optional[Mapping] = None, device="cpu",
+    schedule_count=None, **moments: Optional[Mapping],
 ) -> OptState:
-    """The port's optimizer state from the fields of an optax
-    ``ScaleByAdamState`` / ``ScaleByAmsgradState`` (``count``, ``mu``, ``nu``,
-    ``nu_max``) or ``TraceState`` (``trace``), each moment a flax tree with
-    numpy leaves (or ``{"log_alpha": array}`` for SAC's temperature)."""
+    """The port's optimizer state from the fields of an optax state
+    (``count``, ``mu``, ``nu``, ``nu_max``, ``trace``, and by keyword the
+    other ``OptState`` moments: ``sum_of_squares``, ``e_g``, ``e_x``,
+    ``step_sizes``, ``prev_updates``, ``v_row``, ``v_col``, ``v``), each a
+    flax tree with numpy leaves (or ``{"log_alpha": array}`` for SAC's
+    temperature), and a schedule's count.  Adafactor's factored moments of a
+    square kernel swap rows for columns: the port's weight is the flax
+    kernel transposed, and optax picks the axes of a square tensor by
+    position."""
+    unknown = set(moments) - set(_MOMENTS)
+    if unknown:
+        raise ValueError(f"unknown optimizer state fields {sorted(unknown)}")
+
     def tree(x):
         return None if x is None else _params_on(x, device)
 
-    return OptState(count=_scalar_i32(count, device), mu=tree(mu), nu=tree(nu),
-                    nu_max=tree(nu_max), trace=tree(trace))
+    fields = {name: tree(x) for name, x in dict(mu=mu, nu=nu, nu_max=nu_max, trace=trace,
+                                                 **moments).items()}
+    rows, cols = fields.get("v_row"), fields.get("v_col")
+    if rows is not None and cols is not None:
+        for k in rows:
+            if (k.endswith(".weight") and rows[k].shape == cols[k].shape
+                    and rows[k].numel() > 1):
+                rows[k], cols[k] = cols[k], rows[k]
+    return OptState(count=_scalar_i32(count, device),
+                    schedule_count=None if schedule_count is None
+                    else _scalar_i32(schedule_count, device), **fields)
+
+
+def opt_state_from_optax(state, device="cpu") -> OptState:
+    """The port's optimizer state from an optax state (a chain's tuple of
+    named states, leaves JAX or numpy arrays), field by field: the first
+    ``count`` of an optimizer's state, every moment ``OptState`` names, and
+    ``ScaleByScheduleState``'s count as ``schedule_count``."""
+    found: Dict = {}
+
+    def to_np(x):
+        if isinstance(x, Mapping):
+            return {k: to_np(v) for k, v in x.items()}
+        return np.asarray(x)
+
+    def walk(node):
+        name = type(node).__name__
+        if name == "ScaleByScheduleState":
+            found["schedule_count"] = np.asarray(node.count)
+            return
+        names = getattr(node, "_fields", None) or (
+            [f.name for f in dataclasses.fields(node)] if dataclasses.is_dataclass(node) else None)
+        if names is None:
+            if isinstance(node, (tuple, list)):
+                for child in node:
+                    walk(child)
+            return
+        for field in names:
+            value = getattr(node, field)
+            if field == "count":
+                found.setdefault("count", np.asarray(value))
+            elif field in _MOMENTS and value is not None:
+                found[field] = to_np(value)
+            elif isinstance(value, (tuple, list)) or hasattr(value, "_fields"):
+                walk(value)
+
+    walk(state)
+    found.setdefault("count", np.zeros((), np.int32))
+    return opt_state_from_arrays(device=device, **found)
 
 
 def _unfused_state(cls, q_params, q_target_params, opt_state, step, device):

@@ -177,8 +177,16 @@ def test_gaussian_actor_forward_and_log_prob_match_jax():
         net.get_log_prob(torch.tensor(obs), torch.tensor(logged)),
         jnet.apply(jparams, jnp.asarray(obs), jnp.asarray(logged), method="get_log_prob"),
         np.clip(logged, -1 + 1e-6, 1 - 1e-6))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        actor.GaussianFullyConnectedActor(D, 1, SIZES, ACTS, use_layer_norm=True)
+    # the layer norms after the trunk (JAX's loc_ln and scale_ln), which
+    # once raised: on one action dim each returns its bias, as in JAX
+    jln = jax_actor.GaussianFullyConnectedActor(state_dim=D, action_dim=1, sizes=SIZES,
+                                                activations=ACTS, use_layer_norm=True)
+    ln_params = jln.init(jax.random.PRNGKey(3), jnp.asarray(obs))
+    ln_net = _carry(actor.GaussianFullyConnectedActor(D, 1, SIZES, ACTS, use_layer_norm=True),
+                    ln_params)
+    got, want = ln_net(torch.tensor(obs)), jln.apply(ln_params, jnp.asarray(obs))
+    _close(got.action, want.action, msg="layer-norm action")
+    _assert_squashed_log_prob_close(got.log_prob, want.log_prob, want.action)
 
 
 @pytest.mark.parametrize("exploration_variance", [None, 0.3])
@@ -244,9 +252,13 @@ def test_critic_and_value_match_jax():
     _close(critic(torch.tensor(obs), torch.tensor(act)),
            jcritic.apply(jc_params, jnp.asarray(obs), jnp.asarray(act)))
     _close(value(torch.tensor(obs)), jvalue.apply(jv_params, jnp.asarray(obs)))
-    for kw in (dict(use_batch_norm=True), dict(use_layer_norm=True)):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            FullyConnectedCritic(D, 2, SIZES, ACTS, **kw)
+    # batch norm and layer norm, which once raised, as JAX's
+    for i, kw in enumerate((dict(use_batch_norm=True), dict(use_layer_norm=True))):
+        jc = JaxCritic(state_dim=D, action_dim=2, sizes=SIZES, activations=ACTS, **kw)
+        params = jc.init(jax.random.PRNGKey(5 + i), jnp.zeros((1, D)), jnp.zeros((1, 2)))
+        c = _carry(FullyConnectedCritic(D, 2, SIZES, ACTS, **kw), params)
+        _close(c(torch.tensor(obs), torch.tensor(act)),
+               jc.apply(params, jnp.asarray(obs), jnp.asarray(act)), msg=str(kw))
 
 
 @pytest.mark.parametrize("feature_type", ["CONTINUOUS_ACTION", "DO_NOT_PREPROCESS"])

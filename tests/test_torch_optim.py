@@ -116,13 +116,122 @@ def test_config_forms():
     "RMSprop", "Adagrad", "Lion", "Adadelta", "Adamax", "NAdam", "RAdam", "Rprop", "LBFGS",
     "ASGD", "SparseAdam", "Lamb", "Adafactor"])
 def test_unported_members_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
-        make_optimizer({name: {}})
+    """The members the port once refused now build at their defaults and
+    step, except LBFGS, whose update raises ``TypeError`` as optax's does
+    in the JAX package (it needs the loss's value, gradient and
+    ``value_fn``, which no trainer passes)."""
+    params, grads = _data()
+    opt = make_optimizer({name: {}})
+    p = {k: torch.tensor(v) for k, v in params.items()}
+    state = opt.init(p)
+    g = {k: torch.tensor(v) for k, v in grads[0].items()}
+    if name == "LBFGS":
+        jopt = jax_make_optimizer({name: {}})
+        jp = {k: jnp.asarray(v) for k, v in params.items()}
+        with pytest.raises(TypeError):
+            jopt.update({k: jnp.asarray(v) for k, v in grads[0].items()}, jopt.init(jp), jp)
+        with pytest.raises(TypeError, match="value_fn"):
+            opt.update(g, state, p)
+        return
+    new_p, new_state = opt.update(g, state, p)
+    if name == "Rprop":  # optax's rprop returns the previous step: none yet
+        new_p, new_state = opt.update(g, new_state, new_p)
+    assert int(new_state.count) == (2 if name == "Rprop" else 1)
+    assert all(torch.isfinite(new_p[k]).all() and not torch.equal(new_p[k], p[k]) for k in p)
 
 
 def test_lr_scheduler_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
-        make_optimizer({"Adam": {"lr": 1e-3, "lr_scheduler": {"StepLR": {"step_size": 100}}}})
+    """The ``lr_scheduler`` key no longer raises: it composes the schedule
+    after the optimizer, as the JAX package's ``with_scheduler``."""
+    config = {"Adam": {"lr": 1e-3, "lr_scheduler": {"StepLR": {"step_size": 2, "gamma": 0.5}}}}
+    params, grads = _data()
+    ours, state = _run_port(config, params, grads)
+    want, _ = _run_optax(config, params, grads)
+    for k in params:
+        np.testing.assert_allclose(ours[k].numpy(), np.asarray(want[k]), rtol=1e-5, atol=1e-6)
+    assert int(state.schedule_count) == 5 and int(state.count) == 5
+
+
+# every member added since, and every scheduler, at a width where Adafactor
+# factors its second moment ("big": the two largest dims >= 128)
+WIDE_SHAPES = {"w": (4, 3), "b": (3,), "big": (160, 128)}
+NEW_CONFIGS = {
+    "rmsprop": {"RMSprop": {"lr": 0.01}},
+    "rmsprop_momentum_centered": {"RMSprop": {"lr": 0.01, "momentum": 0.9, "centered": True}},
+    "adagrad": {"Adagrad": {"lr": 0.05}},
+    "lion": {"Lion": {"lr": 0.001, "weight_decay": 0.1}},
+    "adadelta": {"Adadelta": {"lr": 1.0}},
+    "adadelta_decay": {"Adadelta": {"lr": 0.5, "weight_decay": 0.01}},
+    "adamax": {"Adamax": {"lr": 0.01}},
+    "adamaxw": {"Adamax": {"lr": 0.01, "weight_decay": 0.05}},
+    "nadam": {"NAdam": {"lr": 0.01}},
+    "nadamw": {"NAdam": {"lr": 0.01, "weight_decay": 0.05}},
+    # b2 0.9: optax's rectification starts at the 6th step; run 8
+    "radam": {"RAdam": {"lr": 0.01, "betas": [0.9, 0.9]}},
+    "radam_decay": {"RAdam": {"lr": 0.01, "betas": [0.9, 0.9], "weight_decay": 0.01}},
+    "rprop": {"Rprop": {"lr": 0.01}},
+    "asgd": {"ASGD": {"lr": 0.05, "weight_decay": 0.01}},
+    "sparse_adam": {"SparseAdam": {"lr": 0.01}},
+    "lamb": {"Lamb": {"lr": 0.01, "weight_decay": 0.01}},
+    "adafactor": {"Adafactor": {}},
+    "adafactor_lr": {"Adafactor": {"lr": 0.05}},
+    "step_lr": {"Adam": {"lr": 0.01, "lr_scheduler": {"StepLR": {"step_size": 2, "gamma": 0.5}}}},
+    "multi_step_lr": {"SGD": {"lr": 0.05, "momentum": 0.9, "lr_scheduler": {
+        "MultiStepLR": {"milestones": [1, 3], "gamma": 0.3}}}},
+    "exponential_lr": {"AdamW": {"lr": 0.01, "lr_scheduler": {"ExponentialLR": {"gamma": 0.8}}}},
+    "linear_lr": {"RMSprop": {"lr": 0.01, "lr_scheduler": {"LinearLR": {"total_iters": 3}}}},
+    "cosine_lr": {"RAdam": {"lr": 0.01, "lr_scheduler": {"CosineAnnealingLR": {"T_max": 4}}}},
+    "one_cycle_lr": {"Lamb": {"lr": 0.01, "lr_scheduler": {
+        "OneCycleLR": {"max_lr_factor": 5.0, "total_steps": 6, "pct_start": 0.5}}}},
+    "adafactor_cosine": {"Adafactor": {"lr_scheduler": {"CosineAnnealingLR": {"T_max": 3}}}},
+}
+# optax state fields -> the port's, and the chain's count
+_FIELDS = ("mu", "nu", "nu_max", "trace", "sum_of_squares", "e_g", "e_x", "step_sizes",
+           "prev_updates", "v_row", "v_col", "v")
+
+
+def _run_optax(config, params, grads):
+    opt = jax_make_optimizer(config)
+    p = {k: jnp.asarray(v) for k, v in params.items()}
+    state = opt.init(p)
+    for g in grads:
+        updates, state = opt.update({k: jnp.asarray(v) for k, v in g.items()}, state, p)
+        p = optax.apply_updates(p, updates)
+    return p, state
+
+
+@pytest.mark.parametrize("name", sorted(NEW_CONFIGS))
+def test_new_members_and_schedulers_in_lockstep_with_optax(name):
+    config = NEW_CONFIGS[name]
+    steps = 8 if "radam" in name else 5
+    rng = np.random.default_rng(3)
+    params = {k: rng.normal(size=s).astype(np.float32) for k, s in WIDE_SHAPES.items()}
+    grads = [{k: (rng.normal(size=s) * 0.7 ** i).astype(np.float32)
+              for k, s in WIDE_SHAPES.items()} for i in range(steps)]
+    # a sign flip and a zero, so Rprop takes every branch
+    grads[2]["w"] = -grads[1]["w"]
+    grads[3]["b"][0] = 0.0
+    want, jstate = _run_optax(config, params, grads)
+    ours, state = _run_port(config, params, grads)
+    for k in params:
+        np.testing.assert_allclose(ours[k].numpy(), np.asarray(want[k]), rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+    assert int(state.count) == steps
+    if "lr_scheduler" in next(iter(config.values())):
+        assert int(state.schedule_count) == steps
+    seen = set()
+    for leaf in jax.tree_util.tree_leaves(jstate, is_leaf=lambda x: hasattr(x, "_fields")):
+        for field in _FIELDS:
+            if hasattr(leaf, field) and getattr(leaf, field) is not None:
+                seen.add(field)
+                for k in params:
+                    np.testing.assert_allclose(
+                        getattr(state, field)[k].numpy(), np.asarray(getattr(leaf, field)[k]),
+                        rtol=1e-5, atol=1e-7, err_msg=f"{field}/{k}")
+    assert seen or name == "asgd", jstate  # plain SGD keeps no state
+    if name.startswith("adafactor"):
+        # the wide tensor's second moment is factored: a row and a column
+        assert state.v_row["big"].shape == (128,) and state.v_col["big"].shape == (160,)
 
 
 @pytest.mark.parametrize("tau", [0.05, 1.0])
