@@ -194,14 +194,39 @@ Phases, in order; any failure raises and the script exits non-zero:
      step's trunk one K3 launch, every sample one K4 launch, a profiled
      window (kernels a step, idle share, host reads: 0 or the script
      fails), evaluate_policy over 10 greedy episodes through K3;
- 41. one JSON line describing each ported kernel (K1's rows with the CUDA
+ 41. the world-model slice's modules, card against CPU: OpenGridworld and
+     PossibleActionsMaskTester, 8 envs x 40 steps from the same actions and
+     draws (rewards atol 1e-6, the rest exactly); 5 MDN-RNN train steps (16 hidden, 1 layer, 1
+     gaussian) on 256 StringGame episodes of 6 from one state (losses rtol
+     1e-4, every parameter and Adam moment rtol 5e-4, atol 5e-5); then
+     StateEmbedEnv over those weights, 8 episodes of 6 (atol 1e-5);
+ 42. K3 at the new jobs' act and eval shapes ([1] and [20] x 18->64->32->2,
+     [1] and [20] x 6->64->4, [10] x 24->64->4) and K4 at capacity 20,000,
+     B 256 and 4,096, 128, each against its plain version, the two act
+     shapes and K4's first timed beside the launch floor and the bound
+     (K3_WM_TIMED, K4_WM_TIMED); then the world-model string pipeline
+     (tests/test_world_model_string_e2e.py) cut in depth: 512 random
+     StringGame episodes, WORLD_MODEL["wm_steps"] MDN-RNN steps (the loss
+     must fall), StateEmbedEnv, a prefill of WORLD_MODEL["prefill"] and
+     WORLD_MODEL["steps"] DQN steps (18->64->32->2, minibatch 256, a
+     ReplayBuffer of 20,000) through the generic loop, K3 and K4 exactly once
+     a step, a profiled window (kernels a step, idle share, host reads: 0 or
+     the script fails), evaluate_policy over 5 greedy episodes through K3;
+ 43. the OpenGridworld DQN (6->64->4, gamma 0.95, prefill 500, 300 steps;
+     K3 and K4 once a step) and the possible-actions-mask DQN (24->64->4
+     relu, random legal actions, 300 steps, an update a step after the
+     first 65: K4 once an update, no K3), each with a profiled window and
+     evaluate_policy through K3 (the mask job's greedy act masked); the
+     full depths are tools/world_model_jobs.py's;
+ 44. one JSON line describing each ported kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
      wrapper's host time; K3's and K4's with the wrapper's host time, the
      launch floor and their other shapes, K3's with its torch.addmm
      yardstick and the evaluation's two shapes, K3's and K4's with their
-     share of a step on the discrete-actor, C51, parametric and continuous
-     paths, and K3's continuous shapes with their torch.addmm yardstick).
+     share of a step on the discrete-actor, C51, parametric, continuous,
+     world-model, gridworld and mask paths, K3's continuous and world-model
+     shapes with their torch.addmm yardstick and K4's world-model shapes).
 Each phase's heading carries the seconds since the script started.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
@@ -3608,6 +3633,33 @@ def dqn_family_lockstep_phase(torch, name, n=5):
     return worst_m, worst_p
 
 
+def k4_shape_times(torch, name, label, shape, timed=True):
+    """K4 at ``shape`` (capacity, B, H) against its plain version (exact)
+    and, where ``timed``, its CUDA-event time beside the bound from this
+    run's inputs (else None)."""
+    from reagent_tpu_torch.ops import nstep_replay
+
+    capacity, B, H = shape
+    rewards, terminals, idx = k4_inputs(torch, capacity, B, 7)
+    got = nstep_replay.nstep_rewards(rewards, terminals, idx, H, 0.99)
+    for a, b in zip(got, nstep_replay.nstep_rewards_reference(rewards, terminals, idx, H, 0.99)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    if not timed:
+        log(f"  K4 {label} (capacity {capacity}, B {B}, H {H}): exact against the plain version")
+        return None
+    walked = int(got[1].sum())  # this run's windows, as far as each is read
+    flops, nbytes = 2.0 * walked, 8.0 * B + 5.0 * walked + 9.0 * B
+    b_ms, b_by = roofline(flops, nbytes, name)
+    t = dict(
+        ms=time_ms(torch, lambda: nstep_replay.nstep_rewards(rewards, terminals, idx, H, 0.99)),
+        plain_ms=time_ms(torch, lambda: nstep_replay.nstep_rewards_reference(
+            rewards, terminals, idx, H, 0.99)),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
+    log(f"  K4 {label} (capacity {capacity}, B {B}, H {H}): exact; kernel {t['ms']:.4f} ms, "
+        f"plain {t['plain_ms']:.4f} ms, bound {b_ms:.7f} ms ({b_by}), on {card_line()}")
+    return t
+
+
 def k3_k4_family_phase(torch, name, launch_floor_ms):
     """K3 at the new paths' four shapes against its plain version (rtol
     1e-5, atol 1e-5, as phase 8; the resident route each time: the largest
@@ -3639,21 +3691,8 @@ def k3_k4_family_phase(torch, name, launch_floor_ms):
             f"{launch_floor_ms:.4f}), plain {t['plain_ms']:.4f} ms, bound {b_ms:.6f} ms "
             f"({b_by}; {flops:.4g} FLOP, {nbytes:.4g} B), max abs {t['max_abs_err']:.3e}, "
             f"on {card_line()}")
-    label, (capacity, B, H) = K4_FAMILY_SHAPE
-    rewards, terminals, idx = k4_inputs(torch, capacity, B, 7)
-    got = nstep_replay.nstep_rewards(rewards, terminals, idx, H, 0.99)
-    for a, b in zip(got, nstep_replay.nstep_rewards_reference(rewards, terminals, idx, H, 0.99)):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
-    walked = int(got[1].sum())  # this run's windows, as far as each is read
-    flops, nbytes = 2.0 * walked, 8.0 * B + 5.0 * walked + 9.0 * B
-    b_ms, b_by = roofline(flops, nbytes, name)
-    out["K4"][label] = t = dict(
-        ms=time_ms(torch, lambda: nstep_replay.nstep_rewards(rewards, terminals, idx, H, 0.99)),
-        plain_ms=time_ms(torch, lambda: nstep_replay.nstep_rewards_reference(
-            rewards, terminals, idx, H, 0.99)),
-        bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0)
-    log(f"  K4 {label} (capacity {capacity}, B {B}, H {H}): exact; kernel {t['ms']:.4f} ms, "
-        f"plain {t['plain_ms']:.4f} ms, bound {b_ms:.7f} ms ({b_by}), on {card_line()}")
+    label, shape = K4_FAMILY_SHAPE
+    out["K4"][label] = k4_shape_times(torch, name, label, shape)
     return out
 
 
@@ -4274,6 +4313,442 @@ def continuous_online_phase(torch, name, steps, prefill, prioritized=False, devi
     return result
 
 
+# ------------------------------------------------------- the world-model slice
+
+# the world-model string pipeline: tests/test_world_model_string_e2e.py
+# (reference gym/tests/test_world_model.py, configs/world_model/
+# discrete_dqn_string.yaml, bar 10.0): 512 random StringGame episodes of 6,
+# MDN-RNN (16 hidden, 1 layer, 1 gaussian, Adam 3e-3), StateEmbedEnv, online
+# DQN on [16 hidden | 2 raw] observations.  Phase 42 cuts the depth (the
+# MDN-RNN's steps, the prefill, the DQN's steps, the greedy episodes) and
+# keeps every width; tools/world_model_jobs.py runs the full_* depths
+WORLD_MODEL = dict(episodes=512, T=6, hid=16, wm_lr=3e-3, widths=[64, 32], act="leaky_relu",
+                   gamma=0.99, tau=0.2, lr=0.003, capacity=20_000, B=256, temperature=0.5,
+                   wm_steps=50, prefill=500, steps=300, eval_episodes=5,
+                   full_wm_steps=300, full_prefill=2000, full_steps=6000, full_eval_episodes=20,
+                   extension_steps=3000, extensions=2, bar=10.0)
+# OpenGridworld DQN: tests/test_gym_envs_extra.py:99 (discrete_dqn_open_gridworld.yaml)
+GRIDWORLD_JOB = dict(widths=[64], act="leaky_relu", gamma=0.95, tau=0.2, lr=0.005,
+                     capacity=20_000, B=256, temperature=0.5, prefill=500, steps=300,
+                     eval_episodes=20, full_prefill=3000, full_steps=10_000,
+                     full_eval_episodes=20, bar=0.9)
+# the possible-actions-mask DQN: tests/test_functionality_mask.py:23
+# (dqn_possible_actions_mask.yaml): random legal actions, a train step
+# after the first 65, masked double-Q max targets
+MASK_JOB = dict(widths=[64], act="relu", gamma=0.99, tau=0.2, lr=0.01, capacity=4096, B=128,
+                train_after=64, steps=300, eval_episodes=10, full_steps=600,
+                full_eval_episodes=10, bar=200.0)
+WM_PROFILED_STEPS = 10
+# K3's forwards on these paths (act steps and greedy evaluations) and K4's
+# samples, timed in phase 42 (label -> rows, sizes, activations, resident, seed)
+K3_WM_SHAPES = {
+    "world-model act [1, 18->64->32->2]": (1, [18, 64, 32, 2],
+                                           ["leaky_relu", "leaky_relu", "linear"], True, 91),
+    "world-model eval [20, 18->64->32->2]": (20, [18, 64, 32, 2],
+                                             ["leaky_relu", "leaky_relu", "linear"], True, 92),
+    "gridworld act [1, 6->64->4]": (1, [6, 64, 4], ["leaky_relu", "linear"], True, 93),
+    "gridworld eval [20, 6->64->4]": (20, [6, 64, 4], ["leaky_relu", "linear"], True, 94),
+    "mask eval [10, 24->64->4]": (10, [24, 64, 4], ["relu", "linear"], True, 95),
+}
+K4_WM_SHAPES = {"world-model and gridworld loops": (20_000, 256, 1),
+                "mask job": (4096, 128, 1)}  # capacity, B, H
+# each timing queues a ~1 s sleep on the card (time_ms): the act steps' two
+# shapes and K4's loop shape are timed, the others only checked
+K3_WM_TIMED = ("world-model act [1, 18->64->32->2]", "gridworld act [1, 6->64->4]")
+K4_WM_TIMED = ("world-model and gridworld loops",)
+MDN_TOL = dict(loss=dict(rtol=1e-4, atol=1e-6), param=dict(rtol=5e-4, atol=5e-5))
+
+
+def wm_dqn_trainer(torch, cfg, state_dim, action_dim, device):
+    """A job's DQNTrainer (FullyConnectedDQN at ``cfg``'s widths, Adam,
+    double-Q max targets) on ``device``, and its scorer ``(state, obs [B,
+    D], mask=None) -> Q``: one K3 launch on the card
+    (``training/functional.py::score``)."""
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.gym.policies import discrete_dqn_scorer
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+    from reagent_tpu_torch.training import DQNTrainer
+
+    net = FullyConnectedDQN(state_dim=state_dim, action_dim=action_dim, sizes=cfg["widths"],
+                            activations=[cfg["act"]] * len(cfg["widths"]))
+    trainer = DQNTrainer(
+        q_network=net, rl=RLParameters(gamma=cfg["gamma"], target_update_rate=cfg["tau"]),
+        optimizer={"Adam": {"lr": cfg["lr"]}}, double_q_learning=True, device=device)
+    scorer = discrete_dqn_scorer(trainer.q_network)
+    return trainer, lambda ts, obs, mask=None: scorer(ts.q_params, obs, mask)
+
+
+def string_episodes(torch, env, episodes, T, generator):
+    """``episodes`` uniform-random StringGame episodes of ``T`` steps as one
+    time-major ``MemoryNetworkInput`` [T, episodes, ...] (the JAX test's
+    ``_collect_random_episodes``), stepped as one batch of envs."""
+    from reagent_tpu_torch.core import types as rlt
+
+    state, obs = env.reset(generator, batch_size=episodes)
+    cols = []
+    for _ in range(T):
+        a = torch.randint(0, env.action_dim, (episodes,), generator=generator, device=env.device)
+        state, next_obs, reward, done = env.step(state, a)
+        cols.append((obs, torch.nn.functional.one_hot(a, env.action_dim).to(torch.float32),
+                     next_obs, reward, done))
+        obs = next_obs
+    obs, act, next_obs, reward, done = (torch.stack(c) for c in zip(*cols))
+    return rlt.MemoryNetworkInput(
+        state=rlt.FeatureData(obs), next_state=rlt.FeatureData(next_obs),
+        action=rlt.FeatureData(act), reward=reward, time_diff=torch.ones_like(reward),
+        step=None, not_terminal=1.0 - done.to(torch.float32),
+        valid_step=torch.full((episodes, 1), T, dtype=torch.int32, device=env.device))
+
+
+def mdnrnn_trainer(torch, cfg, device, lr=None):
+    from reagent_tpu_torch.core.parameters import MDNRNNTrainerParameters
+    from reagent_tpu_torch.models.mdn_rnn import MemoryNetwork
+    from reagent_tpu_torch.training.world_model import MDNRNNTrainer
+
+    net = MemoryNetwork(state_dim=2, action_dim=2, num_hiddens=cfg["hid"], num_hidden_layers=1,
+                        num_gaussians=1)
+    return MDNRNNTrainer(net, MDNRNNTrainerParameters(learning_rate=lr or cfg["wm_lr"]),
+                         device=device)
+
+
+def discrete_job_policy(torch, q_values, temperature):
+    """(the act step, the greedy act): softmax at ``temperature`` over the
+    scorer's Q (K3) and the loop's generator; greedy over a batch of envs."""
+    from reagent_tpu_torch.gym.policies import SoftmaxActionSampler
+
+    sampler = SoftmaxActionSampler(temperature=temperature)
+
+    def policy_act(ts, obs, g):
+        idx = torch.argmax(sampler.sample_action(q_values(ts, obs[None]), g).action[0])
+        return idx.to(torch.int32), idx.to(torch.int32)
+
+    def greedy_act(ts, obs, g):
+        return torch.argmax(q_values(ts, obs), dim=1).to(torch.int32)
+
+    return policy_act, greedy_act
+
+
+def online_dqn_job(torch, label, env, trainer, q_values, cfg, steps, prefill, eval_episodes,
+                   dev, extensions=0):
+    """A DQN job through the generic loop (``run_online_training``), as the
+    JAX test runs it: a ReplayBuffer of cfg["capacity"] prefilled with
+    ``prefill`` random transitions, then ``steps`` env steps each with a
+    softmax act step (K3), a sample (K4) and an update; on the card a
+    profiled window (kernels a step, the idle share, host reads: 0 or the
+    script fails); then ``evaluate_policy`` over ``eval_episodes`` greedy
+    episodes (K3 once a step).  Up to ``extensions`` more runs of
+    cfg["extension_steps"] while the greedy mean is under the bar (the
+    string job's insurance, test_world_model_string_e2e.py:137)."""
+    from reagent_tpu_torch.gym.online_loop import (
+        OnlineLoopConfig,
+        evaluate_policy,
+        prefill_replay_buffer,
+        run_online_training,
+    )
+    from reagent_tpu_torch.gym.preprocessors import make_discrete_dqn_batch
+    from reagent_tpu_torch.replay import ReplayBuffer
+
+    on_card = dev != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tstate = trainer.init(torch.Generator().manual_seed(0))
+    rb = ReplayBuffer(replay_capacity=cfg["capacity"], update_horizon=1, gamma=cfg["gamma"],
+                      device=dev)
+    rb_state = rb.init(observation=torch.zeros(env.observation_dim),
+                       action=torch.tensor(0, dtype=torch.int32), reward=torch.tensor(0.0),
+                       terminal=torch.tensor(False))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t0 = time.perf_counter()
+    rb_state = prefill_replay_buffer(env, rb, rb_state, gen, prefill)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    policy_act, greedy_act = discrete_job_policy(torch, q_values, cfg["temperature"])
+
+    def loop(state, buffer, n):
+        return run_online_training(
+            env, trainer, state, rb, buffer, policy_act,
+            lambda d: make_discrete_dqn_batch(d, env.action_dim), gen,
+            OnlineLoopConfig(num_steps=n, minibatch_size=cfg["B"]))
+
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    tstate, rb_state, aux = loop(tstate, rb_state, steps)
+    sync()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    losses = aux["td_losses"].cpu()
+    log(f"  {label}: prefill {prefill} in {prefill_s:.2f} s; {steps} env steps + {steps} "
+        f"updates in {wall:.3f} s = {steps / wall:.2f} env steps/s, episodes "
+        f"{int(aux['episodes_completed'])}, last td_loss {losses[-1].item():.6g}, launches "
+        f"{launches}, plain calls {plain_calls}")
+    if losses.shape != (steps,) or not torch.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses {losses.shape}")
+    others = {k: v for k, v in launches.items() if k not in ("nstep_rewards", "fused_mlp_forward")}
+    if on_card and (any(launches[k] != steps for k in ("nstep_rewards", "fused_mlp_forward"))
+                    or any(others.values()) or plain_calls):
+        raise AssertionError(f"{label}: launches {launches} for {steps} steps, plain calls "
+                             f"{plain_calls}")
+    result = dict(launches=launches, steps=steps, steps_per_s=steps / wall, prefill=prefill,
+                  prefill_s=prefill_s, first_td=losses[:20].mean().item(),
+                  last_td=losses[-20:].mean().item())
+    if on_card:
+        ported = {}
+        n = WM_PROFILED_STEPS
+        dev_us, kernels = profile_loop(torch, lambda: loop(tstate, rb_state, n), n,
+                                       wall / steps * 1e6, label, ported)
+        result.update(device_us=dev_us, kernels_per_step=kernels, k3_us=ported["fused_mlp"],
+                      k4_us=ported["nstep"], idle=1 - dev_us / (wall / steps * 1e6))
+
+    def evaluate():
+        reset_counts()
+        t0 = time.perf_counter()
+        returns = evaluate_policy(env, greedy_act, tstate, gen, num_episodes=eval_episodes).cpu()
+        counts, plain = read_counts()
+        if on_card and (counts["fused_mlp_forward"] != env.max_steps or plain):
+            raise AssertionError(f"{label} eval: launches {counts}, plain {plain}")
+        return returns.mean().item(), counts, time.perf_counter() - t0
+
+    mean, eval_launches, eval_s = evaluate()
+    extra = 0
+    while extra < extensions and mean < cfg["bar"]:
+        extra += 1
+        tstate, rb_state, _ = loop(tstate, rb_state, cfg["extension_steps"])
+        mean, eval_launches, eval_s = evaluate()
+        log(f"  {label}: extension {extra} ({cfg['extension_steps']} steps), greedy mean "
+            f"{mean:.3f}")
+    log(f"  evaluate_policy: {eval_episodes} greedy episodes in {eval_s:.2f} s, mean "
+        f"{mean:.4f} (the bar {cfg['bar']}: {'met' if mean >= cfg['bar'] else 'missed'}), K3 "
+        f"launches {eval_launches['fused_mlp_forward']}"
+        f"{', on ' + card_line() if on_card else ''}")
+    result.update(eval_launches=eval_launches, mean_reward=mean, bar=cfg["bar"],
+                  extensions=extra, eval_episodes=eval_episodes)
+    return result
+
+
+def world_model_phase(torch, wm_steps, prefill, steps, eval_episodes, extensions=0, device=None):
+    """The world-model string pipeline: 512 random StringGame episodes of 6
+    on the device, ``wm_steps`` MDN-RNN steps on them (the loss must fall),
+    ``StateEmbedEnv`` over the trained weights (each step re-embeds its
+    history through the LSTM), then the online DQN job on the embedded
+    observations (``online_dqn_job``)."""
+    from reagent_tpu_torch.gym.envs import StateEmbedEnv, StringGame
+
+    dev = device or DEVICE
+    cfg = WORLD_MODEL
+    sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
+    env = StringGame(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t0 = time.perf_counter()
+    batch = string_episodes(torch, env, cfg["episodes"], cfg["T"], gen)
+    wm = mdnrnn_trainer(torch, cfg, dev)
+    wm_state = wm.init(torch.Generator().manual_seed(1))
+    reset_counts()
+    losses = []
+    for _ in range(wm_steps):
+        wm_state, m = wm.train_step(wm_state, batch)
+        losses.append(m["loss"])
+    losses = torch.stack(losses).cpu()
+    sync()
+    wm_s = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    if not bool(losses[-1] < losses[0]) or any(launches.values()) or plain_calls:
+        raise AssertionError(f"MDN-RNN: loss {losses[0].item()} -> {losses[-1].item()}, "
+                             f"launches {launches}, plain calls {plain_calls}")
+    log(f"  MDN-RNN on {cfg['episodes']} StringGame episodes of {cfg['T']}: {wm_steps} steps in "
+        f"{wm_s:.2f} s ({wm_steps / wm_s:.1f} steps/s, the episodes' collection included), "
+        f"loss {losses[0].item():.4f} -> {losses[-1].item():.4f}")
+    embed_env = StateEmbedEnv(env, wm.memory_network, wm_state.params,
+                              max_embed_seq_len=cfg["T"])
+    trainer, q_values = wm_dqn_trainer(torch, cfg, embed_env.observation_dim, 2, dev)
+    result = online_dqn_job(torch, "world-model DQN", embed_env, trainer, q_values, cfg, steps,
+                            prefill, eval_episodes, dev, extensions)
+    result.update(wm_steps=wm_steps, wm_loss=(losses[0].item(), losses[-1].item()), wm_s=wm_s)
+    return result
+
+
+def gridworld_phase(torch, prefill, steps, eval_episodes, device=None):
+    from reagent_tpu_torch.gym.envs import OpenGridworld
+
+    dev = device or DEVICE
+    env = OpenGridworld(device=dev)
+    trainer, q_values = wm_dqn_trainer(torch, GRIDWORLD_JOB, env.observation_dim,
+                                       env.action_dim, dev)
+    return online_dqn_job(torch, "OpenGridworld DQN", env, trainer, q_values, GRIDWORLD_JOB,
+                          steps, prefill, eval_episodes, dev)
+
+
+def mask_phase(torch, steps, eval_episodes, device=None):
+    """The possible-actions-mask DQN as the JAX test runs it: each step an
+    action uniform over the legal ones (the mask in the observation's tail,
+    a gumbel-max over 0 / -1e9), the env step, the insert, an auto-reset
+    (a device select here, a host branch there) and, after the first
+    ``train_after`` + 1 steps, one sample of 128 (K4) with masked double-Q
+    targets and one update; then a profiled window of 10 steps on the card
+    and evaluate_policy over ``eval_episodes`` greedy masked episodes (K3
+    once a step)."""
+    import dataclasses
+
+    from reagent_tpu_torch.gym.envs import PossibleActionsMaskTester, where_state
+    from reagent_tpu_torch.gym.online_loop import evaluate_policy
+    from reagent_tpu_torch.gym.policies.samplers import gumbel
+    from reagent_tpu_torch.gym.preprocessors import make_discrete_dqn_batch
+    from reagent_tpu_torch.replay import ReplayBuffer
+
+    dev = device or DEVICE
+    on_card = dev != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = MASK_JOB
+    env = PossibleActionsMaskTester(device=dev)
+    A, S = env.action_num, env.observation_dim
+    trainer, q_values = wm_dqn_trainer(torch, cfg, S, A, dev)
+    tstate = trainer.init(torch.Generator().manual_seed(0))
+    rb = ReplayBuffer(replay_capacity=cfg["capacity"], update_horizon=1, gamma=cfg["gamma"],
+                      device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    box = dict(rbs=rb.init(observation=torch.zeros(S), action=torch.tensor(0, dtype=torch.int32),
+                           reward=torch.tensor(0.0), terminal=torch.tensor(False)),
+               ts=tstate, env=env.reset(gen), i=0)
+
+    def masked_batch(d):
+        b = make_discrete_dqn_batch(d, A)
+        return dataclasses.replace(
+            b, possible_actions_mask=env.possible_actions_mask(b.state.float_features),
+            possible_next_actions_mask=env.possible_actions_mask(b.next_state.float_features))
+
+    def run(n):
+        for _ in range(n):
+            state, obs = box["env"]
+            legal = torch.where(env.possible_actions_mask(obs) > 0, 0.0, -1e9)
+            a = torch.argmax(legal + gumbel((A,), gen, dev)).to(torch.int32)
+            nstate, nobs, rew, done = env.step(state, a, gen)
+            box["rbs"] = rb.add(box["rbs"], observation=obs, action=a, reward=rew, terminal=done)
+            rstate, robs = env.reset(gen)
+            box["env"] = (where_state(done, rstate, nstate), torch.where(done, robs, nobs))
+            if box["i"] > cfg["train_after"]:
+                box["ts"], _ = trainer.train_step(
+                    box["ts"], masked_batch(rb.sample(box["rbs"], gen, cfg["B"])))
+            box["i"] += 1
+
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    run(steps)
+    sync()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    updates = steps - cfg["train_after"] - 1
+    log(f"  mask DQN: {steps} env steps and {updates} updates in {wall:.3f} s = "
+        f"{steps / wall:.2f} env steps/s, launches {launches}, plain calls {plain_calls}")
+    others = {k: v for k, v in launches.items() if k != "nstep_rewards"}
+    if on_card and (launches["nstep_rewards"] != updates or any(others.values()) or plain_calls):
+        raise AssertionError(f"mask DQN: launches {launches} for {updates} updates, plain calls "
+                             f"{plain_calls}")
+    result = dict(launches=launches, steps=steps, updates=updates, steps_per_s=steps / wall)
+    if on_card:
+        ported = {}
+        n = WM_PROFILED_STEPS
+        step_us = wall / steps * 1e6
+        dev_us, kernels = profile_loop(torch, lambda: run(n), n, step_us, "mask DQN", ported)
+        result.update(device_us=dev_us, kernels_per_step=kernels, k4_us=ported["nstep"],
+                      k3_us=ported["fused_mlp"], idle=1 - dev_us / step_us)
+
+    def greedy_act(ts, obs, g):  # the scorer masks the illegal actions to -1e9
+        return torch.argmax(q_values(ts, obs, env.possible_actions_mask(obs)), dim=1)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    returns = evaluate_policy(env, greedy_act, box["ts"], gen, num_episodes=eval_episodes).cpu()
+    eval_launches, plain = read_counts()
+    mean = returns.mean().item()
+    if on_card and (eval_launches["fused_mlp_forward"] != env.max_steps or plain):
+        raise AssertionError(f"mask DQN eval: launches {eval_launches}, plain {plain}")
+    log(f"  evaluate_policy: {eval_episodes} greedy masked episodes in "
+        f"{time.perf_counter() - t0:.2f} s, mean {mean:.2f} (the bar {cfg['bar']}: "
+        f"{'met' if mean >= cfg['bar'] else 'missed'}), K3 launches "
+        f"{eval_launches['fused_mlp_forward']}{', on ' + card_line() if on_card else ''}")
+    result.update(eval_launches=eval_launches, mean_reward=mean, bar=cfg["bar"],
+                  eval_episodes=eval_episodes)
+    return result
+
+
+def world_model_card_cpu_phase(torch, n=5):
+    """The new modules on the card against the CPU: OpenGridworld and
+    PossibleActionsMaskTester rollouts from the same actions and draws
+    (observations and flags exactly, rewards atol 1e-6); ``n`` MDN-RNN train steps
+    from one state on the same StringGame batch (losses rtol 1e-4, every
+    parameter and Adam moment rtol 5e-4, atol 5e-5: section D of the tests'
+    tolerances); then StateEmbedEnv over the trained weights, 8 episodes of 6
+    steps as one batch, observations atol 1e-5.  No K1-K5 launch."""
+    from reagent_tpu_torch.gym.envs import (
+        OpenGridworld,
+        PossibleActionsMaskTester,
+        StateEmbedEnv,
+        StringGame,
+    )
+
+    rng = np.random.default_rng(41)
+    reset_counts()
+    for make in (OpenGridworld, PossibleActionsMaskTester):
+        envs = {d: make(device=d) for d in ("cpu", DEVICE)}
+        gen = torch.Generator().manual_seed(42)
+        draw = getattr(envs["cpu"], "reset_noise", None)
+        noise = None if draw is None else draw(gen, 8)
+        pairs = {d: e.reset(batch_size=8, **({} if noise is None else
+                                              {"noise": noise.to(d)})) for d, e in envs.items()}
+        for _ in range(40):
+            a = torch.tensor(rng.integers(0, envs["cpu"].action_dim, 8), dtype=torch.int32)
+            draw = getattr(envs["cpu"], "step_noise", None)
+            noise = None if draw is None else draw(gen, (8,))
+            out = {}
+            for d, e in envs.items():
+                kw = {} if noise is None else {"noise": noise.to(d)}
+                st, ob, rw, dn = e.step(pairs[d][0], a.to(d), **kw)
+                pairs[d] = (st, ob)
+                out[d] = (ob.cpu(), rw.cpu(), dn.cpu())
+            for got, want in zip(out[DEVICE], out["cpu"]):
+                # the gridworld's reward 1 - 0.9 t / 100 may round another way
+                torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+        log(f"  {make.__name__}: 8 envs x 40 steps, card and CPU equal (rewards to 1e-6)")
+    cfg = WORLD_MODEL
+    trainers = {d: mdnrnn_trainer(torch, cfg, d, lr=0.01) for d in ("cpu", DEVICE)}
+    first = trainers["cpu"].init(torch.Generator().manual_seed(43))
+    states = {d: copy_state(first, d) for d in trainers}
+    batch = string_episodes(torch, StringGame(device="cpu"), 256, cfg["T"],
+                            torch.Generator().manual_seed(44))
+    worst_l = 0.0
+    for _ in range(n):
+        losses = {}
+        for d, tr in trainers.items():
+            states[d], m = tr.train_step(states[d], batch.to(d))
+            losses[d] = {k: v.cpu() for k, v in m.items()}
+        for k, want in losses["cpu"].items():
+            torch.testing.assert_close(losses[DEVICE][k], want, **MDN_TOL["loss"], msg=k)
+            worst_l = max(worst_l, (losses[DEVICE][k] - want).abs().item())
+    count, worst_p = compare_states(torch, states[DEVICE], states["cpu"], MDN_TOL["param"],
+                                    "MDN-RNN")
+    log(f"  MDN-RNN, card vs CPU, {n} train steps on [6, 256]: losses max abs {worst_l:.3e}; "
+        f"{count} state tensors max abs {worst_p:.3e}")
+    embeds = {d: StateEmbedEnv(StringGame(device=d), trainers[d].memory_network,
+                               states[d].params, max_embed_seq_len=cfg["T"]) for d in trainers}
+    pairs = {d: e.reset(batch_size=8) for d, e in embeds.items()}
+    worst_o = 0.0
+    for t in range(cfg["T"]):
+        a = torch.tensor(rng.integers(0, 2, 8), dtype=torch.int32)
+        obs = {}
+        for d, e in embeds.items():
+            st, ob, _, _ = e.step(pairs[d][0], a.to(d))
+            pairs[d] = (st, ob)
+            obs[d] = ob.cpu()
+        torch.testing.assert_close(obs[DEVICE], obs["cpu"], rtol=0, atol=1e-5, msg=f"step {t}")
+        worst_o = max(worst_o, (obs[DEVICE] - obs["cpu"]).abs().max().item())
+    launches, plain_calls = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"world-model card vs CPU: launches {launches}")
+    log(f"  StateEmbedEnv, card vs CPU, 8 episodes of {cfg['T']}: observations max abs "
+        f"{worst_o:.3e}; K1-K5 launches 0")
+    return dict(loss_err=worst_l, param_err=worst_p, obs_err=worst_o)
+
+
 def main() -> int:
     import torch
 
@@ -4536,7 +5011,27 @@ def main() -> int:
         torch, cc_name, cfg["steps"], cfg["prefill"], prioritized=cc_name == PRIORITIZED_JOB)
         for cc_name, cfg in CONTINUOUS_JOBS.items()}
 
-    phase("phase 41: kernels")
+    t_wm = time.perf_counter()
+    phase("phase 41: the world-model slice's modules card against CPU: OpenGridworld and "
+          "PossibleActionsMaskTester rollouts, MDN-RNN train steps, StateEmbedEnv")
+    world_model_card_cpu_phase(torch)
+
+    phase("phase 42: K3 and K4 at the world-model, gridworld and mask jobs' shapes, timed; the "
+          "world-model string pipeline (MDN-RNN, StateEmbedEnv, online DQN) cut in depth")
+    wm_k3 = k3_shapes_phase(torch, name, K3_WM_SHAPES, K3_WM_TIMED, launch_floor_ms)
+    wm_k4 = {label: k4_shape_times(torch, name, label, shape, label in K4_WM_TIMED)
+             for label, shape in K4_WM_SHAPES.items()}
+    wm_k4 = {label: t for label, t in wm_k4.items() if t is not None}
+    wm = world_model_phase(torch, WORLD_MODEL["wm_steps"], WORLD_MODEL["prefill"],
+                           WORLD_MODEL["steps"], WORLD_MODEL["eval_episodes"])
+
+    phase("phase 43: the OpenGridworld and possible-actions-mask DQN jobs cut in depth")
+    grid = gridworld_phase(torch, GRIDWORLD_JOB["prefill"], GRIDWORLD_JOB["steps"],
+                           GRIDWORLD_JOB["eval_episodes"])
+    mask = mask_phase(torch, MASK_JOB["steps"], MASK_JOB["eval_episodes"])
+    log(f"  phases 41-43 took {time.perf_counter() - t_wm:.1f} s together")
+
+    phase("phase 44: kernels")
     by_path = {
         "K1 fused_dqn_offline_update": {
             "offline workflow, full width": k1_launches,
@@ -4573,7 +5068,12 @@ def main() -> int:
             **{f"online {k} loop (the actor's act step)": v["launches"]["fused_mlp_forward"]
                for k, v in cc_online.items()},
             **{f"online {k} evaluate_policy": v["eval_launches"]["fused_mlp_forward"]
-               for k, v in cc_online.items()}},
+               for k, v in cc_online.items()},
+            "world-model DQN loop (act steps)": wm["launches"]["fused_mlp_forward"],
+            "world-model evaluate_policy": wm["eval_launches"]["fused_mlp_forward"],
+            "OpenGridworld DQN loop (act steps)": grid["launches"]["fused_mlp_forward"],
+            "OpenGridworld evaluate_policy": grid["eval_launches"]["fused_mlp_forward"],
+            "mask DQN evaluate_policy": mask["eval_launches"]["fused_mlp_forward"]},
         "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
                              "online QR-DQN loop": qr_online_launches["nstep_rewards"],
                              "online CRR loop": crr_online["launches"]["nstep_rewards"],
@@ -4581,7 +5081,10 @@ def main() -> int:
                                 for k, v in fam_online.items()},
                              **{f"online {k} loop" + (" (prioritized replay)"
                                                       if v["prioritized"] else ""):
-                                v["launches"]["nstep_rewards"] for k, v in cc_online.items()}},
+                                v["launches"]["nstep_rewards"] for k, v in cc_online.items()},
+                             "world-model DQN loop": wm["launches"]["nstep_rewards"],
+                             "OpenGridworld DQN loop": grid["launches"]["nstep_rewards"],
+                             "mask DQN loop": mask["launches"]["nstep_rewards"]},
         "K5 quantile_huber_loss": {
             "offline QR-DQN workflow": qr_launches["quantile_huber_loss"],
             "online QR-DQN loop": qr_online_launches["quantile_huber_loss"]},
@@ -4674,9 +5177,13 @@ def main() -> int:
             key = "k3_us" if kname.startswith("K3") else "k4_us"
             paths = {"online CRR loop": (crr_online, "steps_per_s"),
                      **{f"online {k} loop": (v, "steps_per_s") for k, v in fam_online.items()},
-                     **{f"online {k} loop": (v, "steps_per_s") for k, v in cc_online.items()}}
+                     **{f"online {k} loop": (v, "steps_per_s") for k, v in cc_online.items()},
+                     "world-model DQN loop": (wm, "steps_per_s"),
+                     "OpenGridworld DQN loop": (grid, "steps_per_s")}
             if kname.startswith("K3"):
                 paths.update({f"{k} episodes": (v, "episodes_per_s") for k, v in pg.items()})
+            else:
+                paths["mask DQN loop"] = (mask, "steps_per_s")
             row["share_of_step"] = {
                 path: {"device_us": run[key], "share": run[key] * run[rate] / 1e6}
                 for path, (run, rate) in paths.items()}
@@ -4690,9 +5197,13 @@ def main() -> int:
             # the C51 and parametric paths' shapes (phase 34)
             row["by_shape"].update(family_kernels[kname[:2]])
         if kname.startswith("K3"):
-            # the continuous act and eval steps (phase 40), each with the
-            # torch.addmm yardstick
+            # the continuous act and eval steps (phase 40) and the
+            # world-model, gridworld and mask jobs' (phase 42), each with
+            # the torch.addmm yardstick
             row["by_shape"].update(continuous_kernels)
+            row["by_shape"].update(wm_k3)
+        if kname.startswith("K4"):
+            row["by_shape"].update(wm_k4)
         if kname.startswith("K1"):
             # the same products through cuBLAS, and the kernel's own GEMM share
             key = "K1-bf16" if kname.endswith("(bf16)") else "K1"

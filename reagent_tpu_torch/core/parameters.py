@@ -1,7 +1,8 @@
 """Hyper-parameter dataclasses (reference: reagent/core/parameters.py).
 
 The port's copy of the five classes of ``reagent_tpu/core/parameters.py`` the
-offline DQN path uses and of ``CONTINUOUS_TRAINING_ACTION_RANGE`` (:17),
+offline DQN path uses, of ``MDNRNNTrainerParameters`` (:71) and of
+``CONTINUOUS_TRAINING_ACTION_RANGE`` (:17),
 kept identical so configs and normalization specs compare equal across the
 two packages.
 Plain frozen dataclasses — hashable so they can serve as cache keys.
@@ -90,3 +91,20 @@ class NormalizationData:
     dense_normalization_parameters: Dict[int, NormalizationParameters] = field(
         default_factory=dict
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class MDNRNNTrainerParameters:
+    """Reference: parameters.py:71."""
+
+    hidden_size: int = 64
+    num_hidden_layers: int = 2
+    learning_rate: float = 0.001
+    num_gaussians: int = 5
+    reward_loss_weight: float = 1.0
+    next_state_loss_weight: float = 1.0
+    not_terminal_loss_weight: float = 1.0
+    fit_only_one_next_step: bool = False
+    action_dim: int = 2
+    action_names: Optional[Tuple[str, ...]] = None
+    multi_steps: int = 1

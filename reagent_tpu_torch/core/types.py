@@ -4,7 +4,8 @@ Port of the batch types the DQN and actor-critic paths use from
 ``reagent_tpu/core/types.py`` (``FeatureData`` :179, ``GaussianSamplerScore``
 :237, ``ActorOutput`` :246, ``ExtraData`` :255, ``DiscreteDqnInput`` :290,
 ``ParametricDqnInput`` :315, ``PolicyNetworkInput`` :329,
-``PolicyGradientInput`` :338).  Fields hold ``torch.Tensor``s (or
+``PolicyGradientInput`` :338, ``MemoryNetworkInput`` :377,
+``MemoryNetworkOutput`` :389).  Fields hold ``torch.Tensor``s (or
 ``None``); ``.to(device)`` moves every tensor field, recursing into nested
 batches.
 """
@@ -147,3 +148,39 @@ class PolicyGradientInput(_TensorDataClass):
 
     def batch_size(self) -> int:
         return self.state.float_features.shape[0]
+
+
+@dataclasses.dataclass
+class MemoryNetworkInput(_TensorDataClass):
+    """World-model training sequences (reference types.py:1004): every
+    leading dim is [seq_len, batch, ...]; ``action`` is a ``FeatureData``."""
+
+    state: FeatureData
+    next_state: FeatureData
+    reward: Tensor
+    time_diff: Optional[Tensor]
+    step: Optional[Tensor]
+    not_terminal: Tensor
+    action: FeatureData = None
+    valid_step: Optional[Tensor] = None
+    extras: ExtraData = dataclasses.field(default_factory=ExtraData)
+
+    def batch_size(self) -> int:
+        return self.state.float_features.shape[0]
+
+
+@dataclasses.dataclass
+class MemoryNetworkOutput(_TensorDataClass):
+    """MDN-RNN forward output (reference types.py:1045): the mixture's
+    ``mus``/``sigmas`` [T, B, G, S] and ``logpi`` [T, B, G], the reward and
+    not-terminal logits [T, B], the last layer's final hidden and cell state
+    [B, H] and its hidden state at every step [T, B, H]."""
+
+    mus: Tensor
+    sigmas: Tensor
+    logpi: Tensor
+    reward: Tensor
+    not_terminal: Tensor
+    last_step_hidden: Tensor
+    last_step_cell: Tensor
+    all_steps_hidden: Tensor

@@ -29,12 +29,17 @@ class FunctionalEnvState:
     t: Tensor  # [...] int32 step counter
 
 
-def where_state(cond: Tensor, a: FunctionalEnvState, b: FunctionalEnvState) -> FunctionalEnvState:
-    """``a`` where ``cond`` [...] holds, else ``b`` (the auto-reset select)."""
-    return FunctionalEnvState(
-        physics=torch.where(cond[..., None], a.physics, b.physics),
-        t=torch.where(cond, a.t, b.t),
-    )
+def where_state(cond: Tensor, a, b):
+    """``a`` where ``cond`` [...] holds, else ``b`` (the auto-reset select),
+    field by field over any env state dataclass (nested ones included), each
+    tensor's trailing dims broadcast against ``cond``; a field that is not a
+    tensor is static and comes from ``a``."""
+    if isinstance(a, Tensor):
+        return torch.where(cond.reshape(cond.shape + (1,) * (a.ndim - cond.ndim)), a, b)
+    if dataclasses.is_dataclass(a):
+        return type(a)(**{f.name: where_state(cond, getattr(a, f.name), getattr(b, f.name))
+                          for f in dataclasses.fields(a)})
+    return a
 
 
 class FunctionalEnv:

@@ -21,7 +21,8 @@ parameters, and the gaussian actor's ``loc_ln`` and ``scale_ln`` keep their
 names.  An optax moment tree has its parameters' layout and is carried the
 same way; SAC's scalar log-alpha and its moments are carried under the name
 ``log_alpha``; ``opt_state_from_optax`` reads any optax chain of the union,
-a schedule's count included.
+a schedule's count included.  A ``MemoryNetwork``'s tree (scope ``MDNRNN_0``)
+maps through ``memory_network_state_from_flax``, its moments too.
 """
 
 from __future__ import annotations
@@ -144,13 +145,45 @@ def flax_from_q_network_state(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     return out
 
 
+_GATES = "ifgo"  # flax's OptimizedLSTMCell gate order, the port's kernel columns
+
+
+def memory_network_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``MemoryNetwork`` variables (numpy leaves) -> the port's
+    ``MemoryNetwork`` state dict.  Layer ``l``'s ``OptimizedLSTMCell_l``
+    holds one kernel per gate: ``ii``..``io`` [in, H] (no bias) side by side
+    become ``mdnrnn.rnn.layers.l.input_kernel`` [in, 4H], ``hi``..``ho``
+    [H, H] ``hidden_kernel`` [H, 4H] and their biases ``hidden_bias`` [4H],
+    in the gate order i, f, g, o; the head ``Dense_0`` becomes
+    ``mdnrnn.head`` (kernel transposed)."""
+    tree = params_np["params"]["MDNRNN_0"]
+    out: Dict[str, torch.Tensor] = {}
+    for name, cell in tree["StackedLSTM_0"].items():
+        m = re.fullmatch(r"OptimizedLSTMCell_(\d+)", name)
+        if m is None:
+            raise ValueError(f"unexpected scope {name!r} in a StackedLSTM tree")
+        base = f"mdnrnn.rnn.layers.{m.group(1)}"
+        out[f"{base}.input_kernel"] = _array(np.concatenate(
+            [np.asarray(cell["i" + g]["kernel"]) for g in _GATES], axis=-1))
+        out[f"{base}.hidden_kernel"] = _array(np.concatenate(
+            [np.asarray(cell["h" + g]["kernel"]) for g in _GATES], axis=-1))
+        out[f"{base}.hidden_bias"] = _array(np.concatenate(
+            [np.asarray(cell["h" + g]["bias"]) for g in _GATES], axis=-1))
+    out["mdnrnn.head.weight"] = _array(np.asarray(tree["Dense_0"]["kernel"], np.float32).T)
+    out["mdnrnn.head.bias"] = _array(tree["Dense_0"]["bias"])
+    return out
+
+
 def _params_on(params_np: Mapping, device) -> Dict[str, torch.Tensor]:
-    """A flax tree's parameters by the port's names, or a flat ``{name:
-    array}`` dict (log-alpha's) as it is."""
+    """A flax tree's parameters by the port's names (a ``MemoryNetwork``'s,
+    or a q-network's), or a flat ``{name: array}`` dict (log-alpha's) as it
+    is."""
     if "params" not in params_np:
         return {k: torch.tensor(np.asarray(v, np.float32), device=device)
                 for k, v in params_np.items()}
-    return {k: v.to(device) for k, v in q_network_state_from_flax(params_np).items()}
+    from_flax = (memory_network_state_from_flax if "MDNRNN_0" in params_np["params"]
+                 else q_network_state_from_flax)
+    return {k: v.to(device) for k, v in from_flax(params_np).items()}
 
 
 _MOMENTS = ("mu", "nu", "nu_max", "trace", "sum_of_squares", "e_g", "e_x", "step_sizes",

@@ -214,7 +214,18 @@ def test_new_members_and_schedulers_in_lockstep_with_optax(name):
     want, jstate = _run_optax(config, params, grads)
     ours, state = _run_port(config, params, grads)
     for k in params:
-        np.testing.assert_allclose(ours[k].numpy(), np.asarray(want[k]), rtol=1e-5, atol=1e-6,
+        atol = 1e-6
+        if name.startswith("adafactor"):
+            # Adafactor's factored means and block RMS are float32 means over 128 to
+            # 20,480 elements; XLA's CPU reduce sums in another order than torch
+            # (which order depends on the host's vector width) and the two part
+            # by an ulp in most rows. An update of a few units then lands a
+            # parameter near 0 with an absolute error of an ulp of its operands,
+            # so the bound here is in those ulps: 4 * eps32 * the largest |param|
+            # of the run (measured: at most 2 of them over the three configs)
+            eps32 = float(np.finfo(np.float32).eps)
+            atol = 4 * eps32 * max(np.abs(params[k]).max(), np.abs(np.asarray(want[k])).max())
+        np.testing.assert_allclose(ours[k].numpy(), np.asarray(want[k]), rtol=1e-5, atol=atol,
                                    err_msg=k)
     assert int(state.count) == steps
     if "lr_scheduler" in next(iter(config.values())):
