@@ -218,15 +218,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      first 65: K4 once an update, no K3), each with a profiled window and
      evaluate_policy through K3 (the mask job's greedy act masked); the
      full depths are tools/world_model_jobs.py's;
- 44. one JSON line describing each ported kernel (K1's rows with the CUDA
+ 44. the sparse slice's modules, card against CPU: the changing-arms
+     SparseDQN's forward and 5 DQNTrainer steps on changing-arms batches from
+     one state (losses rtol 1e-4; parameters and Adam moments rtol 5e-4,
+     atol 5e-5); the touched-rows sparse embedding step at 100,000 x 64,
+     B 512, L 50 with duplicate ids and padded slots, 5 steps from one state
+     (SPARSE_STEP_TOL: the card's index_add_ adds a duplicate id's
+     occurrences in an order that is not fixed);
+ 45. the sparse embedding step at bench.py's size (a 10,000,000 x 64 table,
+     B 4,096, L 50, head 256), 50 steps on one batch (the loss must fall):
+     steps/s, the table's effective GB/s (3 B L D 4 bytes a step), a
+     profiled window (CUDA kernels a step, idle share) and the peak memory;
+ 46. K3 at the changing-arms act and eval shapes ([1] and [10] x 18->64->6)
+     and K4 at capacity 50,000, B 256, against their plain versions, timed
+     beside the launch floor and the bound; then the sparse changing-arms
+     DQN (tests/test_sparse_models.py:157) cut in depth: a masked-random
+     prefill of SPARSE_ARMS_JOB["prefill"], SPARSE_ARMS_JOB["steps"] steps
+     of masked softmax acting (the bag concat in torch, the overarch one K3
+     launch) and updates (K4 once a sample), a profiled window (0 host
+     reads or the script fails), evaluate_policy over 5 greedy masked
+     episodes through K3; the full depth is tools/sparse_jobs.py's;
+ 47. one JSON line describing each ported kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
      wrapper's host time; K3's and K4's with the wrapper's host time, the
      launch floor and their other shapes, K3's with its torch.addmm
      yardstick and the evaluation's two shapes, K3's and K4's with their
      share of a step on the discrete-actor, C51, parametric, continuous,
-     world-model, gridworld and mask paths, K3's continuous and world-model
-     shapes with their torch.addmm yardstick and K4's world-model shapes).
+     world-model, gridworld, mask and sparse changing-arms paths, K3's
+     continuous, world-model and changing-arms shapes with their
+     torch.addmm yardstick and K4's world-model and changing-arms shapes).
 Each phase's heading carries the seconds since the script started.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
@@ -4429,7 +4450,7 @@ def discrete_job_policy(torch, q_values, temperature):
 
 
 def online_dqn_job(torch, label, env, trainer, q_values, cfg, steps, prefill, eval_episodes,
-                   dev, extensions=0):
+                   dev, extensions=0, policies=None, batch_maker=None, prefill_act=None):
     """A DQN job through the generic loop (``run_online_training``), as the
     JAX test runs it: a ReplayBuffer of cfg["capacity"] prefilled with
     ``prefill`` random transitions, then ``steps`` env steps each with a
@@ -4438,7 +4459,10 @@ def online_dqn_job(torch, label, env, trainer, q_values, cfg, steps, prefill, ev
     script fails); then ``evaluate_policy`` over ``eval_episodes`` greedy
     episodes (K3 once a step).  Up to ``extensions`` more runs of
     cfg["extension_steps"] while the greedy mean is under the bar (the
-    string job's insurance, test_world_model_string_e2e.py:137)."""
+    string job's insurance, test_world_model_string_e2e.py:137).  A job
+    with its own acting passes ``policies`` (the act step, the greedy act),
+    ``batch_maker`` and ``prefill_act`` (``prefill_replay_buffer``'s
+    ``act_fn``)."""
     from reagent_tpu_torch.gym.online_loop import (
         OnlineLoopConfig,
         evaluate_policy,
@@ -4458,15 +4482,15 @@ def online_dqn_job(torch, label, env, trainer, q_values, cfg, steps, prefill, ev
                        terminal=torch.tensor(False))
     gen = torch.Generator(device=dev).manual_seed(5)
     t0 = time.perf_counter()
-    rb_state = prefill_replay_buffer(env, rb, rb_state, gen, prefill)
+    rb_state = prefill_replay_buffer(env, rb, rb_state, gen, prefill, act_fn=prefill_act)
     sync()
     prefill_s = time.perf_counter() - t0
-    policy_act, greedy_act = discrete_job_policy(torch, q_values, cfg["temperature"])
+    policy_act, greedy_act = policies or discrete_job_policy(torch, q_values, cfg["temperature"])
+    batch_maker = batch_maker or (lambda d: make_discrete_dqn_batch(d, env.action_dim))
 
     def loop(state, buffer, n):
         return run_online_training(
-            env, trainer, state, rb, buffer, policy_act,
-            lambda d: make_discrete_dqn_batch(d, env.action_dim), gen,
+            env, trainer, state, rb, buffer, policy_act, batch_maker, gen,
             OnlineLoopConfig(num_steps=n, minibatch_size=cfg["B"]))
 
     reset_counts()
@@ -4747,6 +4771,291 @@ def world_model_card_cpu_phase(torch, n=5):
     log(f"  StateEmbedEnv, card vs CPU, 8 episodes of {cfg['T']}: observations max abs "
         f"{worst_o:.3e}; K1-K5 launches 0")
     return dict(loss_err=worst_l, param_err=worst_p, obs_err=worst_o)
+
+
+# --------------------------------------------------------------- sparse slice
+
+# The sparse changing-arms DQN: tests/test_sparse_models.py:157-251 (reference
+# gym/tests/configs/sparse/discrete_dqn_changing_arms_online.yaml, bar 400):
+# ChangingArms(5 arms, 200 steps), the obs as dense [mus, changes] and the
+# ID list of the legal arms, SparseDQN (("legal", 6, 8),) with a [64]
+# leaky_relu overarch, gamma 0.5, tau 0.2, double-Q, Adam 0.003, a
+# ReplayBuffer of 50,000, minibatch 256, masked-random prefill, masked
+# softmax acting at temperature 2, greedy masked evaluation.  Phase 46 cuts
+# the depth (prefill, steps, episodes); tools/sparse_jobs.py runs full_*
+SPARSE_ARMS_JOB = dict(num_arms=5, max_steps=200, embedding_dim=8, widths=[64],
+                       act="leaky_relu", gamma=0.5, tau=0.2, lr=0.003, capacity=50_000, B=256,
+                       temperature=2.0, prefill=500, steps=600, eval_episodes=5,
+                       full_prefill=2000, full_steps=15_000, full_eval_episodes=10, bar=400.0)
+# bench.py's eighth workload (bench.py:38-41, :771-818): a 10M x 64 table,
+# 4,096 x 50 ids a batch, head 256, 50 steps on one batch; phase 44 checks
+# the step card against CPU at a table of 100,000
+SPARSE_EMBEDDING = dict(table=10_000_000, dim=64, B=4096, L=50, head=256, steps=50,
+                        profiled=5, check_table=100_000, check_B=512, check_L=50, check_steps=5)
+# the card against the CPU: the head's products sum in another order, and the
+# card's index_add_ adds a duplicate id's occurrences in an order that is not
+# fixed (atomics); Adagrad scales each row's step to about lr, so an ulp of a
+# gradient moves a row by an ulp of lr
+SPARSE_STEP_TOL = dict(loss=dict(rtol=1e-5, atol=1e-7), table=dict(rtol=1e-5, atol=1e-6),
+                       accum=dict(rtol=1e-4, atol=1e-9), head=dict(rtol=5e-4, atol=5e-5))
+ARMS_TOL = dict(q=dict(rtol=1e-5, atol=1e-5), loss=dict(rtol=1e-4, atol=1e-6),
+                param=dict(rtol=5e-4, atol=5e-5))
+# K3's overarch at the act step and the greedy evaluation, K4's samples
+K3_SPARSE_SHAPES = {
+    "changing-arms act [1, 18->64->6]": (1, [18, 64, 6], ["leaky_relu", "linear"], True, 96),
+    "changing-arms eval [10, 18->64->6]": (10, [18, 64, 6], ["leaky_relu", "linear"], True, 97),
+}
+K4_SPARSE_SHAPES = {"changing-arms loop": (50_000, 256, 1)}  # capacity, B, H
+SPARSE_PROFILED_STEPS = 10
+
+
+def sparse_arms_trainer(torch, device):
+    """The job's DQNTrainer on ``ArmsSparseQNet`` and its scorer ``(state,
+    obs [B, 15]) -> Q``: the bag concat in torch and the overarch one K3
+    launch on the card (``training/functional.py::score``)."""
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.gym.sparse_arms import ArmsSparseQNet
+    from reagent_tpu_torch.training import DQNTrainer, functional
+
+    cfg = SPARSE_ARMS_JOB
+    net = ArmsSparseQNet(num_arms=cfg["num_arms"], embedding_dim=cfg["embedding_dim"],
+                         overarch_dims=cfg["widths"], activation=cfg["act"])
+    trainer = DQNTrainer(
+        q_network=net, rl=RLParameters(gamma=cfg["gamma"], target_update_rate=cfg["tau"],
+                                       maxq_learning=True),
+        optimizer={"Adam": {"lr": cfg["lr"]}}, double_q_learning=True, device=device)
+    return trainer, lambda ts, obs: functional.score(trainer.q_network, ts.q_params, obs)
+
+
+def sparse_arms_acting(torch, q_values, device):
+    """(the act step, the greedy act, the masked-random prefill act, the
+    batch maker) of the job, as the JAX test writes them: softmax over
+    ``q / 2`` with the illegal arms at -1e9 (a gumbel-max on the loop's
+    generator), argmax over the masked Q, a uniform draw over the legal
+    actions, and the replay batch with both possible-actions masks."""
+    import dataclasses
+
+    from reagent_tpu_torch.gym.policies.samplers import gumbel
+    from reagent_tpu_torch.gym.preprocessors import make_discrete_dqn_batch
+    from reagent_tpu_torch.gym.sparse_arms import legal_actions_mask
+
+    K = SPARSE_ARMS_JOB["num_arms"]
+    A, T = K + 1, SPARSE_ARMS_JOB["temperature"]
+
+    def policy_act(ts, obs, g):
+        logits = torch.where(legal_actions_mask(obs, K) > 0, q_values(ts, obs[None])[0] / T, -1e9)
+        a = torch.argmax(logits + gumbel((A,), g, device)).to(torch.int32)
+        return a, a
+
+    def greedy_act(ts, obs, g):
+        q = q_values(ts, obs)
+        return torch.argmax(torch.where(legal_actions_mask(obs, K) > 0, q, -1e9), dim=1)
+
+    def prefill_act(ts, obs, g):
+        logits = torch.where(legal_actions_mask(obs, K) > 0, 0.0, -1e9)
+        a = torch.argmax(logits + gumbel((A,), g, device)).to(torch.int32)
+        return a, a
+
+    def batch_maker(d):
+        b = make_discrete_dqn_batch(d, A)
+        return dataclasses.replace(
+            b, possible_actions_mask=legal_actions_mask(b.state.float_features, K),
+            possible_next_actions_mask=legal_actions_mask(b.next_state.float_features, K))
+
+    return (policy_act, greedy_act), prefill_act, batch_maker
+
+
+def sparse_arms_phase(torch, prefill, steps, eval_episodes, device=None):
+    """The sparse changing-arms DQN through the generic loop
+    (``online_dqn_job``): the masked-random prefill, ``steps`` steps of
+    masked softmax acting (K3 once a step) and updates (K4 once a sample),
+    a profiled window on the card, greedy masked evaluation (K3 once a
+    step)."""
+    from reagent_tpu_torch.gym.envs import ChangingArms
+
+    dev = device or DEVICE
+    cfg = SPARSE_ARMS_JOB
+    env = ChangingArms(num_arms=cfg["num_arms"], max_steps=cfg["max_steps"], device=dev)
+    trainer, q_values = sparse_arms_trainer(torch, dev)
+    policies, prefill_act, batch_maker = sparse_arms_acting(torch, q_values, dev)
+    return online_dqn_job(torch, "sparse changing-arms DQN", env, trainer, q_values, cfg, steps,
+                          prefill, eval_episodes, dev, policies=policies,
+                          batch_maker=batch_maker, prefill_act=prefill_act)
+
+
+def arms_obs(rng, n):
+    """``n`` ChangingArms observations [mus, legal, changes] (the first with
+    only the pass legal)."""
+    K = SPARSE_ARMS_JOB["num_arms"]
+    legal = (rng.random((n, K)) > 0.5).astype(np.float64)
+    legal[0] = 0.0
+    return np.concatenate([rng.uniform(-10, 10, (n, K)), legal, rng.normal(size=(n, K))],
+                          axis=1).astype(np.float32)
+
+
+def sparse_embedding_inputs(torch, rng, table, B, L, device):
+    """ids [B, L] over the table (a hot id in every row and repeats inside
+    every third row), a padded mask (lengths 1..L) and targets."""
+    ids = rng.integers(0, table, (B, L))
+    ids[:, 0] = 7
+    ids[::3, 1] = ids[::3, 2]
+    lengths = rng.integers(1, L + 1, B)
+    mask = np.arange(L)[None, :] < lengths[:, None]
+    target = rng.normal(size=(B, 1)).astype(np.float32)
+    return (torch.tensor(ids, device=device), torch.tensor(mask, device=device),
+            torch.tensor(target, device=device))
+
+
+def sparse_card_cpu_phase(torch, n=5):
+    """Phase 44: the changing-arms net's forward and ``n`` DQNTrainer steps,
+    then ``n`` touched-rows sparse embedding steps, each card against CPU
+    from one state.  No K1-K5 launch (the trainer's forward is the
+    module's; K3 serves only the act step)."""
+    import dataclasses
+
+    from reagent_tpu_torch.gym.preprocessors import make_discrete_dqn_batch
+    from reagent_tpu_torch.gym.sparse_arms import legal_actions_mask
+    from reagent_tpu_torch.ops import sparse_embedding as se
+    from reagent_tpu_torch.training import functional
+
+    K = SPARSE_ARMS_JOB["num_arms"]
+    rng = np.random.default_rng(61)
+    reset_counts()
+    trainers = {d: sparse_arms_trainer(torch, d)[0] for d in ("cpu", DEVICE)}
+    first = trainers["cpu"].init(torch.Generator().manual_seed(62))
+    states = {d: copy_state(first, d) for d in trainers}
+    obs = torch.tensor(arms_obs(rng, 256))
+    q = {d: functional.apply(t.q_network, states[d].q_params, obs.to(d)).detach().cpu()
+         for d, t in trainers.items()}
+    torch.testing.assert_close(q[DEVICE], q["cpu"], **ARMS_TOL["q"])
+    q_err = (q[DEVICE] - q["cpu"]).abs().max().item()
+    worst_l = 0.0
+    for _ in range(n):
+        B = SPARSE_ARMS_JOB["B"]
+        raw = dict(state=arms_obs(rng, B), next_state=arms_obs(rng, B),
+                   action=rng.integers(0, K + 1, B).astype(np.int32),
+                   next_action=rng.integers(0, K + 1, B).astype(np.int32),
+                   reward=(rng.normal(size=B) * 3).astype(np.float32),
+                   terminal=rng.random(B) < 0.1, step=np.ones(B, np.int32))
+        losses = {}
+        for d, tr in trainers.items():
+            b = make_discrete_dqn_batch({k: torch.tensor(v, device=d) for k, v in raw.items()},
+                                        K + 1)
+            b = dataclasses.replace(
+                b, possible_actions_mask=legal_actions_mask(b.state.float_features, K),
+                possible_next_actions_mask=legal_actions_mask(b.next_state.float_features, K))
+            states[d], m = tr.train_step(states[d], b)
+            losses[d] = {k: v.cpu() for k, v in m.items()}
+        for k, want in losses["cpu"].items():
+            torch.testing.assert_close(losses[DEVICE][k], want, **ARMS_TOL["loss"], msg=k)
+            worst_l = max(worst_l, (losses[DEVICE][k] - want).abs().item())
+    count, worst_p = compare_states(torch, states[DEVICE], states["cpu"], ARMS_TOL["param"],
+                                    "changing-arms DQN")
+    log(f"  changing-arms SparseDQN, card vs CPU: Q on [256, 15] max abs {q_err:.3e}; {n} "
+        f"DQNTrainer steps (B {SPARSE_ARMS_JOB['B']}): metrics max abs {worst_l:.3e}, {count} "
+        f"state tensors max abs {worst_p:.3e}")
+
+    cfg, tol = SPARSE_EMBEDDING, SPARSE_STEP_TOL
+    T, D = cfg["check_table"], cfg["dim"]
+    init, head_apply, opt = se.init_sparse_embedding_state(
+        torch.Generator().manual_seed(63), T, D, head_hidden=cfg["head"], device="cpu")
+    sstates = {d: copy_state(init, d) for d in ("cpu", DEVICE)}
+    step = se.make_sparse_embedding_train_step(head_apply, opt)
+    errs = dict(loss=0.0, table=0.0, accum=0.0, head=0.0)
+    dup = 0
+    for i in range(n):
+        ids, mask, target = sparse_embedding_inputs(torch, rng, T, cfg["check_B"], cfg["check_L"],
+                                                    "cpu")
+        valid = ids[mask]
+        dup = max(dup, valid.numel() - valid.unique().numel())
+        losses = {}
+        for d in sstates:
+            sstates[d], losses[d] = step(sstates[d], ids.to(d), mask.to(d), target.to(d))
+        torch.testing.assert_close(losses[DEVICE].cpu(), losses["cpu"], **tol["loss"])
+        errs["loss"] = max(errs["loss"], (losses[DEVICE].cpu() - losses["cpu"]).abs().item())
+    got, want = sstates[DEVICE], sstates["cpu"]
+    for key, g, w in (("table", got.table, want.table), ("accum", got.accum, want.accum),
+                      *(("head", got.head_params[k], v) for k, v in want.head_params.items())):
+        torch.testing.assert_close(g.cpu(), w, **tol[key], msg=key)
+        errs[key] = max(errs[key], (g.cpu() - w).abs().max().item())
+    launches, plain_calls = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"sparse card vs CPU: launches {launches}")
+    log(f"  sparse embedding step, card vs CPU, {T} x {D}, B {cfg['check_B']}, L "
+        f"{cfg['check_L']}, {n} steps ({dup} repeated ids among the valid ones of a batch, "
+        f"padded slots in every batch): max abs loss {errs['loss']:.3e}, table "
+        f"{errs['table']:.3e}, accumulator {errs['accum']:.3e}, head {errs['head']:.3e}; K1-K5 "
+        f"launches 0")
+    return dict(q_err=q_err, loss_err=worst_l, param_err=worst_p, embedding_errs=errs)
+
+
+def sparse_embedding_scale_phase(torch, name):
+    """Phase 45: the touched-rows step at bench.py's size on the card, 50
+    steps on one batch (bench.py's protocol: uniform ids over the table, no
+    padding, the same batch each step); the loss must fall.  Steps/s from
+    CUDA-synchronised wall time, the table's effective GB/s (3 B L D 4 bytes
+    a step: the gather and the scatter's read and write), a profiled window
+    and the peak of ``torch.cuda.max_memory_allocated``."""
+    from reagent_tpu_torch.ops import sparse_embedding as se
+
+    cfg = SPARSE_EMBEDDING
+    T, D, B, L = cfg["table"], cfg["dim"], cfg["B"], cfg["L"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, head_apply, opt = se.init_sparse_embedding_state(
+        torch.Generator(device=DEVICE).manual_seed(0), T, D, head_hidden=cfg["head"],
+        device=DEVICE)
+    step = se.make_sparse_embedding_train_step(head_apply, opt)
+    rng = np.random.default_rng(0)
+    ids = torch.tensor(rng.integers(0, T, (B, L)), device=DEVICE)
+    mask = torch.ones((B, L), dtype=torch.bool, device=DEVICE)
+    target = torch.tensor(rng.normal(size=(B, 1)).astype(np.float32), device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state, first = step(state, ids, mask, target)  # warm
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(cfg["steps"]):
+        state, loss = step(state, ids, mask, target)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = torch.stack(losses).cpu()
+    launches, plain_calls = read_counts()
+    if not bool(losses[-1] < losses[0]) or any(launches.values()) or plain_calls:
+        raise AssertionError(f"sparse embedding at scale: loss {losses[0].item()} -> "
+                             f"{losses[-1].item()}, launches {launches}, plain {plain_calls}")
+    peak = torch.cuda.max_memory_allocated()
+    sps = cfg["steps"] / wall
+    nbytes = 3.0 * B * L * D * 4
+    box = {"state": state}
+
+    def run(n):
+        for _ in range(n):
+            box["state"], _ = step(box["state"], ids, mask, target)
+
+    n = cfg["profiled"]
+    dev_us, kernels = profile_loop(torch, lambda: run(n), n, wall / cfg["steps"] * 1e6,
+                                   "sparse embedding")
+    b_ms, b_by = roofline(0.0, nbytes, name)
+    log(f"  sparse embedding step, {T} x {D} table ({T * D * 4 / 1e9:.2f} GB) + accumulator "
+        f"({T * 4 / 1e6:.0f} MB), B {B}, L {L}, head {cfg['head']}: set-up {init_s:.2f} s, "
+        f"{cfg['steps']} steps in {wall:.4f} s = {sps:.2f} steps/s, the table's effective "
+        f"{sps * nbytes / 1e9:.2f} GB/s (3 B L D 4 = {nbytes / 1e6:.1f} MB a step; at the memory "
+        f"rate {b_ms:.4f} ms a step), {kernels:.1f} CUDA kernels and {dev_us:.1f} us of device "
+        f"time a step (idle {(1 - dev_us / (wall / cfg['steps'] * 1e6)) * 100:.1f}%), loss "
+        f"{first.item():.5f} -> {losses[-1].item():.5f}, peak memory {peak / 2**30:.3f} GiB, on "
+        f"{card_line()}")
+    del state, box
+    torch.cuda.empty_cache()
+    return dict(steps_per_s=sps, gb_per_s=sps * nbytes / 1e9, kernels_per_step=kernels,
+                device_us=dev_us, idle=1 - dev_us / (wall / cfg["steps"] * 1e6),
+                peak_bytes=peak, loss=(first.item(), losses[-1].item()), bytes_per_step=nbytes,
+                memory_bound_ms=b_ms)
 
 
 def main() -> int:
@@ -5031,7 +5340,25 @@ def main() -> int:
     mask = mask_phase(torch, MASK_JOB["steps"], MASK_JOB["eval_episodes"])
     log(f"  phases 41-43 took {time.perf_counter() - t_wm:.1f} s together")
 
-    phase("phase 44: kernels")
+    t_sparse = time.perf_counter()
+    phase("phase 44: the sparse slice's modules card against CPU: the changing-arms SparseDQN "
+          "and its DQNTrainer, the touched-rows sparse embedding step")
+    sparse_card_cpu_phase(torch)
+
+    phase("phase 45: the sparse embedding step at bench.py's size (10,000,000 x 64, B 4,096, "
+          "L 50)")
+    sparse_scale = sparse_embedding_scale_phase(torch, name)
+
+    phase("phase 46: K3 and K4 at the sparse changing-arms job's shapes, timed; the job cut in "
+          "depth")
+    sparse_k3 = k3_shapes_phase(torch, name, K3_SPARSE_SHAPES, K3_SPARSE_SHAPES, launch_floor_ms)
+    sparse_k4 = {label: k4_shape_times(torch, name, label, shape)
+                 for label, shape in K4_SPARSE_SHAPES.items()}
+    arms = sparse_arms_phase(torch, SPARSE_ARMS_JOB["prefill"], SPARSE_ARMS_JOB["steps"],
+                             SPARSE_ARMS_JOB["eval_episodes"])
+    log(f"  phases 44-46 took {time.perf_counter() - t_sparse:.1f} s together")
+
+    phase("phase 47: kernels")
     by_path = {
         "K1 fused_dqn_offline_update": {
             "offline workflow, full width": k1_launches,
@@ -5073,7 +5400,9 @@ def main() -> int:
             "world-model evaluate_policy": wm["eval_launches"]["fused_mlp_forward"],
             "OpenGridworld DQN loop (act steps)": grid["launches"]["fused_mlp_forward"],
             "OpenGridworld evaluate_policy": grid["eval_launches"]["fused_mlp_forward"],
-            "mask DQN evaluate_policy": mask["eval_launches"]["fused_mlp_forward"]},
+            "mask DQN evaluate_policy": mask["eval_launches"]["fused_mlp_forward"],
+            "sparse changing-arms DQN loop (act steps)": arms["launches"]["fused_mlp_forward"],
+            "sparse changing-arms evaluate_policy": arms["eval_launches"]["fused_mlp_forward"]},
         "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
                              "online QR-DQN loop": qr_online_launches["nstep_rewards"],
                              "online CRR loop": crr_online["launches"]["nstep_rewards"],
@@ -5084,7 +5413,8 @@ def main() -> int:
                                 v["launches"]["nstep_rewards"] for k, v in cc_online.items()},
                              "world-model DQN loop": wm["launches"]["nstep_rewards"],
                              "OpenGridworld DQN loop": grid["launches"]["nstep_rewards"],
-                             "mask DQN loop": mask["launches"]["nstep_rewards"]},
+                             "mask DQN loop": mask["launches"]["nstep_rewards"],
+                             "sparse changing-arms DQN loop": arms["launches"]["nstep_rewards"]},
         "K5 quantile_huber_loss": {
             "offline QR-DQN workflow": qr_launches["quantile_huber_loss"],
             "online QR-DQN loop": qr_online_launches["quantile_huber_loss"]},
@@ -5179,7 +5509,8 @@ def main() -> int:
                      **{f"online {k} loop": (v, "steps_per_s") for k, v in fam_online.items()},
                      **{f"online {k} loop": (v, "steps_per_s") for k, v in cc_online.items()},
                      "world-model DQN loop": (wm, "steps_per_s"),
-                     "OpenGridworld DQN loop": (grid, "steps_per_s")}
+                     "OpenGridworld DQN loop": (grid, "steps_per_s"),
+                     "sparse changing-arms DQN loop": (arms, "steps_per_s")}
             if kname.startswith("K3"):
                 paths.update({f"{k} episodes": (v, "episodes_per_s") for k, v in pg.items()})
             else:
@@ -5202,8 +5533,10 @@ def main() -> int:
             # the torch.addmm yardstick
             row["by_shape"].update(continuous_kernels)
             row["by_shape"].update(wm_k3)
+            row["by_shape"].update(sparse_k3)
         if kname.startswith("K4"):
             row["by_shape"].update(wm_k4)
+            row["by_shape"].update(sparse_k4)
         if kname.startswith("K1"):
             # the same products through cuBLAS, and the kernel's own GEMM share
             key = "K1-bf16" if kname.endswith("(bf16)") else "K1"
@@ -5214,6 +5547,9 @@ def main() -> int:
                 fused_dqn_offline.fused_dqn_offline_update.bf16_kernels_per_update)
             row["mma"] = "mma.sync m16n8k16 bf16, f32 accumulators, cp.async and ldmatrix"
         rows.append(row)
+    # the sparse embedding step is torch operations (JAX's is an XLA op, no
+    # pallas_call): its numbers stand beside the kernels, not among them
+    log(json.dumps({"sparse_embedding_step": sparse_scale}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

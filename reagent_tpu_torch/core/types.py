@@ -1,42 +1,174 @@
 """Typed training batches as tensor dataclasses.
 
-Port of the batch types the DQN and actor-critic paths use from
-``reagent_tpu/core/types.py`` (``FeatureData`` :179, ``GaussianSamplerScore``
-:237, ``ActorOutput`` :246, ``ExtraData`` :255, ``DiscreteDqnInput`` :290,
-``ParametricDqnInput`` :315, ``PolicyNetworkInput`` :329,
-``PolicyGradientInput`` :338, ``MemoryNetworkInput`` :377,
-``MemoryNetworkOutput`` :389).  Fields hold ``torch.Tensor``s (or
-``None``); ``.to(device)`` moves every tensor field, recursing into nested
-batches.
+Port of ``reagent_tpu/core/types.py``: the sparse feature types
+(``IdListFeature`` :40, ``IdScoreListFeature`` :58) and the host-side feature
+configuration (``IdListFeatureConfig`` :72, ``IdScoreListFeatureConfig`` :81,
+``FloatFeatureInfo`` :90, ``IdMappingConfig`` :98, ``ModelFeatureConfig``
+:109), ``FeatureData`` :179, ``ValuePresence`` :229, ``GaussianSamplerScore``
+:237, ``ActorOutput`` :246, ``ExtraData`` :255, ``BaseInput`` :275,
+``DiscreteDqnInput`` :290, ``ParametricDqnInput`` :315,
+``PolicyNetworkInput`` :329, ``PolicyGradientInput`` :338,
+``MemoryNetworkInput`` :377, ``MemoryNetworkOutput`` :389,
+``stack_feature_data`` :487 and ``batch_to_device`` :492.  Fields hold
+``torch.Tensor``s (or ``None``); ``.to(device)`` moves every tensor field,
+recursing into nested batches and into dicts of them (a ``FeatureData``'s
+``{name: IdListFeature}``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
 Tensor = torch.Tensor
 
 
+def _move(v, device):
+    if isinstance(v, (Tensor, _TensorDataClass)):
+        return v.to(device)
+    if isinstance(v, dict):
+        return {k: _move(x, device) for k, x in v.items()}
+    return v
+
+
 class _TensorDataClass:
     def to(self, device) -> "_TensorDataClass":
-        def move(v):
-            if isinstance(v, (Tensor, _TensorDataClass)):
-                return v.to(device)
-            return v
-
         return dataclasses.replace(
-            self, **{f.name: move(getattr(self, f.name)) for f in dataclasses.fields(self)}
-        )
+            self, **{f.name: _move(getattr(self, f.name), device)
+                     for f in dataclasses.fields(self)})
+
+
+# ---------------------------------------------------------------------------
+# Sparse (ID-list) features: fixed-width padded rows with a validity mask
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class IdListFeature(_TensorDataClass):
+    """A jagged ID-list feature padded to ``[batch, max_len]``: ``ids``
+    (integers, 0 in the padding) and ``mask`` (True or 1 where an id is)."""
+
+    ids: Tensor
+    mask: Tensor
+
+    @property
+    def lengths(self) -> Tensor:
+        return self.mask.to(torch.int32).sum(dim=-1, dtype=torch.int32)
+
+
+@dataclasses.dataclass
+class IdScoreListFeature(_TensorDataClass):
+    """Padded jagged (id, score) pairs: weighted ID-list features."""
+
+    ids: Tensor
+    scores: Tensor
+    mask: Tensor
+
+
+# ---------------------------------------------------------------------------
+# Feature configuration (host-side and static)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class IdListFeatureConfig:
+    name: str
+    feature_id: int
+    id_mapping_name: str
+
+
+@dataclasses.dataclass(frozen=True)
+class IdScoreListFeatureConfig:
+    name: str
+    feature_id: int
+    id_mapping_name: str
+
+
+@dataclasses.dataclass(frozen=True)
+class FloatFeatureInfo:
+    name: str
+    feature_id: int
+
+
+@dataclasses.dataclass(frozen=True)
+class IdMappingConfig:
+    """The embedding table of one ID space."""
+
+    embedding_table_size: int
+    embedding_dim: int
+    hashing: bool = True
+    pooling: str = "mean"  # "mean" | "sum"
+    max_length: int = 32  # padded width of the jagged dimension
+
+
+@dataclasses.dataclass
+class ModelFeatureConfig:
+    """The dense and sparse features a model reads.  Sparse feature ids and
+    names must each be distinct across the id-list and id-score-list
+    configs (``ValueError`` otherwise)."""
+
+    float_feature_infos: List[FloatFeatureInfo] = dataclasses.field(default_factory=list)
+    id_mapping_config: Dict[str, IdMappingConfig] = dataclasses.field(default_factory=dict)
+    id_list_feature_configs: List[IdListFeatureConfig] = dataclasses.field(default_factory=list)
+    id_score_list_feature_configs: List[IdScoreListFeatureConfig] = dataclasses.field(
+        default_factory=list
+    )
+
+    def __post_init__(self) -> None:
+        both = list(self.id_list_feature_configs) + list(self.id_score_list_feature_configs)
+        ids = [c.feature_id for c in both]
+        names = [c.name for c in both]
+        if len(ids) != len(set(ids)):
+            raise ValueError(f"duplicate sparse feature ids: {ids}")
+        if len(names) != len(set(names)):
+            raise ValueError(f"duplicate sparse feature names: {names}")
+        self._id2name = {c.feature_id: c.name for c in both}
+        self._name2id = {c.name: c.feature_id for c in both}
+        self._name2config = {c.name: c for c in both}
+
+    @property
+    def only_dense(self) -> bool:
+        return not (self.id_list_feature_configs or self.id_score_list_feature_configs)
+
+    @property
+    def id2name(self) -> Dict[int, str]:
+        return self._id2name
+
+    @property
+    def name2id(self) -> Dict[str, int]:
+        return self._name2id
+
+    @property
+    def name2config(self) -> Dict[str, Any]:
+        return self._name2config
+
+
+# ---------------------------------------------------------------------------
+# Feature containers
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
 class FeatureData(_TensorDataClass):
-    """Dense features for one entity (reference types.py:314)."""
+    """Dense and sparse features for one entity (reference types.py:314).
+    The candidate documents of the ranking models (``candidate_docs``) come
+    with the slate types (``ROADMAP.md`` §1 item 10)."""
 
     float_features: Tensor
+    id_list_features: Optional[Dict[str, IdListFeature]] = None
+    id_score_list_features: Optional[Dict[str, IdScoreListFeature]] = None
+    stacked_float_features: Optional[Tensor] = None
+    time_since_first: Optional[Tensor] = None
+
+    @property
+    def has_float_features_only(self) -> bool:
+        return (
+            not self.id_list_features
+            and not self.id_score_list_features
+            and self.time_since_first is None
+        )
 
     def get_tiled_batch(self, num_tiles: int) -> "FeatureData":
         """Each row repeated ``num_tiles`` times in place, [b, d] -> [b*t, d]
@@ -44,6 +176,14 @@ class FeatureData(_TensorDataClass):
         types.py:350), the layout of max-over-possible-actions Q."""
         return FeatureData(
             float_features=self.float_features.repeat_interleave(num_tiles, dim=0))
+
+
+@dataclasses.dataclass
+class ValuePresence(_TensorDataClass):
+    """Raw (value, presence) pair before normalization (reference types.py:241)."""
+
+    value: Tensor
+    presence: Optional[Tensor] = None
 
 
 @dataclasses.dataclass
@@ -76,8 +216,9 @@ class ExtraData(_TensorDataClass):
 
 
 @dataclasses.dataclass
-class DiscreteDqnInput(_TensorDataClass):
-    """Reference types.py:774.  ``action`` is one-hot [b, num_actions]."""
+class BaseInput(_TensorDataClass):
+    """The MDP-transition fields every transition batch has (reference
+    types.py:689)."""
 
     state: FeatureData
     next_state: FeatureData
@@ -85,6 +226,15 @@ class DiscreteDqnInput(_TensorDataClass):
     time_diff: Optional[Tensor]
     step: Optional[Tensor]
     not_terminal: Tensor
+
+    def batch_size(self) -> int:
+        return self.state.float_features.shape[0]
+
+
+@dataclasses.dataclass
+class DiscreteDqnInput(BaseInput):
+    """Reference types.py:774.  ``action`` is one-hot [b, num_actions]."""
+
     action: Tensor = None
     next_action: Tensor = None
     possible_actions_mask: Tensor = None
@@ -93,17 +243,11 @@ class DiscreteDqnInput(_TensorDataClass):
 
 
 @dataclasses.dataclass
-class ParametricDqnInput(_TensorDataClass):
+class ParametricDqnInput(BaseInput):
     """Reference types.py:868: actions are feature vectors.  The possible
     actions are ``[b * max_num_actions, action_dim]``, row ``i * M + j``
     the j-th possible action of row i."""
 
-    state: FeatureData
-    next_state: FeatureData
-    reward: Tensor
-    time_diff: Optional[Tensor]
-    step: Optional[Tensor]
-    not_terminal: Tensor
     action: FeatureData = None
     next_action: FeatureData = None
     possible_actions: FeatureData = None
@@ -115,16 +259,10 @@ class ParametricDqnInput(_TensorDataClass):
 
 
 @dataclasses.dataclass
-class PolicyNetworkInput(_TensorDataClass):
+class PolicyNetworkInput(BaseInput):
     """Continuous-control transition batch (reference types.py:901):
     ``action`` and ``next_action`` hold the dense action features."""
 
-    state: FeatureData
-    next_state: FeatureData
-    reward: Tensor
-    time_diff: Optional[Tensor]
-    step: Optional[Tensor]
-    not_terminal: Tensor
     action: FeatureData = None
     next_action: FeatureData = None
     extras: ExtraData = dataclasses.field(default_factory=ExtraData)
@@ -151,22 +289,13 @@ class PolicyGradientInput(_TensorDataClass):
 
 
 @dataclasses.dataclass
-class MemoryNetworkInput(_TensorDataClass):
+class MemoryNetworkInput(BaseInput):
     """World-model training sequences (reference types.py:1004): every
     leading dim is [seq_len, batch, ...]; ``action`` is a ``FeatureData``."""
 
-    state: FeatureData
-    next_state: FeatureData
-    reward: Tensor
-    time_diff: Optional[Tensor]
-    step: Optional[Tensor]
-    not_terminal: Tensor
     action: FeatureData = None
     valid_step: Optional[Tensor] = None
     extras: ExtraData = dataclasses.field(default_factory=ExtraData)
-
-    def batch_size(self) -> int:
-        return self.state.float_features.shape[0]
 
 
 @dataclasses.dataclass
@@ -184,3 +313,29 @@ class MemoryNetworkOutput(_TensorDataClass):
     last_step_hidden: Tensor
     last_step_cell: Tensor
     all_steps_hidden: Tensor
+
+
+def _stack(xs):
+    first = xs[0]
+    if first is None:
+        return None
+    if isinstance(first, Tensor):
+        return torch.stack(xs)
+    if isinstance(first, dict):
+        return {k: _stack([x[k] for x in xs]) for k in first}
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: _stack([getattr(x, f.name) for x in xs]) for f in dataclasses.fields(first)})
+    return first
+
+
+def stack_feature_data(items: List[FeatureData]) -> FeatureData:
+    """Stack unbatched ``FeatureData`` into one batch, field by field (sparse
+    dicts included), as ``jax.tree_util.tree_map(jnp.stack)``."""
+    return _stack(list(items))
+
+
+def batch_to_device(batch: Any, device="cuda") -> Any:
+    """A batch (a tensor dataclass, a dict of them or a tensor) on
+    ``device``: the port's ``jax.device_put``."""
+    return _move(batch, device)

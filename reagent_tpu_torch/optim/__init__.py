@@ -6,7 +6,7 @@ formulas.
 """
 
 from reagent_tpu_torch.optim.scheduler import LR_SCHEDULERS, with_scheduler
-from reagent_tpu_torch.optim.soft_update import soft_update
+from reagent_tpu_torch.optim.soft_update import soft_update, soft_update_excluding
 from reagent_tpu_torch.optim.union import (
     SGD,
     Adagrad,
@@ -31,5 +31,6 @@ __all__ = [
     "OptState",
     "make_optimizer",
     "soft_update",
+    "soft_update_excluding",
     "with_scheduler",
 ]

@@ -1,8 +1,8 @@
 """Batch preprocessor: raw timeline columns -> a typed batch on the device.
 
 Port of ``reagent_tpu/preprocessing/batch_preprocessor.py`` (``sparse_to_dense``
-:23, ``DiscreteDqnBatchPreprocessor`` :49-129, ``PolicyNetworkBatchPreprocessor``
-:132-165).  The column decoding runs in
+:23, the ``BatchPreprocessor`` base :45, ``DiscreteDqnBatchPreprocessor``
+:49-129, ``PolicyNetworkBatchPreprocessor`` :132-165).  The column decoding runs in
 numpy on the host, as in the JAX package; the normalization runs on the
 preprocessor's device.
 """
@@ -38,7 +38,12 @@ def sparse_to_dense(
     return values, presence
 
 
-class DiscreteDqnBatchPreprocessor:
+class BatchPreprocessor:
+    """The base of the batch preprocessors: ``__call__(batch_df)`` turns a
+    DataFrame of timeline rows into a typed batch."""
+
+
+class DiscreteDqnBatchPreprocessor(BatchPreprocessor):
     """Reference: batch_preprocessor.py:26-50."""
 
     def __init__(
@@ -129,7 +134,7 @@ class DiscreteDqnBatchPreprocessor:
         )
 
 
-class PolicyNetworkBatchPreprocessor:
+class PolicyNetworkBatchPreprocessor(BatchPreprocessor):
     """Continuous actions as map<fid, value> (reference batch_preprocessor.py:96):
     four ``sparse_to_dense`` decodes a batch (state, next state, action, next
     action), each normalized on ``device``."""

@@ -200,6 +200,25 @@ def sort_features_by_normalization(
     return sorted_features, feature_starts
 
 
+def get_feature_start_indices(
+    sorted_features: List[int],
+    normalization_parameters: Dict[int, NormalizationParameters],
+) -> List[int]:
+    """The first output column of each feature (an ENUM feature takes one
+    column per possible value)."""
+    start_indices = []
+    cur = 0
+    for feature in sorted_features:
+        p = normalization_parameters[feature]
+        start_indices.append(cur)
+        if p.feature_type == identify_types.ENUM:
+            assert p.possible_values is not None
+            cur += len(p.possible_values)
+        else:
+            cur += 1
+    return start_indices
+
+
 def serialize_one(feature_parameters: NormalizationParameters) -> str:
     return json.dumps(asdict(feature_parameters))
 
@@ -240,3 +259,22 @@ def get_feature_norm_metadata(feature_name, feature_value_list, norm_params: Dic
         norm_params["skip_quantiles"],
         feature_override,
     )
+
+
+def construct_action_scale_arrays(
+    action_norm_params: Dict[int, NormalizationParameters],
+    action_scale_overrides: Optional[Dict[int, Tuple[float, float]]] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The serving range ``(mins [1, A], maxs [1, A])`` of each action
+    dimension in sorted order, an override's ``(min, max)`` where given."""
+    action_scale_overrides = action_scale_overrides or {}
+    sorted_features, _ = sort_features_by_normalization(action_norm_params)
+    mins = np.zeros((1, len(sorted_features)))
+    maxs = np.zeros((1, len(sorted_features)))
+    for idx, fid in enumerate(sorted_features):
+        if fid in action_scale_overrides:
+            mins[0, idx], maxs[0, idx] = action_scale_overrides[fid]
+        else:
+            mins[0, idx] = action_norm_params[fid].min_value
+            maxs[0, idx] = action_norm_params[fid].max_value
+    return mins, maxs

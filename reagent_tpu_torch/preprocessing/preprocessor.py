@@ -1,6 +1,7 @@
 """The dense-feature Preprocessor as an ``nn.Module``.
 
-Port of ``reagent_tpu/preprocessing/preprocessor.py:46``.  The normalization
+Port of ``reagent_tpu/preprocessing/preprocessor.py`` (``Preprocessor`` :46,
+``make_preprocessor`` :239, ``presence_from_missing`` :248).  The normalization
 spec is compiled at construction into per-type float32 parameter tables
 (registered buffers, so ``.to(device)`` moves them) and static column
 ranges; ``forward(values, presence)`` applies one vectorized transform per
@@ -9,7 +10,7 @@ feature type and concatenates the blocks.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ from reagent_tpu_torch.preprocessing.normalization import (
     EPS,
     MAX_FEATURE_VALUE,
     MIN_FEATURE_VALUE,
+    MISSING_VALUE,
     sort_features_by_normalization,
 )
 
@@ -201,3 +203,24 @@ class Preprocessor(nn.Module):
                     out = torch.clamp(out, MIN_FEATURE_VALUE, MAX_FEATURE_VALUE)
             outputs.append(out)
         return torch.cat(outputs, dim=1)
+
+
+def make_preprocessor(
+    normalization_parameters: Dict[int, NormalizationParameters],
+    clamp: bool = True,
+    device="cpu",
+) -> Tuple[Callable[[torch.Tensor, torch.Tensor], torch.Tensor], Preprocessor]:
+    """``(fn, preprocessor)``: ``fn(values, presence) -> normalized`` is the
+    module's forward without a graph (JAX's returns a jitted function)."""
+    p = Preprocessor(normalization_parameters, clamp=clamp, device=device)
+
+    def fn(values: torch.Tensor, presence: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return p(values, presence)
+
+    return fn, p
+
+
+def presence_from_missing(values: torch.Tensor) -> torch.Tensor:
+    """Float32 presence from the ``MISSING_VALUE`` sentinel convention."""
+    return (values != MISSING_VALUE).to(torch.float32)

@@ -83,7 +83,11 @@ def select(flag: Tensor, new, old):
 def takes_k3(module: nn.Module) -> bool:
     """Whether ``score`` runs ``module``'s MLP as one K3 launch: a float32
     dense ``FullyConnectedDQN``, ``CategoricalDQN`` or
-    ``FullyConnectedCritic``."""
+    ``FullyConnectedCritic``, or a module with a float32 dense overarch
+    (``overarch_prefix``: a ``SparseDQN``, or a module holding one)."""
+    prefix = getattr(module, "overarch_prefix", None)
+    if prefix is not None:
+        return _dense_f32(module.get_submodule(prefix))
     return (isinstance(module, (FullyConnectedDQN, CategoricalDQN, FullyConnectedCritic))
             and _dense_f32(module.net))
 
@@ -105,6 +109,10 @@ def score(q_network: nn.Module, params: Params, *inputs: Tensor) -> Tensor:
     - ``FullyConnectedCritic`` (state, action): the MLP on ``cat([state,
       action])``, the ``[B * A, S + A]`` tiled rows of a parametric scorer.
 
+    - a module with an ``overarch_prefix`` (``SparseDQN``): its
+      ``overarch_input`` (the embedding-bag concat) in torch, then the dense
+      overarch at that prefix.
+
     Any other module, one with a reduced ``compute_dtype`` (K3 is float32)
     and one whose network is not a dense chain (a batch or layer norm, a
     skip connection: ``FullyConnectedNetwork.is_dense``) runs its own
@@ -112,6 +120,12 @@ def score(q_network: nn.Module, params: Params, *inputs: Tensor) -> Tensor:
     with torch.no_grad():
         if not takes_k3(q_network):
             return apply(q_network, params, *inputs)
+        prefix = getattr(q_network, "overarch_prefix", None)
+        if prefix is not None:
+            x = apply_method(q_network, params, "overarch_input", *inputs)
+            net = q_network.get_submodule(prefix)
+            return fused_mlp_forward(x, k3_weights(params, prefix, len(net.layers)),
+                                     net.activations)
         net = q_network.net
         weights = k3_weights(params, "net", len(net.layers))
         x = inputs[0] if len(inputs) == 1 else torch.cat(inputs, dim=1)

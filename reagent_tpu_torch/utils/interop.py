@@ -22,7 +22,12 @@ names.  An optax moment tree has its parameters' layout and is carried the
 same way; SAC's scalar log-alpha and its moments are carried under the name
 ``log_alpha``; ``opt_state_from_optax`` reads any optax chain of the union,
 a schedule's count included.  A ``MemoryNetwork``'s tree (scope ``MDNRNN_0``)
-maps through ``memory_network_state_from_flax``, its moments too.
+maps through ``memory_network_state_from_flax``, its moments too.  A
+``SparseDQN``'s tree (``EmbeddingBagConcat_0/EmbeddingBagCollection_0/
+bag_<name>/embedding`` and the overarch's ``FullyConnectedNetwork_0``; under a
+``SparseDQN_0`` scope where a module wraps it) maps through
+``sparse_dqn_state_from_flax``, and JAX's ``SparseEmbeddingState`` through
+``sparse_embedding_state_from_arrays``.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from reagent_tpu_torch.ops.sparse_embedding import SparseEmbeddingState
 from reagent_tpu_torch.optim import OptState
 from reagent_tpu_torch.replay.circular import ReplayBufferState
 from reagent_tpu_torch.replay.packed import PackedReplayBufferState
@@ -174,16 +180,45 @@ def memory_network_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor
     return out
 
 
+_BAGS = ("EmbeddingBagConcat_0", "EmbeddingBagCollection_0")
+_SPARSE_DQN = "SparseDQN_0"  # the scope of a SparseDQN inside a wrapping module
+
+
+def sparse_dqn_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``SparseDQN`` variables (numpy leaves) -> the port's state dict:
+    each ``bag_<name>/embedding`` table as ``concat.collection.bag_<name>.
+    embedding`` and the overarch's ``Dense_i`` as ``net.layers.i``.  Under a
+    lone ``SparseDQN_0`` scope (a wrapping module, as the changing-arms
+    job's) the names take the port's ``sparse_dqn.`` prefix
+    (``gym/sparse_arms.py::ArmsSparseQNet``)."""
+    tree = params_np["params"]
+    prefix = ""
+    if set(tree) == {_SPARSE_DQN}:
+        tree, prefix = tree[_SPARSE_DQN], "sparse_dqn."
+    out = {f"{prefix}concat.collection.{scope}.embedding": _array(leaves["embedding"])
+           for scope, leaves in tree[_BAGS[0]][_BAGS[1]].items()}
+    dense = q_network_state_from_flax({"params": {_NET: tree[_NET]}})
+    out.update({prefix + k: v for k, v in dense.items()})
+    return out
+
+
+def _from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    tree = params_np["params"]
+    if "MDNRNN_0" in tree:
+        return memory_network_state_from_flax(params_np)
+    if _BAGS[0] in tree or set(tree) == {_SPARSE_DQN}:
+        return sparse_dqn_state_from_flax(params_np)
+    return q_network_state_from_flax(params_np)
+
+
 def _params_on(params_np: Mapping, device) -> Dict[str, torch.Tensor]:
     """A flax tree's parameters by the port's names (a ``MemoryNetwork``'s,
-    or a q-network's), or a flat ``{name: array}`` dict (log-alpha's) as it
-    is."""
+    a ``SparseDQN``'s or a q-network's), or a flat ``{name: array}`` dict
+    (log-alpha's, the sparse embedding head's) as it is."""
     if "params" not in params_np:
         return {k: torch.tensor(np.asarray(v, np.float32), device=device)
                 for k, v in params_np.items()}
-    from_flax = (memory_network_state_from_flax if "MDNRNN_0" in params_np["params"]
-                 else q_network_state_from_flax)
-    return {k: v.to(device) for k, v in from_flax(params_np).items()}
+    return {k: v.to(device) for k, v in _from_flax(params_np).items()}
 
 
 _MOMENTS = ("mu", "nu", "nu_max", "trace", "sum_of_squares", "e_g", "e_x", "step_sizes",
@@ -449,6 +484,21 @@ def replay_state_from_arrays(
         add_count=_scalar_i32(add_count, device),
         is_valid=torch.tensor(np.asarray(is_valid, bool), device=device),
         episode_len=_scalar_i32(episode_len, device),
+    )
+
+
+def sparse_embedding_state_from_arrays(
+    table, accum, head_params: Mapping, head_opt_state: OptState, device="cpu"
+) -> SparseEmbeddingState:
+    """The port's ``SparseEmbeddingState`` from a ``reagent_tpu`` one:
+    ``table`` its ``logical_table`` (the lane packing undone), ``accum``,
+    the head's ``{w1, b1, w2, b2}`` (numpy) and its optimizer state (from
+    ``opt_state_from_optax``)."""
+    return SparseEmbeddingState(
+        table=torch.tensor(np.asarray(table, np.float32), device=device),
+        accum=torch.tensor(np.asarray(accum, np.float32), device=device),
+        head_params=_params_on(head_params, device),
+        head_opt_state=head_opt_state,
     )
 
 

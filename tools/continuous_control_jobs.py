@@ -17,6 +17,8 @@ priorities.
 
     python3 tools/continuous_control_jobs.py              # all three, both buffers
     python3 tools/continuous_control_jobs.py TD3          # some of them, by name
+    python3 tools/continuous_control_jobs.py --deterministic   # raise at any op
+                                                  # without a deterministic CUDA path
 
 Each run is ``chip_smoke.continuous_online_phase`` at the reference's depth
 from the port's own seed-0 init.  It prints the
@@ -30,6 +32,7 @@ fails.
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -46,6 +49,12 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("continuous_control_jobs: needs an NVIDIA card", file=sys.stderr)
         return 2
+    if "--deterministic" in argv:
+        # cuBLAS needs a fixed workspace for repeatable sums; torch then
+        # raises at the first op that has no deterministic CUDA path
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+    argv = [a for a in argv if not a.startswith("--")]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from reagent_tpu_torch.ops import _build
