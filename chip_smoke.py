@@ -238,16 +238,38 @@ Phases, in order; any failure raises and the script exits non-zero:
      launch) and updates (K4 once a sample), a profiled window (0 host
      reads or the script fails), evaluate_policy over 5 greedy masked
      episodes through K3; the full depth is tools/sparse_jobs.py's;
- 47. one JSON line describing each ported kernel (K1's rows with the CUDA
+ 47. the ranking slice's modules, card against CPU: Seq2Slate at bench.py's
+     _S2S width (2 layers, 8 heads, dim 256, feed-forward 512, S = T = 20)
+     on 64 rows from one state dict: the greedy slates (identical), the
+     logged slates' per-sequence log-probabilities (rtol and atol 1e-5),
+     the card's KV-cached decode against its full decode on the decoded
+     prefix (per-symbol probabilities within 1e-6, the same argmax), 3 IPS
+     steps' metrics (1e-4 relative); slate-Q's item scores through the
+     scorer (one K3 launch) and 3 max-Q trainer steps (phase 44's
+     tolerances);
+ 48. Seq2Slate timed: the IPS step at _S2S, B 256, float32 (20 steps) and
+     at _S2S_LARGE, B 1,024, bfloat16 (5 steps), and greedy KV-cached
+     RANK_MODE at _S2S, B 512 (10 ranks): steps/s and slates/s, CUDA
+     kernels and device time a call (a profiled window of 1), the idle
+     share and the peak memory;
+ 49. K3 at the slate-Q act shape ([10, 41->64->64->1], resident) against
+     its plain version, timed beside the launch floor and the bound; then
+     slate-Q on RecSim (tests/test_slateq_recsim.py) cut to SLATE_Q_CUT: K3
+     launched exactly once an act step and nothing else, env steps/s and a
+     profiled episode (kernels and device time an env step, the idle share,
+     the host reads of the done flag); the full depth is
+     tools/ranking_jobs.py's;
+ 50. one JSON line describing each ported kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
      wrapper's host time; K3's and K4's with the wrapper's host time, the
      launch floor and their other shapes, K3's with its torch.addmm
      yardstick and the evaluation's two shapes, K3's and K4's with their
      share of a step on the discrete-actor, C51, parametric, continuous,
-     world-model, gridworld, mask and sparse changing-arms paths, K3's
-     continuous, world-model and changing-arms shapes with their
-     torch.addmm yardstick and K4's world-model and changing-arms shapes).
+     world-model, gridworld, mask, sparse changing-arms and (K3) slate-Q
+     paths, K3's continuous, world-model, changing-arms and slate-Q shapes
+     with their torch.addmm yardstick and K4's world-model and changing-arms
+     shapes), after one line of phase 48's Seq2Slate numbers.
 Each phase's heading carries the seconds since the script started.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
@@ -5057,6 +5079,330 @@ def sparse_embedding_scale_phase(torch, name):
                 peak_bytes=peak, loss=(first.item(), losses[-1].item()), bytes_per_step=nbytes,
                 memory_bound_ms=b_ms)
 
+# ------------------------------------------------------------- ranking slice
+
+# bench.py's Seq2Slate workloads (bench.py:499-507, :511-535, :611-650):
+# _S2S (2 layers, 8 heads, dim 256, feed-forward 512, state and candidate
+# dims 128, S = T = 20) trained at B 256 on the _s2s_batch_arrays batch
+# (on_policy False, IPSClamp(UNIVERSAL, 10), Adam 1e-4), _S2S_LARGE (dim
+# 1024, feed-forward 4096) in bfloat16 at B 1024, and greedy RANK_MODE at B
+# 512.  Phase 47 holds the card against the CPU on 64 rows; phase 48 times
+# 20, 5 and 10 of them (the bench's 40 steps, 20 ranks cut to fit the limit)
+S2S = dict(state_dim=128, candidate_dim=128, num_stacked_layers=2, num_heads=8, dim_model=256,
+           dim_feedforward=512, max_src_seq_len=20, max_tgt_seq_len=20)
+S2S_LARGE = dict(S2S, dim_model=1024, dim_feedforward=4096)
+S2S_RUN = dict(B=256, steps=20, large_B=1024, large_steps=5, rank_B=512, ranks=10, profiled=1,
+               lr=1e-4, clamp=10.0, check_rows=64, check_steps=3)
+# the card against the CPU: the per-sequence log-probabilities sum 20 logs
+# of probabilities each an ulp or so apart; the IPS metrics 1e-4 relative
+S2S_TOL = dict(log_prob=dict(rtol=1e-5, atol=1e-5), metrics=dict(rtol=1e-4, atol=0.0),
+               decode_atol=1e-6)
+# slate-Q on RecSim (tests/test_slateq_recsim.py:173-228, reference
+# gym/tests/configs/recsim/slate_q_recsim_online.yaml, bar 154): phase 49
+# runs the base variant cut to 1 round of 10 episodes at epsilon 1.0, 100
+# updates and 5 greedy episodes; tools/ranking_jobs.py runs all five at
+# full depth (4 rounds of 150 episodes, 600 updates each, 20 episodes)
+SLATE_Q_CUT = dict(name="base", episodes=10, epsilons=(1.0,), train_steps=100, eval_episodes=5)
+SLATE_Q_TOL = dict(q=dict(rtol=1e-5, atol=1e-6), loss=dict(rtol=1e-4, atol=1e-6),
+                   param=dict(rtol=5e-4, atol=5e-5))
+# K3 at the slate-Q act step: one state's 10 candidate rows through the
+# critic [41 -> 64 -> 64 -> 1] leaky_relu (the resident route)
+K3_RANKING_SHAPES = {
+    "slate-Q act [10, 41->64->64->1]": (10, [41, 64, 64, 1],
+                                        ["leaky_relu", "leaky_relu", "linear"], True, 111),
+}
+
+
+def s2s_batch_arrays(seed=0, cfg=S2S, batch_size=256):
+    """bench.py's ``_s2s_batch_arrays`` (:518): normal state and candidates,
+    the logged slate a random permutation of the first T candidates (+2),
+    propensity 1e-3, uniform rewards."""
+    g = np.random.default_rng(seed)
+    B = batch_size
+    S, T = cfg["max_src_seq_len"], cfg["max_tgt_seq_len"]
+    SD, CD = cfg["state_dim"], cfg["candidate_dim"]
+    state = g.normal(size=(B, SD)).astype(np.float32)
+    src = g.normal(size=(B, S, CD)).astype(np.float32)
+    tgt_out = np.stack([g.permutation(S)[:T] + 2 for _ in range(B)]).astype(np.int64)
+    tgt_in = np.concatenate([np.ones((B, 1), np.int64), tgt_out[:, :-1]], axis=1)
+    cand = np.concatenate([np.zeros((B, 2, CD), np.float32), src], axis=1)
+    tgt_in_seq = np.take_along_axis(cand, tgt_in[:, :, None], axis=1)
+    probs = np.full((B, 1), 1e-3, np.float32)
+    reward = g.uniform(0.0, 1.0, size=(B, 1)).astype(np.float32)
+    return state, src, tgt_in, tgt_out, tgt_in_seq, probs, reward
+
+
+def s2s_batch(torch, device, cfg=S2S, batch_size=256, seed=0):
+    from reagent_tpu_torch.core import types as rlt
+
+    state, src, tgt_in, tgt_out, tgt_in_seq, probs, reward = (
+        torch.tensor(x, device=device) for x in s2s_batch_arrays(seed, cfg, batch_size))
+    return rlt.PreprocessedRankingInput(
+        state=rlt.FeatureData(float_features=state), src_seq=rlt.FeatureData(float_features=src),
+        tgt_in_seq=rlt.FeatureData(float_features=tgt_in_seq), tgt_in_idx=tgt_in,
+        tgt_out_idx=tgt_out, tgt_out_probs=probs, slate_reward=reward)
+
+
+def s2s_trainer(torch, device, cfg=S2S, compute_dtype=None):
+    """bench.py's trainer: an AUTOREGRESSIVE model (parameters from the
+    module's seed-0 init), off-policy IPS clamped at 10, Adam 1e-4."""
+    from reagent_tpu_torch.core.parameters import IPSClamp, IPSClampMethod, Seq2SlateParameters
+    from reagent_tpu_torch.models.seq2slate import Seq2SlateOutputArch, Seq2SlateTransformerModel
+    from reagent_tpu_torch.training.ranking import Seq2SlateTrainer
+
+    model = Seq2SlateTransformerModel(**cfg, output_arch=Seq2SlateOutputArch.AUTOREGRESSIVE,
+                                      compute_dtype=compute_dtype or torch.float32)
+    return Seq2SlateTrainer(
+        model, params=Seq2SlateParameters(
+            on_policy=False, ips_clamp=IPSClamp(IPSClampMethod.UNIVERSAL, S2S_RUN["clamp"])),
+        policy_optimizer={"Adam": {"lr": S2S_RUN["lr"]}}, device=device)
+
+
+def ranking_card_cpu_phase(torch):
+    """Phase 47: Seq2Slate at _S2S width on 64 rows from one state dict, card
+    against CPU: the greedy slates (identical), the logged slates'
+    per-sequence log-probabilities, the card's cached decode against its
+    full decode re-run on the decoded prefix (the same argmax, per-symbol
+    probabilities within 1e-6), 3 IPS steps' metrics; then slate-Q's item
+    scores through the scorer (one K3 launch on the card) and 3 trainer
+    steps."""
+    from reagent_tpu_torch.gym import slate_q_recsim as sq
+    from reagent_tpu_torch.ops import fused_mlp
+
+    n, rows = S2S_RUN["check_steps"], S2S_RUN["check_rows"]
+    trainers = {d: s2s_trainer(torch, d) for d in ("cpu", DEVICE)}
+    trainers[DEVICE].seq2slate_net.load_state_dict(trainers["cpu"].seq2slate_net.state_dict())
+    batches = {d: s2s_batch(torch, d, batch_size=rows, seed=1) for d in trainers}
+    out, logp = {}, {}
+    for d, tr in trainers.items():
+        b = batches[d]
+        out[d] = tr.rank(tr.state_from_networks(), b, S2S["max_tgt_seq_len"], greedy=True)
+        logp[d] = tr.seq2slate_net("per_sequence_log_prob", b.state.float_features,
+                                   b.src_seq.float_features, tgt_in_idx=b.tgt_in_idx,
+                                   tgt_out_idx=b.tgt_out_idx,
+                                   tgt_in_seq=b.tgt_in_seq.float_features).per_seq_log_probs
+    idx = out[DEVICE].ranked_tgt_out_idx
+    if not torch.equal(idx.cpu(), out["cpu"].ranked_tgt_out_idx):
+        raise AssertionError("Seq2Slate greedy slates differ, card against CPU")
+    torch.testing.assert_close(logp[DEVICE].detach().cpu(), logp["cpu"].detach(),
+                               **S2S_TOL["log_prob"])
+    lp_err = (logp[DEVICE].detach().cpu() - logp["cpu"].detach()).abs().max().item()
+    # the card's cached decode against its full decode on the decoded prefix
+    net, b = trainers[DEVICE].seq2slate_net, batches[DEVICE]
+    src, state = b.src_seq.float_features, b.state.float_features
+    cand = torch.cat([torch.zeros((rows, 2, src.shape[2]), device=DEVICE), src], dim=1)
+    tgt_in = torch.cat([torch.ones((rows, 1), dtype=torch.int64, device=DEVICE), idx[:, :-1]],
+                       dim=1)
+    with torch.no_grad():
+        full = net.decode(net.encode(state, src), state, tgt_in,
+                          torch.gather(cand, 1, tgt_in[:, :, None].expand(-1, -1, src.shape[2])))
+    dec_err = (out[DEVICE].ranked_per_symbol_probs - full).abs().max().item()
+    if dec_err > S2S_TOL["decode_atol"] or not torch.equal(full.argmax(dim=2), idx):
+        raise AssertionError(f"cached decode against the full decode: max abs {dec_err:.3e}")
+    states = {d: tr.state_from_networks() for d, tr in trainers.items()}
+    worst = 0.0
+    for i in range(n):
+        m = {}
+        for d, tr in trainers.items():
+            states[d], m[d] = tr.train_step(states[d], s2s_batch(torch, d, batch_size=rows,
+                                                                 seed=10 + i))
+        for k, want in m["cpu"].items():
+            got = m[DEVICE][k].cpu()
+            torch.testing.assert_close(got, want, **S2S_TOL["metrics"], msg=f"step {i} {k}")
+            worst = max(worst, ((got - want).abs() / want.abs().clamp(min=1e-30)).item())
+    log(f"  Seq2Slate at _S2S width, {rows} rows, card vs CPU: greedy slates identical, "
+        f"per-sequence log-probabilities max abs {lp_err:.3e} (of values near "
+        f"{logp['cpu'].mean().item():.2f}), the cached decode against the full decode on the "
+        f"card max abs {dec_err:.3e} with the same argmax, {n} IPS steps' metrics max relative "
+        f"{worst:.3e}")
+
+    tol = SLATE_Q_TOL
+    qt = {d: sq.make_trainer("maxq_topk", True, {}, d) for d in ("cpu", DEVICE)}
+    sfirst = qt["cpu"].init(torch.Generator().manual_seed(0))
+    sstates = {d: copy_state(sfirst, d) for d in qt}
+    env = sq.RecSimInterestEvolution(device="cpu")
+    recs = sq.SlateQCollector(env, qt["cpu"].q_network).collect(
+        sfirst.q_params, 1.0, 4, torch.Generator().manual_seed(1))
+    batch = sq.batchify(env, recs)
+    scores = {}
+    st = batch.state
+    rows64 = type(st)(float_features=st.float_features[:64], candidate_docs=type(
+        st.candidate_docs)(float_features=st.candidate_docs.float_features[:64],
+                           value=st.candidate_docs.value[:64]))
+    for d, tr in qt.items():  # the CPU first: the counts read the card's call alone
+        reset_counts()
+        scores[d] = sq.SlateQCollector(sq.RecSimInterestEvolution(device=d), tr.q_network).score(
+            sstates[d].q_params, rows64.to(d)).cpu()
+    launches, _ = read_counts()
+    if launches["fused_mlp_forward"] != 1:
+        raise AssertionError(f"slate-Q scorer on the card: K3 launched {launches}")
+    torch.testing.assert_close(scores[DEVICE], scores["cpu"], **tol["q"])
+    q_err = (scores[DEVICE] - scores["cpu"]).abs().max().item()
+    worst_l = 0.0
+    for i in range(n):
+        idx_rows = torch.arange(i * 64, i * 64 + 256) % batch.reward.shape[0]
+        m = {}
+        for d, tr in qt.items():
+            sstates[d], m[d] = tr.train_step(sstates[d], sq.subsample(batch, idx_rows).to(d))
+        for k in ("td_loss", "q_mean"):
+            torch.testing.assert_close(m[DEVICE][k].cpu(), m["cpu"][k], **tol["loss"], msg=k)
+            worst_l = max(worst_l, (m[DEVICE][k].cpu() - m["cpu"][k]).abs().item())
+    count, worst_p = compare_states(torch, sstates[DEVICE], sstates["cpu"], tol["param"],
+                                    "slate-Q")
+    log(f"  slate-Q (max-Q top-k), card vs CPU: item scores on 64 RecSim states x 10 candidates "
+        f"max abs {q_err:.3e} (one K3 launch on the card), {n} trainer steps (B 256) metrics max "
+        f"abs {worst_l:.3e}, {count} state tensors max abs {worst_p:.3e}")
+    return dict(log_prob_err=lp_err, decode_err=dec_err, metric_rel_err=worst, q_err=q_err)
+
+
+def timed_steps(torch, run, n, label, profiled):
+    """``run()`` ``n`` times (CUDA-synchronised wall time), then a profiled
+    window of ``profiled`` calls: (wall ms a call, device us a call, CUDA
+    kernels a call, host reads of device values a call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            run()
+        torch.cuda.synchronize()
+    device_us, _ = profiled_rows(prof, profiled)
+    counts = {ev.key: ev.count for ev in prof.key_averages()}
+    dev = sum(r[0] for r in device_us)
+    kernels = sum(r[1] for r in device_us)
+    reads = counts.get("aten::_local_scalar_dense", 0) / profiled
+    log(f"  {label}: {wall_ms:.3f} ms a call (wall, {n} calls), {dev:.1f} us of device kernels in "
+        f"{kernels:.1f} launches a call (profiled window of {profiled}): the device is idle "
+        f"{(1 - dev / (wall_ms * 1e3)) * 100:.1f}% of a call; host reads a call {reads:.1f}")
+    for us, count, key in device_us[:5]:
+        log(f"    device {us:9.2f} us  x{count:<6.1f} {key[:80]}")
+    return wall_ms, dev, kernels, reads
+
+
+def seq2slate_timed_phase(torch, name):
+    """Phase 48: the IPS train step at _S2S, B 256, float32 (TF32 off) and at
+    _S2S_LARGE, B 1024, bfloat16 activations; greedy RANK_MODE at _S2S, B 512
+    (KV-cached, 20 decode steps): steps/s and slates/s from
+    CUDA-synchronised wall time, CUDA kernels and device time a call (a
+    profiled window), the idle share, the peak of
+    ``torch.cuda.max_memory_allocated``.  The metrics must stay finite."""
+    run = S2S_RUN
+    out = {}
+    for label, cfg, B, dtype, steps in (
+            ("train _S2S f32 B 256", S2S, run["B"], torch.float32, run["steps"]),
+            ("train _S2S_LARGE bf16 B 1024", S2S_LARGE, run["large_B"], torch.bfloat16,
+             run["large_steps"])):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = s2s_trainer(torch, DEVICE, cfg, dtype)
+        batch = s2s_batch(torch, DEVICE, cfg, B)
+        box = {"state": trainer.state_from_networks()}
+
+        def step():
+            box["state"], box["m"] = trainer.train_step(box["state"], batch)
+
+        step()  # warm
+        wall_ms, dev, kernels, reads = timed_steps(torch, step, steps, label, run["profiled"])
+        m = {k: v.item() for k, v in box["m"].items()}
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{label}: metrics {m}")
+        peak = torch.cuda.max_memory_allocated()
+        out[label] = dict(steps_per_s=1e3 / wall_ms, ms=wall_ms, device_us=dev,
+                          kernels_per_step=kernels, idle=1 - dev / (wall_ms * 1e3),
+                          host_reads=reads, peak_bytes=peak, metrics=m)
+        log(f"  {label}: {1e3 / wall_ms:.2f} steps/s, peak memory {peak / 2**30:.3f} GiB, "
+            f"obj_loss {m['obj_loss']:.4g}, on {card_line()}")
+        del trainer, batch, box
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = s2s_trainer(torch, DEVICE)
+    state = trainer.state_from_networks()
+    batch = s2s_batch(torch, DEVICE, batch_size=run["rank_B"])
+    T = S2S["max_tgt_seq_len"]
+
+    def rank():
+        return trainer.rank(state, batch, T, greedy=True).ranked_tgt_out_idx
+
+    idx = rank()
+    if not all(sorted(r) == list(range(2, T + 2)) for r in idx.cpu().tolist()):
+        raise AssertionError("greedy ranks are not permutations of the candidates")
+    label = "greedy rank _S2S B 512"
+    wall_ms, dev, kernels, reads = timed_steps(torch, rank, run["ranks"], label, run["profiled"])
+    peak = torch.cuda.max_memory_allocated()
+    out[label] = dict(slates_per_s=run["rank_B"] * 1e3 / wall_ms, ms=wall_ms, device_us=dev,
+                      kernels_per_rank=kernels, kernels_per_decode_step=kernels / T,
+                      idle=1 - dev / (wall_ms * 1e3), host_reads=reads, peak_bytes=peak)
+    log(f"  {label}: {run['rank_B'] * 1e3 / wall_ms:.1f} slates/s, {kernels / T:.1f} CUDA kernels "
+        f"a decode step, peak memory {peak / 2**30:.3f} GiB, on {card_line()}")
+    return out
+
+
+def slate_q_recsim_phase(torch, name, launch_floor_ms):
+    """Phase 49: K3 at the slate-Q act shape against its plain version,
+    timed; then slate-Q on RecSim cut in depth (SLATE_Q_CUT): every act
+    step one K3 launch through ``slate_q_scorer`` (the counts read around
+    the run), no plain call; env steps/s and a profiled episode (CUDA
+    kernels and device time an env step, the idle share, host reads: one
+    an env step, the episode's done flag)."""
+    from reagent_tpu_torch.gym import slate_q_recsim as sq
+
+    k3 = k3_shapes_phase(torch, name, K3_RANKING_SHAPES, K3_RANKING_SHAPES, launch_floor_ms)
+    cut = SLATE_Q_CUT
+    variant = next(v for v in sq.VARIANTS if v[0] == cut["name"])
+    reset_counts()
+    t0 = time.perf_counter()
+    r = sq.train_and_eval(*variant, DEVICE, episodes=cut["episodes"], epsilons=cut["epsilons"],
+                          train_steps=cut["train_steps"], eval_episodes=cut["eval_episodes"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = read_counts()
+    acts = r["train_act_steps"] + r["eval_act_steps"]
+    others = {k: v for k, v in launches.items() if k != "fused_mlp_forward" and v}
+    if launches["fused_mlp_forward"] != acts or plain or others:
+        raise AssertionError(f"slate-Q on RecSim: {acts} act steps, launches {launches}, "
+                             f"plain calls {plain}")
+    env = sq.RecSimInterestEvolution(device=DEVICE)
+    collector = sq.SlateQCollector(env, r["trainer"].q_network)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    collector.collect(r["state"].q_params, 1.0, 1, gen)  # warm
+    t0 = time.perf_counter()
+    recs = collector.collect(r["state"].q_params, 1.0, 2, gen)
+    torch.cuda.synchronize()
+    n_steps = recs["reward"].shape[0]
+    step_us = (time.perf_counter() - t0) / n_steps * 1e6
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        recs = collector.collect(r["state"].q_params, 1.0, 1, gen)
+        torch.cuda.synchronize()
+    n_prof = recs["reward"].shape[0]
+    device_us, _ = profiled_rows(prof, n_prof)
+    dev = sum(x[0] for x in device_us)
+    kernels = sum(x[1] for x in device_us)
+    k3_us = sum(us for us, _, key in device_us if "fused_mlp" in key)
+    reads = {ev.key: ev.count for ev in prof.key_averages()}.get("aten::_local_scalar_dense", 0)
+    log(f"  slate-Q on RecSim (base, 1 round of {cut['episodes']} episodes at epsilon 1.0, "
+        f"{cut['train_steps']} updates at B 512, {cut['eval_episodes']} greedy episodes): "
+        f"{wall:.2f} s, {r['transitions']} transitions, K3 launched {launches['fused_mlp_forward']} "
+        f"times = the {acts} act steps, mean return {r['mean_return']:.2f} (the bar of "
+        f"{r['bar']:.0f} is read at full depth), td_loss {r['first_td']:.4f} -> "
+        f"{r['last_td']:.4f}")
+    log(f"  slate-Q collection: {step_us:.1f} us an env step (wall), {dev:.1f} us of device "
+        f"kernels in {kernels:.1f} launches an env step (profiled episode of {n_prof} steps), "
+        f"K3 {k3_us:.2f} us of it: the device is idle {(1 - dev / step_us) * 100:.1f}% of a step; "
+        f"host reads {reads / n_prof:.1f} a step (the done flag), on {card_line()}")
+    return dict(k3=k3, launches=launches, acts=acts, train_act_steps=r["train_act_steps"],
+                eval_act_steps=r["eval_act_steps"], mean_return=r["mean_return"], seconds=wall,
+                steps_per_s=1e6 / step_us, device_us=dev, kernels_per_step=kernels,
+                idle=1 - dev / step_us, k3_us=k3_us, host_reads_per_step=reads / n_prof)
+
 
 def main() -> int:
     import torch
@@ -5358,7 +5704,21 @@ def main() -> int:
                              SPARSE_ARMS_JOB["eval_episodes"])
     log(f"  phases 44-46 took {time.perf_counter() - t_sparse:.1f} s together")
 
-    phase("phase 47: kernels")
+    t_rank = time.perf_counter()
+    phase("phase 47: the ranking slice's modules card against CPU: Seq2Slate at bench.py's _S2S "
+          "width (greedy slates, log-probabilities, the cached decode, IPS steps) and slate-Q")
+    ranking_card_cpu_phase(torch)
+
+    phase("phase 48: Seq2Slate timed: IPS training at _S2S (B 256, f32) and _S2S_LARGE (B 1,024, "
+          "bf16), greedy KV-cached ranking at B 512")
+    s2s_timing = seq2slate_timed_phase(torch, name)
+
+    phase("phase 49: K3 at the slate-Q act shape, timed; slate-Q on RecSim cut in depth, K3 on "
+          "every act step")
+    ranking = slate_q_recsim_phase(torch, name, launch_floor_ms)
+    log(f"  phases 47-49 took {time.perf_counter() - t_rank:.1f} s together")
+
+    phase("phase 50: kernels")
     by_path = {
         "K1 fused_dqn_offline_update": {
             "offline workflow, full width": k1_launches,
@@ -5402,7 +5762,9 @@ def main() -> int:
             "OpenGridworld evaluate_policy": grid["eval_launches"]["fused_mlp_forward"],
             "mask DQN evaluate_policy": mask["eval_launches"]["fused_mlp_forward"],
             "sparse changing-arms DQN loop (act steps)": arms["launches"]["fused_mlp_forward"],
-            "sparse changing-arms evaluate_policy": arms["eval_launches"]["fused_mlp_forward"]},
+            "sparse changing-arms evaluate_policy": arms["eval_launches"]["fused_mlp_forward"],
+            "slate-Q on RecSim, collection (act steps)": ranking["train_act_steps"],
+            "slate-Q on RecSim, greedy evaluation (act steps)": ranking["eval_act_steps"]},
         "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
                              "online QR-DQN loop": qr_online_launches["nstep_rewards"],
                              "online CRR loop": crr_online["launches"]["nstep_rewards"],
@@ -5513,6 +5875,7 @@ def main() -> int:
                      "sparse changing-arms DQN loop": (arms, "steps_per_s")}
             if kname.startswith("K3"):
                 paths.update({f"{k} episodes": (v, "episodes_per_s") for k, v in pg.items()})
+                paths["slate-Q on RecSim collection"] = (ranking, "steps_per_s")
             else:
                 paths["mask DQN loop"] = (mask, "steps_per_s")
             row["share_of_step"] = {
@@ -5534,6 +5897,7 @@ def main() -> int:
             row["by_shape"].update(continuous_kernels)
             row["by_shape"].update(wm_k3)
             row["by_shape"].update(sparse_k3)
+            row["by_shape"].update(ranking["k3"])
         if kname.startswith("K4"):
             row["by_shape"].update(wm_k4)
             row["by_shape"].update(sparse_k4)
@@ -5550,6 +5914,9 @@ def main() -> int:
     # the sparse embedding step is torch operations (JAX's is an XLA op, no
     # pallas_call): its numbers stand beside the kernels, not among them
     log(json.dumps({"sparse_embedding_step": sparse_scale}))
+    # Seq2Slate's products and attention are torch operations (JAX computes
+    # them outside any pallas_call): its numbers stand beside the kernels
+    log(json.dumps({"seq2slate": s2s_timing}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,12 @@
 """Hyper-parameter dataclasses (reference: reagent/core/parameters.py).
 
 The port's copy of the five classes of ``reagent_tpu/core/parameters.py`` the
-offline DQN path uses, of ``MDNRNNTrainerParameters`` (:71) and of
-``CONTINUOUS_TRAINING_ACTION_RANGE`` (:17),
+offline DQN path uses, of ``MDNRNNTrainerParameters`` (:71), of
+``CONTINUOUS_TRAINING_ACTION_RANGE`` (:17) and of the ranking models'
+``SlateOptMethod`` :28, ``SlateOptParameters`` :44, ``ConvNetParameters``
+:165, ``TransformerParameters`` :174, ``LearningMethod`` :197,
+``IPSClampMethod`` :204, ``IPSClamp`` :210, ``Seq2SlateParameters`` :216
+and ``RankingParameters`` :225,
 kept identical so configs and normalization specs compare equal across the
 two packages.
 Plain frozen dataclasses — hashable so they can serve as cache keys.
@@ -13,6 +17,7 @@ Field names and defaults keep the reference's config contract
 from __future__ import annotations
 
 import dataclasses
+import enum
 from dataclasses import field
 from typing import Dict, Optional, Tuple
 
@@ -108,3 +113,68 @@ class MDNRNNTrainerParameters:
     action_dim: int = 2
     action_names: Optional[Tuple[str, ...]] = None
     multi_steps: int = 1
+
+
+class SlateOptMethod(enum.Enum):
+    GREEDY = "greedy"
+    TOP_K = "top_k"
+    EXACT = "exact"
+
+
+@dataclasses.dataclass(frozen=True)
+class SlateOptParameters:
+    method: SlateOptMethod = SlateOptMethod.TOP_K
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvNetParameters:
+    conv_dims: Tuple[int, ...]
+    conv_height_kernels: Tuple[int, ...]
+    pool_types: Tuple[str, ...]
+    pool_kernel_sizes: Tuple[int, ...]
+    conv_width_kernels: Optional[Tuple[int, ...]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerParameters:
+    """Reference: parameters.py:183."""
+
+    num_heads: int = 1
+    dim_model: int = 64
+    dim_feedforward: int = 32
+    num_stacked_layers: int = 2
+    state_embed_dim: Optional[int] = None
+
+
+class LearningMethod(enum.Enum):
+    REINFORCEMENT_LEARNING = "reinforcement_learning"
+    TEACHER_FORCING = "teacher_forcing"
+    PAIRWISE_ATTENTION = "pairwise_attention"
+    SIMULATION = "simulation"
+
+
+class IPSClampMethod(enum.Enum):
+    AGGRESSIVE = "aggressive"
+    UNIVERSAL = "universal"
+
+
+@dataclasses.dataclass(frozen=True)
+class IPSClamp:
+    clamp_method: IPSClampMethod = IPSClampMethod.UNIVERSAL
+    clamp_max: float = 10.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Seq2SlateParameters:
+    """Reference: parameters_seq2slate.py / parameters.py:204."""
+
+    on_policy: bool = True
+    learning_method: LearningMethod = LearningMethod.REINFORCEMENT_LEARNING
+    ips_clamp: Optional[IPSClamp] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RankingParameters:
+    max_src_seq_len: int = 0
+    max_tgt_seq_len: int = 0
+    greedy_serving: bool = False

@@ -105,6 +105,8 @@ CATEGORICAL_DQN_NET_BUILDERS: Registry = Registry("net_builder.categorical_dqn")
 CONTINUOUS_ACTOR_NET_BUILDERS: Registry = Registry("net_builder.continuous_actor")
 DISCRETE_ACTOR_NET_BUILDERS: Registry = Registry("net_builder.discrete_actor")
 VALUE_NET_BUILDERS: Registry = Registry("net_builder.value")
+SLATE_RANKING_NET_BUILDERS: Registry = Registry("net_builder.slate_ranking")
+SLATE_REWARD_NET_BUILDERS: Registry = Registry("net_builder.slate_reward")
 MODEL_MANAGERS: Registry = Registry("model_manager")
 ENVS: Registry = Registry("env")
 VALIDATORS: Registry = Registry("validator")

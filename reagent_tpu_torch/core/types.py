@@ -4,11 +4,13 @@ Port of ``reagent_tpu/core/types.py``: the sparse feature types
 (``IdListFeature`` :40, ``IdScoreListFeature`` :58) and the host-side feature
 configuration (``IdListFeatureConfig`` :72, ``IdScoreListFeatureConfig`` :81,
 ``FloatFeatureInfo`` :90, ``IdMappingConfig`` :98, ``ModelFeatureConfig``
-:109), ``FeatureData`` :179, ``ValuePresence`` :229, ``GaussianSamplerScore``
+:109), ``DocList`` :154, ``FeatureData`` :179 (its ``candidate_docs`` and
+helpers :215-223), ``ValuePresence`` :229, ``GaussianSamplerScore``
 :237, ``ActorOutput`` :246, ``ExtraData`` :255, ``BaseInput`` :275,
-``DiscreteDqnInput`` :290, ``ParametricDqnInput`` :315,
-``PolicyNetworkInput`` :329, ``PolicyGradientInput`` :338,
+``DiscreteDqnInput`` :290, ``SlateQInput`` :301, ``ParametricDqnInput``
+:315, ``PolicyNetworkInput`` :329, ``PolicyGradientInput`` :338,
 ``MemoryNetworkInput`` :377, ``MemoryNetworkOutput`` :389,
+``PreprocessedRankingInput`` :442, ``RankingOutput`` :472,
 ``stack_feature_data`` :487 and ``batch_to_device`` :492.  Fields hold
 ``torch.Tensor``s (or ``None``); ``.to(device)`` moves every tensor field,
 recursing into nested batches and into dicts of them (a ``FeatureData``'s
@@ -38,6 +40,10 @@ class _TensorDataClass:
         return dataclasses.replace(
             self, **{f.name: _move(getattr(self, f.name), device)
                      for f in dataclasses.fields(self)})
+
+    def replace(self, **changes) -> "_TensorDataClass":
+        """A copy with ``changes`` (flax's ``struct.dataclass.replace``)."""
+        return dataclasses.replace(self, **changes)
 
 
 # ---------------------------------------------------------------------------
@@ -151,16 +157,41 @@ class ModelFeatureConfig:
 
 
 @dataclasses.dataclass
+class DocList(_TensorDataClass):
+    """A slate of candidate documents (reference types.py:254):
+    ``float_features`` [batch, num_candidates, dim], ``mask`` and ``value``
+    [batch, num_candidates]."""
+
+    float_features: Tensor
+    mask: Optional[Tensor] = None
+    value: Optional[Tensor] = None
+
+    def select_slate(self, action: Tensor) -> "DocList":
+        """The docs at slate positions ``action`` [batch, slate_size]."""
+        row = torch.arange(self.float_features.shape[0], device=action.device)[:, None]
+        action = action.to(torch.int64)
+        return DocList(
+            float_features=self.float_features[row, action],
+            mask=None if self.mask is None else self.mask[row, action],
+            value=None if self.value is None else self.value[row, action],
+        )
+
+    def as_feature_data(self) -> "FeatureData":
+        b, n, d = self.float_features.shape
+        return FeatureData(float_features=self.float_features.reshape(b * n, d))
+
+
+@dataclasses.dataclass
 class FeatureData(_TensorDataClass):
-    """Dense and sparse features for one entity (reference types.py:314).
-    The candidate documents of the ranking models (``candidate_docs``) come
-    with the slate types (``ROADMAP.md`` §1 item 10)."""
+    """Dense and sparse features for one entity (reference types.py:314),
+    and the candidate documents of the ranking models (``candidate_docs``)."""
 
     float_features: Tensor
     id_list_features: Optional[Dict[str, IdListFeature]] = None
     id_score_list_features: Optional[Dict[str, IdScoreListFeature]] = None
     stacked_float_features: Optional[Tensor] = None
     time_since_first: Optional[Tensor] = None
+    candidate_docs: Optional[DocList] = None
 
     @property
     def has_float_features_only(self) -> bool:
@@ -168,7 +199,25 @@ class FeatureData(_TensorDataClass):
             not self.id_list_features
             and not self.id_score_list_features
             and self.time_since_first is None
+            and self.candidate_docs is None
         )
+
+    def get_ranking_state(self, has_user_feat: bool) -> Tensor:
+        """The user and docs concatenated, or the docs alone (reference
+        types.py:382-387)."""
+        if has_user_feat:
+            return self.concat_user_doc()
+        if self.candidate_docs is None:
+            raise ValueError("get_ranking_state needs candidate_docs")
+        return self.candidate_docs.float_features
+
+    def concat_user_doc(self) -> Tensor:
+        """[b, user_dim + num_docs * doc_dim] (reference types.py:367)."""
+        if self.candidate_docs is None:
+            raise ValueError("concat_user_doc needs candidate_docs")
+        b, n, d = self.candidate_docs.float_features.shape
+        return torch.cat(
+            [self.float_features, self.candidate_docs.float_features.reshape(b, n * d)], dim=1)
 
     def get_tiled_batch(self, num_tiles: int) -> "FeatureData":
         """Each row repeated ``num_tiles`` times in place, [b, d] -> [b*t, d]
@@ -243,6 +292,18 @@ class DiscreteDqnInput(BaseInput):
 
 
 @dataclasses.dataclass
+class SlateQInput(BaseInput):
+    """Reference types.py:821: ``action`` [b, slate_size] item indices into
+    ``state.candidate_docs``; ``reward`` and ``reward_mask`` [b,
+    slate_size], one per position."""
+
+    action: Tensor = None
+    next_action: Tensor = None
+    reward_mask: Tensor = None
+    extras: Optional[ExtraData] = None
+
+
+@dataclasses.dataclass
 class ParametricDqnInput(BaseInput):
     """Reference types.py:868: actions are feature vectors.  The possible
     actions are ``[b * max_num_actions, action_dim]``, row ``i * M + j``
@@ -313,6 +374,45 @@ class MemoryNetworkOutput(_TensorDataClass):
     last_step_hidden: Tensor
     last_step_cell: Tensor
     all_steps_hidden: Tensor
+
+
+@dataclasses.dataclass
+class PreprocessedRankingInput(_TensorDataClass):
+    """Seq2Slate's batch (reference types.py:455).  The vocabulary of the
+    reference: 0 is padding, 1 the decoder's start symbol, candidate i sits
+    at index i + 2."""
+
+    state: FeatureData
+    src_seq: FeatureData
+    src_src_mask: Optional[Tensor] = None
+    tgt_in_seq: Optional[FeatureData] = None
+    tgt_out_seq: Optional[FeatureData] = None
+    tgt_tgt_mask: Optional[Tensor] = None
+    slate_reward: Optional[Tensor] = None
+    position_reward: Optional[Tensor] = None
+    src_in_idx: Optional[Tensor] = None
+    tgt_in_idx: Optional[Tensor] = None
+    tgt_out_idx: Optional[Tensor] = None
+    tgt_out_probs: Optional[Tensor] = None
+    optim_tgt_in_idx: Optional[Tensor] = None
+    optim_tgt_out_idx: Optional[Tensor] = None
+    optim_tgt_in_seq: Optional[FeatureData] = None
+    optim_tgt_out_seq: Optional[FeatureData] = None
+    extras: Optional[ExtraData] = None
+
+    def batch_size(self) -> int:
+        return self.state.float_features.shape[0]
+
+
+@dataclasses.dataclass
+class RankingOutput(_TensorDataClass):
+    """Seq2Slate's output (reference types.py:1078)."""
+
+    ranked_tgt_out_idx: Optional[Tensor] = None
+    ranked_per_symbol_probs: Optional[Tensor] = None
+    ranked_per_seq_probs: Optional[Tensor] = None
+    log_probs: Optional[Tensor] = None
+    encoder_scores: Optional[Tensor] = None
 
 
 def _stack(xs):

@@ -3,11 +3,13 @@
 Port of ``reagent_tpu/evaluation/evaluation_data_page.py`` (reference:
 reagent/evaluation/evaluation_data_page.py:30-52 fields,
 create_from_tensors_dqn :309, create_from_tensors_parametric_dqn :186,
-compute_values :496, validate :542, set_metric_as_reward :628).  The page
-holds numpy arrays on the host, as the JAX package's does.  Both factories
-run their forwards through ``training.functional.score``: a float32 dense
-MLP or critic on a CUDA tensor is one K3 launch each.  The seq2slate page
-waits for ``ROADMAP.md`` §1 item 10.
+create_from_tensors_seq2slate :92, compute_values :496, validate :542,
+set_metric_as_reward :628).  The page holds numpy arrays on the host, as the
+JAX package's does.  The DQN factories run their forwards through
+``training.functional.score``: a float32 dense MLP or critic on a CUDA
+tensor is one K3 launch each.  The seq2slate page runs the ranker's greedy
+rank (and, for the sampled policy, its per-sequence log-probability) and the
+slate reward network in torch, as JAX computes them outside any kernel.
 """
 
 from __future__ import annotations
@@ -147,6 +149,77 @@ class EvaluationDataPage:
             possible_actions_mask=_host(possible_actions_mask),
             optimal_q_values=_host(optimal_q_values),
             eval_action_idxs=_host(eval_action_idxs),
+        )
+
+    @classmethod
+    def create_from_tensors_seq2slate(
+        cls,
+        seq2slate_net,
+        seq2slate_params,
+        reward_network,
+        reward_params,
+        training_input: rlt.PreprocessedRankingInput,
+        eval_greedy: bool,
+        mdp_ids: Optional[np.ndarray] = None,
+        sequence_numbers: Optional[np.ndarray] = None,
+    ) -> "EvaluationDataPage":
+        """The slate-ranking page (reference evaluation_data_page.py:92-182).
+
+        ``eval_greedy=True`` evaluates the greedy ranking policy: propensity
+        1 for its one slate, ``action_mask`` whether the logged slate is the
+        greedy one.  ``eval_greedy=False`` evaluates the stochastic policy:
+        the model's propensity of the logged slate (IPS; DM and DR are not
+        meaningful, all slates' propensities being exponential, reference
+        :134-145).  ``seq2slate_net`` is a ``Seq2SlateTransformerModel`` run
+        on ``seq2slate_params``, ``reward_network`` a slate reward net run on
+        ``reward_params`` (each the module's own where None)."""
+        from reagent_tpu_torch.models.seq2slate import Seq2SlateMode
+
+        for name in ("slate_reward", "tgt_out_probs", "tgt_out_idx", "tgt_out_seq"):
+            if getattr(training_input, name) is None:
+                raise ValueError(f"the seq2slate page needs {name}")
+        B, T, C = training_input.tgt_out_seq.float_features.shape
+        state = training_input.state.float_features
+        src = training_input.src_seq.float_features
+        with torch.no_grad():
+            ranked_idx = functional.apply(
+                seq2slate_net, seq2slate_params, Seq2SlateMode.RANK_MODE.value, state, src,
+                tgt_seq_len=T, greedy=True).ranked_tgt_out_idx
+            if eval_greedy:
+                model_propensities = np.ones((B, 1), np.float32)
+                action_mask = _host(torch.all(
+                    training_input.tgt_out_idx.to(torch.int64) == ranked_idx, dim=1,
+                    keepdim=True)).astype(np.float32)
+            else:
+                tgt_in_seq = training_input.tgt_in_seq
+                log_probs = functional.apply(
+                    seq2slate_net, seq2slate_params, Seq2SlateMode.PER_SEQ_LOG_PROB_MODE.value,
+                    state, src, tgt_in_idx=training_input.tgt_in_idx,
+                    tgt_out_idx=training_input.tgt_out_idx,
+                    tgt_in_seq=None if tgt_in_seq is None else tgt_in_seq.float_features,
+                ).per_seq_log_probs
+                model_propensities = _host(torch.exp(log_probs)).reshape(B, 1)
+                action_mask = np.ones((B, 1), np.float32)
+            # the predicted reward of the LOGGED slate
+            rewards_for_logged = _host(
+                functional.apply(reward_network, reward_params, training_input)).reshape(-1, 1)
+            # ... and of the greedily RANKED one (item i sits at index i + 2
+            # of the vocabulary, reference :156-159)
+            idx = (ranked_idx - 2)[:, :, None].expand(-1, -1, src.shape[2])
+            ranked_input = training_input.replace(
+                tgt_out_seq=rlt.FeatureData(float_features=torch.gather(src, 1, idx)),
+                tgt_out_idx=ranked_idx)
+            model_rewards = _host(
+                functional.apply(reward_network, reward_params, ranked_input)).reshape(-1, 1)
+        return cls(
+            mdp_id=None if mdp_ids is None else _host(mdp_ids),
+            sequence_number=None if sequence_numbers is None else _host(sequence_numbers),
+            model_propensities=model_propensities,
+            model_rewards=model_rewards,
+            action_mask=action_mask,
+            logged_rewards=_host(training_input.slate_reward).reshape(-1, 1),
+            model_rewards_for_logged_action=rewards_for_logged,
+            logged_propensities=_host(training_input.tgt_out_probs).reshape(-1, 1),
         )
 
     @classmethod

@@ -55,6 +55,12 @@ CLUSTER_QUALITY_MEANS = np.concatenate([
 ]).astype(np.float32)
 
 
+def _at(x: Tensor, i: Tensor) -> Tensor:
+    """``x[i]`` for a 0-dim index tensor without reading it on the host
+    (indexing with a 0-dim tensor converts it to a Python int)."""
+    return x.index_select(0, i.reshape(1).to(torch.int64))[0]
+
+
 @dataclasses.dataclass
 class RecSimIEState:
     user_interest: Tensor      # [T]
@@ -159,13 +165,12 @@ class RecSimInterestEvolution:
     def _drift_interest(self, interest: Tensor, topic: Tensor, u: Tensor) -> Tensor:
         """recsim IEvUserModel.update_state: move the clicked topic's interest
         by +-alpha*(1-|target|), positive where ``u`` < (interest+1)/2."""
-        cur = interest[topic]
+        cur = _at(interest, topic)
         update = INTEREST_ALPHA * (1.0 - cur)
         pos_prob = (cur + 1.0) / 2.0
         sign = torch.where(u < pos_prob, 1.0, -1.0)
-        out = interest.clone()
-        out[topic] = torch.clamp(cur + sign * update, -1.0, 1.0)
-        return out
+        return interest.index_copy(0, topic.reshape(1).to(torch.int64),
+                                   torch.clamp(cur + sign * update, -1.0, 1.0).reshape(1))
 
     def step_noise(self, generator):
         from reagent_tpu_torch.gym.policies.samplers import gumbel
@@ -196,10 +201,10 @@ class RecSimInterestEvolution:
         choice = torch.argmax(logits + g)
         clicked = choice < self.slate_size
         pos = torch.clamp(choice, max=self.slate_size - 1)
-        topic = topics[pos]
-        quality = state.doc_quality[slate][pos]
+        topic = _at(topics, pos)
+        quality = _at(state.doc_quality[slate], pos)
 
-        align01 = (u[topic] + 1.0) / 2.0
+        align01 = (_at(u, topic) + 1.0) / 2.0
         if self.is_interest_exploration:
             # a click pays 1; static affinities (no drift), unit step cost
             watch = torch.where(clicked, 1.0, 0.0)
@@ -215,8 +220,8 @@ class RecSimInterestEvolution:
         topics_new, quality_new = self._docs(new_topics, new_normals)  # resample_documents
         t = state.t + 1
         done = (budget <= 0.0) | (t >= self.max_steps)
-        pos_watch = torch.zeros(self.slate_size, device=u.device)
-        pos_watch[pos] = watch
+        pos_watch = torch.zeros(self.slate_size, device=u.device).index_copy(
+            0, pos.reshape(1), watch.reshape(1))
         new_state = RecSimIEState(
             user_interest=new_interest,
             doc_topics=topics_new,

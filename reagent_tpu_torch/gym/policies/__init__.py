@@ -24,6 +24,7 @@ from reagent_tpu_torch.gym.policies.scorers import (
     discrete_dqn_scorer,
     parametric_dqn_scorer,
     sac_scorer,
+    slate_q_scorer,
 )
 
 __all__ = [
@@ -45,4 +46,5 @@ __all__ = [
     "make_random_policy_for_env",
     "parametric_dqn_scorer",
     "sac_scorer",
+    "slate_q_scorer",
 ]

@@ -127,13 +127,15 @@ class GaussianSampler:
 
 
 class TopKSampler:
-    """The k highest-scoring items (reference top_k_sampler.py:12-23)."""
+    """The k highest-scoring items (reference top_k_sampler.py:12-23), the
+    lower index first on ties, as ``jax.lax.top_k`` (a stable descending
+    sort: ``torch.topk`` on the card does not promise the order)."""
 
     def __init__(self, k: int) -> None:
         self.k = k
 
     def sample_action(self, scores: Tensor,
                       generator: Optional[torch.Generator] = None) -> rlt.ActorOutput:
-        _, item_idxs = torch.topk(scores, self.k, dim=-1)
+        item_idxs = torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :self.k]
         return rlt.ActorOutput(action=item_idxs, log_prob=torch.zeros(
             (item_idxs.shape[0], 1), dtype=torch.float32, device=scores.device))

@@ -1,9 +1,8 @@
 """Scorers: (weights, obs) -> action scores for a policy.
 
 Port of ``apply_possible_actions_mask``, ``discrete_dqn_scorer``,
-``parametric_dqn_scorer`` and ``sac_scorer`` from
-``reagent_tpu/gym/policies/scorers.py`` (:22-66; ``slate_q_scorer`` waits
-for ``ROADMAP.md`` §1 item 10).  The DQN scorer runs a dense MLP's forward
+``parametric_dqn_scorer``, ``sac_scorer`` and ``slate_q_scorer`` from
+``reagent_tpu/gym/policies/scorers.py`` (:22-80).  The DQN scorer runs a dense MLP's forward
 as one K3 launch (``ops/fused_mlp.py``) on the weights it is given:
 ``mlp_weight_list(q_network)`` for a module,
 ``FusedDQNTrainer.mlp_weights(state)`` for a fused trainer state, or the
@@ -12,7 +11,8 @@ that are no flat MLP (``training.functional.score``: a ``CategoricalDQN``'s
 logits through K3 and E[Z] in torch; others their own forward).  A
 ``[B, A, N]`` quantile head is averaged over its atoms.  The parametric
 scorer scores every action of each row in one forward over the tiled rows,
-one K3 launch for a ``FullyConnectedCritic``.  ``sac_scorer`` (:57-66) runs a
+one K3 launch for a ``FullyConnectedCritic``; the slate-Q scorer scores
+every candidate of each row the same way.  ``sac_scorer`` (:57-66) runs a
 gaussian actor's dense trunk as one K3 launch and takes the split, the layer
 norms and the clip in torch.  A net with a norm or a skip connection runs
 its module's own forward (``training.functional.takes_k3``).
@@ -88,5 +88,26 @@ def sac_scorer(actor_network: nn.Module) -> Callable:
     def score(params, obs: Tensor) -> rlt.GaussianSamplerScore:
         loc, scale_log = functional.loc_and_scale_log(actor_network, params, obs)
         return rlt.GaussianSamplerScore(loc=loc, scale_log=scale_log)
+
+    return score
+
+
+def slate_q_scorer(num_candidates: int, q_network: nn.Module) -> Callable:
+    """p(select) * Q(s, doc) per candidate (ref slate_q_scorer.py:13-30):
+    ``score(params, state: FeatureData with candidate_docs) -> [B, C]``.
+    Each state is repeated in place against its candidates, and a float32
+    dense ``FullyConnectedCritic`` scores the ``[B * C, S + D]`` rows in one
+    K3 launch (``training.functional.score``); the choice model's softmax
+    over the docs' values follows in torch."""
+
+    def score(params, state: rlt.FeatureData) -> Tensor:
+        docs = state.candidate_docs
+        if docs is None:
+            raise ValueError("slate_q_scorer needs state.candidate_docs")
+        B = state.float_features.shape[0]
+        tiled = state.float_features.repeat_interleave(num_candidates, dim=0)
+        feats = docs.float_features.reshape(B * num_candidates, -1)
+        scores = functional.score(q_network, params, tiled, feats).reshape(B, num_candidates)
+        return torch.softmax(docs.value, dim=1) * scores
 
     return score

@@ -1,11 +1,11 @@
 """Replay sample -> typed batch.
 
 Port of ``make_discrete_dqn_batch``, ``make_parametric_dqn_batch``,
-``make_policy_network_batch`` and ``make_trainer_preprocessor`` from
-``reagent_tpu/gym/preprocessors.py`` (:20, :45, :76, :142; reference
-trainer_preprocessor.py DiscreteDqnInputMaker, ParametricDqnInputMaker,
-PolicyNetworkInputMaker).  ``make_slate_q_batch`` waits for the slate-Q
-trainer (``ROADMAP.md`` §1 item 10).
+``make_policy_network_batch``, ``make_slate_q_batch`` and
+``make_trainer_preprocessor`` from ``reagent_tpu/gym/preprocessors.py``
+(:20, :45, :76, :98, :142; reference trainer_preprocessor.py
+DiscreteDqnInputMaker, ParametricDqnInputMaker, PolicyNetworkInputMaker,
+SlateQInputMaker).
 """
 
 from __future__ import annotations
@@ -98,6 +98,44 @@ def make_policy_network_batch(batch: Dict[str, Tensor]) -> rlt.PolicyNetworkInpu
     )
 
 
+def make_slate_q_batch(batch: Dict[str, Tensor]) -> rlt.SlateQInput:
+    """A slate sample as ``SlateQInput`` (reference trainer_preprocessor.py:
+    230-275 SlateQInputMaker).  The keys: ``doc`` [B, C, D] candidate
+    features, ``doc_value`` [B, C] (the ValueWrapper's head), ``action`` [B,
+    S] slate indices, ``position_reward`` [B, S] (watch time),
+    ``response_click`` [B, S] click indicators, their ``next_*`` twins, and
+    optionally ``item_mask`` (all ones where absent) and ``step``.  The
+    slate stays without the reference's null action, as JAX's: one click
+    masks the unclicked positions out of the loss through ``reward_mask``,
+    many clicks train every position on its own reward."""
+    B = batch["state"].shape[0]
+    dev = batch["state"].device
+    terminal = batch["terminal"].reshape(B, 1).to(torch.float32)
+
+    def docs(prefix: str = "") -> rlt.DocList:
+        feats = batch[prefix + "doc"]
+        mask = batch.get(prefix + "item_mask")
+        return rlt.DocList(
+            float_features=feats,
+            mask=torch.ones(feats.shape[:2], dtype=torch.float32, device=dev)
+            if mask is None else mask,
+            value=batch[prefix + "doc_value"],
+        )
+
+    return rlt.SlateQInput(
+        state=rlt.FeatureData(float_features=batch["state"], candidate_docs=docs()),
+        next_state=rlt.FeatureData(float_features=batch["next_state"],
+                                   candidate_docs=docs("next_")),
+        action=batch["action"].to(torch.int32),
+        next_action=batch["next_action"].to(torch.int32),
+        reward=batch["position_reward"],
+        reward_mask=batch["response_click"].to(torch.bool),
+        time_diff=torch.ones((B, 1), dtype=torch.float32, device=dev),
+        step=batch["step"].reshape(B, 1) if "step" in batch else None,
+        not_terminal=1.0 - terminal,
+    )
+
+
 def make_trainer_preprocessor(trainer, num_actions: Optional[int] = None):
     """The batch maker for ``trainer``, picked from the annotation of its
     ``train_step``'s ``batch`` (reference trainer_preprocessor.py:32-57)."""
@@ -112,7 +150,6 @@ def make_trainer_preprocessor(trainer, num_actions: Optional[int] = None):
     if name == "PolicyNetworkInput":
         return make_policy_network_batch
     if name == "SlateQInput":
-        raise NotImplementedError(
-            "make_slate_q_batch waits for the slate-Q trainer (ROADMAP.md §1 item 10)")
+        return make_slate_q_batch
     raise NotImplementedError(
         f"no batch maker for trainer {type(trainer).__name__} (batch: {name})")

@@ -8,6 +8,7 @@ from reagent_tpu_torch.model_managers.discrete_dqn import DiscreteDQN
 from reagent_tpu_torch.model_managers.model_manager import ModelManager
 from reagent_tpu_torch.model_managers.parametric_dqn import ParametricDQN
 from reagent_tpu_torch.model_managers.policy_gradient import PPO, Reinforce
+from reagent_tpu_torch.model_managers.slate_q import SlateQ
 
 __all__ = [
     "ModelManager",
@@ -21,4 +22,5 @@ __all__ = [
     "ParametricDQN",
     "PPO",
     "Reinforce",
+    "SlateQ",
 ]

@@ -5,5 +5,7 @@ from reagent_tpu_torch.net_builder import (  # noqa: F401 — registers builders
     discrete_dqn,
     parametric_dqn,
     quantile_dqn,
+    slate_ranking,
+    slate_reward,
     value,
 )

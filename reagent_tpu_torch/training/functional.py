@@ -30,9 +30,12 @@ def params_of(q_network: nn.Module) -> Params:
     return {k: p.detach().clone() for k, p in q_network.named_parameters()}
 
 
-def apply(module: nn.Module, params: Params, *inputs):
-    """The module's forward on ``params`` (differentiable through them)."""
-    return torch.func.functional_call(module, params, inputs)
+def apply(module: nn.Module, params: Optional[Params], *inputs, **kwargs):
+    """The module's forward on ``params`` (differentiable through them);
+    ``params`` None runs the module's own."""
+    if params is None:
+        return module(*inputs, **kwargs)
+    return torch.func.functional_call(module, params, inputs, kwargs)
 
 
 class _Method(nn.Module):

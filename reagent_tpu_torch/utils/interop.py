@@ -27,7 +27,15 @@ maps through ``memory_network_state_from_flax``, its moments too.  A
 bag_<name>/embedding`` and the overarch's ``FullyConnectedNetwork_0``; under a
 ``SparseDQN_0`` scope where a module wraps it) maps through
 ``sparse_dqn_state_from_flax``, and JAX's ``SparseEmbeddingState`` through
-``sparse_embedding_state_from_arrays``.
+``sparse_embedding_state_from_arrays``.  The ranking models map through
+``seq2slate_state_from_flax`` (a ``Seq2SlateTransformerModel`` of any output
+architecture, and a ``Seq2SlateTransformerRewardNet``: a ``DenseGeneral``
+kernel ``[D, H, dh]`` becomes an ``nn.Linear`` weight ``[H * dh, D]`` and
+``[H, dh, D]`` one ``[D, H * dh]``, the heads in their order),
+``slate_reward_state_from_flax`` (the LSTM-backed ``Seq2SlateGRURewardNet``),
+``probabilistic_network_state_from_flax`` and
+``convolutional_network_state_from_flax``; the trainer states through
+``slate_q_state_from_arrays`` and ``seq2slate_trainer_state_from_arrays``.
 """
 
 from __future__ import annotations
@@ -49,8 +57,10 @@ from reagent_tpu_torch.training.dqn_trainer import DQNTrainerState
 from reagent_tpu_torch.training.fused_dqn_trainer import FusedDQNTrainerState
 from reagent_tpu_torch.training.parametric_dqn_trainer import ParametricDQNTrainerState
 from reagent_tpu_torch.training.qrdqn_trainer import QRDQNTrainerState
+from reagent_tpu_torch.training.ranking.seq2slate_trainer import Seq2SlateTrainerState
 from reagent_tpu_torch.training.reinforce_trainer import PolicyGradientTrainerState
 from reagent_tpu_torch.training.sac_trainer import SACTrainerState
+from reagent_tpu_torch.training.slate_q_trainer import SlateQTrainerState
 from reagent_tpu_torch.training.td3_trainer import TD3TrainerState
 
 _NET = "FullyConnectedNetwork_0"
@@ -202,8 +212,130 @@ def sparse_dqn_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+# flax scope -> the port's submodule in the ranking models, by name or by
+# pattern (the layers' lists are ModuleLists)
+_RANKING_SCOPES = {
+    "MultiHeadDotProductAttention_0": "attn", "LayerNorm_0": "norm1", "LayerNorm_1": "norm2",
+    "FeedForward_0": "ff", "Dense_0": "dense0", "Dense_1": "dense1",
+    "q_proj": "query", "k_proj": "key", "v_proj": "value", "out_proj": "out",
+}
+# the transformer reward net's top-level scopes
+_REWARD_TOP = {"Embedder_0": "candidate_embedder", "Embedder_1": "state_embedder",
+               "Dense_0": "head"}
+
+
+def _ranking_leaf(prefix: str, scope: str, leaf: str, x) -> Dict[str, torch.Tensor]:
+    a = np.asarray(x, np.float32)
+    if leaf == "kernel":
+        if a.ndim == 3 and scope in ("out", "out_proj"):  # [H, dh, D]
+            a = a.reshape(-1, a.shape[-1])
+        elif a.ndim == 3:  # [D, H, dh]
+            a = a.reshape(a.shape[0], -1)
+        return {f"{prefix}.weight": _array(a.T)}
+    return {f"{prefix}.{leaf}": _array(a.reshape(-1) if leaf == "bias" else a)}
+
+
+def seq2slate_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``Seq2SlateTransformerModel`` (any output architecture) or
+    ``Seq2SlateTransformerRewardNet`` variables (numpy leaves) -> the state
+    dict of the port's module: ``encoder_layers_i`` / ``decoder_layers_i``
+    / ``EncoderLayer_i`` become ``encoder_layers.i`` / ``decoder_layers.i``,
+    a layer's ``MultiHeadDotProductAttention_0``, ``LayerNorm_0/1`` and
+    ``FeedForward_0`` its ``attn``, ``norm1/2`` and ``ff``, the
+    ``CachedSelfAttention``'s ``q/k/v/out_proj`` ``query``, ``key``,
+    ``value`` and ``out``, each ``Dense_i`` inside a block ``dense{i}``; the
+    reward net's ``Embedder_0`` (candidates), ``Embedder_1`` (state) and
+    head ``Dense_0`` its ``candidate_embedder``, ``state_embedder`` and
+    ``head``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        for name, child in node.items():
+            if not isinstance(child, Mapping):
+                out.update(_ranking_leaf(".".join(path), path[-1], name, child))
+                continue
+            m = re.fullmatch(r"(encoder_layers|decoder_layers|EncoderLayer)_(\d+)", name)
+            if m is not None:
+                part = f"encoder_layers.{m.group(2)}" if m.group(1) == "EncoderLayer" \
+                    else f"{m.group(1)}.{m.group(2)}"
+            elif not path and name in _REWARD_TOP:
+                part = _REWARD_TOP[name]
+            else:
+                part = _RANKING_SCOPES.get(name, name)
+            walk(child, path + [part])
+
+    walk(params_np["params"], [])
+    return out
+
+
+def slate_reward_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``Seq2SlateGRURewardNet`` variables (numpy leaves) -> the port's
+    state dict: ``Dense_0`` (the state's embedding) becomes ``state_embed``,
+    ``OptimizedLSTMCell_l`` ``layers.l`` (the gate kernels side by side, as
+    ``memory_network_state_from_flax``) and ``Dense_1`` ``head``."""
+    tree = params_np["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for name, node in tree.items():
+        m = re.fullmatch(r"OptimizedLSTMCell_(\d+)", name)
+        if m is not None:
+            base = f"layers.{m.group(1)}"
+            out[f"{base}.input_kernel"] = _array(np.concatenate(
+                [np.asarray(node["i" + g]["kernel"]) for g in _GATES], axis=-1))
+            out[f"{base}.hidden_kernel"] = _array(np.concatenate(
+                [np.asarray(node["h" + g]["kernel"]) for g in _GATES], axis=-1))
+            out[f"{base}.hidden_bias"] = _array(np.concatenate(
+                [np.asarray(node["h" + g]["bias"]) for g in _GATES], axis=-1))
+        elif name in ("Dense_0", "Dense_1"):
+            base = "state_embed" if name == "Dense_0" else "head"
+            out[f"{base}.weight"] = _array(np.asarray(node["kernel"], np.float32).T)
+            out[f"{base}.bias"] = _array(node["bias"])
+        else:
+            raise ValueError(f"unexpected scope {name!r} in a slate reward tree")
+    return out
+
+
+def probabilistic_network_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``FullyConnectedProbabilisticNetwork`` variables -> the port's
+    state dict: ``LinearBBB_i``'s ``w_mu``, ``w_rho`` [in, out], ``b_mu``
+    and ``b_rho`` as ``layers.i.*``, unchanged."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, node in params_np["params"].items():
+        m = re.fullmatch(r"LinearBBB_(\d+)", name)
+        if m is None:
+            raise ValueError(f"unexpected scope {name!r} in a probabilistic network tree")
+        for leaf, x in node.items():
+            out[f"layers.{m.group(1)}.{leaf}"] = _array(x)
+    return out
+
+
+def convolutional_network_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``ConvolutionalNetwork`` variables -> the port's state dict:
+    ``Conv_i``'s kernel [kh, kw, in, out] becomes ``convs.i.weight`` [out,
+    in, kh, kw], and the head ``FullyConnectedNetwork_0`` ``net``."""
+    tree = params_np["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for name, node in tree.items():
+        m = re.fullmatch(r"Conv_(\d+)", name)
+        if m is not None:
+            k = np.asarray(node["kernel"], np.float32)
+            out[f"convs.{m.group(1)}.weight"] = _array(k.transpose(3, 2, 0, 1))
+            out[f"convs.{m.group(1)}.bias"] = _array(node["bias"])
+        elif name != _NET:
+            raise ValueError(f"unexpected scope {name!r} in a convolutional network tree")
+    out.update(q_network_state_from_flax({"params": {_NET: tree[_NET]}}))
+    return out
+
+
 def _from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
     tree = params_np["params"]
+    if "state_embedder" in tree or "EncoderLayer_0" in tree:
+        return seq2slate_state_from_flax(params_np)
+    if "OptimizedLSTMCell_0" in tree:
+        return slate_reward_state_from_flax(params_np)
+    if "LinearBBB_0" in tree:
+        return probabilistic_network_state_from_flax(params_np)
+    if "Conv_0" in tree:
+        return convolutional_network_state_from_flax(params_np)
     if "MDNRNN_0" in tree:
         return memory_network_state_from_flax(params_np)
     if _BAGS[0] in tree or set(tree) == {_SPARSE_DQN}:
@@ -435,6 +567,34 @@ def reinforce_state_from_arrays(
 
 
 ppo_state_from_arrays = reinforce_state_from_arrays
+
+
+def slate_q_state_from_arrays(
+    q_params: Mapping, q_target_params: Mapping, opt_state: OptState, step, device="cpu"
+) -> SlateQTrainerState:
+    """The port's ``SlateQTrainerState`` from a ``reagent_tpu`` one: the
+    critic's flax trees (numpy leaves, carried as
+    ``q_network_state_from_flax``), ``opt_state`` from
+    ``opt_state_from_optax``."""
+    return _unfused_state(SlateQTrainerState, q_params, q_target_params, opt_state, step, device)
+
+
+def seq2slate_trainer_state_from_arrays(
+    policy_params: Mapping, policy_opt_state: OptState, step, device="cpu", *,
+    baseline_params: Optional[Mapping] = None, baseline_opt_state: Optional[OptState] = None,
+) -> Seq2SlateTrainerState:
+    """The port's ``Seq2SlateTrainerState`` from a ``reagent_tpu`` one (or
+    its teacher-forcing or pairwise-attention state, whose ``params`` are
+    the policy's): the policy's flax tree (``seq2slate_state_from_flax``),
+    the optional baseline's and the optimizer states from
+    ``opt_state_from_optax``."""
+    def tree(x):
+        return None if x is None else _params_on(x, device)
+
+    return Seq2SlateTrainerState(
+        policy_params=tree(policy_params), policy_opt_state=policy_opt_state,
+        step=_scalar_i32(step, device), baseline_params=tree(baseline_params),
+        baseline_opt_state=baseline_opt_state)
 
 
 def _scalar_i32(x, device) -> torch.Tensor:
