@@ -259,7 +259,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      profiled episode (kernels and device time an env step, the idle share,
      the host reads of the done flag); the full depth is
      tools/ranking_jobs.py's;
- 50. one JSON line describing each ported kernel (K1's rows with the CUDA
+ 50. the model-based slice's modules at the jobs' widths, card against CPU:
+     3 Seq2Reward steps (64 hidden x 2, step classifier 64, multi_steps 6, B
+     256 CartPole windows) and 2 compress-model steps from one state; CEM's
+     returns over 2 sampled LinDyna members (100 hidden x 2, population 100,
+     horizon 4) and in CartPole's expected mode (horizon 10) from the same
+     draws, each plan's choice outside near-ties; the six synthetic-reward
+     nets at their builders' widths and 3 RewardNetTrainer steps; the serving
+     wrappers (K3 once on the card for the compress model, the binary
+     difference scorer, the short-sequence planner's step model and the
+     single-step synthetic reward) and the world-model evaluators;
+ 51. K3 at those serving shapes ([10, 4->64->64->2], [64, 4->64->64->6],
+     [10, 6->64->32->1]) against its plain version, timed beside one
+     torch.addmm a layer and the bound; the CEM plan at CartPole's
+     population 100 and horizon 10 and LinDyna's 10 iterations (ms a plan,
+     CUDA kernels, the idle share, host reads), the Seq2Reward and compress
+     steps at B 1,024 (steps/s, kernels, the idle share);
+ 52. the CEM jobs (tests/test_world_models.py:225-404: LinDyna with 1 and 2
+     world models, CartPole) and the Seq2Reward job
+     (reagent_tpu_torch/gym/model_based.py) cut to MB_CUT's depths: no kernel
+     in the CEM jobs, K3 once a greedy step of the compress model and once
+     for the step model; the bars are tools/model_based_jobs.py's, at full
+     depth;
+ 53. one JSON line describing each ported kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
      wrapper's host time; K3's and K4's with the wrapper's host time, the
@@ -269,7 +291,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      world-model, gridworld, mask, sparse changing-arms and (K3) slate-Q
      paths, K3's continuous, world-model, changing-arms and slate-Q shapes
      with their torch.addmm yardstick and K4's world-model and changing-arms
-     shapes), after one line of phase 48's Seq2Slate numbers.
+     shapes), after one line of phase 48's Seq2Slate numbers and one of
+     phases 50-52's model-based numbers.
 Each phase's heading carries the seconds since the script started.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
@@ -470,15 +493,17 @@ def compare_kernel(name, cfg, torch, kernels=None):
 # ------------------------------------------------------------------ timing
 
 
-def time_ms(torch, fn, warmup=3, iters=20):
+def time_ms(torch, fn, warmup=3, iters=20, sleep_cycles=2_000_000_000):
     """Median device time of one call: CUDA events around each call, all
-    calls queued behind a GPU sleep so host work does not show as gaps."""
+    calls queued behind a GPU sleep so host work does not show as gaps (the
+    default ~1 s at H100 clocks outlasts any enqueue here; a few small
+    launches need a tenth of it)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(iters)]
-    torch.cuda._sleep(2_000_000_000)  # ~1 s at H100 clocks: outlasts the host enqueue
+    torch.cuda._sleep(sleep_cycles)
     for s, e in events:
         s.record()
         fn()
@@ -2122,7 +2147,7 @@ def k3_eval_inputs(torch, rows, sizes, seed):
     return x, weights, ["leaky_relu"] * (len(sizes) - 2) + ["linear"]
 
 
-def k3_shapes_phase(torch, name, shapes, timed, launch_floor_ms):
+def k3_shapes_phase(torch, name, shapes, timed, launch_floor_ms, sleep_cycles=2_000_000_000):
     """K3 at ``shapes`` (label -> rows, sizes, activations, the route
     expected, seed) against its plain version and one torch.addmm per layer
     (rtol 1e-5, atol 1e-5, as phase 8), each route checked; at the labels in
@@ -2160,10 +2185,12 @@ def k3_shapes_phase(torch, name, shapes, timed, launch_floor_ms):
         b_ms, b_by = roofline(flops, nbytes, name)
         plain_w = [(w.contiguous(), b) for w, b in weights]  # timed without its copies
         out[label] = t = dict(
-            ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward(x, weights, acts)),
+            ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward(x, weights, acts),
+                       sleep_cycles=sleep_cycles),
             plain_ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward_reference(
-                x, plain_w, acts)),
-            products_library_ms=time_ms(torch, addmm), bound_ms=b_ms, bound_by=b_by,
+                x, plain_w, acts), sleep_cycles=sleep_cycles),
+            products_library_ms=time_ms(torch, addmm, sleep_cycles=sleep_cycles),
+            bound_ms=b_ms, bound_by=b_by,
             max_abs_err=err, route=route)
         log(f"  K3 {label} ({route} route): kernel {t['ms']:.4f} ms (launch floor "
             f"{launch_floor_ms:.4f}), plain {t['plain_ms']:.4f} ms, one torch.addmm per layer "
@@ -5404,6 +5431,438 @@ def slate_q_recsim_phase(torch, name, launch_floor_ms):
                 idle=1 - dev / step_us, k3_us=k3_us, host_reads_per_step=reads / n_prof)
 
 
+# ---------------------------------------------------------- model-based slice
+
+# The model-based jobs (reagent_tpu_torch/gym/model_based.py; the JAX tests'
+# tests/test_world_models.py:225-404 and the Seq2RewardModel manager's
+# widths): phase 52 cuts their depth and keeps every width;
+# tools/model_based_jobs.py runs them at full depth (LinDyna 400 MDN-RNN
+# steps a member and 5 episodes, CartPole 1,000 steps and 3 episodes of up to
+# 200, Seq2Reward 1,000 and 500 steps and 10 greedy episodes)
+MB_CUT = dict(lindyna_wm_steps=40, lindyna_episodes=1, cartpole_wm_steps=100,
+              cartpole_episodes=1, cartpole_max_steps=40, s2r_steps=60, s2r_compress_steps=20,
+              s2r_eval_episodes=5)
+MB_TOL = dict(loss=dict(rtol=1e-4, atol=1e-6), param=dict(rtol=5e-4, atol=5e-5),
+              fwd=dict(rtol=1e-4, atol=1e-5), cem=dict(rtol=1e-4, atol=1e-5))
+MB_TIMED = dict(plans=10, s2r_steps=20, compress_steps=5, profiled=1)
+# K3's serving forwards on this slice: the compress model's greedy act step
+# over 10 CartPole episodes, the short-sequence planner's step model on 64
+# states, the single-step synthetic reward of a 10-step window (S 4, A 2)
+K3_MODEL_BASED_SHAPES = {
+    "compress act [10, 4->64->64->2]": (10, [4, 64, 64, 2], ["relu", "relu", "linear"], True,
+                                        121),
+    "step model [64, 4->64->64->6]": (64, [4, 64, 64, 6], ["relu", "relu", "linear"], True, 122),
+    "single-step reward [10, 6->64->32->1]": (10, [6, 64, 32, 1], ["relu", "relu", "linear"],
+                                              True, 123),
+}
+
+
+def mb_close(torch, got, want, tol, what):
+    """``got`` (any device) against ``want`` (CPU) within ``tol``; the max
+    abs difference."""
+    got = got.detach().cpu()
+    torch.testing.assert_close(got, want.detach(), **tol, msg=what)
+    return (got - want.detach()).abs().max().item() if got.numel() else 0.0
+
+
+def cem_card_cpu(torch, worst):
+    """CEM card against CPU at the jobs' widths, the draws made once on the
+    CPU: the returns of 100 LinDyna solutions over 2 sampled members, of 100
+    CartPole sequences in the expected mode, and each plan's choice where no
+    first action (no elite boundary) is within 1e-4 of the next."""
+    from reagent_tpu_torch.core import types as rlt
+    from reagent_tpu_torch.gym import model_based as mb
+    from reagent_tpu_torch.models.cem_planner import (
+        CEMPlannerNetwork,
+        RolloutDraws,
+        truncated_normal,
+    )
+    from reagent_tpu_torch.models.mdn_rnn import MemoryNetwork
+    from reagent_tpu_torch.training import functional
+
+    def members(n, S, A, predict_delta=False):
+        net = MemoryNetwork(S, A, 100, 2, 1, predict_delta)
+        out = []
+        for m in range(n):
+            net.reset_parameters(torch.Generator().manual_seed(60 + m))
+            out.append(functional.params_of(net))
+        return net, out
+
+    def draws_on(d, draws):
+        return RolloutDraws(**{k: None if v is None else v.to(d)
+                               for k, v in vars(draws).items()})
+
+    lin = mb.LINDYNA_JOB
+    net, params = members(2, 3, 2)
+    kw = dict(cem_num_iterations=lin["iterations"], cem_population_size=lin["population"],
+              ensemble_population_size=1, num_elites=lin["elites"],
+              plan_horizon_length=lin["horizon"], state_dim=3, action_dim=2,
+              discrete_action=False, terminal_effective=False, gamma=1.0,
+              action_upper_bounds=np.ones(2), action_lower_bounds=-np.ones(2))
+    planners = {d: CEMPlannerNetwork(net, params, device=d, **kw) for d in ("cpu", DEVICE)}
+    gen = torch.Generator().manual_seed(61)
+    P, H = lin["population"], lin["horizon"]
+    init = torch.randn(3, generator=gen)
+    sol = torch.rand((P, H, 2), generator=gen) * 2 - 1
+    draws = planners["cpu"].draw_rollout(P, gen)
+    acc = {d: p.acc_rewards_of_all_solutions(init.to(d), sol.to(d), draws_on(d, draws))
+           for d, p in planners.items()}
+    worst["cem"] = max(worst.get("cem", 0.0),
+                       mb_close(torch, acc[DEVICE], acc["cpu"], MB_TOL["cem"], "LinDyna returns"))
+    trunc = truncated_normal((lin["iterations"], P, H * 2), gen, "cpu").numpy()
+    noise = [(trunc[i], planners["cpu"].draw_rollout(P, gen)) for i in range(lin["iterations"])]
+    recorded = {d: [] for d in planners}
+    plans = {}
+    for d, p in planners.items():
+        real = p.acc_rewards_of_all_solutions
+
+        def rec(*a, _real=real, _d=d, **k):
+            out = _real(*a, **k)
+            recorded[_d].append(out.cpu().numpy())
+            return out
+
+        p.acc_rewards_of_all_solutions = rec
+        plans[d] = p(rlt.FeatureData(init[None].to(d)),
+                     noise=[(t, draws_on(d, dr)) for t, dr in noise]).cpu()
+    tie = any(abs(np.sort(a)[-lin["elites"]] - np.sort(a)[-lin["elites"] - 1]) < 1e-4
+              for a in recorded["cpu"])
+    if not tie:
+        worst["plan"] = mb_close(torch, plans[DEVICE], plans["cpu"],
+                                 dict(rtol=1e-5, atol=1e-6), "LinDyna plan")
+    log(f"  CEM on LinDyna (2 members, 100 hidden x 2, population {P}, horizon {H}): returns "
+        f"card vs CPU max abs {worst['cem']:.3e}; the plan "
+        f"{'held to 1e-5' if not tie else 'not compared (a near-tie at an elite boundary)'}")
+
+    cp = mb.CARTPOLE_JOB
+    net, (params,) = members(1, 4, 2, predict_delta=True)
+    planners = {d: mb.cartpole_planner(net, params, d) for d in ("cpu", DEVICE)}
+    P, H = cp["population"], cp["horizon"]
+    obs = torch.randn((1, 4), generator=gen) * 0.05
+    seqs = torch.randint(0, 2, (P, H), generator=gen)
+    draws = planners["cpu"].draw_rollout(P, gen)
+    onehot = torch.nn.functional.one_hot(seqs, 2).to(torch.float32)
+    acc = {d: p.acc_rewards_of_all_solutions(obs[0].to(d), onehot.to(d), draws_on(d, draws))
+           for d, p in planners.items()}
+    worst["cem"] = max(worst["cem"], mb_close(torch, acc[DEVICE], acc["cpu"], MB_TOL["cem"],
+                                              "CartPole returns"))
+    a = acc["cpu"].numpy()
+    means = np.sort([a[seqs[:, 0].numpy() == k].mean() for k in range(2)])
+    best = {d: p(rlt.FeatureData(obs.to(d)), noise=(seqs.to(d), draws_on(d, draws)))[0]
+            for d, p in planners.items()}
+    tie = means[-1] - means[-2] <= 1e-4 * max(1.0, abs(means[-1]))
+    if not tie and best[DEVICE] != best["cpu"]:
+        raise AssertionError(f"CartPole plan: card {best[DEVICE]}, CPU {best['cpu']}")
+    log(f"  CEM on CartPole (100 hidden x 2, predict_delta, population {P}, horizon {H}, the "
+        f"expected mode): returns card vs CPU within {MB_TOL['cem']}, first action "
+        f"{best[DEVICE]} on both{' (a near-tie: not compared)' if tie else ''}")
+
+
+def model_based_card_cpu_phase(torch):
+    """Phase 50: the model-based slice's modules at the jobs' widths, card
+    against CPU: 3 Seq2Reward steps (64 hidden x 2, step classifier 64,
+    multi_steps 6, B 256 CartPole windows) and 2 compress-model steps from
+    one state (losses rtol 1e-4, every state tensor rtol 5e-4, atol 5e-5);
+    CEM (``cem_card_cpu``); the six synthetic-reward nets at their builders'
+    widths and 3 ``RewardNetTrainer`` steps; the serving wrappers (K3 once
+    on the card for the compress model, the binary difference scorer, the
+    short-sequence planner's step model and the single-step synthetic
+    reward) and the evaluators."""
+    from reagent_tpu_torch.core import types as rlt
+    from reagent_tpu_torch.core.registry import SYNTHETIC_REWARD_NET_BUILDERS
+    from reagent_tpu_torch.evaluation import world_model_evaluator as ev
+    from reagent_tpu_torch.gym import model_based as mb
+    from reagent_tpu_torch.gym.envs import CartPole
+    from reagent_tpu_torch.model_managers import Seq2RewardModel
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+    from reagent_tpu_torch.models.mdn_rnn import MemoryNetwork
+    from reagent_tpu_torch.prediction import world_model_wrappers as pw
+    from reagent_tpu_torch.prediction.synthetic_reward import SyntheticRewardPredictorWrapper
+    from reagent_tpu_torch.training import functional
+    from reagent_tpu_torch.training.reward_network_trainer import RewardNetTrainer
+    from reagent_tpu_torch.training.world_model import CompressModelTrainer, MDNRNNTrainer
+
+    devices = ("cpu", DEVICE)
+    worst = {}
+    corpus = mb.cartpole_corpus(CartPole(max_steps=200, device="cpu"), 64, 60,
+                                torch.Generator().manual_seed(50))
+    batches = [mb.cartpole_windows(corpus, 256, 6, torch.Generator().manual_seed(51 + i))
+               for i in range(3)]
+    manager = Seq2RewardModel(trainer_param={"multi_steps": 6, "action_names": ("l", "r")})
+    trainers = {d: manager.build_trainer(None, state_dim=4, device=d) for d in devices}
+    first = trainers["cpu"].init(torch.Generator().manual_seed(52))
+    states = {d: copy_state(first, d) for d in devices}
+    for b in batches:
+        m = {}
+        for d, tr in trainers.items():
+            states[d], m[d] = tr.train_step(states[d], b.to(d))
+        for k in m["cpu"]:
+            worst["loss"] = max(worst.get("loss", 0.0), mb_close(torch, m[DEVICE][k], m["cpu"][k],
+                                                                 MB_TOL["loss"], k))
+    _, worst["param"] = compare_states(torch, states[DEVICE], states["cpu"], MB_TOL["param"],
+                                       "Seq2Reward")
+    compress = {d: CompressModelTrainer(FullyConnectedDQN(4, 2, [64, 64], ["relu", "relu"]),
+                                        trainers[d].seq2reward_network, trainers[d].params,
+                                        device=d) for d in devices}
+    c0 = compress["cpu"].init(torch.Generator().manual_seed(53))
+    cstates = {d: copy_state(c0, d) for d in devices}
+    for b in batches[:2]:
+        m = {}
+        for d, tr in compress.items():
+            cstates[d], m[d] = tr.train_step(cstates[d], b.to(d), states[d].params)
+        worst["loss"] = max(worst["loss"], mb_close(torch, m[DEVICE]["mse_loss"],
+                                                    m["cpu"]["mse_loss"], MB_TOL["loss"],
+                                                    "compress mse"))
+    _, w = compare_states(torch, cstates[DEVICE], cstates["cpu"], MB_TOL["param"], "compress")
+    worst["param"] = max(worst["param"], w)
+    log(f"  Seq2Reward (3 steps) and the compress model (2 steps, the planning Q over 64 "
+        f"sequences of 6), card vs CPU: losses max abs {worst['loss']:.3e}, state tensors max "
+        f"abs {worst['param']:.3e}")
+
+    cem_card_cpu(torch, worst)
+
+    gen = torch.Generator().manual_seed(54)
+    T, B, S, A = 10, 64, 4, 2
+    sparse_cfg = [["page", 1000, 16], ["item", 1000, 16]]
+    ids = {name: rlt.IdListFeature(ids=torch.randint(0, 5000, (T, B, 5), generator=gen),
+                                   mask=torch.rand((T, B, 5), generator=gen) > 0.3)
+           for name, _, _ in sparse_cfg}
+    sr_batch = rlt.MemoryNetworkInput(
+        state=rlt.FeatureData(torch.randn((T, B, S), generator=gen), id_list_features=ids),
+        action=rlt.FeatureData(torch.randn((T, B, A), generator=gen)), next_state=None,
+        reward=torch.randn((T, B), generator=gen), not_terminal=None, time_diff=None, step=None,
+        valid_step=torch.randint(1, T + 1, (B, 1), generator=gen))
+    worst["synthetic"] = 0.0
+    for builder in ({"SingleStepSyntheticReward": {}}, {"NGramSyntheticReward": {}},
+                    {"NGramConvNetSyntheticReward": {}}, {"SequenceSyntheticReward": {}},
+                    {"TransformerSyntheticReward": {}},
+                    {"SparseArchSyntheticReward": {"embedding_configs": sparse_cfg}}):
+        net = SYNTHETIC_REWARD_NET_BUILDERS.build(builder).build_synthetic_reward_network(
+            None, None, state_dim=S, action_dim=A)
+        net.reset_parameters(torch.Generator().manual_seed(55))
+        params = functional.params_of(net)
+        with torch.no_grad():
+            out = {d: functional.apply(net.to(d), {k: v.to(d) for k, v in params.items()},
+                                       sr_batch.to(d)) for d in devices}
+        for f in ("predicted_reward", "output"):
+            worst["synthetic"] = max(worst["synthetic"], mb_close(
+                torch, getattr(out[DEVICE], f), getattr(out["cpu"], f), MB_TOL["fwd"],
+                f"{next(iter(builder))} {f}"))
+    reward_batch = rlt.MemoryNetworkInput(
+        state=rlt.FeatureData(torch.randn((256, S), generator=gen)), action=None, next_state=None,
+        reward=torch.randn(256, generator=gen), not_terminal=None, time_diff=None, step=None)
+    rtrainers = {d: RewardNetTrainer(FullyConnectedDQN(S, 1, [64, 32], ["relu", "relu"]),
+                                     optimizer={"Adam": {"lr": 0.01}}, device=d)
+                 for d in devices}
+    r0 = rtrainers["cpu"].init(torch.Generator().manual_seed(56))
+    rstates = {d: copy_state(r0, d) for d in devices}
+    for _ in range(3):
+        m = {}
+        for d, tr in rtrainers.items():
+            rstates[d], m[d] = tr.train_step(rstates[d], reward_batch.to(d))
+        worst["loss"] = max(worst["loss"], mb_close(torch, m[DEVICE]["loss"], m["cpu"]["loss"],
+                                                    MB_TOL["loss"], "reward net loss"))
+    compare_states(torch, rstates[DEVICE], rstates["cpu"], MB_TOL["param"], "reward net")
+    log(f"  the six synthetic-reward nets at their builders' widths (T {T}, B {B}), card vs CPU: "
+        f"max abs {worst['synthetic']:.3e}; 3 RewardNetTrainer steps within the lockstep "
+        f"tolerances")
+
+    values = torch.randn((64, S), generator=gen) * 0.1
+    presence = torch.ones_like(values)
+    s2r_net, s2r_params = {}, {}
+    for d in devices:
+        s2r_net[d] = trainers[d].seq2reward_network
+        s2r_params[d] = states[d].params
+    pres = {d: mb.identity_preprocessor(S, d) for d in devices}
+    k3_calls = {"compress": 1, "binary difference": 1, "short-sequence step model": 1,
+                "single-step synthetic reward": 1}
+    binary = FullyConnectedDQN(S, 2, [64, 64], ["relu", "relu"])
+    single = SYNTHETIC_REWARD_NET_BUILDERS.build(
+        {"SingleStepSyntheticReward": {}}).build_synthetic_reward_network(
+        None, None, state_dim=S, action_dim=A)
+    single.reset_parameters(torch.Generator().manual_seed(57))
+    sr_pre = {d: (mb.identity_preprocessor(S, d), mb.identity_preprocessor(A, d)) for d in devices}
+    window = torch.randn((10, S + A), generator=gen)
+    outs = {}
+    for d in devices:
+        reset_counts()
+        w = {
+            "compress": pw.CompressModelWithPreprocessor(
+                compress[d].compress_model_network, cstates[d].params, pres[d])(
+                values.to(d), presence.to(d)),
+            "binary difference": pw.BinaryDifferenceScorerPredictorWrapper(
+                pw.BinaryDifferenceScorerWithPreprocessor(binary.to(d), None, pres[d]))(
+                values.to(d), presence.to(d)),
+            "short-sequence step model": pw.Seq2RewardPlanShortSeqWithPreprocessor(
+                s2r_net[d], s2r_params[d], trainers[d].step_predict_network,
+                states[d].step_params, pres[d], 6, A)(values.to(d), presence.to(d)),
+            "single-step synthetic reward": SyntheticRewardPredictorWrapper(
+                10, *sr_pre[d], single.to(d), None)((window.to(d), torch.ones_like(window).to(d))),
+            "planner": pw.Seq2RewardWithPreprocessor(s2r_net[d], s2r_params[d], pres[d], 6, A)(
+                values.to(d), presence.to(d)),
+        }
+        launches, plain = read_counts()
+        others = {k: v for k, v in launches.items() if k != "fused_mlp_forward" and v}
+        if d != "cpu" and (launches["fused_mlp_forward"] != sum(k3_calls.values()) or others
+                           or plain):
+            raise AssertionError(f"the wrappers on the card: launches {launches}, plain {plain}")
+        outs[d] = w
+    worst["wrappers"] = max(mb_close(torch, outs[DEVICE][k], outs["cpu"][k], MB_TOL["fwd"], k)
+                            for k in outs["cpu"])
+    log(f"  the serving wrappers, card vs CPU: max abs {worst['wrappers']:.3e}; K3 launched "
+        f"once each on the card for {', '.join(k3_calls)}")
+
+    wm_net = MemoryNetwork(4, 2, 100, 2, 1)
+    wm = {d: MDNRNNTrainer(wm_net, device=d) for d in devices}
+    wm_params = functional.params_of(wm_net)
+    wm_batch = batches[0]
+    perm = torch.randperm(256, generator=gen)
+    ev_out = {}
+    for d in devices:
+        p = {k: v.to(d) for k, v in wm_params.items()}
+        b = wm_batch.to(d)
+        ev_out[d] = (
+            ev.LossEvaluator(wm[d], 4).evaluate(p, b)["loss"],
+            ev.FeatureImportanceEvaluator(wm[d], True, 4, 2, [0, 1], [0, 1, 2, 3]).evaluate(
+                p, b)["feature_loss_increase"],
+            ev.FeatureSensitivityEvaluator(wm[d], 4, [0, 1, 2, 3]).evaluate(
+                p, b, perm=perm)["feature_sensitivity"])
+    for got, want in zip(ev_out[DEVICE], ev_out["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    log(f"  the evaluators (losses, feature importance, sensitivity) on the CartPole windows, "
+        f"card vs CPU within rtol 1e-4, atol 1e-5, on {card_line()}")
+    return worst
+
+
+def model_based_timed_phase(torch, name, launch_floor_ms):
+    """Phase 51: K3 at this slice's serving shapes against its plain version,
+    timed beside one torch.addmm a layer and the bound; the CEM plan at
+    CartPole's population 100 and horizon 10 and at LinDyna's 10 iterations
+    of population 100 (2 members): ms a plan (wall), CUDA kernels and device
+    time a plan, the idle share, host reads; the Seq2Reward train step and
+    the compress step at B 1,024: steps/s, kernels and the idle share."""
+    from reagent_tpu_torch.core import types as rlt
+    from reagent_tpu_torch.gym import model_based as mb
+    from reagent_tpu_torch.gym.envs import CartPole
+    from reagent_tpu_torch.model_managers import Seq2RewardModel
+    from reagent_tpu_torch.models.cem_planner import CEMPlannerNetwork
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+    from reagent_tpu_torch.models.mdn_rnn import MemoryNetwork
+    from reagent_tpu_torch.training import functional
+    from reagent_tpu_torch.training.world_model import CompressModelTrainer
+
+    t0 = time.perf_counter()
+    # ~0.1 s of GPU sleep outlasts the enqueue of 23 small launches
+    k3 = k3_shapes_phase(torch, name, K3_MODEL_BASED_SHAPES, K3_MODEL_BASED_SHAPES,
+                         launch_floor_ms, sleep_cycles=200_000_000)
+    log(f"  [{time.perf_counter() - t0:.1f} s into the phase]")
+    run = MB_TIMED
+    out = {"k3": k3}
+    gen = torch.Generator(device=DEVICE).manual_seed(70)
+    net = MemoryNetwork(4, 2, 100, 2, 1, predict_delta=True)
+    planner = mb.cartpole_planner(net, functional.params_of(net), DEVICE)
+    obs = rlt.FeatureData(torch.zeros((1, 4), device=DEVICE))
+    lin = mb.LINDYNA_JOB
+    lnet = MemoryNetwork(3, 2, 100, 2, 1)
+    lparams = []
+    for m in range(2):
+        lnet.reset_parameters(torch.Generator().manual_seed(71 + m))
+        lparams.append(functional.params_of(lnet))
+    lplanner = CEMPlannerNetwork(
+        lnet, lparams, cem_num_iterations=lin["iterations"],
+        cem_population_size=lin["population"], ensemble_population_size=1,
+        num_elites=lin["elites"], plan_horizon_length=lin["horizon"], state_dim=3, action_dim=2,
+        discrete_action=False, terminal_effective=False, gamma=1.0,
+        action_upper_bounds=np.ones(2), action_lower_bounds=-np.ones(2), device=DEVICE)
+    lobs = rlt.FeatureData(torch.ones((1, 3), device=DEVICE))
+    for label, fn in (("CEM plan, CartPole (population 100, horizon 10, 1 member)",
+                       lambda: planner(obs, gen)),
+                      ("CEM plan, LinDyna (10 iterations, population 100, horizon 4, 2 members)",
+                       lambda: lplanner(lobs, gen))):
+        fn()  # warm
+        wall_ms, dev, kernels, reads = timed_steps(torch, fn, run["plans"], label,
+                                                   run["profiled"])
+        out[label] = dict(ms=wall_ms, device_us=dev, kernels=kernels,
+                          idle=1 - dev / (wall_ms * 1e3), host_reads=reads)
+        log(f"  [{time.perf_counter() - t0:.1f} s into the phase]")
+    corpus = mb.cartpole_corpus(CartPole(max_steps=200, device=DEVICE), 1000, 200, gen)
+    trainer = Seq2RewardModel(trainer_param={"multi_steps": 6, "action_names": ("l", "r")}
+                              ).build_trainer(None, state_dim=4, device=DEVICE)
+    box = {"s": trainer.init(torch.Generator().manual_seed(72))}
+    batch = mb.cartpole_windows(corpus, 1024, 6, gen)
+    compress = CompressModelTrainer(FullyConnectedDQN(4, 2, [64, 64], ["relu", "relu"]),
+                                    trainer.seq2reward_network, trainer.params, device=DEVICE)
+    box["c"] = compress.init(torch.Generator().manual_seed(73))
+
+    def s2r_step():
+        box["s"], box["m"] = trainer.train_step(box["s"], batch)
+
+    def compress_step():
+        box["c"], box["cm"] = compress.train_step(box["c"], batch, box["s"].params)
+
+    for label, fn, n in (("Seq2Reward train step (B 1,024, 64 x 2, multi_steps 6)", s2r_step,
+                          run["s2r_steps"]),
+                         ("compress step (B 1,024, the planning Q over 64 sequences)",
+                          compress_step, run["compress_steps"])):
+        fn()  # warm
+        wall_ms, dev, kernels, reads = timed_steps(torch, fn, n, label, run["profiled"])
+        out[label] = dict(steps_per_s=1e3 / wall_ms, ms=wall_ms, device_us=dev, kernels=kernels,
+                          idle=1 - dev / (wall_ms * 1e3), host_reads=reads)
+        log(f"  [{time.perf_counter() - t0:.1f} s into the phase]")
+    log(f"  the CEM plans and Seq2Reward steps above on {card_line()}")
+    out["corpus"] = corpus
+    return out
+
+
+def model_based_jobs_phase(torch, corpus):
+    """Phase 52: the three CEM jobs and the Seq2Reward job cut in depth
+    (MB_CUT; every width kept): no kernel launched by the CEM jobs (JAX's
+    reach no pallas_call), K3 exactly once a greedy step of the compress
+    model's evaluation and once for the short-sequence planner's step
+    model, no plain-version call; the bars are read at full depth only."""
+    from reagent_tpu_torch.gym import model_based as mb
+
+    cut = MB_CUT
+    out = {}
+    for name, run in (
+            ("CEM LinDyna, 1 world model", lambda: mb.cem_lindyna(
+                1, DEVICE, cut["lindyna_wm_steps"], cut["lindyna_episodes"])),
+            ("CEM LinDyna, 2 world models", lambda: mb.cem_lindyna(
+                2, DEVICE, cut["lindyna_wm_steps"], cut["lindyna_episodes"])),
+            ("CEM CartPole", lambda: mb.cem_cartpole(
+                DEVICE, cut["cartpole_wm_steps"], cut["cartpole_episodes"],
+                cut["cartpole_max_steps"], corpus=corpus)),
+            ("Seq2Reward CartPole", lambda: mb.seq2reward_cartpole(
+                DEVICE, cut["s2r_steps"], cut["s2r_compress_steps"], cut["s2r_eval_episodes"],
+                corpus=corpus))):
+        reset_counts()
+        t0 = time.perf_counter()
+        r = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, plain = read_counts()
+        want = 201 if name.startswith("Seq2Reward") else 0  # 200 greedy steps, the step model
+        others = {k: v for k, v in launches.items() if k != "fused_mlp_forward" and v}
+        if launches["fused_mlp_forward"] != want or others or plain:
+            raise AssertionError(f"{name}: launches {launches}, plain calls {plain}")
+        keep = {k: v for k, v in r.items() if isinstance(v, (int, float, list, tuple))}
+        out[name] = dict(keep, seconds=seconds, launches=launches)
+        if name.startswith("Seq2Reward"):
+            log(f"  {name} ({r['steps']} and {r['compress_steps']} steps, {r['eval_episodes']} "
+                f"greedy episodes): {seconds:.2f} s, {r['steps_per_s']:.1f} train steps/s, "
+                f"mse {r['mse_loss'][0]:.4f} -> {r['mse_loss'][1]:.4f}, step entropy "
+                f"{r['step_entropy_loss'][0]:.4f} -> {r['step_entropy_loss'][1]:.4f}, compress "
+                f"mse {r['compress_mse'][0]:.4f} -> {r['compress_mse'][1]:.4f}, greedy return "
+                f"of the compress model {r['compress_mean_return']:.2f} (K3 {want} launches), "
+                f"of the planner {r['planner_mean_return']:.2f}")
+        else:
+            log(f"  {name} ({r['wm_steps']} MDN-RNN steps a member, {len(r['returns'])} "
+                f"episodes): {seconds:.2f} s, {r['wm_steps_per_s']:.1f} MDN-RNN steps/s, losses "
+                f"{r['wm_losses']}, {r['plan_ms']:.2f} ms a plan, mean return "
+                f"{r['mean_return']:.3f} (the bar of {r['bar']} is read at full depth)")
+    log(f"  on {card_line()}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5718,7 +6177,22 @@ def main() -> int:
     ranking = slate_q_recsim_phase(torch, name, launch_floor_ms)
     log(f"  phases 47-49 took {time.perf_counter() - t_rank:.1f} s together")
 
-    phase("phase 50: kernels")
+    t_mb = time.perf_counter()
+    phase("phase 50: the model-based slice's modules card against CPU: Seq2Reward and the "
+          "compress model, CEM, the synthetic-reward nets and trainer, the serving wrappers, "
+          "the evaluators")
+    mb_errors = model_based_card_cpu_phase(torch)
+
+    phase("phase 51: K3 at the model-based serving shapes, timed; the CEM plans and the "
+          "Seq2Reward steps timed")
+    mb_timed = model_based_timed_phase(torch, name, launch_floor_ms)
+
+    phase("phase 52: the CEM jobs (LinDyna with 1 and 2 world models, CartPole) and the "
+          "Seq2Reward job cut in depth")
+    mb_jobs = model_based_jobs_phase(torch, mb_timed.pop("corpus"))
+    log(f"  phases 50-52 took {time.perf_counter() - t_mb:.1f} s together")
+
+    phase("phase 53: kernels")
     by_path = {
         "K1 fused_dqn_offline_update": {
             "offline workflow, full width": k1_launches,
@@ -5764,7 +6238,10 @@ def main() -> int:
             "sparse changing-arms DQN loop (act steps)": arms["launches"]["fused_mlp_forward"],
             "sparse changing-arms evaluate_policy": arms["eval_launches"]["fused_mlp_forward"],
             "slate-Q on RecSim, collection (act steps)": ranking["train_act_steps"],
-            "slate-Q on RecSim, greedy evaluation (act steps)": ranking["eval_act_steps"]},
+            "slate-Q on RecSim, greedy evaluation (act steps)": ranking["eval_act_steps"],
+            "Seq2Reward job (the compress model's greedy steps and the short-sequence "
+            "planner's step model)": mb_jobs["Seq2Reward CartPole"]["launches"][
+                "fused_mlp_forward"]},
         "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
                              "online QR-DQN loop": qr_online_launches["nstep_rewards"],
                              "online CRR loop": crr_online["launches"]["nstep_rewards"],
@@ -5898,6 +6375,7 @@ def main() -> int:
             row["by_shape"].update(wm_k3)
             row["by_shape"].update(sparse_k3)
             row["by_shape"].update(ranking["k3"])
+            row["by_shape"].update(mb_timed["k3"])
         if kname.startswith("K4"):
             row["by_shape"].update(wm_k4)
             row["by_shape"].update(sparse_k4)
@@ -5917,6 +6395,11 @@ def main() -> int:
     # Seq2Slate's products and attention are torch operations (JAX computes
     # them outside any pallas_call): its numbers stand beside the kernels
     log(json.dumps({"seq2slate": s2s_timing}))
+    # the model-based slice's world models, planners and Seq2Reward are torch
+    # operations (JAX's reach no pallas_call): their numbers stand beside
+    log(json.dumps({"model_based": {"card_vs_cpu_max_abs": mb_errors,
+                                    "timed": {k: v for k, v in mb_timed.items() if k != "k3"},
+                                    "jobs_cut": mb_jobs}}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ offline DQN path uses, of ``MDNRNNTrainerParameters`` (:71), of
 ``SlateOptMethod`` :28, ``SlateOptParameters`` :44, ``ConvNetParameters``
 :165, ``TransformerParameters`` :174, ``LearningMethod`` :197,
 ``IPSClampMethod`` :204, ``IPSClamp`` :210, ``Seq2SlateParameters`` :216
-and ``RankingParameters`` :225,
+and ``RankingParameters`` :225, and of the model-based family's
+``Seq2RewardTrainerParameters`` :88, ``CEMTrainerParameters`` :101 and
+``GRUParameters`` :185,
 kept identical so configs and normalization specs compare equal across the
 two packages.
 Plain frozen dataclasses — hashable so they can serve as cache keys.
@@ -113,6 +115,41 @@ class MDNRNNTrainerParameters:
     action_dim: int = 2
     action_names: Optional[Tuple[str, ...]] = None
     multi_steps: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Seq2RewardTrainerParameters:
+    """Reference: parameters.py:89."""
+
+    learning_rate: float = 0.001
+    multi_steps: int = 1
+    action_names: Tuple[str, ...] = ()
+    compress_model_learning_rate: float = 0.001
+    gamma: float = 1.0
+    view_q_value: bool = False
+    step_predict_net_size: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class CEMTrainerParameters:
+    """Reference: parameters.py:103."""
+
+    plan_horizon_length: int = 0
+    num_world_models: int = 0
+    cem_population_size: int = 0
+    cem_num_iterations: int = 0
+    ensemble_population_size: int = 0
+    num_elites: int = 0
+    mdnrnn: MDNRNNTrainerParameters = field(default_factory=MDNRNNTrainerParameters)
+    rl: RLParameters = field(default_factory=RLParameters)
+    alpha: float = 0.25
+    epsilon: float = 0.001
+
+
+@dataclasses.dataclass(frozen=True)
+class GRUParameters:
+    dim_model: int
+    num_stacked_layers: int
 
 
 class SlateOptMethod(enum.Enum):

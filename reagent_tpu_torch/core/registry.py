@@ -107,6 +107,7 @@ DISCRETE_ACTOR_NET_BUILDERS: Registry = Registry("net_builder.discrete_actor")
 VALUE_NET_BUILDERS: Registry = Registry("net_builder.value")
 SLATE_RANKING_NET_BUILDERS: Registry = Registry("net_builder.slate_ranking")
 SLATE_REWARD_NET_BUILDERS: Registry = Registry("net_builder.slate_reward")
+SYNTHETIC_REWARD_NET_BUILDERS: Registry = Registry("net_builder.synthetic_reward")
 MODEL_MANAGERS: Registry = Registry("model_manager")
 ENVS: Registry = Registry("env")
 VALIDATORS: Registry = Registry("validator")

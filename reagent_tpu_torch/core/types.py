@@ -11,7 +11,7 @@ helpers :215-223), ``ValuePresence`` :229, ``GaussianSamplerScore``
 :315, ``PolicyNetworkInput`` :329, ``PolicyGradientInput`` :338,
 ``MemoryNetworkInput`` :377, ``MemoryNetworkOutput`` :389,
 ``PreprocessedRankingInput`` :442, ``RankingOutput`` :472,
-``stack_feature_data`` :487 and ``batch_to_device`` :492.  Fields hold
+``Seq2RewardOutput`` :403, ``stack_feature_data`` :487 and ``batch_to_device`` :492.  Fields hold
 ``torch.Tensor``s (or ``None``); ``.to(device)`` moves every tensor field,
 recursing into nested batches and into dicts of them (a ``FeatureData``'s
 ``{name: IdListFeature}``).
@@ -413,6 +413,14 @@ class RankingOutput(_TensorDataClass):
     ranked_per_seq_probs: Optional[Tensor] = None
     log_probs: Optional[Tensor] = None
     encoder_scores: Optional[Tensor] = None
+
+
+@dataclasses.dataclass
+class Seq2RewardOutput(_TensorDataClass):
+    """Seq2Reward's output (reference types.py:1056): the accumulated reward
+    of each action sequence, [B, 1]."""
+
+    acc_reward: Tensor
 
 
 def _stack(xs):

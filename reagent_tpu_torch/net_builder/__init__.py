@@ -7,5 +7,6 @@ from reagent_tpu_torch.net_builder import (  # noqa: F401 — registers builders
     quantile_dqn,
     slate_ranking,
     slate_reward,
+    synthetic_reward,
     value,
 )

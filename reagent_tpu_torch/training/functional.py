@@ -19,6 +19,8 @@ from reagent_tpu_torch.models.actor import FullyConnectedActor, GaussianFullyCon
 from reagent_tpu_torch.models.categorical_dqn import CategoricalDQN
 from reagent_tpu_torch.models.critic import FullyConnectedCritic
 from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+from reagent_tpu_torch.models.fully_connected_network import FullyConnectedNetwork
+from reagent_tpu_torch.ops.fused_dqn import _ACT_CODES
 from reagent_tpu_torch.ops.fused_mlp import fused_mlp_forward
 
 Tensor = torch.Tensor
@@ -86,19 +88,23 @@ def select(flag: Tensor, new, old):
 def takes_k3(module: nn.Module) -> bool:
     """Whether ``score`` runs ``module``'s MLP as one K3 launch: a float32
     dense ``FullyConnectedDQN``, ``CategoricalDQN`` or
-    ``FullyConnectedCritic``, or a module with a float32 dense overarch
-    (``overarch_prefix``: a ``SparseDQN``, or a module holding one)."""
+    ``FullyConnectedCritic``, a bare ``FullyConnectedNetwork``, or a module
+    with a float32 dense overarch (``overarch_prefix``: a ``SparseDQN``, or a
+    module holding one), each with K3's activations only."""
     prefix = getattr(module, "overarch_prefix", None)
     if prefix is not None:
         return _dense_f32(module.get_submodule(prefix))
+    if isinstance(module, FullyConnectedNetwork):
+        return _dense_f32(module)
     return (isinstance(module, (FullyConnectedDQN, CategoricalDQN, FullyConnectedCritic))
             and _dense_f32(module.net))
 
 
 def k3_weights(params: Params, prefix: str, n_layers: int):
     """K3's ``[(W [in, out], b [out])]`` of the dense net at ``prefix`` in a
-    parameter dict (transposed views: no copy)."""
-    return [(params[f"{prefix}.layers.{i}.weight"].T, params[f"{prefix}.layers.{i}.bias"])
+    parameter dict ("" for a bare net; transposed views: no copy)."""
+    base = f"{prefix}.layers" if prefix else "layers"
+    return [(params[f"{base}.{i}.weight"].T, params[f"{base}.{i}.bias"])
             for i in range(n_layers)]
 
 
@@ -116,10 +122,13 @@ def score(q_network: nn.Module, params: Params, *inputs: Tensor) -> Tensor:
       ``overarch_input`` (the embedding-bag concat) in torch, then the dense
       overarch at that prefix.
 
-    Any other module, one with a reduced ``compute_dtype`` (K3 is float32)
-    and one whose network is not a dense chain (a batch or layer norm, a
-    skip connection: ``FullyConnectedNetwork.is_dense``) runs its own
-    forward, as the JAX package computes it outside any kernel."""
+    - a bare ``FullyConnectedNetwork``: its output.
+
+    Any other module, one with a reduced ``compute_dtype`` (K3 is float32),
+    one whose network is not a dense chain (a batch or layer norm, a skip
+    connection: ``FullyConnectedNetwork.is_dense``) and one with an
+    activation K3 lacks (sigmoid, softplus) runs its own forward, as the JAX
+    package computes it outside any kernel."""
     with torch.no_grad():
         if not takes_k3(q_network):
             return apply(q_network, params, *inputs)
@@ -129,15 +138,16 @@ def score(q_network: nn.Module, params: Params, *inputs: Tensor) -> Tensor:
             net = q_network.get_submodule(prefix)
             return fused_mlp_forward(x, k3_weights(params, prefix, len(net.layers)),
                                      net.activations)
-        net = q_network.net
-        weights = k3_weights(params, "net", len(net.layers))
+        net = q_network if isinstance(q_network, FullyConnectedNetwork) else q_network.net
+        weights = k3_weights(params, "" if net is q_network else "net", len(net.layers))
         x = inputs[0] if len(inputs) == 1 else torch.cat(inputs, dim=1)
         out = fused_mlp_forward(x, weights, net.activations)
         return q_network.q_of_logits(out) if isinstance(q_network, CategoricalDQN) else out
 
 
 def _dense_f32(net: nn.Module) -> bool:
-    return net.compute_dtype == torch.float32 and net.is_dense
+    return (net.compute_dtype == torch.float32 and net.is_dense
+            and all(a in _ACT_CODES for a in net.activations))
 
 
 def loc_and_scale_log(actor: GaussianFullyConnectedActor, params: Params,

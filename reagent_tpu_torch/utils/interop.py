@@ -34,7 +34,12 @@ kernel ``[D, H, dh]`` becomes an ``nn.Linear`` weight ``[H * dh, D]`` and
 ``[H, dh, D]`` one ``[D, H * dh]``, the heads in their order),
 ``slate_reward_state_from_flax`` (the LSTM-backed ``Seq2SlateGRURewardNet``),
 ``probabilistic_network_state_from_flax`` and
-``convolutional_network_state_from_flax``; the trainer states through
+``convolutional_network_state_from_flax``.  The model-based family maps
+through ``seq2reward_state_from_flax`` (``map_linear``, the LSTM cells,
+``lstm_linear``), ``synthetic_reward_state_from_flax`` (any synthetic-reward
+net, by its scopes), ``fcn_state_from_flax`` (a bare
+``FullyConnectedNetwork``: the Seq2Reward trainer's step classifier) and
+``cem_ensemble_params_from_flax`` (a planner's members); the trainer states through
 ``slate_q_state_from_arrays`` and ``seq2slate_trainer_state_from_arrays``.
 """
 
@@ -178,16 +183,128 @@ def memory_network_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor
         m = re.fullmatch(r"OptimizedLSTMCell_(\d+)", name)
         if m is None:
             raise ValueError(f"unexpected scope {name!r} in a StackedLSTM tree")
-        base = f"mdnrnn.rnn.layers.{m.group(1)}"
-        out[f"{base}.input_kernel"] = _array(np.concatenate(
-            [np.asarray(cell["i" + g]["kernel"]) for g in _GATES], axis=-1))
-        out[f"{base}.hidden_kernel"] = _array(np.concatenate(
-            [np.asarray(cell["h" + g]["kernel"]) for g in _GATES], axis=-1))
-        out[f"{base}.hidden_bias"] = _array(np.concatenate(
-            [np.asarray(cell["h" + g]["bias"]) for g in _GATES], axis=-1))
-    out["mdnrnn.head.weight"] = _array(np.asarray(tree["Dense_0"]["kernel"], np.float32).T)
-    out["mdnrnn.head.bias"] = _array(tree["Dense_0"]["bias"])
+        out.update(_lstm_cell(cell, f"mdnrnn.rnn.layers.{m.group(1)}"))
+    out.update(_dense(tree["Dense_0"], "mdnrnn.head"))
     return out
+
+
+def _lstm_cell(cell: Mapping, base: str) -> Dict[str, torch.Tensor]:
+    """A flax ``OptimizedLSTMCell``'s gate kernels side by side, in the gate
+    order i, f, g, o, as the port's ``LSTMLayer`` at ``base``."""
+    return {
+        f"{base}.input_kernel": _array(np.concatenate(
+            [np.asarray(cell["i" + g]["kernel"]) for g in _GATES], axis=-1)),
+        f"{base}.hidden_kernel": _array(np.concatenate(
+            [np.asarray(cell["h" + g]["kernel"]) for g in _GATES], axis=-1)),
+        f"{base}.hidden_bias": _array(np.concatenate(
+            [np.asarray(cell["h" + g]["bias"]) for g in _GATES], axis=-1)),
+    }
+
+
+def _dense(node: Mapping, base: str) -> Dict[str, torch.Tensor]:
+    return {f"{base}.weight": _array(np.asarray(node["kernel"], np.float32).T),
+            f"{base}.bias": _array(node["bias"])}
+
+
+def _lstm_layers(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for name, node in tree.items():
+        m = re.fullmatch(r"OptimizedLSTMCell_(\d+)", name)
+        if m is not None:
+            out.update(_lstm_cell(node, f"{prefix}layers.{m.group(1)}"))
+    return out
+
+
+def fcn_state_from_flax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A flax ``FullyConnectedNetwork``'s own scope (its ``Dense_i``,
+    ``BatchNorm_i``, ``LayerNorm_i``) -> the port's ``FullyConnectedNetwork``
+    names under ``prefix``."""
+    dense = q_network_state_from_flax({"params": {_NET: tree}})
+    return {prefix + k[len("net."):]: v for k, v in dense.items()}
+
+
+def seq2reward_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``Seq2RewardNetwork`` variables (numpy leaves) -> the port's
+    state dict: ``map_linear`` and ``lstm_linear`` (kernels transposed) and
+    each ``OptimizedLSTMCell_l`` as ``layers.l`` (the gate kernels side by
+    side, as ``memory_network_state_from_flax``)."""
+    tree = params_np["params"]
+    out = _lstm_layers(tree, "")
+    for name in ("map_linear", "lstm_linear"):
+        out.update(_dense(tree[name], name))
+    return out
+
+
+def cem_ensemble_params_from_flax(trees) -> list:
+    """A CEM planner's ``mem_net_params_list`` from the members' flax
+    ``MemoryNetwork`` trees (numpy leaves)."""
+    return [memory_network_state_from_flax(t) for t in trees]
+
+
+def synthetic_reward_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``SyntheticRewardNet`` or ``SyntheticRewardSparseArchNet``
+    variables (numpy leaves) -> the port's state dict, by the inner net's
+    scopes (the inner net is the port's ``net``):
+
+    - the single-step and n-gram MLPs: ``FullyConnectedNetwork_0`` as
+      ``net.net``;
+    - the n-gram conv net: ``Conv_i`` (``[kh, kw, in, out]``) as
+      ``net.convs.i`` (``[out, in, kh, kw]``), its MLP as ``net.net``;
+    - the LSTM net: ``OptimizedLSTMCell_l`` as ``net.layers.l``, ``Dense_0``
+      as ``net.head``;
+    - the transformer: ``Dense_0`` as ``net.embed``, layer ``i``'s
+      ``MultiHeadDotProductAttention_i``, ``LayerNorm_2i``, ``LayerNorm_2i+1``
+      as ``net.encoder_layers.i.attn``, ``norm1``, ``norm2``, its
+      feed-forward ``Dense_2i+2`` (into the hidden width; flax names it
+      second) and ``Dense_2i+1`` as ``ff.dense0`` and ``ff.dense1``, the last
+      ``Dense`` as ``net.head``;
+    - the sparse arch: ``FullyConnectedNetwork_0`` (the dense tower) as
+      ``net.dense``, ``FullyConnectedNetwork_1`` (the over-arch) as
+      ``net.over``, each feature's ``embedding`` as ``net.bags.<name>``."""
+    tree = params_np["params"]["net"]
+    out: Dict[str, torch.Tensor] = {}
+    if "MultiHeadDotProductAttention_0" in tree:
+        n_layers = sum(1 for k in tree if k.startswith("MultiHeadDotProductAttention_"))
+        out.update(_dense(tree["Dense_0"], "net.embed"))
+        for i in range(n_layers):
+            base = f"net.encoder_layers.{i}"
+            for leaf, x in _flatten(tree[f"MultiHeadDotProductAttention_{i}"]):
+                out.update(_ranking_leaf(f"{base}.attn.{leaf[0]}", leaf[0], leaf[1], x))
+            for j, norm in ((2 * i, "norm1"), (2 * i + 1, "norm2")):
+                for leaf in ("scale", "bias"):
+                    out[f"{base}.{norm}.{leaf}"] = _array(tree[f"LayerNorm_{j}"][leaf])
+            out.update(_dense(tree[f"Dense_{2 * i + 2}"], f"{base}.ff.dense0"))
+            out.update(_dense(tree[f"Dense_{2 * i + 1}"], f"{base}.ff.dense1"))
+        out.update(_dense(tree[f"Dense_{2 * n_layers + 1}"], "net.head"))
+        return out
+    if "OptimizedLSTMCell_0" in tree:
+        out.update(_lstm_layers(tree, "net."))
+        out.update(_dense(tree["Dense_0"], "net.head"))
+        return out
+    if "FullyConnectedNetwork_1" in tree:
+        out.update(fcn_state_from_flax(tree[_NET], "net.dense."))
+        out.update(fcn_state_from_flax(tree["FullyConnectedNetwork_1"], "net.over."))
+        for name, node in tree.items():
+            if not name.startswith("FullyConnectedNetwork_"):
+                out[f"net.bags.{name}.embedding"] = _array(node["embedding"])
+        return out
+    for name, node in tree.items():
+        m = re.fullmatch(r"Conv_(\d+)", name)
+        if m is not None:
+            out[f"net.convs.{m.group(1)}.weight"] = _array(
+                np.asarray(node["kernel"], np.float32).transpose(3, 2, 0, 1))
+            out[f"net.convs.{m.group(1)}.bias"] = _array(node["bias"])
+        elif name != _NET:
+            raise ValueError(f"unexpected scope {name!r} in a synthetic reward tree")
+    out.update(fcn_state_from_flax(tree[_NET], "net.net."))
+    return out
+
+
+def _flatten(node: Mapping):
+    """((scope, leaf), array) pairs of a two-level flax tree."""
+    for scope, leaves in node.items():
+        for leaf, x in leaves.items():
+            yield (scope, leaf), x
 
 
 _BAGS = ("EmbeddingBagConcat_0", "EmbeddingBagCollection_0")
@@ -278,17 +395,9 @@ def slate_reward_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
     for name, node in tree.items():
         m = re.fullmatch(r"OptimizedLSTMCell_(\d+)", name)
         if m is not None:
-            base = f"layers.{m.group(1)}"
-            out[f"{base}.input_kernel"] = _array(np.concatenate(
-                [np.asarray(node["i" + g]["kernel"]) for g in _GATES], axis=-1))
-            out[f"{base}.hidden_kernel"] = _array(np.concatenate(
-                [np.asarray(node["h" + g]["kernel"]) for g in _GATES], axis=-1))
-            out[f"{base}.hidden_bias"] = _array(np.concatenate(
-                [np.asarray(node["h" + g]["bias"]) for g in _GATES], axis=-1))
+            out.update(_lstm_cell(node, f"layers.{m.group(1)}"))
         elif name in ("Dense_0", "Dense_1"):
-            base = "state_embed" if name == "Dense_0" else "head"
-            out[f"{base}.weight"] = _array(np.asarray(node["kernel"], np.float32).T)
-            out[f"{base}.bias"] = _array(node["bias"])
+            out.update(_dense(node, "state_embed" if name == "Dense_0" else "head"))
         else:
             raise ValueError(f"unexpected scope {name!r} in a slate reward tree")
     return out
@@ -328,6 +437,10 @@ def convolutional_network_state_from_flax(params_np: Mapping) -> Dict[str, torch
 
 def _from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
     tree = params_np["params"]
+    if "map_linear" in tree:
+        return seq2reward_state_from_flax(params_np)
+    if tree and all(_LAYER.fullmatch(k) for k in tree):
+        return fcn_state_from_flax(tree)
     if "state_embedder" in tree or "EncoderLayer_0" in tree:
         return seq2slate_state_from_flax(params_np)
     if "OptimizedLSTMCell_0" in tree:
