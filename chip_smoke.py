@@ -281,7 +281,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      in the CEM jobs, K3 once a greedy step of the compress model and once
      for the step model; the bars are tools/model_based_jobs.py's, at full
      depth;
- 53. one JSON line describing each ported kernel (K1's rows with the CUDA
+ 53. the bandit slice's modules, card against CPU from one state and the
+     same draws: the LinUCB update, coefficients and scores at D 500, the
+     disjoint update (10 arms), 10 deep-represent steps, every MAB
+     algorithm's scores and choice, the replay evaluator's sums over 20
+     batches, and the dynamic LinUCB run's actions at DynamicBanditEnv's
+     defaults in lockstep (equal outside near-ties of the top two UCB
+     scores);
+ 54. K3 at the deep-represent score shapes ([1024, 6->16->4], [128,
+     6->16->4]) against its plain version, timed beside one torch.addmm a
+     layer, the bound and the launch floor; the LinUCB step at D 500 split
+     into score, update and coefficients, the pinv alone; the deep-represent
+     train step and score, the MAB loop (steps/s, CUDA kernels, the idle
+     share, host reads);
+ 55. the four bandit jobs of tools/cb_jobs.py cut to CB_CUT's depths
+     (dynamic LinUCB at 500 features, the replay evaluation, the
+     deep-represent job with K3 once a greedy score, the MAB bandits and
+     compare_bandit_algos); the bars are the tool's, at full depth;
+ 56. one JSON line describing each ported kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
      wrapper's host time; K3's and K4's with the wrapper's host time, the
@@ -291,8 +308,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      world-model, gridworld, mask, sparse changing-arms and (K3) slate-Q
      paths, K3's continuous, world-model, changing-arms and slate-Q shapes
      with their torch.addmm yardstick and K4's world-model and changing-arms
-     shapes), after one line of phase 48's Seq2Slate numbers and one of
-     phases 50-52's model-based numbers.
+     shapes, and the deep-represent score's), after one line of phase 48's
+     Seq2Slate numbers, one of phases 50-52's model-based numbers and one of
+     phases 53-55's bandit numbers.
 Each phase's heading carries the seconds since the script started.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
@@ -5461,7 +5479,8 @@ def mb_close(torch, got, want, tol, what):
     """``got`` (any device) against ``want`` (CPU) within ``tol``; the max
     abs difference."""
     got = got.detach().cpu()
-    torch.testing.assert_close(got, want.detach(), **tol, msg=what)
+    torch.testing.assert_close(got, want.detach().cpu(), **tol,
+                               msg=lambda m: f"{what}: card {got}, CPU {want}: {m}")
     return (got - want.detach()).abs().max().item() if got.numel() else 0.0
 
 
@@ -5863,6 +5882,648 @@ def model_based_jobs_phase(torch, corpus):
     return out
 
 
+# -------------------------------------------------------------- bandits
+
+# The bandit jobs (tools/cb_jobs.py at full depth): run_dynamic_bandit_env at
+# DynamicBanditEnv's defaults (reagent_tpu/evaluation/cb/
+# synthetic_contextual_bandit_data.py:30-37, the reference's sizes) for 300
+# steps; the replay evaluation of the trained agent on 300 batches logged
+# under a uniform policy; the JAX test's deep-represent job
+# (tests/test_cb_evaluation.py:106-150); the JAX tests' bandits
+# (tests/test_cb_mab.py:108-121) and compare_bandit_algos over all seven
+# algorithms.  Phase 55 cuts their depth (CB_CUT) and keeps every width.
+CB_DYNAMIC = dict(U=100, B=4, K=10, D=500, steps=300, seed=937162211)
+CB_REPLAY = dict(log_batches=300, fresh_batches=100)
+CB_DEEP = dict(D=6, K=4, B=32, sizes=[16, 4], lr=3e-3, steps=300, eval_rows=256)
+CB_MAB = {"UCB1": ([0.2, 0.8, 0.5], 400, 0), "MetricUCB": ([0.1, 0.9], 300, 1),
+          "UCBTuned": ([0.1, 0.9], 300, 1), "BernoulliBetaThompson": ([0.1, 0.9], 300, 1)}
+CB_ALGOS = ("UCB1", "MetricUCB", "UCBTuned", "GreedyAlgo", "RandomActionsAlgo",
+            "BernoulliBetaThompson", "NormalGammaThompson")
+CB_TRIALS = 5
+CB_CUT = dict(dynamic_steps=40, train_steps=40, log_batches=40, fresh_batches=10,
+              deep_steps=60, mab_steps=60, trials=1)
+# card against CPU (phase 53): the sums in each device's order; the
+# pseudo-inverse (cuSOLVER's SVD against LAPACK's) scaled by its largest
+# entry, and in the dynamic run's first steps, where the ridge directions
+# are kept at a condition number up to 1 / (5000 eps), the coefficients
+# (3.058e-03 at step 1 on an H100 80GB HBM3) and the inverse (ridge_inv),
+# the inverse checked only where no singular value lies within
+# ``cutoff_margin`` of JAX's cutoff (there the two SVDs may keep a different
+# number of them; 3.175e-04 at most, 8.63e-06 from step 8 on, on an H100
+# 80GB HBM3); the UCB scores; near-ties of the top two UCB scores.  A
+# pseudo-inverse at torch's default cutoff, planted on the CPU's side of
+# that run, must part from it by more than ridge_inv: it inverts the ridge
+# directions JAX's cutoff zeroes, which the inverse sees whole (6.730e+03)
+# and the coefficients hardly at all (1.671e-03, under the card's own
+# 3.058e-03: their component of avg_b is rounding).  The
+# deep-represent steps hold the gradient Adam consumes (recovered from its
+# first moment) at ``grad`` of each leaf's largest entry; a parameter whose
+# gradient is over ``conditioned`` of that largest entry within
+# ``param_lr`` learning rates, the others (a gradient at rounding level,
+# which Adam scales to a step of up to lr) within 2 (the gradients agreed to
+# 1.889e-05, 4 entries stepped apart, on an H100 80GB HBM3).
+CB_TOL = dict(sum=dict(rtol=1e-5, atol=1e-5), pinv=2e-3, ridge_coefs=1e-2, ridge_inv=1e-2,
+              cutoff_margin=1e-2, ucb=dict(rtol=1e-3, atol=1e-3),
+              loss=dict(rtol=1e-4, atol=1e-6), grad=1e-4, conditioned=1e-2, param_lr=1e-2,
+              mab=dict(rtol=1e-6, atol=1e-6), near_tie=1e-3)
+# K3 on the deep-represent score: the JAX test's greedy evaluation (256 rows
+# of 4 arms) and one train batch's arms (32 x 4), trunk 6->16->4 relu
+K3_CB_SHAPES = {
+    "deep-represent score [1024, 6->16->4]": (1024, [6, 16, 4], ["relu", "relu"], True, 131),
+    "deep-represent score [128, 6->16->4]": (128, [6, 16, 4], ["relu", "relu"], True, 132),
+}
+
+
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dynamic_draws(torch, steps, device, cfg=CB_DYNAMIC):
+    """DynamicBanditEnv's catalogue and ``steps`` batches' draws, made on the
+    CPU from cfg's seed and moved to ``device``: the card and the CPU run
+    on the same inputs."""
+    gen = torch.Generator().manual_seed(cfg["seed"])
+    U, B, K, D = cfg["U"], cfg["B"], cfg["K"], cfg["D"]
+    catalogue = {"ids": torch.randperm(U * B * K, generator=gen),
+                 "mf": torch.randn((U, B, K, D), generator=gen),
+                 "sf": torch.randn((U, B, K, D), generator=gen),
+                 "weight": torch.randn(D, generator=gen),
+                 "shifts": torch.randn(U * B * K, generator=gen)}
+    draws = [(torch.randint(0, U, (), generator=gen), torch.randn((B, K, D), generator=gen),
+              torch.randn((B, K), generator=gen)) for _ in range(steps)]
+    return ({k: v.to(device) for k, v in catalogue.items()},
+            [tuple(x.to(device) for x in d) for d in draws])
+
+
+def regret_halves(regrets):
+    """The JAX test's per-step regret of each half (tests/test_cb_evaluation.py:93-103)."""
+    regrets = np.asarray(regrets)
+    half = len(regrets) // 2
+    return regrets[half] / half, (regrets[-1] - regrets[half]) / half
+
+
+def dynamic_linucb_job(torch, device, steps):
+    """run_dynamic_bandit_env at DynamicBanditEnv's defaults for ``steps``
+    steps on ``device``: per-step regret of each half, the bar (second
+    under half the first), steps/s (wall, the draws made beforehand)."""
+    from reagent_tpu_torch.evaluation.cb.synthetic_contextual_bandit_data import (
+        run_dynamic_bandit_env,
+    )
+
+    cfg = CB_DYNAMIC
+    catalogue, draws = dynamic_draws(torch, steps, device)
+    sync(torch, device)
+    t0 = time.perf_counter()
+    _, rewards, regrets = run_dynamic_bandit_env(
+        cfg["U"], cfg["B"], cfg["K"], cfg["D"], steps, cfg["seed"], device,
+        catalogue=catalogue, batch_draws=draws)
+    seconds = time.perf_counter() - t0  # the regrets were read back: synchronised
+    first, second = regret_halves(regrets)
+    return dict(steps=steps, seconds=seconds, steps_per_s=steps / seconds,
+                regret_per_step_first_half=first, regret_per_step_second_half=second,
+                bar_met=bool(second < 0.5 * first), final_regret=regrets[-1],
+                final_reward=rewards[-1])
+
+
+def replay_eval_job(torch, device, train_steps, log_batches, fresh_batches):
+    """The dynamic env's LinUCB agent trained ``train_steps`` steps, then
+    judged offline: ``log_batches`` batches logged under a uniform policy
+    (log_prob = log(1/K)) through the PolicyEvaluator with the agent's
+    greedy actions; and its on-policy mean reward on ``fresh_batches`` new
+    batches.  No bar: the estimate should sit near the on-policy mean, and
+    frac_accepted near 1/K."""
+    from reagent_tpu_torch.evaluation.cb import PolicyEvaluator
+    from reagent_tpu_torch.evaluation.cb.synthetic_contextual_bandit_data import (
+        DynamicBanditAgent,
+        DynamicBanditEnv,
+    )
+
+    cfg = CB_DYNAMIC
+    B, K = cfg["B"], cfg["K"]
+    catalogue, draws = dynamic_draws(torch, train_steps + log_batches + fresh_batches, device)
+    logging = torch.randint(0, K, (log_batches, B), generator=torch.Generator().manual_seed(
+        cfg["seed"] + 1)).to(device)
+    env = DynamicBanditEnv(cfg["U"], B, K, cfg["D"], catalogue=catalogue, device=device)
+    agent = DynamicBanditAgent.make_agent(feature_dim=cfg["D"], device=device)
+    state = agent.init_state()
+    t0 = time.perf_counter()
+    for i in range(train_steps):
+        obs, rewards_all = env.get_batch(draws[i])
+        action, _ = agent.act(state, obs)
+        state, _ = agent.learn(state, env.add_chosen_action_reward(action.reshape(-1), obs,
+                                                                   rewards_all))
+    pe = PolicyEvaluator()
+    ev_state = pe.init_state(device)
+    log_prob = torch.full((B, 1), float(np.log(1.0 / K)), device=device)
+    for i in range(log_batches):
+        obs, rewards_all = env.get_batch(draws[train_steps + i])
+        logged = env.add_chosen_action_reward(logging[i], obs, rewards_all).replace(
+            log_prob=log_prob)
+        model_actions, _ = agent.act(state, obs)
+        ev_state, _ = pe.ingest_batch(ev_state, logged, model_actions)
+    ev_state = pe.aggregate_across_instances(ev_state)
+    on_policy = []
+    for i in range(fresh_batches):
+        obs, rewards_all = env.get_batch(draws[train_steps + log_batches + i])
+        action, _ = agent.act(state, obs)
+        on_policy.append(rewards_all[torch.arange(B, device=device), action.reshape(-1)])
+    on_policy_mean = float(torch.cat(on_policy).mean())
+    return dict(train_steps=train_steps, log_batches=log_batches, fresh_batches=fresh_batches,
+                seconds=time.perf_counter() - t0, estimate=pe.get_avg_reward(ev_state),
+                frac_accepted=float(ev_state.frac_accepted),
+                logging_policy_mean_reward=float(ev_state.avg_reward_all_data),
+                on_policy_mean_reward=on_policy_mean,
+                result=pe.get_formatted_result_string(ev_state))
+
+
+def deep_represent_trainer(torch, device):
+    from reagent_tpu_torch.models.deep_represent_linucb import DeepRepresentLinearRegressionUCB
+    from reagent_tpu_torch.training.cb import DeepRepresentLinUCBTrainer
+
+    c = CB_DEEP
+    return DeepRepresentLinUCBTrainer(
+        DeepRepresentLinearRegressionUCB(input_dim=c["D"], sizes=c["sizes"],
+                                         activations=["relu"] * len(c["sizes"])),
+        lr=c["lr"], device=device)
+
+
+def deep_represent_data(torch, steps, seed, device):
+    """The job's reward map, train batches (features, logged arms) and
+    greedy evaluation features, drawn on the CPU from ``seed``."""
+    c = CB_DEEP
+    gen = torch.Generator().manual_seed(seed)
+    w = torch.randn(c["D"], generator=gen)
+    batches = [(torch.randn((c["B"], c["K"], c["D"]), generator=gen),
+                torch.randint(0, c["K"], (c["B"], 1), generator=gen)) for _ in range(steps)]
+    evals = torch.randn((c["eval_rows"], c["K"], c["D"]), generator=gen)
+    return (w.to(device), [(f.to(device), a.to(device)) for f, a in batches], evals.to(device),
+            torch.Generator().manual_seed(seed + 1000))
+
+
+def deep_represent_job(torch, device, steps, seed=0):
+    """The JAX test's deep-represent job (D 6, K 4, B 32, trunk [16, 4]
+    relu, Adam 3e-3) on ``device`` from CPU draws: the reward |w.x| of the
+    logged arm, ``steps`` train steps, then greedy UCB (alpha 0) picks on
+    256 rows scored through K3.  Its bars: the last loss under half the
+    first, greedy picks over 1.15x the mean reward."""
+    from reagent_tpu_torch.core import types as rlt
+
+    w, batches, evals, init_gen = deep_represent_data(torch, steps, seed, device)
+    trainer = deep_represent_trainer(torch, device)
+    state = trainer.init(init_gen)
+    losses = []
+    sync(torch, device)
+    t0 = time.perf_counter()
+    for feats, action in batches:
+        rewards_all = (feats @ w).abs()
+        state, m = trainer.train_step(state, rlt.CBInput(
+            context_arm_features=feats, action=action,
+            reward=torch.gather(rewards_all, 1, action)))
+        losses.append(m["mse_loss"])
+    sync(torch, device)
+    train_seconds = time.perf_counter() - t0
+    rewards_all = (evals @ w).abs()
+    scores = trainer.score(state, rlt.CBInput(context_arm_features=evals), ucb_alpha=0.0)
+    picked = torch.gather(rewards_all, 1, scores.argmax(dim=1, keepdim=True))
+    losses = torch.stack(losses).cpu().numpy()
+    greedy = float(picked.mean()) / float(rewards_all.mean())
+    loss_ratio = float(losses[-1] / losses[0])
+    return dict(seed=seed, steps=steps, train_seconds=train_seconds,
+                steps_per_s=steps / train_seconds, first_loss=float(losses[0]),
+                last_loss=float(losses[-1]), loss_ratio=loss_ratio, greedy_ratio=greedy,
+                bars_met=bool(loss_ratio < 0.5 and greedy > 1.15))
+
+
+def mab_draws(torch, T, K, seed, device):
+    """The gumbels and reward uniforms of a bandit run, on the CPU from ``seed``."""
+    from reagent_tpu_torch.mab.mab_algorithm import gumbel
+
+    gen = torch.Generator().manual_seed(seed)
+    return {"gumbels": gumbel((T, K), gen, "cpu").to(device),
+            "uniforms": torch.rand(T, generator=gen).to(device)}
+
+
+def mab_job(torch, device, steps=None, trials=CB_TRIALS):
+    """The JAX tests' bandits with their bars (UCB1 on [0.2, 0.8, 0.5] for
+    400 steps; MetricUCB, UCBTuned and BernoulliBetaThompson on [0.1, 0.9]
+    for 300), each on CPU-drawn gumbels and uniforms (the Thompson draws
+    from the device's generator), then compare_bandit_algos over the seven
+    algorithms on [0.2, 0.8, 0.5]; ``steps`` cuts every run."""
+    from reagent_tpu_torch import mab
+    from reagent_tpu_torch.mab import simulation as sim
+
+    out = {}
+    total, t_all = 0, 0.0
+    for name, (probs, T, seed) in CB_MAB.items():
+        T = steps or T
+        algo = getattr(mab, name)(n_arms=len(probs))
+        sync(torch, device)
+        t0 = time.perf_counter()
+        regret = sim.single_evaluation_bandit_algo(
+            sim.BernoulliMAB(max_steps=T, probs=probs, device=device), algo, seed=seed,
+            draws=mab_draws(torch, T, len(probs), seed, device))
+        seconds = time.perf_counter() - t0
+        total, t_all = total + T, t_all + seconds
+        if name == "UCB1":
+            bar = bool(regret[-1] - regret[-100] < (regret[99] - regret[0]) * 0.8
+                       and regret[-1] < 0.6 * 0.5 * T) if T >= 200 else None
+        else:
+            bar = bool(regret[-1] < 0.4 * 0.8 * T / 2)
+        out[name] = dict(steps=T, seconds=seconds, final_regret=float(regret[-1]), bar_met=bar)
+    probs, T, _ = CB_MAB["UCB1"]
+    T = steps or T
+    t0 = time.perf_counter()
+    compared = sim.compare_bandit_algos([getattr(mab, a) for a in CB_ALGOS],
+                                        sim.BernoulliMAB(max_steps=T, probs=probs, device=device),
+                                        n_trials=trials)
+    seconds = time.perf_counter() - t0
+    out["compare_bandit_algos"] = dict(
+        steps=T, trials=trials, seconds=seconds,
+        mean_final_regret={k: float(v[-1]) for k, v in compared.items()})
+    out["steps_per_s"] = (total + T * trials * len(CB_ALGOS)) / (t_all + seconds)
+    return out
+
+
+def scaled_diff(got, want):
+    """max |got - want| over the largest |want|."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+def cb_scaled(got, want, tol, what):
+    """|card - CPU| within ``tol`` of the CPU's largest entry; the ratio."""
+    ratio = scaled_diff(got, want)
+    if not ratio <= tol:
+        raise AssertionError(f"{what}: |card - CPU| / max|CPU| = {ratio:.3e} > {tol}")
+    return ratio
+
+
+def linucb_rows(torch, steps, device):
+    """The chosen rows of ``steps`` dynamic-env batches at 500 features under
+    a uniform policy, and their rewards and arms, on ``device``."""
+    from reagent_tpu_torch.evaluation.cb import DynamicBanditEnv
+
+    cfg = CB_DYNAMIC
+    catalogue, draws = dynamic_draws(torch, steps, "cpu")
+    env = DynamicBanditEnv(cfg["U"], cfg["B"], cfg["K"], cfg["D"], catalogue=catalogue,
+                           device="cpu")
+    arms = torch.randint(0, cfg["K"], (steps, cfg["B"]),
+                         generator=torch.Generator().manual_seed(5))
+    xs, ys, feats = [], [], []
+    for i in range(steps):
+        obs, rewards_all = env.get_batch(draws[i])
+        row = torch.arange(cfg["B"])
+        xs.append(obs.context_arm_features[row, arms[i]])
+        ys.append(rewards_all[row, arms[i]])
+        feats.append(obs.context_arm_features)
+    return ([x.to(device) for x in xs], [y.to(device) for y in ys], [a.to(device) for a in arms],
+            [f.to(device) for f in feats])
+
+
+def bandit_card_cpu_phase(torch):
+    """Phase 53: the bandit slice card against CPU from one state and the same
+    draws; the largest differences by check."""
+    from reagent_tpu_torch import mab
+    from reagent_tpu_torch.core import types as rlt
+    from reagent_tpu_torch.evaluation.cb import DynamicBanditAgent, DynamicBanditEnv
+    from reagent_tpu_torch.evaluation.cb import PolicyEvaluator
+    from reagent_tpu_torch.models import linear_regression as lr
+
+    tol = CB_TOL
+    worst = {}
+    D, K = CB_DYNAMIC["D"], CB_DYNAMIC["K"]
+    # the LinUCB update, coefficients and scores, and the disjoint update, at D 500
+    rows = {dev: linucb_rows(torch, 25, dev) for dev in (DEVICE, "cpu")}
+    model = lr.LinearRegressionUCB(input_dim=D)
+    disjoint = lr.DisjointLinearRegressionUCB(num_arms=K, input_dim=D)
+    states = {dev: model.init(dev) for dev in rows}
+    dstates = {dev: disjoint.init(dev) for dev in rows}
+    for i in range(25):
+        for dev, (xs, ys, arms, _) in rows.items():
+            states[dev] = model.update(states[dev], xs[i], ys[i])
+            dstates[dev] = disjoint.update(dstates[dev], arms[i], xs[i], ys[i])
+        worst["linucb avg_A"] = mb_close(torch, states[DEVICE].avg_A, states["cpu"].avg_A,
+                                         tol["sum"], "LinUCB avg_A")
+        worst["linucb avg_b"] = mb_close(torch, states[DEVICE].avg_b, states["cpu"].avg_b,
+                                         tol["sum"], "LinUCB avg_b")
+    worst["disjoint A"] = mb_close(torch, dstates[DEVICE].A, dstates["cpu"].A, tol["sum"],
+                                   "disjoint A")
+    worst["disjoint b"] = mb_close(torch, dstates[DEVICE].b, dstates["cpu"].b, tol["sum"],
+                                   "disjoint b")
+    # both devices solve the CPU's statistics: the pinv alone is compared
+    cpu_stats = states["cpu"]
+    solved = {dev: model.calculate_coefs(cpu_stats.to(dev)) for dev in rows}
+    worst["linucb inv_avg_A (scaled)"] = cb_scaled(solved[DEVICE].inv_avg_A,
+                                                   solved["cpu"].inv_avg_A, tol["pinv"],
+                                                   "LinUCB inv_avg_A")
+    worst["linucb coefs (scaled)"] = cb_scaled(solved[DEVICE].coefs, solved["cpu"].coefs,
+                                               tol["pinv"], "LinUCB coefs")
+    feats = rows["cpu"][3][-1].reshape(-1, D)
+    for key in ("pred_label", "pred_sigma", "ucb"):
+        worst[f"linucb {key}"] = mb_close(
+            torch, model.forward(solved[DEVICE], feats.to(DEVICE))[key],
+            model.forward(solved["cpu"], feats)[key], tol["ucb"], f"LinUCB {key}")
+    log(f"  LinUCB at D {D} (25 batches of 4 rows): {worst}")
+    # 10 deep-represent steps, each from the CPU's state on both devices:
+    # the gradients Adam consumed, recovered from its first moment, held to
+    # tol["grad"] of each leaf's largest; Adam turns a gradient that is 0 on
+    # one device and a rounding's 1e-8 on the other into a step of up to lr,
+    # so a parameter is held within tol["param_lr"] lr where its gradient is
+    # over tol["conditioned"] of the leaf's largest, else within 2 lr, and
+    # the entries stepped past tol["param_lr"] lr are counted
+    w, batches, _, _ = deep_represent_data(torch, 10, 3, "cpu")
+    trainers = {dev: deep_represent_trainer(torch, dev) for dev in (DEVICE, "cpu")}
+    b1, step_lr = trainers["cpu"].optimizer.b1, CB_DEEP["lr"]
+    cpu_state = trainers["cpu"].init(torch.Generator().manual_seed(4))
+    dstate, stepped, rounding_level = {}, 0, 0
+    for feats, action in batches:
+        m = {}
+        for dev, tr in trainers.items():
+            f, a = feats.to(dev), action.to(dev)
+            dstate[dev], m[dev] = tr.train_step(copy_state(cpu_state, dev), rlt.CBInput(
+                context_arm_features=f, action=a,
+                reward=torch.gather((f @ w.to(dev)).abs(), 1, a)))
+        worst["deep mse_loss"] = max(worst.get("deep mse_loss", 0.0), mb_close(
+            torch, m[DEVICE]["mse_loss"], m["cpu"]["mse_loss"], tol["loss"],
+            f"deep loss at step {int(m['cpu']['num_obs']) // 32}"))
+        for k, v in dstate["cpu"].mlp_params.items():
+            mu_old = cpu_state.opt_state.mu[k].double()
+            g = {dev: (dstate[dev].opt_state.mu[k].cpu().double() - b1 * mu_old) / (1 - b1)
+                 for dev in dstate}
+            worst[f"deep grad {k} (scaled)"] = max(
+                worst.get(f"deep grad {k} (scaled)", 0.0),
+                cb_scaled(g[DEVICE], g["cpu"], tol["grad"], f"deep gradient of {k}"))
+            conditioned = g["cpu"].abs() > tol["conditioned"] * g["cpu"].abs().max()
+            diff = (dstate[DEVICE].mlp_params[k].cpu() - v).abs()
+            reach = torch.where(conditioned, tol["param_lr"] * step_lr, 2 * step_lr)
+            if not (diff <= reach).all():
+                i = int(torch.argmax(diff - reach))
+                raise AssertionError(
+                    f"deep {k}: entry {i} moved {float(diff.flatten()[i]):.3e} from the "
+                    f"CPU's (gradient {float(g['cpu'].flatten()[i]):.3e}, allowed "
+                    f"{float(reach.flatten()[i]):.3e})")
+            stepped += int((diff > tol["param_lr"] * step_lr).sum())
+            rounding_level += int((~conditioned).sum())
+            worst[f"deep {k}"] = max(worst.get(f"deep {k}", 0.0), float(diff.max()))
+        worst["deep inv_avg_A (scaled)"] = max(
+            worst.get("deep inv_avg_A (scaled)", 0.0),
+            cb_scaled(dstate[DEVICE].linucb.inv_avg_A, dstate["cpu"].linucb.inv_avg_A,
+                      tol["pinv"], "deep inv_avg_A"))
+        cpu_state = dstate["cpu"]
+    # every stepped entry is one whose gradient is at rounding level
+    worst["deep parameter entries stepped apart"] = stepped
+    worst["deep parameter entries at rounding level"] = rounding_level
+    evals = torch.randn((64, 4, 6), generator=torch.Generator().manual_seed(6))
+    worst["deep score"] = mb_close(
+        torch, trainers[DEVICE].score(copy_state(cpu_state, DEVICE), rlt.CBInput(
+            context_arm_features=evals.to(DEVICE))),
+        trainers["cpu"].score(cpu_state, rlt.CBInput(context_arm_features=evals)),
+        tol["ucb"], "deep score")
+    # every MAB algorithm's scores and choice from one state and the same draws
+    gen = torch.Generator().manual_seed(8)
+    for name in CB_ALGOS:
+        algo = getattr(mab, name)(n_arms=4)
+        st = algo.add_batch_observations(algo.init("cpu"), torch.tensor([10.0, 3.0, 7.0, 1.0]),
+                                         torch.tensor([6.0, 1.0, 5.0, 1.0]),
+                                         torch.tensor([7.8, 1.3, 6.5, 1.3]))
+        draws = algo.get_scores(st, generator=gen) if name in (
+            "RandomActionsAlgo", "BernoulliBetaThompson") else None
+        if name == "NormalGammaThompson":
+            draws = torch.stack([mab.mab_algorithm.standard_gamma(st.extra["alpha_0"], gen),
+                                 torch.randn(4, generator=gen)])
+        card = algo.get_scores(st.to(DEVICE), None if draws is None else draws.to(DEVICE))
+        worst[f"mab {name}"] = mb_close(torch, card, algo.get_scores(st, draws), tol["mab"],
+                                        f"MAB {name}")
+        g = mab.mab_algorithm.gumbel((4,), gen, "cpu")
+        if int(algo.action_index(st.to(DEVICE), g.to(DEVICE), None if draws is None
+                                 else draws.to(DEVICE))) != int(algo.action_index(st, g, draws)):
+            raise AssertionError(f"MAB {name}: the card chose another arm")
+    # the replay evaluator's sums over 20 batches
+    pe = PolicyEvaluator(max_importance_weight=5.0)
+    evs = {dev: pe.init_state(dev) for dev in (DEVICE, "cpu")}
+    gen = torch.Generator().manual_seed(9)
+    for i in range(20):
+        batch = rlt.CBInput(context_arm_features=torch.randn((8, 3, 2), generator=gen),
+                            action=torch.randint(0, 3, (8, 1), generator=gen),
+                            reward=torch.rand((8, 1), generator=gen),
+                            log_prob=torch.log(torch.rand((8, 1), generator=gen) * 0.4 + 0.2),
+                            weight=torch.rand((8, 1), generator=gen) + 0.5)
+        model_actions = torch.randint(0, 3, (8, 1), generator=gen)
+        for dev in evs:
+            evs[dev], _ = pe.ingest_batch(evs[dev], batch.to(dev), model_actions.to(dev))
+            if i % 5 == 4:
+                evs[dev] = pe.aggregate_across_instances(evs[dev])
+    for f in evs["cpu"].__dataclass_fields__:
+        worst[f"evaluator {f}"] = mb_close(torch, getattr(evs[DEVICE], f),
+                                           getattr(evs["cpu"], f), tol["sum"], f"evaluator {f}")
+    # the dynamic LinUCB run at 500 features in lockstep: each step's action
+    # and next state on the card and, from the card's state, on the CPU; on
+    # the CPU's side also a pseudo-inverse at torch's default cutoff, which
+    # the inverse's check must tell from JAX's
+    steps = 40
+    catalogue, draws = dynamic_draws(torch, steps, DEVICE)
+    cfg = CB_DYNAMIC
+    env = DynamicBanditEnv(cfg["U"], cfg["B"], cfg["K"], D, catalogue=catalogue, device=DEVICE)
+    agent = DynamicBanditAgent.make_agent(feature_dim=D, device=DEVICE)
+    cpu_agent = DynamicBanditAgent.make_agent(feature_dim=D, device="cpu")
+    state = agent.init_state()
+    near_ties = worst_coefs = worst_inv = planted_inv = planted_coefs = 0
+    at_cutoff, inv_by_step = [], []
+    scorer = cpu_agent.trainer.scorer
+    rtol = 10 * D * torch.finfo(torch.float32).eps  # JAX's cutoff, as lr.pinv
+    for i in range(steps):
+        obs, rewards_all = env.get_batch(draws[i])
+        action, _ = agent.act(state, obs)
+        cpu_state, cpu_obs = state.to("cpu"), obs.to("cpu")
+        cpu_action, _ = cpu_agent.act(cpu_state, cpu_obs)
+        scores = cpu_agent.trainer.score(cpu_state, cpu_obs)
+        top2 = scores.topk(2, dim=1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= tol["near_tie"] * top2[:, 0].abs().clamp(min=1.0)
+        differ = action.cpu().reshape(-1) != cpu_action.reshape(-1)
+        if (differ & ~tie).any():
+            raise AssertionError(f"dynamic run step {i}: card {action.reshape(-1).tolist()}, "
+                                 f"CPU {cpu_action.reshape(-1).tolist()}, top two {top2}")
+        near_ties += int(tie.sum())
+        batch = env.add_chosen_action_reward(action.reshape(-1), obs, rewards_all)
+        state, _ = agent.learn(state, batch)
+        cpu_next, _ = cpu_agent.learn(cpu_state, batch.to("cpu"))
+        worst_coefs = max(worst_coefs, cb_scaled(state.coefs, cpu_next.coefs,
+                                                 tol["ridge_coefs"],
+                                                 f"dynamic run step {i} coefs"))
+        updated, _ = cpu_agent.trainer.train_step(cpu_state, batch.to("cpu"))
+        A_ext = updated.avg_A + scorer.l2_reg_lambda * torch.eye(D) / updated.sum_weight
+        s = torch.linalg.svdvals(A_ext.double())
+        if ((s / (rtol * s[0]) - 1).abs() < tol["cutoff_margin"]).any():
+            at_cutoff.append(i)
+        else:
+            inv_by_step.append(cb_scaled(state.inv_avg_A, cpu_next.inv_avg_A, tol["ridge_inv"],
+                                         f"dynamic run step {i} inv_avg_A"))
+            worst_inv = max(worst_inv, inv_by_step[-1])
+        planted = torch.linalg.pinv(A_ext)
+        planted_inv = max(planted_inv, scaled_diff(planted, cpu_next.inv_avg_A))
+        planted_coefs = max(planted_coefs, scaled_diff(planted @ updated.avg_b, cpu_next.coefs))
+    if not planted_inv > tol["ridge_inv"]:
+        raise AssertionError(f"dynamic run: a pinv at torch's default cutoff parts from JAX's "
+                             f"by {planted_inv:.3e}, within ridge_inv {tol['ridge_inv']}")
+    worst["dynamic run coefs (scaled)"] = worst_coefs
+    worst["dynamic run inv_avg_A (scaled)"] = worst_inv
+    worst["dynamic run planted default-cutoff inv_avg_A (scaled)"] = planted_inv
+    worst["dynamic run planted default-cutoff coefs (scaled)"] = planted_coefs
+    log(f"  dynamic LinUCB run at D {D}, {steps} steps in lockstep: actions equal; "
+        f"{near_ties} rows within {tol['near_tie']} of a tie; the inverse unchecked at "
+        f"steps {at_cutoff} (a singular value within {tol['cutoff_margin']} of the cutoff), "
+        f"at the others {', '.join(f'{x:.2e}' for x in inv_by_step)} of its largest entry")
+    log(f"  largest |card - CPU|: {json.dumps(worst)}")
+    return dict(worst, dynamic_near_tie_rows=near_ties)
+
+
+def linucb_step_ms(torch, device):
+    """A LinUCB step's parts at D 500 from the state after 25 batches of 4
+    rows: scoring a batch's 40 arms, the update, calculate_coefs and its
+    pinv alone; CUDA events on the card (median of 20), the host clock on
+    the CPU (median of 5)."""
+    from reagent_tpu_torch.models import linear_regression as lr
+
+    D = CB_DYNAMIC["D"]
+    xs, ys, _, feats = linucb_rows(torch, 25, device)
+    model = lr.LinearRegressionUCB(input_dim=D)
+    state = model.init(device)
+    for x, y in zip(xs, ys):
+        state = model.update(state, x, y)
+    state = model.calculate_coefs(state)
+    A_ext = state.avg_A + torch.eye(D, device=device) / state.sum_weight
+    flat = feats[-1].reshape(-1, D)
+    parts = {"score (40 rows)": lambda: model.forward(state, flat),
+             "update (4 rows)": lambda: model.update(state, xs[-1], ys[-1]),
+             "calculate_coefs (pinv and the product)": lambda: model.calculate_coefs(state),
+             "pinv alone (500 x 500)": lambda: lr.pinv(A_ext)}
+    if torch.device(device).type == "cuda":
+        out = {k: time_ms(torch, fn, sleep_cycles=200_000_000) for k, fn in parts.items()}
+    else:
+        out = {}
+        for k, fn in parts.items():
+            fn()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[k] = statistics.median(times)
+    log(f"  LinUCB at D {D} on {device}: {json.dumps(out)} ms")
+    return out
+
+
+def bandit_timed_phase(torch, name, launch_floor_ms):
+    """Phase 54: K3 at the deep-represent score shapes, timed; the LinUCB step
+    at D 500 (score, update, coefficients) and its pinv alone (CUDA events,
+    median of 20); a whole dynamic-env step, the deep-represent train step
+    and score, and a 20-step MAB run (wall, CUDA kernels in a profiled
+    window of 3 calls, the idle share, host reads), K3 launched once a
+    score call and by no other step."""
+    from reagent_tpu_torch import mab
+    from reagent_tpu_torch.core import types as rlt
+    from reagent_tpu_torch.evaluation.cb import DynamicBanditAgent, DynamicBanditEnv
+    from reagent_tpu_torch.mab import simulation as sim
+
+    t0 = time.perf_counter()
+    out = {"k3": k3_shapes_phase(torch, name, K3_CB_SHAPES, K3_CB_SHAPES, launch_floor_ms,
+                                 sleep_cycles=200_000_000)}
+    out["linucb_step_ms"] = linucb_step_ms(torch, DEVICE)
+    cfg = CB_DYNAMIC
+    D = cfg["D"]
+    catalogue, draws = dynamic_draws(torch, 40, DEVICE)
+    env = DynamicBanditEnv(cfg["U"], cfg["B"], cfg["K"], D, catalogue=catalogue, device=DEVICE)
+    agent = DynamicBanditAgent.make_agent(feature_dim=D, device=DEVICE)
+    box = {"s": agent.init_state(), "i": 0}
+
+    def env_step():
+        obs, rewards_all = env.get_batch(draws[box["i"] % len(draws)])
+        action, _ = agent.act(box["s"], obs)
+        box["s"], _ = agent.learn(box["s"], env.add_chosen_action_reward(
+            action.reshape(-1), obs, rewards_all))
+        box["i"] += 1
+
+    w, batches, evals, init_gen = deep_represent_data(torch, 20, 0, DEVICE)
+    trainer = deep_represent_trainer(torch, DEVICE)
+    box["d"] = trainer.init(init_gen)
+
+    def deep_step():
+        feats, action = batches[box["i"] % len(batches)]
+        box["d"], _ = trainer.train_step(box["d"], rlt.CBInput(
+            context_arm_features=feats, action=action,
+            reward=torch.gather((feats @ w).abs(), 1, action)))
+        box["i"] += 1
+
+    def deep_score():
+        trainer.score(box["d"], rlt.CBInput(context_arm_features=evals), ucb_alpha=0.0)
+
+    bandit = sim.BernoulliMAB(max_steps=20, probs=[0.2, 0.8, 0.5], device=DEVICE)
+    mab_draw = mab_draws(torch, 20, 3, 0, DEVICE)
+
+    def mab_run():
+        sim.single_evaluation_bandit_algo(bandit, mab.UCB1(n_arms=3), draws=mab_draw)
+
+    profiled = 3
+    for label, fn, n, k3_each in (
+            ("dynamic env step at D 500 (score, update, pinv)", env_step, 20, 0),
+            ("deep-represent train step (B 32)", deep_step, 20, 0),
+            ("deep-represent score (256 x 4 arms, K3)", deep_score, 20, 1),
+            ("UCB1 run of 20 steps", mab_run, 10, 0)):
+        fn()  # warm
+        reset_counts()
+        # a profiled window that saw no CUDA kernel lost its events: it is
+        # profiled again, and the phase fails after three such windows
+        for attempt in range(3):
+            wall_ms, dev, kernels, reads = timed_steps(torch, fn, n, label, profiled)
+            if kernels > 0:
+                break
+            log(f"  {label}: the profiled window saw no CUDA kernel")
+        else:
+            raise AssertionError(f"{label}: three profiled windows saw no CUDA kernel")
+        launches, plain = read_counts()
+        calls = (attempt + 1) * (n + profiled)
+        others = {k: v for k, v in launches.items() if k != "fused_mlp_forward" and v}
+        if launches["fused_mlp_forward"] != k3_each * calls or others or plain:
+            raise AssertionError(f"{label}: {calls} calls, launches {launches}, plain calls "
+                                 f"{plain}")
+        out[label] = dict(ms=wall_ms, device_us=dev, kernels=kernels,
+                          idle=1 - dev / (wall_ms * 1e3), host_reads=reads,
+                          k3_launches_a_call=launches["fused_mlp_forward"] / calls)
+        log(f"  [{time.perf_counter() - t0:.1f} s into the phase]")
+    log(f"  the steps above on {card_line()}")
+    return out
+
+
+def bandit_jobs_phase(torch):
+    """Phase 55: the four bandit jobs cut in depth (CB_CUT; every width
+    kept): K3 once for the deep-represent job's greedy score and nowhere
+    else, no plain-version call; the bars are read at full depth only
+    (tools/cb_jobs.py)."""
+    cut = CB_CUT
+    out = {}
+    for label, run, want in (
+            ("dynamic LinUCB", lambda: dynamic_linucb_job(torch, DEVICE, cut["dynamic_steps"]),
+             0),
+            ("replay evaluation", lambda: replay_eval_job(
+                torch, DEVICE, cut["train_steps"], cut["log_batches"], cut["fresh_batches"]), 0),
+            ("deep-represent", lambda: deep_represent_job(torch, DEVICE, cut["deep_steps"]), 1),
+            ("MAB", lambda: mab_job(torch, DEVICE, cut["mab_steps"], cut["trials"]), 0)):
+        reset_counts()
+        t0 = time.perf_counter()
+        r = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, plain = read_counts()
+        others = {k: v for k, v in launches.items() if k != "fused_mlp_forward" and v}
+        if launches["fused_mlp_forward"] != want or others or plain:
+            raise AssertionError(f"{label}: launches {launches}, plain calls {plain}")
+        out[label] = dict(r, seconds=seconds, k3_launches=launches["fused_mlp_forward"])
+        log(f"  {label}: {seconds:.2f} s, {json.dumps(r)}")
+    log(f"  on {card_line()}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6192,7 +6853,22 @@ def main() -> int:
     mb_jobs = model_based_jobs_phase(torch, mb_timed.pop("corpus"))
     log(f"  phases 50-52 took {time.perf_counter() - t_mb:.1f} s together")
 
-    phase("phase 53: kernels")
+    t_cb = time.perf_counter()
+    phase("phase 53: the bandit slice's modules card against CPU: LinUCB and disjoint LinUCB "
+          "at D 500, the deep-represent trainer, every MAB algorithm, the replay evaluator, "
+          "the dynamic LinUCB run in lockstep")
+    cb_errors = bandit_card_cpu_phase(torch)
+
+    phase("phase 54: K3 at the deep-represent score shapes, timed; the LinUCB step at D 500 "
+          "and its pinv, the deep-represent step and score, the MAB loop timed")
+    cb_timed = bandit_timed_phase(torch, name, launch_floor_ms)
+
+    phase("phase 55: the four bandit jobs (dynamic LinUCB, replay evaluation, deep-represent, "
+          "MAB) cut in depth")
+    cb_jobs = bandit_jobs_phase(torch)
+    log(f"  phases 53-55 took {time.perf_counter() - t_cb:.1f} s together")
+
+    phase("phase 56: kernels")
     by_path = {
         "K1 fused_dqn_offline_update": {
             "offline workflow, full width": k1_launches,
@@ -6241,7 +6917,8 @@ def main() -> int:
             "slate-Q on RecSim, greedy evaluation (act steps)": ranking["eval_act_steps"],
             "Seq2Reward job (the compress model's greedy steps and the short-sequence "
             "planner's step model)": mb_jobs["Seq2Reward CartPole"]["launches"][
-                "fused_mlp_forward"]},
+                "fused_mlp_forward"],
+            "deep-represent job (the greedy score)": cb_jobs["deep-represent"]["k3_launches"]},
         "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
                              "online QR-DQN loop": qr_online_launches["nstep_rewards"],
                              "online CRR loop": crr_online["launches"]["nstep_rewards"],
@@ -6376,6 +7053,7 @@ def main() -> int:
             row["by_shape"].update(sparse_k3)
             row["by_shape"].update(ranking["k3"])
             row["by_shape"].update(mb_timed["k3"])
+            row["by_shape"].update(cb_timed["k3"])
         if kname.startswith("K4"):
             row["by_shape"].update(wm_k4)
             row["by_shape"].update(sparse_k4)
@@ -6400,6 +7078,11 @@ def main() -> int:
     log(json.dumps({"model_based": {"card_vs_cpu_max_abs": mb_errors,
                                     "timed": {k: v for k, v in mb_timed.items() if k != "k3"},
                                     "jobs_cut": mb_jobs}}))
+    # the bandit slice's LinUCB solves, MAB loops and evaluator are torch
+    # operations (JAX's reach no pallas_call): their numbers stand beside
+    log(json.dumps({"bandits": {"card_vs_cpu_max_abs": cb_errors,
+                                "timed": {k: v for k, v in cb_timed.items() if k != "k3"},
+                                "jobs_cut": cb_jobs}}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

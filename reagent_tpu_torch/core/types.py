@@ -11,7 +11,8 @@ helpers :215-223), ``ValuePresence`` :229, ``GaussianSamplerScore``
 :315, ``PolicyNetworkInput`` :329, ``PolicyGradientInput`` :338,
 ``MemoryNetworkInput`` :377, ``MemoryNetworkOutput`` :389,
 ``PreprocessedRankingInput`` :442, ``RankingOutput`` :472,
-``Seq2RewardOutput`` :403, ``stack_feature_data`` :487 and ``batch_to_device`` :492.  Fields hold
+``Seq2RewardOutput`` :403, ``CBInput`` :410, ``stack_feature_data`` :487
+and ``batch_to_device`` :492.  Fields hold
 ``torch.Tensor``s (or ``None``); ``.to(device)`` moves every tensor field,
 recursing into nested batches and into dicts of them (a ``FeatureData``'s
 ``{name: IdListFeature}``).
@@ -421,6 +422,39 @@ class Seq2RewardOutput(_TensorDataClass):
     of each action sequence, [B, 1]."""
 
     acc_reward: Tensor
+
+
+@dataclasses.dataclass
+class CBInput(_TensorDataClass):
+    """A contextual-bandit batch (reference types.py:1123):
+    ``context_arm_features`` [B, num_arms, feature_dim]; ``action``,
+    ``reward``, ``log_prob``, ``weight``, ``importance_weight`` [B, 1];
+    ``arms`` [B, num_arms] ids; ``arm_presence`` [B, num_arms]."""
+
+    context_arm_features: Tensor
+    arm_presence: Optional[Tensor] = None
+    action: Optional[Tensor] = None
+    reward: Optional[Tensor] = None
+    label: Optional[Tensor] = None
+    log_prob: Optional[Tensor] = None
+    weight: Optional[Tensor] = None
+    arms: Optional[Tensor] = None
+    mdp_id: Optional[Tensor] = None
+    importance_weight: Optional[Tensor] = None
+    features_of_chosen_arm: Optional[Tensor] = None
+    chosen_arm_id: Optional[Tensor] = None
+
+    @classmethod
+    def input_prototype(cls, batch_size: int = 2, num_arms: int = 3, dim: int = 4,
+                        device="cpu") -> "CBInput":
+        return cls(context_arm_features=torch.ones((batch_size, num_arms, dim), device=device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.context_arm_features.device
+
+    def batch_size(self) -> int:
+        return self.context_arm_features.shape[0]
 
 
 def _stack(xs):

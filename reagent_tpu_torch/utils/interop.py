@@ -41,6 +41,13 @@ net, by its scopes), ``fcn_state_from_flax`` (a bare
 ``FullyConnectedNetwork``: the Seq2Reward trainer's step classifier) and
 ``cem_ensemble_params_from_flax`` (a planner's members); the trainer states through
 ``slate_q_state_from_arrays`` and ``seq2slate_trainer_state_from_arrays``.
+The bandit slice's: ``deep_represent_state_from_flax`` (the
+``_DeepRepresentMLP``'s ``FullyConnectedNetwork_0`` trunk and ``Dense_0``
+head), ``cb_fcn_state_from_flax`` (a ``CBFullyConnectedNetwork``), and
+``linucb_state_from_arrays``, ``disjoint_linucb_state_from_arrays``,
+``mab_state_from_arrays`` (with ``extra``), ``offline_eval_state_from_arrays``,
+``supervised_trainer_state_from_arrays`` and
+``deep_represent_trainer_state_from_arrays`` for their states.
 """
 
 from __future__ import annotations
@@ -52,11 +59,16 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from reagent_tpu_torch.evaluation.cb.base_evaluator import OfflineEvalState
+from reagent_tpu_torch.mab.mab_algorithm import MABState
+from reagent_tpu_torch.models.deep_represent_linucb import DeepRepresentLinUCBState
+from reagent_tpu_torch.models.linear_regression import DisjointLinUCBState, LinUCBState
 from reagent_tpu_torch.ops.sparse_embedding import SparseEmbeddingState
 from reagent_tpu_torch.optim import OptState
 from reagent_tpu_torch.replay.circular import ReplayBufferState
 from reagent_tpu_torch.replay.packed import PackedReplayBufferState
 from reagent_tpu_torch.training.c51_trainer import C51TrainerState
+from reagent_tpu_torch.training.cb.supervised_trainer import SupervisedTrainerState
 from reagent_tpu_torch.training.discrete_crr_trainer import CRRTrainerState
 from reagent_tpu_torch.training.dqn_trainer import DQNTrainerState
 from reagent_tpu_torch.training.fused_dqn_trainer import FusedDQNTrainerState
@@ -453,6 +465,8 @@ def _from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
         return memory_network_state_from_flax(params_np)
     if _BAGS[0] in tree or set(tree) == {_SPARSE_DQN}:
         return sparse_dqn_state_from_flax(params_np)
+    if set(tree) == {_NET, "Dense_0"}:
+        return deep_represent_state_from_flax(params_np)
     return q_network_state_from_flax(params_np)
 
 
@@ -791,3 +805,79 @@ def state_to_arrays(state) -> Dict:
         return v.detach().cpu().numpy()
 
     return {f.name: leaf(getattr(state, f.name)) for f in dataclasses.fields(state)}
+
+
+def deep_represent_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``_DeepRepresentMLP`` variables (numpy leaves) -> the port's
+    names: the ``FullyConnectedNetwork_0`` trunk under ``trunk.`` and the
+    bias-free ``Dense_0`` head as ``head.weight`` [1, in]."""
+    tree = params_np["params"]
+    out = fcn_state_from_flax(tree[_NET], "trunk.")
+    out["head.weight"] = _array(np.asarray(tree["Dense_0"]["kernel"], np.float32).T)
+    return out
+
+
+def cb_fcn_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``CBFullyConnectedNetwork`` variables -> the port's state dict
+    (its ``FullyConnectedNetwork_0`` is the port's ``net``)."""
+    return q_network_state_from_flax(params_np, {_NET: "net"})
+
+
+def _tensor(x, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def linucb_state_from_arrays(avg_A, avg_b, sum_weight, num_obs, coefs, inv_avg_A,
+                             device="cpu") -> LinUCBState:
+    """The port's ``LinUCBState`` from a ``reagent_tpu`` one's numpy leaves."""
+    return LinUCBState(avg_A=_tensor(avg_A, device), avg_b=_tensor(avg_b, device),
+                       sum_weight=_tensor(sum_weight, device),
+                       num_obs=_scalar_i32(num_obs, device), coefs=_tensor(coefs, device),
+                       inv_avg_A=_tensor(inv_avg_A, device))
+
+
+def disjoint_linucb_state_from_arrays(A, b, inv_A, coefs, num_obs,
+                                      device="cpu") -> DisjointLinUCBState:
+    """The port's ``DisjointLinUCBState`` from a ``reagent_tpu`` one's numpy leaves."""
+    return DisjointLinUCBState(A=_tensor(A, device), b=_tensor(b, device),
+                               inv_A=_tensor(inv_A, device), coefs=_tensor(coefs, device),
+                               num_obs=_scalar_i32(num_obs, device))
+
+
+def mab_state_from_arrays(total_n_obs_per_arm, total_sum_reward_per_arm,
+                          total_sum_reward_squared_per_arm, extra: Optional[Mapping] = None,
+                          device="cpu") -> MABState:
+    """The port's ``MABState`` from a ``reagent_tpu`` one's numpy leaves
+    (``extra`` a dict of them, as the NormalGamma posterior's)."""
+    return MABState(
+        total_n_obs_per_arm=_tensor(total_n_obs_per_arm, device),
+        total_sum_reward_per_arm=_tensor(total_sum_reward_per_arm, device),
+        total_sum_reward_squared_per_arm=_tensor(total_sum_reward_squared_per_arm, device),
+        extra=None if extra is None else {k: _tensor(v, device) for k, v in extra.items()})
+
+
+def offline_eval_state_from_arrays(device="cpu", **fields) -> OfflineEvalState:
+    """The port's ``OfflineEvalState`` from a ``reagent_tpu`` one's numpy
+    leaves, every field by name."""
+    return OfflineEvalState(**{k: _tensor(v, device) for k, v in fields.items()})
+
+
+def supervised_trainer_state_from_arrays(params: Mapping, opt_state: OptState, step,
+                                         device="cpu") -> SupervisedTrainerState:
+    """The port's ``SupervisedTrainerState`` from a ``reagent_tpu`` one: the
+    network's flax tree (a bare ``FullyConnectedNetwork``'s or a
+    q-network's), ``opt_state`` from ``opt_state_from_optax``."""
+    return SupervisedTrainerState(params=_params_on(params, device), opt_state=opt_state,
+                                  step=_scalar_i32(step, device))
+
+
+def deep_represent_trainer_state_from_arrays(mlp_params: Mapping, opt_state: OptState,
+                                             linucb: Mapping,
+                                             device="cpu") -> DeepRepresentLinUCBState:
+    """The port's ``DeepRepresentLinUCBState`` from a ``reagent_tpu`` one: the
+    MLP's flax tree, ``opt_state`` from ``opt_state_from_optax`` and the
+    LinUCB state's numpy leaves by name."""
+    return DeepRepresentLinUCBState(
+        mlp_params={k: v.to(device) for k, v in deep_represent_state_from_flax(
+            mlp_params).items()},
+        opt_state=opt_state, linucb=linucb_state_from_arrays(device=device, **linucb))
