@@ -298,7 +298,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      (dynamic LinUCB at 500 features, the replay evaluation, the
      deep-represent job with K3 once a greedy score, the MAB bandits and
      compare_bandit_algos); the bars are the tool's, at full depth;
- 56. one JSON line describing each ported kernel (K1's rows with the CUDA
+ 56. the off-policy-estimation slice card against CPU: NNTrainer 20
+     iterations at 500 x 2, B 1,024 from one seed (the losses, the
+     parameters, the predictions, the LR), the MSLR slate job's
+     estimates, NeuralDualDICE 20 steps from one init and one
+     set of indices (the estimate, the nets), the CartPole harness from one
+     tape of draws (the actions equal outside near-ties, the states on the
+     valid steps, IPS, DR, MAGIC and the ground truth);
+ 57. K3 at the OPE shapes, taken from the jobs' inputs (NNTrainer's predict
+     [4000, 8->500->500->1] and [32, 10->500->500->1] on the MSLR sample,
+     streamed; the CartPole harness's act [200, 4->128->64->2] and Q scoring
+     [20000, 4->128->64->2]; DualDICE's zeta over the logs' valid steps,
+     [3600, 6->64->64->4]) against
+     its plain version and one torch.addmm a layer, timed beside the bound
+     and the launch floor; NNTrainer's train steps/s at its defaults, a
+     DualDICE step and a CartPole rollout (wall, CUDA kernels, the idle
+     share, 0 host reads or the script fails);
+ 58. the OPE jobs of tools/ope_jobs.py cut to OPE_CUT's depths (the
+     CartPole harness, DualDICE on the gridworld, the slate benchmark with
+     NNTrainer as the target ranker on the synthetic corpus and the MSLR
+     sample), K3 counted on each; the bars are the tool's, at full depth;
+ 59. one JSON line describing each ported kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
      wrapper's host time; K3's and K4's with the wrapper's host time, the
@@ -308,9 +328,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      world-model, gridworld, mask, sparse changing-arms and (K3) slate-Q
      paths, K3's continuous, world-model, changing-arms and slate-Q shapes
      with their torch.addmm yardstick and K4's world-model and changing-arms
-     shapes, and the deep-represent score's), after one line of phase 48's
-     Seq2Slate numbers, one of phases 50-52's model-based numbers and one of
-     phases 53-55's bandit numbers.
+     shapes, the deep-represent score's and the OPE shapes), after one line
+     of phase 48's Seq2Slate numbers, one of phases 50-52's model-based
+     numbers, one of phases 53-55's bandit numbers and one of phases 56-58's
+     OPE numbers.
 Each phase's heading carries the seconds since the script started.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
@@ -6524,6 +6545,414 @@ def bandit_jobs_phase(torch):
     return out
 
 
+# ------------------------------------------------- off-policy estimation
+
+# The CartPole harness (reagent_tpu/ope/test/cartpole.py) on the flagship
+# sample config's net (4 -> 128 -> 64 -> 2 leaky_relu) at its defaults of
+# 200 episodes and a horizon of 100, the JAX test's temperatures
+# (tests/test_ope_benchmarks.py:63-83) and its bar, IPS within half the
+# ground truth; an untrained net from the port's seed-0 init
+OPE_CARTPOLE = dict(sizes=[128, 64], act="leaky_relu", episodes=200, horizon=100,
+                    behavior_temperature=1.5, target_temperature=0.5, gamma=0.99, seed=2)
+# NeuralDualDICE on the JAX test's gridworld logs (tests/test_ope.py:80-111:
+# a 3 x 3 world, 300 episodes of at most 12 steps, gamma 0.9) at its
+# defaults (B 256, hidden 64) for 2,000 steps and the JAX test's 800; its bar
+# |estimate - gt| <= max(1, 0.8 |gt|)
+OPE_DICE = dict(size=3, episodes=300, max_steps=12, gamma=0.9, steps=2000, test_steps=800,
+                batch=256, hidden=64)
+# the slate benchmark on QueryCorpus.synthetic() (200 queries of 20 docs, 8
+# features) with NNTrainer (500 x 2, its defaults: 100 iterations, B 1,024)
+# as the target ranker, and on tests/data/mslr_sample.txt as the JAX test
+# drives it (slate size 3, 50 samples a query)
+OPE_SLATE = dict(mslr="tests/data/mslr_sample.txt", mslr_slate_size=3, mslr_samples=50)
+# the depth of phase 58 (PERF.md section 4): DualDICE's steps; the
+# CartPole harness and the slate benchmarks run at full depth
+OPE_CUT = dict(dice_steps=200)
+# card against CPU (phase 56): NNTrainer 20 iterations at 500 x 2, B 1,024;
+# the MSLR slate job; DualDICE 20 steps; the CartPole
+# harness from one tape of draws
+OPE_LOCKSTEP = dict(nn_iterations=20, dice_steps=20)
+# losses, K3's plain version against the card's kernel and float32 sums in
+# another order; the parameters as the CPU tests hold them to JAX's (every
+# entry, each net's leaves); near-tie: the top two of logits + gumbel within
+# 1e-3 of each other on the CPU's side.  The CartPole states and propensities
+# on the valid steps (after an episode's end the env steps on with its pole
+# fallen, and the two sides drift apart there unchecked).  ``estimate``
+# holds the CartPole and the MSLR slate estimates, relative
+OPE_TOL = dict(loss=dict(rtol=1e-4, atol=1e-6), param=dict(rtol=5e-4, atol=5e-5),
+               pred=dict(rtol=1e-3, atol=1e-3), estimate=1e-4, magic=2e-4,
+               states=dict(rtol=1e-4, atol=1e-4), near_tie=1e-3)
+
+
+def k3_ope_shapes():
+    """K3 at the slice's shapes, taken from the jobs' own inputs: NNTrainer's
+    predict (500 x 2, streamed) over every doc of QueryCorpus.synthetic() and
+    of the MSLR sample, the CartPole harness's act step at its episodes and
+    its Q scoring over episodes x horizon logged states (resident),
+    DualDICE's zeta forward over the gridworld logs' valid steps (resident)."""
+    from reagent_tpu_torch.ope.estimators.sequential_estimators import NeuralDualDICE
+
+    def docs(corpus):
+        Q, M, D = slate_corpus(corpus)[0].features.shape
+        return Q * M, D
+
+    logs = gridworld_logs()
+    dice_s = NeuralDualDICE(state_dim=logs.states.shape[2], num_actions=4,
+                            device="cpu").data(logs).s
+    N, T = OPE_CARTPOLE["episodes"], OPE_CARTPOLE["horizon"]
+    relu = ["relu", "relu", "linear"]
+    nn = ([500, 500, 1], relu, False)
+    q = (OPE_CARTPOLE["sizes"] + [2], [OPE_CARTPOLE["act"]] * 2 + ["linear"], True)
+    zeta = ([OPE_DICE["hidden"]] * 2 + [4], relu, True)
+    shapes = {}
+    for label, rows, dim, (sizes, acts, resident) in (
+            ("NNTrainer predict, synthetic corpus", *docs("synthetic"), nn),
+            ("NNTrainer predict, MSLR sample", *docs("mslr"), nn),
+            ("CartPole act", N, 4, q),
+            ("CartPole Q scoring", N * T, 4, q),
+            ("DualDICE zeta, valid steps", *dice_s.shape, zeta)):
+        widths = [dim] + sizes
+        shapes[f"{label} [{rows}, {'->'.join(map(str, widths))}]"] = (
+            rows, widths, acts, resident, 141 + len(shapes))
+    return shapes
+
+
+def ope_cartpole_net(torch, device):
+    """The flagship sample config's Q-network from the port's seed-0 init."""
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+    from reagent_tpu_torch.training import functional
+
+    cfg = OPE_CARTPOLE
+    net = FullyConnectedDQN(4, 2, cfg["sizes"], [cfg["act"]] * len(cfg["sizes"]),
+                            generator=torch.Generator().manual_seed(0)).to(device)
+    return net, functional.params_of(net)
+
+
+def ope_cartpole_draws(torch, episodes, horizon, seed):
+    """The logging and target rollouts' draws, made on the CPU from ``seed``."""
+    from reagent_tpu_torch.gym.envs.functional import CartPole
+    from reagent_tpu_torch.ope.test import cartpole
+
+    gen = torch.Generator().manual_seed(seed)
+    env = CartPole(device="cpu")
+    return tuple(cartpole.draw_rollout_noise(env, episodes, horizon, gen) for _ in range(2))
+
+
+def cartpole_ope_job(torch, device, episodes=None, horizon=None, seed=None, draws=None,
+                     with_logs=False):
+    """The CartPole harness: IPS, DR and MAGIC against the target policy's
+    simulated value; the JAX test's bar, IPS within half the ground truth.
+    With ``with_logs``, (that, the logged rollout as numpy arrays)."""
+    from reagent_tpu_torch.ope.test import cartpole
+
+    cfg = OPE_CARTPOLE
+    episodes, horizon = episodes or cfg["episodes"], horizon or cfg["horizon"]
+    seed = cfg["seed"] if seed is None else seed
+    net, params = ope_cartpole_net(torch, device)
+    if draws is None:
+        draws = ope_cartpole_draws(torch, episodes, horizon, seed)
+    results, gt, logs = cartpole.evaluate_cartpole(
+        net, params, behavior_temperature=cfg["behavior_temperature"],
+        target_temperature=cfg["target_temperature"], num_episodes=episodes, horizon=horizon,
+        gamma=cfg["gamma"], draws=draws, device=device, return_logs=True)
+    est = {k: v.estimated_reward for k, v in results.items()}
+    if not all(np.isfinite(v) for v in est.values()):
+        raise AssertionError(f"CartPole OPE on {device}: estimates {est}")
+    out = dict(gt=gt, log_reward=results["ips"].log_reward, **est,
+               ips_bar_met=bool(abs(est["ips"] - gt) < 0.5 * gt))
+    return (out, logs) if with_logs else out
+
+
+_GRIDWORLD_LOGS = {}
+
+
+def gridworld_logs(episodes=None):
+    """The JAX test's gridworld logs (numpy, on the host; made once)."""
+    from reagent_tpu_torch.ope.test.gridworld import GridWorld, generate_logs
+    from reagent_tpu_torch.ope.trainers.rl_tabular_trainers import (
+        DPTrainer,
+        DPValueFunction,
+        TabularPolicy,
+    )
+
+    cfg = OPE_DICE
+    episodes = episodes or cfg["episodes"]
+    if episodes not in _GRIDWORLD_LOGS:
+        world = GridWorld(size=cfg["size"])
+        tgt = TabularPolicy(world.num_actions, epsilon=0.1)
+        DPTrainer(world, tgt).train(gamma=cfg["gamma"])
+        log_policy = TabularPolicy(world.num_actions, epsilon=0.6)
+        for s in world.states:
+            log_policy.update(s, int(np.argmax(tgt.action_dist(s))))
+        value_fn = DPValueFunction(tgt, world, cfg["gamma"])
+        value_fn.evaluate()
+        logs = generate_logs(world, log_policy, tgt, value_fn, num_episodes=episodes,
+                             max_steps=cfg["max_steps"], gamma=cfg["gamma"])
+        logs.ground_truth_reward = value_fn.state_value((0, 0))
+        _GRIDWORLD_LOGS[episodes] = logs
+    return _GRIDWORLD_LOGS[episodes]
+
+
+def dualdice(torch, device, steps):
+    from reagent_tpu_torch.ope.estimators.sequential_estimators import NeuralDualDICE
+
+    cfg = OPE_DICE
+    logs = gridworld_logs()
+    return NeuralDualDICE(state_dim=logs.states.shape[2], num_actions=4,
+                          hidden_dim=cfg["hidden"], training_samples=steps,
+                          batch_size=cfg["batch"], device=device), logs
+
+
+def dualdice_job(torch, device, steps, seed=0):
+    """NeuralDualDICE on the gridworld logs from a CPU generator seeded
+    ``seed`` (init and indices); the JAX test's bar."""
+    est, logs = dualdice(torch, device, steps)
+    gt = logs.ground_truth_reward
+    t0 = time.perf_counter()
+    res = est.evaluate(logs, generator=torch.Generator().manual_seed(seed))
+    seconds = time.perf_counter() - t0
+    if not np.isfinite(res.estimated_reward):
+        raise AssertionError(f"DualDICE on {device}: {res}")
+    return dict(steps=steps, gt=gt, estimate=res.estimated_reward,
+                steps_per_s=steps / seconds,
+                bar_met=bool(abs(res.estimated_reward - gt) <= max(1.0, 0.8 * abs(gt))))
+
+
+def slate_corpus(corpus):
+    """(QueryCorpus.synthetic() or the MSLR sample, the benchmark's options
+    for it)."""
+    from reagent_tpu_torch.ope.test import slate_benchmark as sb
+
+    if corpus == "synthetic":
+        return sb.QueryCorpus.synthetic(), {}
+    return sb.QueryCorpus.from_mslr(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), OPE_SLATE["mslr"])), dict(slate_size=OPE_SLATE["mslr_slate_size"],
+                                              num_samples_per_query=OPE_SLATE["mslr_samples"])
+
+
+def slate_job(torch, device, corpus):
+    """The slate benchmark with NNTrainer as the target ranker, on
+    ``QueryCorpus.synthetic()`` or the MSLR sample; IPS, PBM and the
+    pseudo-inverse estimate against the closed-form ground truth."""
+    from reagent_tpu_torch.ope.test import slate_benchmark as sb
+    from reagent_tpu_torch.ope.trainers import NNTrainer
+
+    data, kw = slate_corpus(corpus)
+    res = sb.evaluate_slate_benchmark(data, tgt_trainer=NNTrainer(seed=0, device=device), **kw)
+    est = {k: v.estimated_reward for k, v in res.items()}
+    if not all(np.isfinite(v) for v in est.values()):
+        raise AssertionError(f"slate benchmark ({corpus}) on {device}: {est}")
+    return dict(gt=res["ips"].ground_truth_reward, log_reward=res["ips"].log_reward, **est,
+                std_errors={k: v.estimated_reward_std_error for k, v in res.items()})
+
+
+def ope_nn_data(torch):
+    """NNTrainer's training split of QueryCorpus.synthetic(), as the slate
+    benchmark's ``train_ranker_scores`` makes it."""
+    from reagent_tpu_torch.ope.test import slate_benchmark as sb
+    from reagent_tpu_torch.ope.trainers import TrainingData
+
+    corpus = sb.QueryCorpus.synthetic()
+    Q, M, D = corpus.features.shape
+    train_q = np.random.default_rng(1).permutation(Q)[: Q // 2]
+    return TrainingData(corpus.features[train_q].reshape(-1, D),
+                        corpus.relevances[train_q].reshape(-1)), corpus.features.reshape(-1, D)
+
+
+def ope_card_cpu_phase(torch):
+    """Phase 56: the OPE slice card against CPU: NNTrainer from one seed,
+    the MSLR slate job (NNTrainer its target ranker), NeuralDualDICE from
+    one init and one set of indices, the CartPole harness from one tape of
+    draws; the largest differences by check."""
+    from reagent_tpu_torch.ope.trainers import NNTrainer
+
+    tol, worst = OPE_TOL, {}
+    n_it = OPE_LOCKSTEP["nn_iterations"]
+    data, xv = ope_nn_data(torch)
+    nn = {dev: NNTrainer(seed=0, device=dev) for dev in (DEVICE, "cpu")}
+    for t in nn.values():
+        t.train(data, iterations=n_it)
+    worst["NNTrainer losses"] = mb_close(torch, torch.stack(nn[DEVICE].losses),
+                                         torch.stack(nn["cpu"].losses), tol["loss"],
+                                         "NNTrainer losses")
+    for k in nn["cpu"].params:
+        worst[f"NNTrainer {k}"] = mb_close(torch, nn[DEVICE].params[k], nn["cpu"].params[k],
+                                           tol["param"], f"NNTrainer {k}")
+    pred = {dev: t.predict(xv) for dev, t in nn.items()}
+    np.testing.assert_allclose(pred[DEVICE], pred["cpu"], **tol["pred"])
+    worst["NNTrainer predictions"] = float(np.abs(pred[DEVICE] - pred["cpu"]).max())
+    if nn[DEVICE].lr != nn["cpu"].lr:
+        raise AssertionError(f"NNTrainer LR {nn[DEVICE].lr} on the card, {nn['cpu'].lr}")
+    # the MSLR slate job: its target ranker's scores are one K3 launch
+    slate = {dev: slate_job(torch, dev, "mslr") for dev in (DEVICE, "cpu")}
+    for k in ("gt", "ips", "pbm", "pseudo_inverse"):
+        rel = abs(slate[DEVICE][k] - slate["cpu"][k]) / abs(slate["cpu"][k])
+        if rel > tol["estimate"]:
+            raise AssertionError(f"MSLR slate {k}: card {slate[DEVICE][k]}, "
+                                 f"CPU {slate['cpu'][k]}")
+        worst[f"MSLR slate {k} (relative)"] = rel
+
+    steps = OPE_LOCKSTEP["dice_steps"]
+    dice = {dev: dualdice(torch, dev, steps)[0] for dev in (DEVICE, "cpu")}
+    logs = gridworld_logs()
+    gen = torch.Generator().manual_seed(5)
+    params = (dice["cpu"].init_params(gen), dice["cpu"].init_params(gen))
+    indices = dice["cpu"].draw_indices(dice["cpu"].data(logs), gen)
+    est = {dev: d.evaluate(logs, params=params, indices=indices).estimated_reward
+           for dev, d in dice.items()}
+    if abs(est[DEVICE] - est["cpu"]) > tol["estimate"] * abs(est["cpu"]):
+        raise AssertionError(f"DualDICE estimate: card {est[DEVICE]}, CPU {est['cpu']}")
+    worst["DualDICE estimate (relative)"] = abs(est[DEVICE] - est["cpu"]) / abs(est["cpu"])
+    for net in ("nu", "zeta"):
+        for k, v in getattr(dice["cpu"].last_state, net).items():
+            worst[f"DualDICE {net} {k}"] = mb_close(
+                torch, getattr(dice[DEVICE].last_state, net)[k], v, tol["param"],
+                f"DualDICE {net} {k}")
+
+    log(f"  NNTrainer and DualDICE: {json.dumps(worst)}")
+    cfg = OPE_CARTPOLE
+    N, T = cfg["episodes"], cfg["horizon"]
+    draws = ope_cartpole_draws(torch, N, T, 11)
+    rollouts, jobs = {}, {}
+    for dev in (DEVICE, "cpu"):
+        jobs[dev], rollouts[dev] = cartpole_ope_job(torch, dev, N, T, draws=draws,
+                                                    with_logs=True)
+    a, b = rollouts[DEVICE]["actions"], rollouts["cpu"]["actions"]
+    parted = np.argwhere(a != b)
+    if len(parted):
+        # the first parting must be a near-tie of the CPU's logits + gumbels
+        e, t = parted[0]
+        logits = rollouts["cpu"]["propensities"][e, t]
+        g = draws[0].gumbels[e, t].numpy()
+        z = np.sort(np.log(logits) + g)
+        if z[-1] - z[-2] > tol["near_tie"]:
+            raise AssertionError(f"CartPole actions part at episode {e}, step {t} off a tie")
+        log(f"  CartPole rollout: actions part at a near-tie (episode {e}, step {t}); "
+            "the estimates are not compared")
+    else:
+        # the valid steps held; after an episode ends the env steps on, its
+        # pole fallen, and the two sides' states drift further apart
+        valid = rollouts["cpu"]["mask"] > 0
+        for k in ("states", "propensities"):
+            got, want = rollouts[DEVICE][k], rollouts["cpu"][k]
+            np.testing.assert_allclose(got[valid], want[valid], **tol["states"])
+            worst[f"CartPole {k}, valid steps"] = float(np.abs(got - want)[valid].max())
+            worst[f"CartPole {k}, after the end"] = float(np.abs(got - want)[~valid].max(
+                initial=0.0))
+        for k in ("ips", "dr", "magic", "gt"):
+            rel = abs(jobs[DEVICE][k] - jobs["cpu"][k]) / abs(jobs["cpu"][k])
+            if rel > (tol["magic"] if k == "magic" else tol["estimate"]):
+                raise AssertionError(f"CartPole {k}: card {jobs[DEVICE][k]}, "
+                                     f"CPU {jobs['cpu'][k]}")
+            worst[f"CartPole {k} (relative)"] = rel
+    worst["CartPole actions parted"] = int(len(parted))
+    log(f"  {json.dumps(worst)}")
+    return worst
+
+
+def ope_timed_phase(torch, name, launch_floor_ms):
+    """Phase 57: K3 at the slice's shapes against its plain version and one
+    torch.addmm a layer, timed; NNTrainer's train steps/s at its defaults;
+    a DualDICE step at B 256, hidden 64 (wall, CUDA kernels, the idle
+    share, 0 host reads or the script fails); the CartPole harness's ms a
+    rollout step at 200 episodes (the same, K3 once a step)."""
+    from reagent_tpu_torch.ope.test import cartpole
+    from reagent_tpu_torch.ope.trainers import NNTrainer
+
+    t0 = time.perf_counter()
+    shapes = k3_ope_shapes()
+    out = {"k3": k3_shapes_phase(torch, name, shapes, shapes, launch_floor_ms,
+                                 sleep_cycles=200_000_000)}
+    data, _ = ope_nn_data(torch)
+    trainer = NNTrainer(seed=0, device=DEVICE)
+    trainer.train(data, iterations=10)  # warm
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer.train(data)
+    torch.cuda.synchronize()
+    out["NNTrainer train steps/s (100 iterations, B 1,024, 500 x 2)"] = 100 / (
+        time.perf_counter() - t1)
+    log(f"  NNTrainer: {out['NNTrainer train steps/s (100 iterations, B 1,024, 500 x 2)']:.2f} "
+        "train steps/s at its defaults (a host read every 10 steps)")
+
+    est, logs = dualdice(torch, DEVICE, 1)
+    dice_data = est.data(logs)
+    gen = torch.Generator().manual_seed(0)
+    box = {"s": est.init(est.init_params(gen), est.init_params(gen)), "i": 0}
+    idx, i0 = est.draw_indices(dice_data, gen)
+
+    def dice_step():
+        box["s"] = est.step(dice_data, box["s"], idx[0], i0[0])
+
+    cfg = OPE_CARTPOLE
+    N, T = cfg["episodes"], cfg["horizon"]
+    net, params = ope_cartpole_net(torch, DEVICE)
+    env = cartpole.CartPole(max_steps=T, device=DEVICE)
+    draws = ope_cartpole_draws(torch, N, T, 3)[0].to(DEVICE)
+    scores = cartpole.q_scores(net, params)
+
+    def rollout():
+        cartpole._rollout(env, scores, cfg["behavior_temperature"], N, T, draws)
+
+    profiled = 3
+    for label, fn, n, k3_each, per in (
+            ("DualDICE step (B 256, hidden 64)", dice_step, 20, 0, 1),
+            (f"CartPole rollout ({N} episodes x {T} steps)", rollout, 3, T, T)):
+        fn()  # warm
+        reset_counts()
+        for attempt in range(3):
+            wall_ms, dev, kernels, reads = timed_steps(torch, fn, n, label, profiled)
+            if kernels > 0:
+                break
+            log(f"  {label}: the profiled window saw no CUDA kernel")
+        else:
+            raise AssertionError(f"{label}: three profiled windows saw no CUDA kernel")
+        launches, plain = read_counts()
+        calls = (attempt + 1) * (n + profiled)
+        others = {k: v for k, v in launches.items() if k != "fused_mlp_forward" and v}
+        if launches["fused_mlp_forward"] != k3_each * calls or others or plain:
+            raise AssertionError(f"{label}: {calls} calls, launches {launches}, plain {plain}")
+        if reads:
+            raise AssertionError(f"{label}: {reads} host reads a call")
+        out[label] = dict(ms_a_step=wall_ms / per, device_us_a_step=dev / per,
+                          kernels_a_step=kernels / per, idle=1 - dev / (wall_ms * 1e3),
+                          host_reads_a_step=reads / per, k3_launches_a_step=k3_each / per)
+        log(f"  {label}: {json.dumps(out[label])}")
+    out["DualDICE steps/s"] = 1e3 / out["DualDICE step (B 256, hidden 64)"]["ms_a_step"]
+    log(f"  [{time.perf_counter() - t0:.1f} s into the phase] on {card_line()}")
+    return out
+
+
+def ope_jobs_phase(torch):
+    """Phase 58: the OPE jobs cut in depth (OPE_CUT): the CartPole harness
+    (K3 once an act step of each rollout and once over the logged states),
+    DualDICE on the gridworld (K3 once, the zeta forward), the slate
+    benchmark on QueryCorpus.synthetic() and on the MSLR sample (K3 once,
+    NNTrainer's predict); no other kernel, no plain-version call."""
+    cfg = OPE_CARTPOLE
+    out = {}
+    for label, run, want in (
+            ("CartPole harness", lambda: cartpole_ope_job(torch, DEVICE), 2 * cfg["horizon"] + 1),
+            ("DualDICE on the gridworld", lambda: dualdice_job(
+                torch, DEVICE, OPE_CUT["dice_steps"]), 1),
+            ("slate benchmark, synthetic corpus", lambda: slate_job(torch, DEVICE, "synthetic"),
+             1),
+            ("slate benchmark, MSLR sample", lambda: slate_job(torch, DEVICE, "mslr"), 1)):
+        reset_counts()
+        t0 = time.perf_counter()
+        r = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, plain = read_counts()
+        others = {k: v for k, v in launches.items() if k != "fused_mlp_forward" and v}
+        if launches["fused_mlp_forward"] != want or others or plain:
+            raise AssertionError(f"{label}: launches {launches}, plain calls {plain}")
+        out[label] = dict(r, seconds=seconds, k3_launches=launches["fused_mlp_forward"])
+        log(f"  {label}: {seconds:.2f} s, {json.dumps(r)}")
+    log(f"  on {card_line()}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6868,7 +7297,21 @@ def main() -> int:
     cb_jobs = bandit_jobs_phase(torch)
     log(f"  phases 53-55 took {time.perf_counter() - t_cb:.1f} s together")
 
-    phase("phase 56: kernels")
+    t_ope = time.perf_counter()
+    phase("phase 56: the off-policy-estimation slice card against CPU: NNTrainer at 500 x 2, "
+          "the MSLR slate job, NeuralDualDICE, the CartPole harness from one tape of draws")
+    ope_errors = ope_card_cpu_phase(torch)
+
+    phase("phase 57: K3 at the OPE shapes, timed; NNTrainer's train steps, a DualDICE step and "
+          "the CartPole harness's rollout timed")
+    ope_timed = ope_timed_phase(torch, name, launch_floor_ms)
+
+    phase("phase 58: the OPE jobs (the CartPole harness, DualDICE on the gridworld, the slate "
+          "benchmark with NNTrainer on the synthetic corpus and the MSLR sample) cut in depth")
+    ope_jobs = ope_jobs_phase(torch)
+    log(f"  phases 56-58 took {time.perf_counter() - t_ope:.1f} s together")
+
+    phase("phase 59: kernels")
     by_path = {
         "K1 fused_dqn_offline_update": {
             "offline workflow, full width": k1_launches,
@@ -6918,7 +7361,8 @@ def main() -> int:
             "Seq2Reward job (the compress model's greedy steps and the short-sequence "
             "planner's step model)": mb_jobs["Seq2Reward CartPole"]["launches"][
                 "fused_mlp_forward"],
-            "deep-represent job (the greedy score)": cb_jobs["deep-represent"]["k3_launches"]},
+            "deep-represent job (the greedy score)": cb_jobs["deep-represent"]["k3_launches"],
+            **{f"OPE {k}": v["k3_launches"] for k, v in ope_jobs.items()}},
         "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
                              "online QR-DQN loop": qr_online_launches["nstep_rewards"],
                              "online CRR loop": crr_online["launches"]["nstep_rewards"],
@@ -7054,6 +7498,7 @@ def main() -> int:
             row["by_shape"].update(ranking["k3"])
             row["by_shape"].update(mb_timed["k3"])
             row["by_shape"].update(cb_timed["k3"])
+            row["by_shape"].update(ope_timed["k3"])
         if kname.startswith("K4"):
             row["by_shape"].update(wm_k4)
             row["by_shape"].update(sparse_k4)
@@ -7083,6 +7528,11 @@ def main() -> int:
     log(json.dumps({"bandits": {"card_vs_cpu_max_abs": cb_errors,
                                 "timed": {k: v for k, v in cb_timed.items() if k != "k3"},
                                 "jobs_cut": cb_jobs}}))
+    # the OPE slice's estimators are numpy, its trainers torch (JAX's reach no
+    # pallas_call): their numbers stand beside the kernels
+    log(json.dumps({"ope": {"card_vs_cpu_max_abs": ope_errors,
+                            "timed": {k: v for k, v in ope_timed.items() if k != "k3"},
+                            "jobs_cut": ope_jobs}}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -67,6 +67,24 @@ def serving_layers(q_network: nn.Module) -> List[Tuple[np.ndarray, np.ndarray]]:
     return out
 
 
+# the activations the C++ scorer applies
+# (serving/include/reagent_serving/action_value_scorer.h): any other name it
+# serves as the identity, which is right for "linear" only
+SCORER_ACTIVATIONS = ("relu", "leaky_relu", "tanh", "linear")
+
+
+def check_scorer_activations(activations: Sequence[str]) -> None:
+    """Raise ``ValueError`` naming the layer of the first activation the C++
+    scorer cannot apply (a sigmoid or softplus layer would be served as the
+    identity: another function than the one trained)."""
+    for i, act in enumerate(activations):
+        if act not in SCORER_ACTIVATIONS:
+            raise ValueError(
+                f"layer {i} has activation {act!r}; the manifest.json + weights.bin "
+                f"artifact is served by the C++ scorer, which applies only "
+                f"{list(SCORER_ACTIVATIONS)}")
+
+
 class DiscreteDqnWithPreprocessor(nn.Module):
     """raw (values, presence) -> q-values (reference :94-116)."""
 
@@ -84,7 +102,8 @@ class DiscreteDqnPredictorWrapper:
     """Named-action scoring + export (reference :117-150).
 
     ``activations`` is written to the manifest; the model manager passes the
-    q-network's true per-layer list.
+    q-network's true per-layer list.  ``save`` raises ``ValueError`` on an
+    activation the C++ scorer cannot apply (``check_scorer_activations``).
     """
 
     def __init__(
@@ -101,8 +120,10 @@ class DiscreteDqnPredictorWrapper:
         return self.action_names, self.model(values, presence)
 
     def save(self, path: str) -> None:
-        os.makedirs(path, exist_ok=True)
         layers = serving_layers(self.model.q_network)
+        activations = self.activations or (["relu"] * (len(layers) - 1) + ["linear"])
+        check_scorer_activations(activations)
+        os.makedirs(path, exist_ok=True)
         pre = self.model.preprocessor
         manifest: Dict[str, Any] = {
             "model_type": "discrete_dqn",
@@ -112,8 +133,7 @@ class DiscreteDqnPredictorWrapper:
             "layers": [
                 {"in": int(k.shape[0]), "out": int(k.shape[1])} for k, _ in layers
             ],
-            "activations": self.activations
-            or (["relu"] * (len(layers) - 1) + ["linear"]),
+            "activations": activations,
         }
         with open(os.path.join(path, "manifest.json"), "w") as f:
             json.dump(manifest, f, indent=2)

@@ -48,6 +48,9 @@ head), ``cb_fcn_state_from_flax`` (a ``CBFullyConnectedNetwork``), and
 ``mab_state_from_arrays`` (with ``extra``), ``offline_eval_state_from_arrays``,
 ``supervised_trainer_state_from_arrays`` and
 ``deep_represent_trainer_state_from_arrays`` for their states.
+The off-policy-estimation slice's: ``dualdice_net_state_from_flax`` (a
+``NeuralDualDICE`` nu or zeta net's ``Dense_0..2``) and
+``nn_trainer_params_from_arrays`` (``NNTrainer``'s list of ``{"w", "b"}``).
 """
 
 from __future__ import annotations
@@ -881,3 +884,21 @@ def deep_represent_trainer_state_from_arrays(mlp_params: Mapping, opt_state: Opt
         mlp_params={k: v.to(device) for k, v in deep_represent_state_from_flax(
             mlp_params).items()},
         opt_state=opt_state, linucb=linucb_state_from_arrays(device=device, **linucb))
+
+
+def dualdice_net_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax variables of a ``NeuralDualDICE`` net (``Dense_0..2`` at the top
+    scope; ``reagent_tpu/ope/estimators/sequential_estimators.py:268-277``)
+    -> the port's ``FullyConnectedNetwork`` names (``layers.i``)."""
+    return fcn_state_from_flax(params_np["params"])
+
+
+def nn_trainer_params_from_arrays(params_np, device="cpu") -> Dict[str, torch.Tensor]:
+    """JAX ``NNTrainer``'s list of ``{"w" [in, out], "b" [out]}`` -> the
+    port's ``NNTrainer.params`` (``layers.{i}.w``, ``layers.{i}.b``, the same
+    ``[in, out]`` layout) on ``device``."""
+    out = {}
+    for i, layer in enumerate(params_np):
+        for leaf in ("w", "b"):
+            out[f"layers.{i}.{leaf}"] = _array(layer[leaf]).to(device)
+    return out
