@@ -318,7 +318,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      CartPole harness, DualDICE on the gridworld, the slate benchmark with
      NNTrainer as the target ranker on the synthetic corpus and the MSLR
      sample), K3 counted on each; the bars are the tool's, at full depth;
- 59. one JSON line describing each ported kernel (K1's rows with the CUDA
+ 60. the imitation and counterfactual-evaluation slice card against CPU at
+     the full offline width (B 4,096): 5 steps each of behavioural cloning
+     and the IPS-weighted bandit reward net (FullyConnectedDQN
+     128->512->256->8) and of Bayes by backprop (136->512->1, one weight
+     noise a step drawn on the CPU) from one state on the same batches
+     (losses rtol 1e-4, atol 1e-6; parameters and moments rtol 5e-4, atol
+     5e-5), then 5 OneMaxEvolutionPool iterations (population 1,000 over
+     9,026 parameters) from one parent and the same mutations; no K1-K5
+     launch;
+ 61. K3 on the imitator gate ([4,096, 128->512->256->8], one launch, its
+     mask equal to the plain version's away from the threshold) and on each
+     of Bayes by backprop's 32 samples ([4,096, 136->512->1], 32 launches,
+     each sample and the mean and population std held to the plain version
+     at 1e-5), each timed beside one torch.addmm a layer, the launch floor
+     and the bound; the three trainers' train steps/s; the ES pool's
+     iterations/s, CUDA kernels, idle share and host reads (the std guard's
+     one, or the script fails);
+ 62. the parallel package at world size 1 on a one-rank NCCL group in a
+     temporary file store: the DP step of DQNTrainer with its CPE heads at
+     the full width (5 steps), the MP step of the changing-arms SparseDQN on
+     a 1 x 1 (data, model) mesh (5 steps) and 3 EsWorker epochs, each equal
+     (torch.equal) to its plain step; measure_scaling_efficiency at world
+     size 1 (one card measures no scaling);
+ 59. printed last, after phase 62: one JSON line describing each ported
+     kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
      wrapper's host time; K3's and K4's with the wrapper's host time, the
@@ -330,8 +354,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      with their torch.addmm yardstick and K4's world-model and changing-arms
      shapes, the deep-represent score's and the OPE shapes), after one line
      of phase 48's Seq2Slate numbers, one of phases 50-52's model-based
-     numbers, one of phases 53-55's bandit numbers and one of phases 56-58's
-     OPE numbers.
+     numbers, one of phases 53-55's bandit numbers, one of phases 56-58's
+     OPE numbers and one of phases 60-62's numbers; K3's rows add the
+     imitator gate's and the Bayes-by-backprop sample's shapes and launches.
 Each phase's heading carries the seconds since the script started.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
@@ -2194,7 +2219,6 @@ def k3_shapes_phase(torch, name, shapes, timed, launch_floor_ms, sleep_cycles=2_
     addmm (a yardstick the port never calls) beside the bound from this
     run's inputs."""
     from reagent_tpu_torch.ops import fused_mlp
-    from reagent_tpu_torch.ops.fused_dqn import _act
 
     out = {}
     for label, (rows, sizes, acts, want_resident, seed) in shapes.items():
@@ -2202,40 +2226,59 @@ def k3_shapes_phase(torch, name, shapes, timed, launch_floor_ms, sleep_cycles=2_
         resident = fused_mlp.takes_resident_route(rows, weights)
         if resident != want_resident:
             raise AssertionError(f"K3 {label}: resident route {resident}")
-        route = "resident" if resident else "streamed"
-        y = fused_mlp.fused_mlp_forward(x, weights, acts)
-        yp = fused_mlp.fused_mlp_forward_reference(x, weights, acts)
-        torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
-        err = (y - yp).abs().max().item()
-
-        def addmm(x=x, weights=weights, acts=acts):
-            h = x
-            for (w, b), a in zip(weights, acts):
-                h = _act(a, torch.addmm(b, h, w))
-            return h
-
-        torch.testing.assert_close(addmm(), y, rtol=1e-5, atol=1e-5)
-        if label not in timed:
-            log(f"  K3 {label}: max abs {err:.3e} against the plain version ({route} route)")
-            continue
-        macs = sum(i * o for i, o in zip(sizes[:-1], sizes[1:]))
-        flops = 2.0 * rows * macs
-        nbytes = 4.0 * (rows * sizes[0] + macs + sum(sizes[1:]) + rows * sizes[-1])
-        b_ms, b_by = roofline(flops, nbytes, name)
-        plain_w = [(w.contiguous(), b) for w, b in weights]  # timed without its copies
-        out[label] = t = dict(
-            ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward(x, weights, acts),
-                       sleep_cycles=sleep_cycles),
-            plain_ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward_reference(
-                x, plain_w, acts), sleep_cycles=sleep_cycles),
-            products_library_ms=time_ms(torch, addmm, sleep_cycles=sleep_cycles),
-            bound_ms=b_ms, bound_by=b_by,
-            max_abs_err=err, route=route)
-        log(f"  K3 {label} ({route} route): kernel {t['ms']:.4f} ms (launch floor "
-            f"{launch_floor_ms:.4f}), plain {t['plain_ms']:.4f} ms, one torch.addmm per layer "
-            f"(a yardstick only) {t['products_library_ms']:.4f} ms, bound {b_ms:.6f} ms "
-            f"({b_by}; {flops:.4g} FLOP, {nbytes:.4g} B), max abs {err:.3e}, on {card_line()}")
+        row = k3_row(torch, name, label, x, weights, acts, launch_floor_ms,
+                     timed=label in timed, sleep_cycles=sleep_cycles)
+        if row is not None:
+            out[label] = row
     return out
+
+
+def k3_row(torch, name, label, x, weights, acts, launch_floor_ms, timed=True,
+           sleep_cycles=2_000_000_000):
+    """K3 on ``(x, weights, acts)`` against its plain version and one
+    torch.addmm per layer (rtol 1e-5, atol 1e-5); where ``timed``, the
+    CUDA-event times of the kernel, the plain version and the addmm (a
+    yardstick the port never calls) beside the bound from these inputs, as
+    a row of the kernels line (else None)."""
+    from reagent_tpu_torch.ops import fused_mlp
+    from reagent_tpu_torch.ops.fused_dqn import _act
+
+    rows = x.shape[0]
+    sizes = [x.shape[1]] + [w.shape[1] for w, _ in weights]
+    route = "resident" if fused_mlp.takes_resident_route(rows, weights) else "streamed"
+    y = fused_mlp.fused_mlp_forward(x, weights, acts)
+    yp = fused_mlp.fused_mlp_forward_reference(x, weights, acts)
+    torch.testing.assert_close(y, yp, rtol=1e-5, atol=1e-5)
+    err = (y - yp).abs().max().item()
+
+    def addmm():
+        h = x
+        for (w, b), a in zip(weights, acts):
+            h = _act(a, torch.addmm(b, h, w))
+        return h
+
+    torch.testing.assert_close(addmm(), y, rtol=1e-5, atol=1e-5)
+    if not timed:
+        log(f"  K3 {label}: max abs {err:.3e} against the plain version ({route} route)")
+        return None
+    macs = sum(i * o for i, o in zip(sizes[:-1], sizes[1:]))
+    flops = 2.0 * rows * macs
+    nbytes = 4.0 * (rows * sizes[0] + macs + sum(sizes[1:]) + rows * sizes[-1])
+    b_ms, b_by = roofline(flops, nbytes, name)
+    plain_w = [(w.contiguous(), b) for w, b in weights]  # timed without its copies
+    t = dict(
+        ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward(x, weights, acts),
+                   sleep_cycles=sleep_cycles),
+        plain_ms=time_ms(torch, lambda: fused_mlp.fused_mlp_forward_reference(
+            x, plain_w, acts), sleep_cycles=sleep_cycles),
+        products_library_ms=time_ms(torch, addmm, sleep_cycles=sleep_cycles),
+        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=err, route=route)
+    log(f"  K3 {label} ({route} route): kernel {t['ms']:.4f} ms (launch floor "
+        f"{launch_floor_ms:.4f}), plain {t['plain_ms']:.4f} ms, one torch.addmm per layer "
+        f"(a yardstick only) {t['products_library_ms']:.4f} ms, bound {b_ms:.6f} ms "
+        f"({b_by}; {flops:.4g} FLOP, {nbytes:.4g} B), max abs {err:.3e}, on {card_line()}")
+    return t
 
 
 def eval_split(df, split):
@@ -4994,19 +5037,40 @@ def sparse_embedding_inputs(torch, rng, table, B, L, device):
             torch.tensor(target, device=device))
 
 
+def arms_raw(rng):
+    """One changing-arms transition batch of SPARSE_ARMS_JOB["B"] rows, numpy."""
+    K, B = SPARSE_ARMS_JOB["num_arms"], SPARSE_ARMS_JOB["B"]
+    return dict(state=arms_obs(rng, B), next_state=arms_obs(rng, B),
+                action=rng.integers(0, K + 1, B).astype(np.int32),
+                next_action=rng.integers(0, K + 1, B).astype(np.int32),
+                reward=(rng.normal(size=B) * 3).astype(np.float32),
+                terminal=rng.random(B) < 0.1, step=np.ones(B, np.int32))
+
+
+def arms_batch(torch, raw, device):
+    """``arms_raw``'s rows as the job's DQN batch on ``device``, its masks
+    the legal arms (and the pass)."""
+    import dataclasses
+
+    from reagent_tpu_torch.gym.preprocessors import make_discrete_dqn_batch
+    from reagent_tpu_torch.gym.sparse_arms import legal_actions_mask
+
+    K = SPARSE_ARMS_JOB["num_arms"]
+    b = make_discrete_dqn_batch({k: torch.tensor(v, device=device) for k, v in raw.items()},
+                                K + 1)
+    return dataclasses.replace(
+        b, possible_actions_mask=legal_actions_mask(b.state.float_features, K),
+        possible_next_actions_mask=legal_actions_mask(b.next_state.float_features, K))
+
+
 def sparse_card_cpu_phase(torch, n=5):
     """Phase 44: the changing-arms net's forward and ``n`` DQNTrainer steps,
     then ``n`` touched-rows sparse embedding steps, each card against CPU
     from one state.  No K1-K5 launch (the trainer's forward is the
     module's; K3 serves only the act step)."""
-    import dataclasses
-
-    from reagent_tpu_torch.gym.preprocessors import make_discrete_dqn_batch
-    from reagent_tpu_torch.gym.sparse_arms import legal_actions_mask
     from reagent_tpu_torch.ops import sparse_embedding as se
     from reagent_tpu_torch.training import functional
 
-    K = SPARSE_ARMS_JOB["num_arms"]
     rng = np.random.default_rng(61)
     reset_counts()
     trainers = {d: sparse_arms_trainer(torch, d)[0] for d in ("cpu", DEVICE)}
@@ -5019,20 +5083,10 @@ def sparse_card_cpu_phase(torch, n=5):
     q_err = (q[DEVICE] - q["cpu"]).abs().max().item()
     worst_l = 0.0
     for _ in range(n):
-        B = SPARSE_ARMS_JOB["B"]
-        raw = dict(state=arms_obs(rng, B), next_state=arms_obs(rng, B),
-                   action=rng.integers(0, K + 1, B).astype(np.int32),
-                   next_action=rng.integers(0, K + 1, B).astype(np.int32),
-                   reward=(rng.normal(size=B) * 3).astype(np.float32),
-                   terminal=rng.random(B) < 0.1, step=np.ones(B, np.int32))
+        raw = arms_raw(rng)
         losses = {}
         for d, tr in trainers.items():
-            b = make_discrete_dqn_batch({k: torch.tensor(v, device=d) for k, v in raw.items()},
-                                        K + 1)
-            b = dataclasses.replace(
-                b, possible_actions_mask=legal_actions_mask(b.state.float_features, K),
-                possible_next_actions_mask=legal_actions_mask(b.next_state.float_features, K))
-            states[d], m = tr.train_step(states[d], b)
+            states[d], m = tr.train_step(states[d], arms_batch(torch, raw, d))
             losses[d] = {k: v.cpu() for k, v in m.items()}
         for k, want in losses["cpu"].items():
             torch.testing.assert_close(losses[DEVICE][k], want, **ARMS_TOL["loss"], msg=k)
@@ -6953,6 +7007,383 @@ def ope_jobs_phase(torch):
     return out
 
 
+# The imitation, counterfactual-evaluation, gradient-free and parallel slice
+# (phases 60-62) at the offline full width (bench.py:286-287): the
+# behavioural-cloning and bandit reward nets are FullyConnectedDQN
+# 128->512->256->8 (FULL's activations), B 4,096; Bayes by backprop a
+# BayesianMLP over the state and the action's one-hot, 136->512->1, with 32
+# Monte-Carlo samples (predict_with_uncertainty's default); the ES pool at
+# EvolutionParameters' default population of 1,000 over a vector of the
+# flagship net's 9,026 parameters (4->128->64->2).  Depths cut to 5 steps
+# card against CPU, 20 timed steps and iterations (PERF.md section 4).
+IMIT = dict(bbb_hidden=512, samples=32, drop_threshold=0.3, steps=5, timed_steps=20,
+            lr=1e-3, kl_weight=1e-3)
+ES_SLICE = dict(params=9026, iterations=5, timed=20, profiled=3, epochs=3)
+PARALLEL = dict(steps=5, scaling_steps=20)
+# losses and the K3 outputs as elsewhere; the parameters and moments as
+# phases 44 and 56 hold them
+IMIT_TOL = dict(loss=dict(rtol=1e-4, atol=1e-6), param=dict(rtol=5e-4, atol=5e-5),
+                k3=dict(rtol=1e-5, atol=1e-5))
+
+
+def imitation_trainer(torch, label, device):
+    """The slice's three trainers at the full offline width."""
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+    from reagent_tpu_torch.training.behavioral_cloning_trainer import BehavioralCloningTrainer
+    from reagent_tpu_torch.training.cfeval import BanditRewardNetTrainer, BayesByBackpropTrainer
+    from reagent_tpu_torch.training.cfeval.bayes_by_backprop_trainer import BayesianMLP
+
+    opt = {"Adam": {"lr": IMIT["lr"]}}
+    if label == "Bayes by backprop":
+        net = BayesianMLP(FULL["D"] + FULL["A"], IMIT["bbb_hidden"], 1)
+        return BayesByBackpropTrainer(net, opt, kl_weight=IMIT["kl_weight"], device=device)
+    net = FullyConnectedDQN(FULL["D"], FULL["A"], FULL["widths"],
+                            [FULL["act"]] * len(FULL["widths"]))
+    if label == "behavioral cloning":
+        return BehavioralCloningTrainer(net, opt, device=device)
+    return BanditRewardNetTrainer(net, opt, weighted_by_inverse_propensity=True, device=device)
+
+
+IMIT_TRAINERS = ("behavioral cloning", "bandit reward net (IPS)", "Bayes by backprop")
+
+
+def imitation_batch(torch, label, seed, device):
+    """A logged batch of B 4,096 at the full width for ``label``'s trainer:
+    states, one-hot actions (a possible-actions mask with every logged
+    action possible for behavioural cloning), rewards, propensities."""
+    from reagent_tpu_torch.core import types as rlt
+
+    rng = np.random.default_rng(seed)
+    B, D, A = FULL["B"], FULL["D"], FULL["A"]
+    actions = rng.integers(0, A, B)
+    state = rlt.FeatureData(float_features=torch.tensor(
+        rng.normal(size=(B, D)).astype(np.float32)))
+    action = torch.tensor(np.eye(A, dtype=np.float32)[actions])
+    if label == "behavioral cloning":
+        mask = (rng.random((B, A)) > 0.2).astype(np.float32)
+        mask[np.arange(B), actions] = 1.0
+        batch = rlt.BehavioralCloningModelInput(state=state, action=action,
+                                                possible_actions_mask=torch.tensor(mask))
+    else:
+        batch = rlt.BanditRewardModelInput(
+            state=state, action=action,
+            reward=torch.tensor((actions / A + rng.normal(size=B) * 0.1).astype(np.float32)),
+            action_prob=torch.tensor(rng.uniform(0.05, 1.0, (B, 1)).astype(np.float32)))
+    return batch.to(device)
+
+
+def imitation_step(trainer, state, batch, eps):
+    if eps is None:
+        return trainer.train_step(state, batch)
+    return trainer.train_step(state, batch, eps)
+
+
+def one_max_pool(torch, device, seed=0, **kw):
+    """``OneMaxEvolutionPool`` at EvolutionParameters' defaults over a vector
+    of the flagship net's size."""
+    from reagent_tpu_torch.core.parameters import EvolutionParameters
+    from reagent_tpu_torch.training.gradient_free import OneMaxEvolutionPool
+
+    return OneMaxEvolutionPool(seed, EvolutionParameters(), {"data": [ES_SLICE["params"]]},
+                               device=device, **kw)
+
+
+def imitation_card_cpu_phase(torch, n=IMIT["steps"]):
+    """Phase 60: ``n`` steps of behavioural cloning, the IPS-weighted bandit
+    reward net and Bayes by backprop (one weight noise a step, drawn on the
+    CPU) card against CPU from one state on the same batches, then ``n``
+    EvolutionPool iterations from one parent and the same mutations; no
+    K1-K5 launch (the steps' forwards are autograd's)."""
+    from reagent_tpu_torch.training.cfeval.bayes_by_backprop_trainer import BayesianMLP
+
+    reset_counts()
+    worst = {}
+    for i, label in enumerate(IMIT_TRAINERS):
+        trainers = {d: imitation_trainer(torch, label, d) for d in ("cpu", DEVICE)}
+        first = trainers["cpu"].init(torch.Generator().manual_seed(90 + i))
+        states = {d: copy_state(first, d) for d in trainers}
+        noise = torch.Generator().manual_seed(95 + i)
+        worst_l = 0.0
+        for step in range(n):
+            net = getattr(trainers["cpu"], "net", None)
+            eps = net.draw_noise(noise) if isinstance(net, BayesianMLP) else None
+            metrics = {}
+            for d, tr in trainers.items():
+                states[d], m = imitation_step(
+                    tr, states[d], imitation_batch(torch, label, 900 + step, d),
+                    None if eps is None else [e.to(d) for e in eps])
+                metrics[d] = {k: v.cpu() for k, v in m.items()}
+            for k, want in metrics["cpu"].items():
+                worst_l = max(worst_l, mb_close(torch, metrics[DEVICE][k], want,
+                                                IMIT_TOL["loss"], f"{label} {k}"))
+        count, worst_p = compare_states(torch, states[DEVICE], states["cpu"], IMIT_TOL["param"],
+                                        label)
+        worst[label] = dict(metrics=worst_l, state=worst_p, state_tensors=count)
+        log(f"  {label}, {n} steps at B {FULL['B']}: metrics max abs {worst_l:.3e}, {count} "
+            f"state tensors max abs {worst_p:.3e}")
+    parent = {"data": torch.randn(ES_SLICE["params"], generator=torch.Generator().manual_seed(97))}
+    first = one_max_pool(torch, "cpu", seed=98).state().noise
+    pools = {d: one_max_pool(torch, d, parent_tensors=parent, noise=first)
+             for d in ("cpu", DEVICE)}
+    worst_r = 0.0
+    for it in range(ES_SLICE["iterations"]):
+        rewards = {d: pool.compute_rewards() for d, pool in pools.items()}
+        worst_r = max(worst_r, mb_close(torch, rewards[DEVICE], rewards["cpu"],
+                                        IMIT_TOL["loss"], "ES rewards"))
+        noise = pools["cpu"].draw_noise()
+        for d, pool in pools.items():
+            pool.apply_global_reward(rewards[d], it + 1, noise=noise)
+    worst_es = mb_close(torch, pools[DEVICE].parent_tensors["data"],
+                        pools["cpu"].parent_tensors["data"], IMIT_TOL["param"], "ES parent")
+    worst["EvolutionPool"] = dict(rewards=worst_r, parent=worst_es)
+    log(f"  OneMaxEvolutionPool, population 1,000 x {ES_SLICE['params']}, "
+        f"{ES_SLICE['iterations']} iterations from one parent and the same mutations: rewards "
+        f"max abs {worst_r:.3e}, parent max abs {worst_es:.3e}")
+    launches, plain = read_counts()
+    if any(launches.values()) or plain:
+        raise AssertionError(f"phase 60: launches {launches}, plain calls {plain}")
+    return worst
+
+
+def imitation_timed_phase(torch, name, launch_floor_ms):
+    """Phase 61: K3 on the imitator gate at [4,096, 128->512->256->8] (one
+    launch, the mask equal to the plain version's away from the threshold)
+    and on each of Bayes by backprop's 32 samples at [4,096, 136->512->1]
+    (32 launches; each sample and the mean and std held to the plain
+    version), both timed beside one torch.addmm a layer, the launch floor
+    and the bound; the three trainers' train steps/s; the ES pool's
+    iterations/s with a profiled window (CUDA kernels, the idle share, host
+    reads: the std guard's one)."""
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+    from reagent_tpu_torch.ops import fused_mlp
+    from reagent_tpu_torch.training import functional
+    from reagent_tpu_torch.training.cfeval.bayes_by_backprop_trainer import ACTIVATIONS
+    from reagent_tpu_torch.training.imitator_training import get_valid_actions_from_imitator
+
+    t0 = time.perf_counter()
+    out = {"k3": {}}
+    B, D, A, S = FULL["B"], FULL["D"], FULL["A"], IMIT["samples"]
+    gen = torch.Generator().manual_seed(101)
+    net = FullyConnectedDQN(D, A, FULL["widths"], [FULL["act"]] * len(FULL["widths"]),
+                            generator=gen).to(DEVICE)
+    params = functional.params_of(net)
+    x = torch.randn(B, D, generator=gen).to(DEVICE)
+    thr = IMIT["drop_threshold"]
+    reset_counts()
+    mask = get_valid_actions_from_imitator((net, params), x, thr)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    if launches["fused_mlp_forward"] != 1 or plain or sum(launches.values()) != 1:
+        raise AssertionError(f"imitator gate: launches {launches}, plain calls {plain}")
+    weights = functional.k3_weights(params, "net", len(net.net.layers))
+    logits = fused_mlp.fused_mlp_forward_reference(x, weights, net.activations)
+    probs = torch.softmax(logits, dim=1)
+    filt = probs / probs.amax(dim=1, keepdim=True)
+    away = (filt - thr).abs() > 1e-4
+    if not torch.equal(mask[away], (filt >= thr).to(torch.float32)[away]):
+        raise AssertionError("imitator gate: the mask parts from the plain version's")
+    label = f"imitator gate [{B}, {D}->{'->'.join(map(str, FULL['widths']))}->{A}]"
+    out["k3"][label] = k3_row(torch, name, label, x, weights, net.activations, launch_floor_ms,
+                              sleep_cycles=200_000_000)
+    out["k3"][label]["launches_a_call"] = 1
+    log(f"  imitator gate: 1 K3 launch, {int(mask.sum())} of {mask.numel()} actions viable, "
+        f"{int((~away).sum())} within 1e-4 of the threshold")
+
+    bbb = imitation_trainer(torch, "Bayes by backprop", DEVICE)
+    bstate = bbb.init(torch.Generator().manual_seed(102))
+    xb = torch.randn(B, D + A, generator=gen).to(DEVICE)
+    eps = [e.to(DEVICE) for e in bbb.net.draw_noise(torch.Generator().manual_seed(103), S)]
+    reset_counts()
+    mean, std = bbb.predict_with_uncertainty(bstate, xb, S, eps)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    if launches["fused_mlp_forward"] != S or plain or sum(launches.values()) != S:
+        raise AssertionError(f"BBB predictions: launches {launches}, plain calls {plain}")
+    samples = []
+    worst = 0.0
+    for s in range(S):
+        w = bbb.sampled_weights(bstate.params, eps, s)
+        y = fused_mlp.fused_mlp_forward(xb, w, ACTIVATIONS)
+        yp = fused_mlp.fused_mlp_forward_reference(xb, w, ACTIVATIONS)
+        torch.testing.assert_close(y, yp, **IMIT_TOL["k3"])
+        worst = max(worst, (y - yp).abs().max().item())
+        samples.append(yp)
+    plain_preds = torch.stack(samples)
+    torch.testing.assert_close(mean, plain_preds.mean(0), **IMIT_TOL["k3"])
+    torch.testing.assert_close(std, plain_preds.std(0, correction=0), **IMIT_TOL["k3"])
+    label = f"Bayes-by-backprop sample [{B}, {D + A}->{IMIT['bbb_hidden']}->1]"
+    out["k3"][label] = k3_row(torch, name, label, xb, bbb.sampled_weights(bstate.params, eps, 0),
+                              list(ACTIVATIONS), launch_floor_ms, sleep_cycles=200_000_000)
+    out["k3"][label]["launches_a_call"] = S
+    out["k3"][label]["max_abs_err_over_samples"] = worst
+    out["predict_with_uncertainty ms (32 samples)"] = time_ms(
+        torch, lambda: bbb.predict_with_uncertainty(bstate, xb, S, eps), iters=10,
+        sleep_cycles=200_000_000)
+    log(f"  BBB predictions: {S} K3 launches, each sample max abs {worst:.3e} against the plain "
+        f"version; predict_with_uncertainty "
+        f"{out['predict_with_uncertainty ms (32 samples)']:.4f} ms of device time")
+
+    for i, label in enumerate(IMIT_TRAINERS):
+        tr = imitation_trainer(torch, label, DEVICE)
+        box = {"s": tr.init(torch.Generator().manual_seed(110 + i))}
+        batch = imitation_batch(torch, label, 910 + i, DEVICE)
+
+        def step(tr=tr, box=box, batch=batch):
+            box["s"], _ = tr.train_step(box["s"], batch)
+
+        step()  # warm
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(IMIT["timed_steps"]):
+            step()
+        torch.cuda.synchronize()
+        out[f"{label} train steps/s (B {B})"] = IMIT["timed_steps"] / (time.perf_counter() - t1)
+        log(f"  {label}: {out[f'{label} train steps/s (B {B})']:.2f} train steps/s")
+
+    pool = one_max_pool(torch, DEVICE)
+    it = {"n": 0}
+
+    def iteration():
+        it["n"] += 1
+        pool.apply_global_reward(pool.compute_rewards(), it["n"])
+
+    iteration()  # warm
+    reset_counts()
+    wall_ms, dev, kernels, reads = timed_steps(
+        torch, iteration, ES_SLICE["timed"], "OneMaxEvolutionPool iteration (1,000 x 9,026)",
+        ES_SLICE["profiled"])
+    launches, plain = read_counts()
+    if any(launches.values()) or plain or reads != 1:
+        raise AssertionError(f"ES iteration: launches {launches}, plain {plain}, reads {reads}")
+    out["OneMaxEvolutionPool"] = dict(iterations_per_s=1e3 / wall_ms, ms_an_iteration=wall_ms,
+                                      device_us_an_iteration=dev, kernels_an_iteration=kernels,
+                                      idle=1 - dev / (wall_ms * 1e3), host_reads=reads)
+    log(f"  OneMaxEvolutionPool: {json.dumps(out['OneMaxEvolutionPool'])}")
+    log(f"  [{time.perf_counter() - t0:.1f} s into the phase] on {card_line()}")
+    return out
+
+
+def full_width_dqn_batch(torch, seed, device):
+    """A DQN batch at the full offline width (phase 24's)."""
+    from reagent_tpu_torch.core import types as rlt
+
+    _, b, _ = make_inputs(FULL, seed, torch, "cpu")
+    obs, nobs, action, reward, not_terminal, mask = b
+    return rlt.DiscreteDqnInput(
+        state=rlt.FeatureData(obs), next_state=rlt.FeatureData(nobs), action=action,
+        next_action=action, reward=reward, time_diff=None, step=None,
+        not_terminal=not_terminal, possible_actions_mask=torch.ones_like(mask),
+        possible_next_actions_mask=mask).to(device)
+
+
+def states_equal(torch, a, b, label):
+    """Every tensor of two states bit for bit; the count."""
+    from reagent_tpu_torch.utils.checkpointing import flatten_state
+
+    fa, fb = flatten_state(a), flatten_state(b)
+    if fa.keys() != fb.keys():
+        raise AssertionError(f"{label}: the states hold other fields")
+    for k, v in fb.items():
+        if not torch.equal(fa[k], v):
+            raise AssertionError(f"{label}: {k} parts by {(fa[k] - v).abs().max().item():.3e}")
+    return len(fb)
+
+
+def parallel_phase(torch, name):
+    """Phase 62: the parallel package at world size 1 on NCCL (a one-rank
+    group in a temporary file store, destroyed at the end): the DP step of
+    DQNTrainer with the CPE heads at the full width, the MP step of the
+    changing-arms SparseDQN on a 1 x 1 (data, model) mesh and EsWorker over
+    the one-rank group, each equal bit for bit to its plain step; then
+    measure_scaling_efficiency at world size 1, which measures no scaling."""
+    import torch.distributed as dist
+
+    from reagent_tpu_torch import parallel
+    from reagent_tpu_torch.core.parameters import EvolutionParameters, RLParameters
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+    from reagent_tpu_torch.training import DQNTrainer
+    from reagent_tpu_torch.training.gradient_free import EsWorker
+
+    t0 = time.perf_counter()
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+    reset_counts()
+    try:
+        mesh = parallel.make_mesh(device=DEVICE)
+
+        def dqn():
+            widths, acts = FULL["widths"], [FULL["act"]] * len(FULL["widths"])
+            return FullyConnectedDQN(FULL["D"], FULL["A"], widths, acts)
+
+        trainer = DQNTrainer(dqn(), rl=RLParameters(gamma=FULL["gamma"],
+                                                    target_update_rate=FULL["tau"]),
+                             optimizer={"Adam": {"lr": FULL["lr"]}}, reward_network=dqn(),
+                             q_network_cpe=dqn(), device=DEVICE)
+        first = trainer.init(torch.Generator().manual_seed(120))
+        plain, dp = copy_state(first, DEVICE), parallel.replicate(first, mesh)
+        step = parallel.make_data_parallel_train_step(trainer, mesh)
+        for i in range(PARALLEL["steps"]):
+            batch = full_width_dqn_batch(torch, 1200 + i, DEVICE)
+            plain, m = trainer.train_step(plain, batch)
+            dp, m_dp = step(dp, parallel.shard_batch(batch, mesh))
+            for k, v in m.items():
+                if not torch.equal(m_dp[k], v):
+                    raise AssertionError(f"DP step {i}: metric {k} {m_dp[k]} against {v}")
+        out["DP DQNTrainer with CPE heads, state tensors equal"] = states_equal(
+            torch, dp, plain, "DP step")
+
+        mesh2 = parallel.make_2d_mesh(device=DEVICE)
+        arms, _ = sparse_arms_trainer(torch, DEVICE)
+        first = arms.init(torch.Generator().manual_seed(121))
+        plain, mp = copy_state(first, DEVICE), parallel.shard_state(first, mesh2)
+        step = parallel.make_model_parallel_train_step(arms, mesh2)
+        rng = np.random.default_rng(122)
+        for i in range(PARALLEL["steps"]):
+            batch = arms_batch(torch, arms_raw(rng), DEVICE)
+            plain, m = arms.train_step(plain, batch)
+            mp, m_mp = step(mp, parallel.shard_batch(batch, mesh2))
+            for k, v in m.items():
+                if not torch.equal(m_mp[k], v):
+                    raise AssertionError(f"MP step {i}: metric {k} {m_mp[k]} against {v}")
+        out["MP changing-arms SparseDQN, state tensors equal"] = states_equal(
+            torch, mp, plain, "MP step")
+
+        es = EvolutionParameters()
+        local, grouped = EsWorker(one_max_pool(torch, DEVICE), es), EsWorker(
+            one_max_pool(torch, DEVICE), es, mesh.groups["data"])
+        for epoch in range(ES_SLICE["epochs"]):
+            a = local.run_epoch(local.pool.compute_local_reward, epoch)
+            b = grouped.run_epoch(grouped.pool.compute_local_reward, epoch)
+            if a != b:
+                raise AssertionError(f"EsWorker epoch {epoch}: {b} against the local {a}")
+        if not torch.equal(local.pool.parent_tensors["data"], grouped.pool.parent_tensors["data"]):
+            raise AssertionError("EsWorker: the parents part")
+        out["EsWorker over the one-rank group, mean reward"] = b
+        log(f"  world size 1 on NCCL: DP step of DQNTrainer with the CPE heads (B {FULL['B']}), "
+            f"MP step of the changing-arms SparseDQN and {ES_SLICE['epochs']} EsWorker epochs "
+            f"equal bit for bit to the plain steps ({json.dumps(out)})")
+
+        sweep_trainer = DQNTrainer(dqn(), rl=RLParameters(gamma=FULL["gamma"],
+                                                          target_update_rate=FULL["tau"]),
+                                   optimizer={"Adam": {"lr": FULL["lr"]}}, device=DEVICE)
+        sweep = parallel.measure_scaling_efficiency(
+            sweep_trainer, sweep_trainer.init(torch.Generator().manual_seed(123)),
+            lambda n: full_width_dqn_batch(torch, 1300, DEVICE), device_counts=[1],
+            num_steps=PARALLEL["scaling_steps"], device=DEVICE)
+        out["measure_scaling_efficiency"] = {str(k): v for k, v in sweep.items()}
+        log(f"  measure_scaling_efficiency at world size 1 (DQNTrainer, B {FULL['B']}): "
+            f"{json.dumps(out['measure_scaling_efficiency'])}; one card measures no scaling")
+    finally:
+        dist.destroy_process_group()
+    launches, plain_calls = read_counts()
+    if any(launches.values()) or plain_calls:
+        raise AssertionError(f"phase 62: launches {launches}, plain calls {plain_calls}")
+    log(f"  [{time.perf_counter() - t0:.1f} s into the phase] on {card_line()}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7311,7 +7742,22 @@ def main() -> int:
     ope_jobs = ope_jobs_phase(torch)
     log(f"  phases 56-58 took {time.perf_counter() - t_ope:.1f} s together")
 
-    phase("phase 59: kernels")
+    t_imit = time.perf_counter()
+    phase("phase 60: the imitation and counterfactual-evaluation slice card against CPU: "
+          "behavioural cloning, the IPS-weighted bandit reward net and Bayes by backprop at "
+          "the full width, the evolution pool from the same mutations")
+    imit_errors = imitation_card_cpu_phase(torch)
+
+    phase("phase 61: K3 on the imitator gate and on each Bayes-by-backprop sample, timed; the "
+          "three trainers' steps and the ES pool timed")
+    imit_timed = imitation_timed_phase(torch, name, launch_floor_ms)
+
+    phase("phase 62: the parallel package at world size 1 on NCCL: the DP, MP and ES worker "
+          "steps against their plain steps, the scaling sweep")
+    par = parallel_phase(torch, name)
+    log(f"  phases 60-62 took {time.perf_counter() - t_imit:.1f} s together")
+
+    phase("phase 59: kernels (the summary of phases 1-62, printed last)")
     by_path = {
         "K1 fused_dqn_offline_update": {
             "offline workflow, full width": k1_launches,
@@ -7362,7 +7808,8 @@ def main() -> int:
             "planner's step model)": mb_jobs["Seq2Reward CartPole"]["launches"][
                 "fused_mlp_forward"],
             "deep-represent job (the greedy score)": cb_jobs["deep-represent"]["k3_launches"],
-            **{f"OPE {k}": v["k3_launches"] for k, v in ope_jobs.items()}},
+            **{f"OPE {k}": v["k3_launches"] for k, v in ope_jobs.items()},
+            **{k: v["launches_a_call"] for k, v in imit_timed["k3"].items()}},
         "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
                              "online QR-DQN loop": qr_online_launches["nstep_rewards"],
                              "online CRR loop": crr_online["launches"]["nstep_rewards"],
@@ -7499,6 +7946,7 @@ def main() -> int:
             row["by_shape"].update(mb_timed["k3"])
             row["by_shape"].update(cb_timed["k3"])
             row["by_shape"].update(ope_timed["k3"])
+            row["by_shape"].update(imit_timed["k3"])
         if kname.startswith("K4"):
             row["by_shape"].update(wm_k4)
             row["by_shape"].update(sparse_k4)
@@ -7533,6 +7981,11 @@ def main() -> int:
     log(json.dumps({"ope": {"card_vs_cpu_max_abs": ope_errors,
                             "timed": {k: v for k, v in ope_timed.items() if k != "k3"},
                             "jobs_cut": ope_jobs}}))
+    # the slice's trainers, ES pool and parallel steps are torch operations
+    # (JAX's reach no pallas_call): their numbers stand beside the kernels
+    log(json.dumps({"imitation_cfeval_parallel": {
+        "card_vs_cpu_max_abs": imit_errors,
+        "timed": {k: v for k, v in imit_timed.items() if k != "k3"}, "parallel": par}}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

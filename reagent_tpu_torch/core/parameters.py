@@ -8,7 +8,8 @@ offline DQN path uses, of ``MDNRNNTrainerParameters`` (:71), of
 ``IPSClampMethod`` :204, ``IPSClamp`` :210, ``Seq2SlateParameters`` :216
 and ``RankingParameters`` :225, and of the model-based family's
 ``Seq2RewardTrainerParameters`` :88, ``CEMTrainerParameters`` :101 and
-``GRUParameters`` :185,
+``GRUParameters`` :185, and ``ProblemDomain`` :20, ``EvolutionParameters``
+:122 and ``BaselineParameters`` :191,
 kept identical so configs and normalization specs compare equal across the
 two packages.
 Plain frozen dataclasses — hashable so they can serve as cache keys.
@@ -26,6 +27,14 @@ from typing import Dict, Optional, Tuple
 # TD3/SAC train on normalized actions in this range, rescaled at serving time
 # (reference: parameters.py:21).
 CONTINUOUS_TRAINING_ACTION_RANGE: Tuple[float, float] = (-1.0, 1.0)
+
+
+class ProblemDomain(enum.Enum):
+    CONTINUOUS_ACTION = "continuous_action"
+    DISCRETE_ACTION = "discrete_action"
+    PARAMETRIC_ACTION = "parametric_action"
+    SEQ_TO_REWARD = "seq2reward"
+    MDN_RNN = "mdn_rnn"
 
 
 def _tuple_safe(x):
@@ -62,6 +71,13 @@ class RLParameters:
 @dataclasses.dataclass(frozen=True)
 class EvaluationParameters:
     calc_cpe_in_training: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class EvolutionParameters:
+    population_size: int = 1000
+    mutation_power: float = 0.1
+    learning_rate: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +166,13 @@ class CEMTrainerParameters:
 class GRUParameters:
     dim_model: int
     num_stacked_layers: int
+
+
+@dataclasses.dataclass(frozen=True)
+class BaselineParameters:
+    dim_feedforward: int
+    num_stacked_layers: int
+    warmup_num_batches: int = 0
 
 
 class SlateOptMethod(enum.Enum):

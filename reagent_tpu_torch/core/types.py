@@ -9,6 +9,7 @@ helpers :215-223), ``ValuePresence`` :229, ``GaussianSamplerScore``
 :237, ``ActorOutput`` :246, ``ExtraData`` :255, ``BaseInput`` :275,
 ``DiscreteDqnInput`` :290, ``SlateQInput`` :301, ``ParametricDqnInput``
 :315, ``PolicyNetworkInput`` :329, ``PolicyGradientInput`` :338,
+``BanditRewardModelInput`` :358, ``BehavioralCloningModelInput`` :368,
 ``MemoryNetworkInput`` :377, ``MemoryNetworkOutput`` :389,
 ``PreprocessedRankingInput`` :442, ``RankingOutput`` :472,
 ``Seq2RewardOutput`` :403, ``CBInput`` :410, ``stack_feature_data`` :487
@@ -348,6 +349,28 @@ class PolicyGradientInput(_TensorDataClass):
 
     def batch_size(self) -> int:
         return self.state.float_features.shape[0]
+
+
+@dataclasses.dataclass
+class BanditRewardModelInput(_TensorDataClass):
+    """A logged bandit batch for a reward model (reference types.py:964):
+    ``action`` one-hot [B, num_actions], ``reward`` [B] or [B, 1],
+    ``action_prob`` the logged propensity [B, 1]."""
+
+    state: FeatureData
+    action: Tensor
+    reward: Tensor
+    action_prob: Optional[Tensor] = None
+
+
+@dataclasses.dataclass
+class BehavioralCloningModelInput(_TensorDataClass):
+    """Logged states and one-hot actions for behavioural cloning (reference
+    types.py:985)."""
+
+    state: FeatureData
+    action: Tensor
+    possible_actions_mask: Optional[Tensor] = None
 
 
 @dataclasses.dataclass

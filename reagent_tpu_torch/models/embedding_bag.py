@@ -17,13 +17,22 @@ Ids out of the table's range: JAX's gather ``table[ids]`` wraps a negative id
 once (``-1`` is the last row) and clamps the rest into ``[0, size)``, where a
 CUDA gather would assert on the device.  ``clamp_ids`` does what JAX does,
 on the host's and the card's tensors alike.
+
+Under a model-parallel step (``parallel/model_parallel.py``) a bag's table
+holds one block of its rows (``row_shard``): the ids are hashed or clamped
+against the global table size, an id outside the block contributes zero,
+the masked sum is all-reduced over the model group (its backward the
+identity: the ranks' upstream gradients are the same), and a mean divides
+by the global count, which the replicated mask gives on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -61,9 +70,40 @@ def clamp_ids(ids: Tensor, table_size: int) -> Tensor:
     return torch.where(ids < 0, ids + table_size, ids).clamp(0, table_size - 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """A table's rows ``[start, start + rows)`` on this rank, the rest on
+    the other ranks of ``group``."""
+
+    start: int
+    rows: int
+    group: Any
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """All-reduce (sum) over a process group whose backward is the
+    identity: every rank's upstream gradient is the gradient of the sum.
+    (``torch.distributed.nn``'s all-reduce sums the ranks' identical
+    upstream gradients again, which would scale the table's gradient by the
+    group's size.)"""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 class EmbeddingBag(nn.Module):
     """Pooled embedding of one padded ID-list feature: ``[B, L]`` ids ->
-    ``[B, D]``."""
+    ``[B, D]``.  ``row_shard`` set (by a model-parallel step) looks up this
+    rank's block of rows and sums the pools over the model group."""
+
+    row_shard: Optional[RowShard] = None
 
     def __init__(self, table_size: int, embedding_dim: int, pooling: str = "mean",
                  hashing: bool = True):
@@ -85,9 +125,17 @@ class EmbeddingBag(nn.Module):
     def forward(self, feature: rlt.IdListFeature) -> Tensor:
         ids = (hash_ids(feature.ids, self.table_size) if self.hashing
                else clamp_ids(feature.ids, self.table_size))
-        emb = F.embedding(ids, self.embedding)  # [B, L, D], a dense gradient
         mask = feature.mask.to(torch.float32)[..., None]
-        pooled = torch.sum(emb * mask, dim=1)
+        shard = self.row_shard
+        if shard is None:
+            emb = F.embedding(ids, self.embedding)  # [B, L, D], a dense gradient
+            pooled = torch.sum(emb * mask, dim=1)
+        else:
+            local = ids - shard.start
+            inside = (local >= 0) & (local < shard.rows)
+            emb = F.embedding(torch.where(inside, local, 0), self.embedding)
+            pooled = torch.sum(emb * (mask * inside[..., None].to(torch.float32)), dim=1)
+            pooled = _SumOverGroup.apply(pooled, shard.group)
         if self.pooling == "mean":
             pooled = pooled / torch.clamp(torch.sum(mask, dim=1), min=1.0)
         return pooled

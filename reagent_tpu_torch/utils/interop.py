@@ -51,6 +51,13 @@ head), ``cb_fcn_state_from_flax`` (a ``CBFullyConnectedNetwork``), and
 The off-policy-estimation slice's: ``dualdice_net_state_from_flax`` (a
 ``NeuralDualDICE`` nu or zeta net's ``Dense_0..2``) and
 ``nn_trainer_params_from_arrays`` (``NNTrainer``'s list of ``{"w", "b"}``).
+The imitation and counterfactual-evaluation slice's: the behavioural-cloning
+and bandit reward nets are ``FullyConnectedDQN``s (``q_network_state_from_flax``);
+``bayesian_mlp_state_from_flax`` maps a ``BayesianMLP``'s ``w{i}_mu``,
+``w{i}_rho`` and ``b{i}`` (flax's ``[din, dout]`` layout, kept), and
+``behavioral_cloning_state_from_arrays``, ``bandit_reward_net_state_from_arrays``,
+``bayes_by_backprop_state_from_arrays`` and ``evolution_pool_state_from_arrays``
+carry the trainers' and the ES pool's states.
 """
 
 from __future__ import annotations
@@ -70,11 +77,21 @@ from reagent_tpu_torch.ops.sparse_embedding import SparseEmbeddingState
 from reagent_tpu_torch.optim import OptState
 from reagent_tpu_torch.replay.circular import ReplayBufferState
 from reagent_tpu_torch.replay.packed import PackedReplayBufferState
+from reagent_tpu_torch.training.behavioral_cloning_trainer import (
+    BehavioralCloningTrainerState,
+)
 from reagent_tpu_torch.training.c51_trainer import C51TrainerState
+from reagent_tpu_torch.training.cfeval.bandit_reward_network_trainer import (
+    BanditRewardNetTrainerState,
+)
+from reagent_tpu_torch.training.cfeval.bayes_by_backprop_trainer import (
+    BayesByBackpropTrainerState,
+)
 from reagent_tpu_torch.training.cb.supervised_trainer import SupervisedTrainerState
 from reagent_tpu_torch.training.discrete_crr_trainer import CRRTrainerState
 from reagent_tpu_torch.training.dqn_trainer import DQNTrainerState
 from reagent_tpu_torch.training.fused_dqn_trainer import FusedDQNTrainerState
+from reagent_tpu_torch.training.gradient_free.evolution_pool import EvolutionPoolState
 from reagent_tpu_torch.training.parametric_dqn_trainer import ParametricDQNTrainerState
 from reagent_tpu_torch.training.qrdqn_trainer import QRDQNTrainerState
 from reagent_tpu_torch.training.ranking.seq2slate_trainer import Seq2SlateTrainerState
@@ -470,6 +487,8 @@ def _from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
         return sparse_dqn_state_from_flax(params_np)
     if set(tree) == {_NET, "Dense_0"}:
         return deep_represent_state_from_flax(params_np)
+    if "w0_mu" in tree:
+        return bayesian_mlp_state_from_flax(params_np)
     return q_network_state_from_flax(params_np)
 
 
@@ -902,3 +921,54 @@ def nn_trainer_params_from_arrays(params_np, device="cpu") -> Dict[str, torch.Te
         for leaf in ("w", "b"):
             out[f"layers.{i}.{leaf}"] = _array(layer[leaf]).to(device)
     return out
+
+
+_BBB_LEAF = re.compile(r"w\d+_(mu|rho)|b\d+")
+
+
+def bayesian_mlp_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``BayesianMLP`` variables -> the port's ``BayesianMLP`` state dict:
+    ``w{i}_mu``, ``w{i}_rho`` (``[din, dout]`` in both) and ``b{i}`` by name."""
+    tree = params_np["params"]
+    unknown = [k for k in tree if not _BBB_LEAF.fullmatch(k)]
+    if unknown:
+        raise ValueError(f"unexpected leaves {unknown} in a BayesianMLP tree")
+    return {k: _array(v) for k, v in tree.items()}
+
+
+def _params_step(cls, params: Mapping, opt_state: OptState, step, device):
+    return cls(params=_params_on(params, device), opt_state=opt_state,
+               step=_scalar_i32(step, device))
+
+
+def behavioral_cloning_state_from_arrays(params: Mapping, opt_state: OptState, step,
+                                         device="cpu") -> BehavioralCloningTrainerState:
+    """The port's ``BehavioralCloningTrainerState`` from a ``reagent_tpu``
+    one: the net's flax tree (a ``FullyConnectedDQN``'s), ``opt_state`` from
+    ``opt_state_from_optax``."""
+    return _params_step(BehavioralCloningTrainerState, params, opt_state, step, device)
+
+
+def bandit_reward_net_state_from_arrays(params: Mapping, opt_state: OptState, step,
+                                        device="cpu") -> BanditRewardNetTrainerState:
+    """The port's ``BanditRewardNetTrainerState``, as
+    ``behavioral_cloning_state_from_arrays``."""
+    return _params_step(BanditRewardNetTrainerState, params, opt_state, step, device)
+
+
+def bayes_by_backprop_state_from_arrays(params: Mapping, opt_state: OptState, step,
+                                        device="cpu") -> BayesByBackpropTrainerState:
+    """The port's ``BayesByBackpropTrainerState`` from a ``reagent_tpu`` one
+    (its ``rng`` dropped: the port's draws are values or come from the
+    trainer's generator); the ``BayesianMLP`` tree by
+    ``bayesian_mlp_state_from_flax``."""
+    return _params_step(BayesByBackpropTrainerState, params, opt_state, step, device)
+
+
+def evolution_pool_state_from_arrays(parent_tensors: Mapping, opt_state: OptState,
+                                     noise: Mapping, device="cpu") -> EvolutionPoolState:
+    """An ``EvolutionPool``'s state from JAX's pool: ``parent_tensors``,
+    ``opt_state`` (from ``opt_state_from_optax``) and ``_noise`` (each
+    child's scaled mutation), numpy leaves by tensor name."""
+    return EvolutionPoolState(parent_tensors=_params_on(parent_tensors, device),
+                              opt_state=opt_state, noise=_params_on(noise, device))

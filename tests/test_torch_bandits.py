@@ -616,6 +616,39 @@ def test_normal_gamma_update_on_the_port():
     assert algo.get_scores(state, generator=torch.Generator().manual_seed(0)).shape == (2,)
 
 
+@pytest.mark.parametrize("seed", range(5))
+def test_normal_gamma_own_update_against_jax(seed):
+    """The port's own ``add_batch_observations`` and ``add_single_observation``
+    from the prior of ``init``, beside JAX's: 6 batches whose arms draw
+    nothing now and then, then 10 single observations; the posterior and the
+    sums after each, rtol 1e-6 (float32 updates in each library's order)."""
+    rng = np.random.default_rng(seed)
+    jalgo, algo = jmab.NormalGammaThompson(n_arms=4), mab.NormalGammaThompson(n_arms=4)
+    jstate, state = jalgo.init(), algo.init("cpu")
+
+    def check():
+        for k, v in jstate.extra.items():
+            close(state.extra[k], v, rtol=1e-6, atol=1e-7)
+        for k in ("total_n_obs_per_arm", "total_sum_reward_per_arm",
+                  "total_sum_reward_squared_per_arm"):
+            close(getattr(state, k), getattr(jstate, k), rtol=1e-6, atol=1e-7)
+
+    for _ in range(6):
+        n = rng.integers(0, 5, 4).astype(np.float32) * (rng.uniform(size=4) > 0.3)
+        r = rng.normal(1.0, 2.0, (4, 5)).astype(np.float32) * (np.arange(5) < n[:, None])
+        s, s2 = r.sum(1), (r ** 2).sum(1)
+        jstate = jalgo.add_batch_observations(jstate, jnp.asarray(n), jnp.asarray(s),
+                                              jnp.asarray(s2))
+        state = algo.add_batch_observations(state, t(n), t(s), t(s2))
+        check()
+    assert (np.asarray(jstate.total_n_obs_per_arm) > 0).any()
+    for arm, reward in zip(rng.integers(0, 4, 10), rng.normal(size=10).astype(np.float32)):
+        arm_id = algo.arm_ids[arm]
+        jstate = jalgo.add_single_observation(jstate, arm_id, float(reward))
+        state = algo.add_single_observation(state, arm_id, float(reward))
+        check()
+
+
 # ------------------------------------------------ the entry points' device
 
 
