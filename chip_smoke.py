@@ -341,7 +341,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      a 1 x 1 (data, model) mesh (5 steps) and 3 EsWorker epochs, each equal
      (torch.equal) to its plain step; measure_scaling_efficiency at world
      size 1 (one card measures no scaling);
- 59. printed last, after phase 62: one JSON line describing each ported
+ 63. the leaf utilities card against CPU from one state and one set of
+     draws: random search, Q-learning and the MLP ensemble 2 steps of 128
+     (numpy streams), policy gradient and Gumbel-softmax 10 steps (samples equal,
+     logits rtol 1e-5), Bayes by backprop at its defaults 3 steps (K3 on
+     the card; predictions 1e-5, the order outside near-ties, parameters
+     rtol 5e-4 atol 5e-5; on a near-tie the card takes the CPU's chosen
+     set and goes on), FrechetSort at [1,024, 20] (the same
+     permutations, log-probs rtol 1e-5);
+ 64. K3 at the Bayes-by-backprop surrogate's [2048, 128->32->1] relu against
+     its plain version, timed beside one torch.addmm a layer and the bound;
+     5 optimize steps of BayesianByBackpropOptimizer at its defaults (one
+     K3 launch each; ms a step, CUDA kernels, idle share, host reads and
+     Memcpy DtoH);
+     StepTimer over 20 K2 updates and a trace naming the K2 kernel;
+     grid_search over 2 learning rates x 2 seeds, each 100 K2 updates;
+ 65. the C++ decision service (serving/, g++ into
+     reagent_tpu_torch/_build/serving/ in phase 2, beside nvcc) scores
+     phases 6 and 7's artifacts through plans of the port's DSL:
+     every action's Q on 64 raw rows within 1e-4 of max(1, |Q|) of the
+     in-process serving module on the card;
+ 59. printed last, after phase 65: one JSON line describing each ported
      kernel (K1's rows with the CUDA
      kernels per update, the products' yardstick and the kernel's own GEMM
      time; K2's rows with the CUDA kernels per update of each route and the
@@ -355,8 +375,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      shapes, the deep-represent score's and the OPE shapes), after one line
      of phase 48's Seq2Slate numbers, one of phases 50-52's model-based
      numbers, one of phases 53-55's bandit numbers, one of phases 56-58's
-     OPE numbers and one of phases 60-62's numbers; K3's rows add the
-     imitator gate's and the Bayes-by-backprop sample's shapes and launches.
+     OPE numbers, one of phases 60-62's numbers and one of phases 63-65's;
+     K3's rows add the imitator gate's, the Bayes-by-backprop sample's and
+     the Bayes-by-backprop optimizer's surrogate's shapes and launches, K2's
+     the StepTimer's and the grid search's launches.
 Each phase's heading carries the seconds since the script started.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
@@ -896,7 +918,10 @@ def read_counts():
     return launches, sum(plain.calls for _, plain in pairs.values())
 
 
-def workflow_phase(cfg, n_rows, epochs, kernel, torch, tmp, label):
+def workflow_phase(cfg, n_rows, epochs, kernel, torch, tmp, label, keep):
+    """The workflow of ``cfg`` through ``kernel``; its artifact, first rows
+    and in-process module are kept in ``keep`` (a directory and a dict)
+    under ``label`` for phase 65."""
     from reagent_tpu_torch.ops import fused_dqn, fused_dqn_offline
 
     reset_counts()
@@ -921,6 +946,8 @@ def workflow_phase(cfg, n_rows, epochs, kernel, torch, tmp, label):
         raise AssertionError(f"td_loss is not finite: {td}")
     diff = check_artifact(out, df, serving, torch)
     log(f"  {label}: artifact vs in-process serving module on 64 rows: max abs {diff:.3e}")
+    keep_dir, kept = keep
+    kept[label] = keep_artifact(out, df, serving, keep_dir, label)
     # where a training step's time goes: the host builds each batch from the
     # logged columns before the one fused update runs on the card
     pre_s = []
@@ -5378,7 +5405,11 @@ def ranking_card_cpu_phase(torch):
 def timed_steps(torch, run, n, label, profiled):
     """``run()`` ``n`` times (CUDA-synchronised wall time), then a profiled
     window of ``profiled`` calls: (wall ms a call, device us a call, CUDA
-    kernels a call, host reads of device values a call)."""
+    kernels a call, host reads of device values a call, ``Memcpy DtoH``
+    events a call).  A host read is an ``aten::_local_scalar_dense``
+    (``.item()``, ``float()``); a ``Memcpy DtoH`` is a copy to the host
+    that the device records (``.cpu()``).  Both make the host wait for the
+    device."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -5396,12 +5427,14 @@ def timed_steps(torch, run, n, label, profiled):
     dev = sum(r[0] for r in device_us)
     kernels = sum(r[1] for r in device_us)
     reads = counts.get("aten::_local_scalar_dense", 0) / profiled
+    copies = sum(c for k, c in counts.items() if k.startswith("Memcpy DtoH")) / profiled
     log(f"  {label}: {wall_ms:.3f} ms a call (wall, {n} calls), {dev:.1f} us of device kernels in "
         f"{kernels:.1f} launches a call (profiled window of {profiled}): the device is idle "
-        f"{(1 - dev / (wall_ms * 1e3)) * 100:.1f}% of a call; host reads a call {reads:.1f}")
+        f"{(1 - dev / (wall_ms * 1e3)) * 100:.1f}% of a call; host reads a call {reads:.1f}, "
+        f"Memcpy DtoH a call {copies:.1f}")
     for us, count, key in device_us[:5]:
         log(f"    device {us:9.2f} us  x{count:<6.1f} {key[:80]}")
-    return wall_ms, dev, kernels, reads
+    return wall_ms, dev, kernels, reads, copies
 
 
 def seq2slate_timed_phase(torch, name):
@@ -5428,7 +5461,7 @@ def seq2slate_timed_phase(torch, name):
             box["state"], box["m"] = trainer.train_step(box["state"], batch)
 
         step()  # warm
-        wall_ms, dev, kernels, reads = timed_steps(torch, step, steps, label, run["profiled"])
+        wall_ms, dev, kernels, reads, _ = timed_steps(torch, step, steps, label, run["profiled"])
         m = {k: v.item() for k, v in box["m"].items()}
         if not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"{label}: metrics {m}")
@@ -5454,7 +5487,7 @@ def seq2slate_timed_phase(torch, name):
     if not all(sorted(r) == list(range(2, T + 2)) for r in idx.cpu().tolist()):
         raise AssertionError("greedy ranks are not permutations of the candidates")
     label = "greedy rank _S2S B 512"
-    wall_ms, dev, kernels, reads = timed_steps(torch, rank, run["ranks"], label, run["profiled"])
+    wall_ms, dev, kernels, reads, _ = timed_steps(torch, rank, run["ranks"], label, run["profiled"])
     peak = torch.cuda.max_memory_allocated()
     out[label] = dict(slates_per_s=run["rank_B"] * 1e3 / wall_ms, ms=wall_ms, device_us=dev,
                       kernels_per_rank=kernels, kernels_per_decode_step=kernels / T,
@@ -5873,7 +5906,7 @@ def model_based_timed_phase(torch, name, launch_floor_ms):
                       ("CEM plan, LinDyna (10 iterations, population 100, horizon 4, 2 members)",
                        lambda: lplanner(lobs, gen))):
         fn()  # warm
-        wall_ms, dev, kernels, reads = timed_steps(torch, fn, run["plans"], label,
+        wall_ms, dev, kernels, reads, _ = timed_steps(torch, fn, run["plans"], label,
                                                    run["profiled"])
         out[label] = dict(ms=wall_ms, device_us=dev, kernels=kernels,
                           idle=1 - dev / (wall_ms * 1e3), host_reads=reads)
@@ -5898,7 +5931,7 @@ def model_based_timed_phase(torch, name, launch_floor_ms):
                          ("compress step (B 1,024, the planning Q over 64 sequences)",
                           compress_step, run["compress_steps"])):
         fn()  # warm
-        wall_ms, dev, kernels, reads = timed_steps(torch, fn, n, label, run["profiled"])
+        wall_ms, dev, kernels, reads, _ = timed_steps(torch, fn, n, label, run["profiled"])
         out[label] = dict(steps_per_s=1e3 / wall_ms, ms=wall_ms, device_us=dev, kernels=kernels,
                           idle=1 - dev / (wall_ms * 1e3), host_reads=reads)
         log(f"  [{time.perf_counter() - t0:.1f} s into the phase]")
@@ -6550,7 +6583,7 @@ def bandit_timed_phase(torch, name, launch_floor_ms):
         # a profiled window that saw no CUDA kernel lost its events: it is
         # profiled again, and the phase fails after three such windows
         for attempt in range(3):
-            wall_ms, dev, kernels, reads = timed_steps(torch, fn, n, label, profiled)
+            wall_ms, dev, kernels, reads, _ = timed_steps(torch, fn, n, label, profiled)
             if kernels > 0:
                 break
             log(f"  {label}: the profiled window saw no CUDA kernel")
@@ -6955,7 +6988,7 @@ def ope_timed_phase(torch, name, launch_floor_ms):
         fn()  # warm
         reset_counts()
         for attempt in range(3):
-            wall_ms, dev, kernels, reads = timed_steps(torch, fn, n, label, profiled)
+            wall_ms, dev, kernels, reads, _ = timed_steps(torch, fn, n, label, profiled)
             if kernels > 0:
                 break
             log(f"  {label}: the profiled window saw no CUDA kernel")
@@ -7249,7 +7282,7 @@ def imitation_timed_phase(torch, name, launch_floor_ms):
 
     iteration()  # warm
     reset_counts()
-    wall_ms, dev, kernels, reads = timed_steps(
+    wall_ms, dev, kernels, reads, _ = timed_steps(
         torch, iteration, ES_SLICE["timed"], "OneMaxEvolutionPool iteration (1,000 x 9,026)",
         ES_SLICE["profiled"])
     launches, plain = read_counts()
@@ -7384,6 +7417,425 @@ def parallel_phase(torch, name):
     return out
 
 
+# ------------------------------------------------------ the leaf utilities
+
+# BayesianByBackpropOptimizer at its defaults (batch 512, so max(4 x 512,
+# 50) = 2,048 candidates a step, hidden 32, 50 train steps an update) over
+# 16 parameters of 8 choices each: a 128-wide one-hot, K3 at [2048,
+# 128->32->1] relu
+LITE = dict(params=16, choices=8, batch=512, lockstep_steps=10, bbb_steps=3, timed_steps=4,
+            profiled=1, frechet=(1024, 20), numpy_batch=128, numpy_steps=2)
+LITE_TOL = dict(logits=dict(rtol=1e-5, atol=1e-6), param=dict(rtol=5e-4, atol=5e-5),
+                k3=dict(rtol=1e-5, atol=1e-5), log_prob=dict(rtol=1e-5, atol=1e-6))
+NEAR_TIE = 1e-5  # of max(1, |prediction|): two candidates this close may sort either way
+# grid_search through K2: two learning rates x two seeds, each evaluation
+# 100 updates of the CartPole sample config from one numpy table
+HPARAM = dict(lrs=(1e-3, 1e-2), seeds=2, updates=100, rows=8192, timed_updates=20)
+NATIVE_ROWS = 64
+K2_KERNEL = "k2_one_launch_kernel"  # K2's CUDA kernel, as the trace names it
+NATIVE_TOL = 1e-4  # of max(1, |Q|): the artifact row of PERF.md's section 2
+
+
+def lite_space():
+    return {f"p{i}": list(range(LITE["choices"])) for i in range(LITE["params"])}
+
+
+def lite_objectives(torch, device):
+    """A cost on the sampled indices, the sum of one normal weight per
+    (parameter, choice), so that distinct solutions cost distinct amounts,
+    and the same cost on relaxed one-hots."""
+    w = torch.tensor(np.random.default_rng(5).normal(
+        size=(LITE["params"], LITE["choices"])).astype(np.float32), device=device)
+
+    def cost(s):
+        return sum(w[i][s[f"p{i}"]] for i in range(LITE["params"])).reshape(-1, 1)
+
+    def soft_cost(s):
+        return sum(s[f"p{i}"] @ w[i] for i in range(LITE["params"])).reshape(-1, 1)
+
+    return cost, soft_cost
+
+
+def lite_draws(torch, kind, space, bs, seed):
+    """One step's draws on the CPU: Gumbel for policy gradient, uniforms in
+    [1e-20, 1) for Gumbel-softmax."""
+    from reagent_tpu_torch.mab.mab_algorithm import gumbel
+
+    g = torch.Generator().manual_seed(seed)
+    if kind == "gumbel":
+        return {k: gumbel((bs, len(v)), g, "cpu") for k, v in space.items()}
+    return {k: torch.rand((bs, len(v)), generator=g).clamp(min=1e-20) for k, v in space.items()}
+
+
+def on(tree, device):
+    return {k: v.to(device) for k, v in tree.items()}
+
+
+def bbb_optimizer(torch, device, obj):
+    from reagent_tpu_torch.lite import BayesianByBackpropOptimizer
+
+    return BayesianByBackpropOptimizer(lite_space(), obj, batch_size=LITE["batch"], seed=0,
+                                       device=device)
+
+
+def solution_rows(sampled):
+    """The sampled solutions (tensors or arrays) as sorted rows (a multiset
+    of solutions)."""
+    cols = np.stack([v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+                     for _, v in sorted(sampled.items())], axis=1)
+    return cols[np.lexsort(cols.T[::-1])]
+
+
+def bbb_lockstep(torch, opts, worst):
+    """``LITE['bbb_steps']`` optimize steps of Bayes by backprop on both
+    devices from one init with the same noise (drawn on the CPU): the
+    candidates' predictions (K3 on the card, the plain version on the CPU),
+    the chosen solutions, their costs, and the surrogate's parameters after
+    each update.  The chosen solutions are the same multiset unless the
+    predictions of every candidate that one device chose and the other did
+    not are within NEAR_TIE of max(1, |prediction at the cut|): then the card
+    takes the CPU's chosen set and the runs go on in step.  Every step is
+    compared, and every step after the first ranks candidates."""
+    preds, chosen = {}, {}
+    cpu, card = opts["cpu"], opts[DEVICE]
+    for d, opt in opts.items():
+        fwd = opt.net.forward
+
+        def recording(params, x, noise, fwd=fwd, d=d):
+            preds[d] = fwd(params, x, noise).cpu().numpy()
+            return preds[d]
+        opt.net.forward = recording
+    cpu_sample, card_sample = cpu.sample_internal, card.sample_internal
+
+    def cpu_recording(batch_size=None, draws=None):
+        res = cpu_sample(batch_size, draws)
+        chosen["cpu"] = {k: v.numpy().copy() for k, v in res[0].items()}
+        return res
+
+    def card_following(batch_size=None, draws=None):
+        (sampled,) = card_sample(batch_size, draws)
+        if np.array_equal(solution_rows(sampled), solution_rows(chosen["cpu"])):
+            return (sampled,)
+        if not card.xs:
+            raise AssertionError("BBB: the first samples differ")
+        pc, pd, bs = preds["cpu"], preds[DEVICE], LITE["batch"]
+        cut = float(np.sort(pc)[bs - 1])
+        parted = np.setxor1d(np.argsort(pc)[:bs], np.argsort(pd)[:bs])
+        gap = float(np.abs(pc[parted] - cut).max())
+        if gap > NEAR_TIE * max(1.0, abs(cut)):
+            raise AssertionError(f"BBB: the chosen solutions differ; a candidate that only one "
+                                 f"device chose lies {gap:.3e} from the cut, not a near-tie")
+        log(f"  BBB: a near-tie at the cut ({len(parted)} candidates within {gap:.3e}); the "
+            f"card takes the CPU's chosen set")
+        worst["BBB near-ties followed"] = worst.get("BBB near-ties followed", 0) + 1
+        sampled = card._upload(chosen["cpu"])
+        card.last_sample_internal_res = (sampled,)
+        return (sampled,)
+    cpu.sample_internal, card.sample_internal = cpu_recording, card_following
+
+    g = torch.Generator().manual_seed(77)
+    steps = ranked = 0
+    for _ in range(LITE["bbb_steps"]):
+        sampling = bool(cpu.xs)
+        sample = cpu.net.draw_noise(g) if sampling else None
+        update = [cpu.net.draw_noise(g) for _ in range(cpu.train_steps)]
+        preds.clear()
+        out = {d: opt.optimize_step(
+            sample_draws=None if sample is None else on(sample, d),
+            update_draws=[on(u, d) for u in update]) for d, opt in opts.items()}
+        if sampling:
+            pc, pd = preds["cpu"], preds[DEVICE]
+            np.testing.assert_allclose(pd, pc, **LITE_TOL["k3"])
+            worst["BBB predictions"] = max(worst.get("BBB predictions", 0.0),
+                                           float(np.abs(pd - pc).max()))
+            ranked += 1
+        if not np.array_equal(solution_rows(out[DEVICE][0]), solution_rows(out["cpu"][0])):
+            raise AssertionError("BBB: the chosen solutions differ")
+        np.testing.assert_allclose(np.sort(out[DEVICE][1]), np.sort(out["cpu"][1]), rtol=1e-6)
+        for k, v in cpu.net.params.items():
+            got = card.net.params[k]
+            worst["BBB parameters"] = max(worst.get("BBB parameters", 0.0),
+                                          mb_close(torch, got, v, LITE_TOL["param"], f"BBB {k}"))
+        worst["BBB loss"] = max(worst.get("BBB loss", 0.0), abs(
+            card.last_predictor_loss_mean - cpu.last_predictor_loss_mean))
+        steps += 1
+    if steps != LITE["bbb_steps"] or ranked != LITE["bbb_steps"] - 1:
+        raise AssertionError(f"BBB: {steps} steps compared, {ranked} rankings")
+    worst["BBB steps compared"] = steps
+    return worst
+
+
+def lite_card_cpu_phase(torch):
+    """Phase 63: the lite optimizers and Frechet sort card against CPU from
+    one state and one set of draws: random search, Q-learning and the
+    MLP ensemble (numpy streams; the objective on each device) 2 steps of
+    128,
+    policy gradient and Gumbel-softmax 10 steps on the same Gumbel draws and
+    uniforms (samples equal, logits rtol 1e-5), Bayes by backprop 3 steps at
+    its defaults (the surrogate's parameters rtol 5e-4 atol 5e-5), then
+    FrechetSort at [1,024, 20] on the same Gumbel draws (the same
+    permutations, log-probs rtol 1e-5)."""
+    from reagent_tpu_torch import lite
+    from reagent_tpu_torch.samplers import FrechetSort
+
+    t0 = time.perf_counter()
+    space, bs = lite_space(), LITE["batch"]
+    objs = {d: lite_objectives(torch, d) for d in ("cpu", DEVICE)}
+    worst = {}
+    for cls in (lite.RandomSearchOptimizer, lite.QLearningOptimizer,
+                lite.BayesianMLPEnsemblerOptimizer):
+        # numpy streams: the objective is what runs on each device
+        opts = {d: cls(space, objs[d][0], batch_size=LITE["numpy_batch"], seed=3, device=d)
+                for d in objs}
+        for _ in range(LITE["numpy_steps"]):
+            out = {d: opt.optimize_step() for d, opt in opts.items()}
+            for k, v in out["cpu"][0].items():
+                if not torch.equal(out[DEVICE][0][k].cpu(), v):
+                    raise AssertionError(f"{cls.__name__}: samples of {k} differ")
+            np.testing.assert_allclose(out[DEVICE][1], out["cpu"][1], rtol=1e-6)
+        if opts[DEVICE].best_solutions(50) != opts["cpu"].best_solutions(50):
+            raise AssertionError(f"{cls.__name__}: best solutions differ")
+    for cls, kind, obj_i in ((lite.PolicyGradientOptimizer, "gumbel", 0),
+                             (lite.GumbelSoftmaxOptimizer, "uniform", 1)):
+        opts = {d: cls(space, objs[d][obj_i], batch_size=bs, learning_rate=0.1, seed=4,
+                       device=d) for d in objs}
+        for step in range(LITE["lockstep_steps"]):
+            draws = lite_draws(torch, kind, space, bs, 600 + step)
+            out = {d: opt.optimize_step(sample_draws=on(draws, d)) for d, opt in opts.items()}
+            for k, v in out["cpu"][0].items():
+                if not torch.equal(out[DEVICE][0][k].cpu(), v):
+                    raise AssertionError(f"{cls.__name__}: samples of {k} differ at step {step}")
+        worst[cls.__name__] = max(
+            mb_close(torch, opts[DEVICE].logits[k], v, LITE_TOL["logits"], f"{cls.__name__} {k}")
+            for k, v in opts["cpu"].logits.items())
+    bbb_lockstep(torch, {d: bbb_optimizer(torch, d, objs[d][0]) for d in objs}, worst)
+
+    B, N = LITE["frechet"]
+    g = np.random.default_rng(8)
+    scores = torch.tensor(g.uniform(0.05, 2.0, (B, N)).astype(np.float32))
+    noise = torch.tensor(g.gumbel(size=(B, N)).astype(np.float32))
+    for kw in ({}, {"topk": 10, "equiv_len": 5}):
+        sampler = FrechetSort(shape=2.0, **kw)
+        cpu = sampler.sample_action(scores, noise=noise)
+        card = sampler.sample_action(scores.to(DEVICE), noise=noise.to(DEVICE))
+        if not torch.equal(card.action.cpu(), cpu.action):
+            raise AssertionError(f"FrechetSort {kw}: the permutations differ")
+        worst[f"FrechetSort {kw or 'full'} log_prob"] = mb_close(
+            torch, card.log_prob, cpu.log_prob, LITE_TOL["log_prob"], "FrechetSort log_prob")
+    log(f"  card against CPU, max abs: {json.dumps(worst)}")
+    log(f"  [{time.perf_counter() - t0:.1f} s into the phase] on {card_line()}")
+    return worst
+
+
+def hparam_table(torch):
+    """The CartPole sample config's DQN columns (4 features, 2 actions),
+    drawn from numpy.random.default_rng(0), on the card."""
+    n, S, A = HPARAM["rows"], CARTPOLE["D"], CARTPOLE["A"]
+    g = np.random.default_rng(0)
+    put = lambda a: torch.tensor(a, device=DEVICE)
+    return dict(state=put(g.normal(size=(n, S)).astype(np.float32)),
+                next_state=put(g.normal(size=(n, S)).astype(np.float32)),
+                action=put(np.eye(A, dtype=np.float32)[g.integers(0, A, n)]),
+                reward=put(g.normal(size=(n, 1)).astype(np.float32)),
+                not_terminal=put((g.random((n, 1)) > 0.05).astype(np.float32)),
+                mask=put(np.ones((n, A), np.float32)))
+
+
+def k2_batch(torch, table, idx):
+    """The table's rows ``idx`` as a minibatch."""
+    from reagent_tpu_torch.core import types as rlt
+
+    t = {k: v[idx] for k, v in table.items()}
+    return rlt.DiscreteDqnInput(
+        state=rlt.FeatureData(t["state"]), next_state=rlt.FeatureData(t["next_state"]),
+        action=t["action"], next_action=t["action"], reward=t["reward"], time_diff=None,
+        step=None, not_terminal=t["not_terminal"], possible_actions_mask=t["mask"],
+        possible_next_actions_mask=t["mask"])
+
+
+def k2_trainer(torch, lr, seed):
+    """The CartPole sample config's fused trainer (K2) with ``lr``."""
+    from reagent_tpu_torch.core.parameters import RLParameters
+    from reagent_tpu_torch.models.dqn import FullyConnectedDQN
+    from reagent_tpu_torch.training.fused_dqn_trainer import FusedDQNTrainer
+
+    cfg = CARTPOLE
+    net = FullyConnectedDQN(state_dim=cfg["D"], action_dim=cfg["A"], sizes=cfg["widths"],
+                            activations=[cfg["act"]] * len(cfg["widths"]))
+    trainer = FusedDQNTrainer(
+        q_network=net, rl=RLParameters(gamma=cfg["gamma"], target_update_rate=cfg["tau"]),
+        optimizer={"Adam": {"lr": lr}}, minibatch_size=cfg["B"], device=DEVICE)
+    return trainer, trainer.init(torch.Generator().manual_seed(seed))
+
+
+def k2_updates(torch, table, trainer, state, seed, n):
+    """``n`` K2 updates on minibatches of ``table`` drawn with
+    numpy.random.default_rng(seed); the last metrics."""
+    idx = torch.tensor(np.random.default_rng(seed).integers(
+        0, HPARAM["rows"], (n, CARTPOLE["B"])), device=DEVICE)
+    metrics = None
+    for i in range(n):
+        state, metrics = trainer.train_step(state, k2_batch(torch, table, idx[i]))
+    return state, metrics
+
+
+def leaf_timed_phase(torch, name, launch_floor_ms):
+    """Phase 64: K3 at the surrogate's [2048, 128->32->1] relu against its
+    plain version, timed beside one torch.addmm a layer and its bound; 5
+    optimize steps of BayesianByBackpropOptimizer at its defaults after a
+    warm one (one K3 launch each; ms a step, CUDA kernels, idle share, host
+    reads and Memcpy DtoH from a profiled window); StepTimer over K2 updates and a
+    trace (utils/profiling.py) whose Chrome trace names the K2 kernel; then
+    grid_search over two learning rates x two seeds, each evaluation 100 K2
+    updates of the CartPole sample config, objective the final td_loss."""
+    from reagent_tpu_torch.lite import MLPBayesianByBackprop
+    from reagent_tpu_torch.ops import fused_dqn
+    from reagent_tpu_torch.scripts.hparam_tuning import grid_search
+    from reagent_tpu_torch.utils.profiling import StepTimer, annotate, trace
+
+    t0 = time.perf_counter()
+    out = {"k3": {}}
+    obj, _ = lite_objectives(torch, DEVICE)
+    opt = bbb_optimizer(torch, DEVICE, obj)
+    opt.optimize_step()  # the first step has no data: no surrogate forward
+    # the surrogate's forward at the step's shape, on its sampled weights
+    rows = max(4 * LITE["batch"], opt.num_mutations)
+    x = torch.as_tensor(opt._encode(opt._mutate(rows)), dtype=torch.float32, device=DEVICE)
+    weights = MLPBayesianByBackprop.sampled_weights(opt.net.params,
+                                                    opt.net.draw_noise(opt.generator))
+    label = f"Bayes-by-backprop surrogate [{rows}, {opt.dim}->32->1]"
+    out["k3"][label] = k3_row(torch, name, label, x, weights,
+                              list(MLPBayesianByBackprop.ACTIVATIONS), launch_floor_ms,
+                              sleep_cycles=200_000_000)
+
+    reset_counts()
+    wall_ms, dev, kernels, reads, copies = timed_steps(
+        torch, opt.optimize_step, LITE["timed_steps"],
+        f"BayesianByBackpropOptimizer step ({opt.dim}-wide one-hot, {rows} candidates, "
+        f"batch {LITE['batch']}, {opt.train_steps} train steps)", LITE["profiled"])
+    launches, plain = read_counts()
+    calls = LITE["timed_steps"] + LITE["profiled"]
+    if launches["fused_mlp_forward"] != calls or plain or sum(launches.values()) != calls:
+        raise AssertionError(f"BBB steps: launches {launches}, plain calls {plain}")
+    out["k3"][label]["launches_a_call"] = 1
+    out["k3"][label]["launches"] = calls
+    out["BayesianByBackpropOptimizer"] = dict(
+        ms_a_step=wall_ms, device_us_a_step=dev, kernels_a_step=kernels,
+        idle=1 - dev / (wall_ms * 1e3), host_reads=reads, memcpy_dtoh=copies,
+        last_predictor_loss_mean=opt.last_predictor_loss_mean,
+        best_cost=opt.best_solutions(1)[0][0])
+
+    table = hparam_table(torch)
+    trainer, state = k2_trainer(torch, CARTPOLE["lr"], 0)
+    timer, box = StepTimer(), {}
+    idx = torch.tensor(np.random.default_rng(1).integers(0, HPARAM["rows"], (
+        HPARAM["timed_updates"], CARTPOLE["B"])), device=DEVICE)
+    reset_counts()
+    for i in range(HPARAM["timed_updates"]):
+        with timer.measure(box):
+            state, box["metrics"] = trainer.train_step(state, k2_batch(torch, table, idx[i]))
+    with tempfile.TemporaryDirectory() as tdir:
+        with trace(tdir):
+            for i in range(3):
+                with annotate("k2_update"):
+                    state, _ = trainer.train_step(state, k2_batch(torch, table, idx[i]))
+        text = open(os.path.join(tdir, "trace.json")).read()
+    timer_launches, plain = read_counts()
+    if K2_KERNEL not in text or '"k2_update"' not in text:
+        raise AssertionError("the trace names neither the K2 kernel nor the annotated region")
+    if timer_launches["fused_dqn_update"] != HPARAM["timed_updates"] + 3 or plain:
+        raise AssertionError(f"StepTimer and trace: launches {timer_launches}, plain {plain}")
+    out["StepTimer (K2 updates)"] = timer.summary()
+    log(f"  StepTimer over {HPARAM['timed_updates']} K2 updates (CartPole sample config): "
+        f"{json.dumps(out['StepTimer (K2 updates)'])}; the trace holds k2_one_launch_kernel "
+        f"and the k2_update region")
+
+    def eval_fn(p):
+        trainer, state = k2_trainer(torch, p["lr"], p["seed"])
+        _, metrics = k2_updates(torch, table, trainer, state, p["seed"], HPARAM["updates"])
+        return {"td_loss": float(metrics["td_loss"])}
+
+    reset_counts()
+    t1 = time.perf_counter()
+    best, best_metrics = grid_search({"lr": list(HPARAM["lrs"])}, eval_fn, "td_loss",
+                                     num_seeds=HPARAM["seeds"], minimize=True, num_proc=1)
+    grid_s = time.perf_counter() - t1
+    grid_launches, plain = read_counts()
+    evaluations = len(HPARAM["lrs"]) * HPARAM["seeds"]
+    if (grid_launches["fused_dqn_update"] != evaluations * HPARAM["updates"] or plain
+            or sum(grid_launches.values()) != grid_launches["fused_dqn_update"]):
+        raise AssertionError(f"grid search: launches {grid_launches}, plain calls {plain}")
+    if not np.isfinite(best_metrics["td_loss"][0]):
+        raise AssertionError(f"grid search: td_loss {best_metrics}")
+    out["grid_search"] = dict(best=best, td_loss=best_metrics["td_loss"], seconds=grid_s,
+                              evaluations=evaluations)
+    out["k2_launches"] = {"StepTimer and trace": timer_launches["fused_dqn_update"],
+                          "grid_search": grid_launches["fused_dqn_update"]}
+    log(f"  grid_search over lr {list(HPARAM['lrs'])} x {HPARAM['seeds']} seeds "
+        f"({evaluations} x {HPARAM['updates']} K2 updates): best {best}, td_loss "
+        f"{best_metrics['td_loss']}, {grid_s:.2f} s")
+    log(f"  BayesianByBackpropOptimizer: {json.dumps(out['BayesianByBackpropOptimizer'])}")
+    log(f"  [{time.perf_counter() - t0:.1f} s into the phase] on {card_line()}")
+    return out
+
+
+def keep_artifact(out, df, serving, keep, label):
+    """Copy the workflow's artifact into ``keep`` (it outlives the phase's
+    temporary directory) with its first rows and the in-process module."""
+    import shutil
+
+    path = os.path.join(keep, label)
+    shutil.copytree(out.output_paths["default_model"], path)
+    return dict(path=path, rows=df["state_features"].tolist()[:NATIVE_ROWS], serving=serving)
+
+
+def native_serving_phase(torch, artifacts, binary):
+    """Phase 65: the C++ decision service, ``binary`` (built from serving/
+    into reagent_tpu_torch/_build/serving/ in phase 2), serves one plan
+    per kept artifact (root ActionValueScoring, every action chosen,
+    authored with the port's DSL): every action's native Q on 64 raw rows
+    within 1e-4 of max(1, |Q|) of the in-process serving module on the
+    card."""
+    from reagent_tpu_torch.preprocessing.batch_preprocessor import sparse_to_dense
+    from reagent_tpu_torch.serving import (
+        ActionValueScoring,
+        DecisionPlanBuilder,
+        export_plan,
+        native,
+    )
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as plans:
+        for label, a in artifacts.items():
+            n_actions = a["serving"].model.q_network.action_dim
+            export_plan(DecisionPlanBuilder().set_root(ActionValueScoring(model_path=a["path"]))
+                        .set_num_actions_to_choose(n_actions), os.path.join(plans, f"{label}.json"))
+        with native.decision_service(plans, binary=binary) as client:
+            for label, a in artifacts.items():
+                sf = a["serving"].model.preprocessor.sorted_features
+                values, presence = sparse_to_dense(a["rows"], sf)
+                names, q_live = a["serving"](torch.tensor(values, device=DEVICE),
+                                             torch.tensor(presence, device=DEVICE))
+                q_live = q_live.cpu().numpy().astype(np.float64)
+                t1 = time.perf_counter()
+                q_native = native.action_values(client, label, names, a["rows"])
+                ms = (time.perf_counter() - t1) / len(a["rows"]) * 1e3
+                scaled = np.abs(q_native - q_live) / np.maximum(1.0, np.abs(q_live))
+                if q_native.shape != q_live.shape or not (scaled <= NATIVE_TOL).all():
+                    raise AssertionError(f"{label}: native Q parts from the in-process module "
+                                         f"by {scaled.max():.3e} of max(1, |Q|)")
+                out[label] = dict(rows=len(a["rows"]), actions=len(names),
+                                  max_abs=float(np.abs(q_native - q_live).max()),
+                                  max_scaled=float(scaled.max()), ms_a_request=ms)
+                log(f"  {label} artifact ({len(names)} actions): native Q of {len(a['rows'])} raw "
+                    f"rows against the in-process module on the card: max abs "
+                    f"{out[label]['max_abs']:.3e}, {out[label]['max_scaled']:.3e} of max(1, |Q|); "
+                    f"{ms:.3f} ms a request (HTTP on localhost)")
+    log(f"  [{time.perf_counter() - t0:.1f} s into the phase]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7391,7 +7843,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    from concurrent.futures import ThreadPoolExecutor
+
     from reagent_tpu_torch.ops import _build, fused_dqn, fused_dqn_offline  # noqa: F401
+    from reagent_tpu_torch.serving import native
 
     # Comparisons and timings in full float32: no TF32 in the plain versions.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7405,10 +7860,17 @@ def main() -> int:
 
     phase("phase 2: build")
     t0 = time.perf_counter()
-    libs = _build.build_all()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        # g++ of the C++ decision service (phase 65) beside the nvcc builds,
+        # finished before any timed window
+        service_build = pool.submit(native.build_decision_service)
+        libs = _build.build_all()
+        service = service_build.result()
     for lib in ("fused_dqn", "fused_mlp", "nstep_replay", "quantile_huber"):
         _build.load_library(lib)
-    log(f"  built {[os.path.basename(p) for p in libs]} in {time.perf_counter() - t0:.2f} s")
+    build_s = time.perf_counter() - t0
+    log(f"  built {[os.path.basename(p) for p in libs]} and {os.path.relpath(service)} "
+        f"(g++) in {build_s:.2f} s")
 
     phase("phase 3: K1 against its plain version (full width)")
     err_k1 = compare_kernel("K1", FULL, torch, LAUNCH_SEQUENCE)
@@ -7433,13 +7895,18 @@ def main() -> int:
         log(f"  {kname} device time by CUDA kernel (torch.profiler, mean of 5 updates):")
         gemm_us[kname] = profile_update(cfg, torch)[1]
 
+    # phases 6 and 7's artifacts, kept for the C++ service of phase 65
+    kept_dir = tempfile.TemporaryDirectory()
+    kept = {}
     with tempfile.TemporaryDirectory() as tmp:
         phase("phase 6: workflow at full width through K1")
         k1_launches, k1_steps, _ = workflow_phase(
-            FULL, FULL_ROWS, FULL_EPOCHS, "fused_dqn_offline_update", torch, tmp, "full_width")
+            FULL, FULL_ROWS, FULL_EPOCHS, "fused_dqn_offline_update", torch, tmp, "full_width",
+            keep=(kept_dir.name, kept))
         phase("phase 7: workflow at the CartPole sample config's shapes through K2")
         k2_launches, _, _ = workflow_phase(
-            CARTPOLE, 2048, 2, "fused_dqn_update", torch, tmp, "cartpole_sample")
+            CARTPOLE, 2048, 2, "fused_dqn_update", torch, tmp, "cartpole_sample",
+            keep=(kept_dir.name, kept))
 
     phase("phase 8: K2's packed interface, K3 and K4 against their plain versions")
     err_k2p = compare_k2_packed(torch)
@@ -7757,7 +8224,22 @@ def main() -> int:
     par = parallel_phase(torch, name)
     log(f"  phases 60-62 took {time.perf_counter() - t_imit:.1f} s together")
 
-    phase("phase 59: kernels (the summary of phases 1-62, printed last)")
+    t_leaf = time.perf_counter()
+    phase("phase 63: the leaf utilities card against CPU: the lite optimizers (random search, "
+          "Q-learning, the MLP ensemble, policy gradient, Gumbel-softmax, Bayes by backprop "
+          "at its defaults) and FrechetSort at [1,024, 20]")
+    leaf_errors = lite_card_cpu_phase(torch)
+
+    phase("phase 64: K3 at the Bayes-by-backprop surrogate's shape, timed; the optimizer's "
+          "steps, StepTimer and trace over K2, grid_search through K2")
+    leaf = leaf_timed_phase(torch, name, launch_floor_ms)
+
+    phase("phase 65: the C++ decision service scores phases 6 and 7's artifacts")
+    native_serving = native_serving_phase(torch, kept, service)
+    kept_dir.cleanup()
+    log(f"  phases 63-65 took {time.perf_counter() - t_leaf:.1f} s together")
+
+    phase("phase 59: kernels (the summary of phases 1-65, printed last)")
     by_path = {
         "K1 fused_dqn_offline_update": {
             "offline workflow, full width": k1_launches,
@@ -7766,7 +8248,9 @@ def main() -> int:
         "K1 fused_dqn_offline_update (bf16)": {
             "device-resident fused loop": scan_bf16["fused_dqn_offline_update_bf16"]},
         "K2 fused_dqn_update": {"offline workflow, CartPole sample": k2_launches,
-                                "generic online loop": generic_launches["fused_dqn_update"]},
+                                "generic online loop": generic_launches["fused_dqn_update"],
+                                **{f"{k} (CartPole sample config)": v
+                                   for k, v in leaf["k2_launches"].items()}},
         "K2 fused_dqn_update_packed": {
             "fused online loop": fused_launches["fused_dqn_update_packed"]},
         "K3 fused_mlp_forward": {
@@ -7809,7 +8293,8 @@ def main() -> int:
                 "fused_mlp_forward"],
             "deep-represent job (the greedy score)": cb_jobs["deep-represent"]["k3_launches"],
             **{f"OPE {k}": v["k3_launches"] for k, v in ope_jobs.items()},
-            **{k: v["launches_a_call"] for k, v in imit_timed["k3"].items()}},
+            **{k: v["launches_a_call"] for k, v in imit_timed["k3"].items()},
+            **{f"{k} (optimize steps)": v["launches"] for k, v in leaf["k3"].items()}},
         "K4 nstep_rewards": {"generic online loop": generic_launches["nstep_rewards"],
                              "online QR-DQN loop": qr_online_launches["nstep_rewards"],
                              "online CRR loop": crr_online["launches"]["nstep_rewards"],
@@ -7947,6 +8432,7 @@ def main() -> int:
             row["by_shape"].update(cb_timed["k3"])
             row["by_shape"].update(ope_timed["k3"])
             row["by_shape"].update(imit_timed["k3"])
+            row["by_shape"].update(leaf["k3"])
         if kname.startswith("K4"):
             row["by_shape"].update(wm_k4)
             row["by_shape"].update(sparse_k4)
@@ -7986,6 +8472,11 @@ def main() -> int:
     log(json.dumps({"imitation_cfeval_parallel": {
         "card_vs_cpu_max_abs": imit_errors,
         "timed": {k: v for k, v in imit_timed.items() if k != "k3"}, "parallel": par}}))
+    # the leaf utilities are numpy, torch and the C++ service (JAX's reach no
+    # pallas_call): their numbers stand beside the kernels
+    log(json.dumps({"leaf_utilities": {
+        "card_vs_cpu_max_abs": leaf_errors,
+        "timed": {k: v for k, v in leaf.items() if k != "k3"}, "native_serving": native_serving}}))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -395,7 +395,10 @@ def seq2slate_state_from_flax(params_np: Mapping) -> Dict[str, torch.Tensor]:
     ``value`` and ``out``, each ``Dense_i`` inside a block ``dense{i}``; the
     reward net's ``Embedder_0`` (candidates), ``Embedder_1`` (state) and
     head ``Dense_0`` its ``candidate_embedder``, ``state_embedder`` and
-    ``head``."""
+    ``head``.  A checkpoint from before the KV-cache decoder has the old
+    layout: pass it through
+    ``utils/checkpoint_compat.py::remap_pre_kv_cache_seq2slate_params``
+    first, then here."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
