@@ -71,8 +71,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      same table with compute_dtype float32 and bfloat16, 200 steps each;
  21. K3 against its plain version at the evaluation's shapes, a batch of
      512 rows of the sample config's net (resident route) and 4,096 rows of
-     the full-width net (streamed), timed beside one torch.addmm per layer
-     (a yardstick only) and the bound;
+     the full-width net (streamed), and at q_values' 64 rows of it
+     (streamed), timed beside one torch.addmm per layer (a yardstick only)
+     and the bound; every K3 row (here and in later phases) counts the CUDA
+     kernels of one call with torch.profiler: 1 on the resident route, one a
+     layer on the streamed route (the script fails otherwise);
  22. the flagship sample config unchanged (4->128->64->2 leaky_relu,
      minibatch 512, Adam lr 0.01, gamma 0.99, tau 0.2, double-Q, CPE on, 20
      epochs, 90/10 split) through identify_and_train_network on a 4,096-row
@@ -378,7 +381,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      OPE numbers, one of phases 60-62's numbers and one of phases 63-65's;
      K3's rows add the imitator gate's, the Bayes-by-backprop sample's and
      the Bayes-by-backprop optimizer's surrogate's shapes and launches, K2's
-     the StepTimer's and the grid search's launches.
+     the StepTimer's and the grid search's launches; K3's row names both
+     routes, each with its kernel and the shapes that took it;
+ 66. (before that line) the CUDA kernels a call of every K3 row of phases
+     21-64, counted with torch.profiler in a fresh process of this script
+     (--k3-kernels-a-call): 1 on the resident route, one a layer on the
+     streamed route, or the script fails.
 Each phase's heading carries the seconds since the script started.
 Every path runs with the launch counts set to 0 just before it and read
 just after; a path whose kernels did not launch once per step fails.
@@ -2196,11 +2204,15 @@ SAMPLE_CPE_ROWS = 4096  # ~410 evaluation rows after the 90/10 split
 FULL_CPE_ROWS, FULL_CPE_EPOCHS = 8192, 4  # 4 train steps, ~850 evaluation rows
 # K3 at the evaluation's forwards: a batch of the sample config's net (the
 # resident route) and a full evaluation batch of the full-width net (streamed);
+# and the device-resident loop's FusedDQNTrainer.q_values on 64 rows of the
+# full-width net (streamed; phase 19 runs it once);
 # label -> (rows, sizes, activations, resident route expected, seed)
 K3_EVAL_SHAPES = {
     "[512, 4->128->64->2]": (512, [4, 128, 64, 2], ["leaky_relu"] * 2 + ["linear"], True, 512),
     "[4096, 128->512->256->8]": (4096, [128, 512, 256, 8], ["leaky_relu"] * 2 + ["linear"],
-                                 False, 4096)}
+                                 False, 4096),
+    "q_values [64, 128->512->256->8]": (64, [128, 512, 256, 8], ["leaky_relu"] * 2 + ["linear"],
+                                        False, 64)}
 
 
 def full_cpe_model():
@@ -2260,6 +2272,78 @@ def k3_shapes_phase(torch, name, shapes, timed, launch_floor_ms, sleep_cycles=2_
     return out
 
 
+# Every K3 row's call, as (spec, row dict or None), for k3_kernels_phase.
+K3_CALLS = []
+
+
+def k3_call_spec(label, x, weights, acts, route):
+    """What fixes the CUDA kernels of a K3 call: rows, widths, each weight's
+    strides (the layout picks the kernel), activations and the route."""
+    return dict(label=label, rows=x.shape[0], sizes=[x.shape[1]] + [w.shape[1] for w, _ in weights],
+                strides=[list(w.stride()) for w, _ in weights], acts=list(acts), route=route)
+
+
+def k3_kernels_child(path):
+    """``chip_smoke.py --k3-kernels-a-call SPECS.json``: in this fresh
+    process, the CUDA kernels one K3 call runs at each spec's shape and
+    layout (torch.profiler over one call after a warm-up), written to
+    SPECS.json.out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from reagent_tpu_torch.ops import fused_mlp
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    counts = []
+    with open(path) as f:
+        specs = json.load(f)
+    for spec in specs:
+        x = torch.randn((spec["rows"], spec["sizes"][0]), device=DEVICE, generator=gen)
+        weights = []
+        for (i, o), stride in zip(zip(spec["sizes"][:-1], spec["sizes"][1:]), spec["strides"]):
+            w = torch.empty_strided((i, o), stride, device=DEVICE)
+            w.copy_(torch.randn((i, o), device=DEVICE, generator=gen) / i ** 0.5)
+            weights.append((w, torch.zeros(o, device=DEVICE)))
+        fused_mlp.fused_mlp_forward(x, weights, spec["acts"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fused_mlp.fused_mlp_forward(x, weights, spec["acts"])
+            torch.cuda.synchronize()
+        counts.append(round(sum(c for _, c, key in profiled_rows(prof, 1)[0] if "mlp" in key)))
+    with open(path + ".out", "w") as f:
+        json.dump(counts, f)
+    return 0
+
+
+def k3_kernels_phase():
+    """The CUDA kernels a call of every K3 row so far, counted with
+    torch.profiler in a fresh process: 1 on the resident route, one a layer
+    on the streamed route (AssertionError otherwise); each timed row gets
+    its count.  Late in this script a profiled window around one small call
+    came back with none or only some of its kernels (phase 21, on either
+    activity set, with the host idle 1 s inside the window), while a fresh
+    process counts every one."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "k3_specs.json")
+        with open(path, "w") as f:
+            json.dump([spec for spec, _ in K3_CALLS], f)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--k3-kernels-a-call",
+                               path], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the K3 kernel count failed:\n{proc.stdout}\n{proc.stderr}")
+        with open(path + ".out") as f:
+            counts = json.load(f)
+    for (spec, row), n in zip(K3_CALLS, counts):
+        want = 1 if spec["route"] == "resident" else len(spec["acts"])
+        log(f"  K3 {spec['label']} ({spec['route']} route): {n} CUDA kernels a call")
+        if n != want:
+            raise AssertionError(f"K3 {spec['label']}: {n} CUDA kernels a call on the "
+                                 f"{spec['route']} route, not {want}")
+        if row is not None:
+            row["cuda_kernels_a_call"] = n
+    return len(counts)
+
+
 def k3_row(torch, name, label, x, weights, acts, launch_floor_ms, timed=True,
            sleep_cycles=2_000_000_000):
     """K3 on ``(x, weights, acts)`` against its plain version and one
@@ -2285,7 +2369,9 @@ def k3_row(torch, name, label, x, weights, acts, launch_floor_ms, timed=True,
         return h
 
     torch.testing.assert_close(addmm(), y, rtol=1e-5, atol=1e-5)
+    spec = k3_call_spec(label, x, weights, acts, route)
     if not timed:
+        K3_CALLS.append((spec, None))
         log(f"  K3 {label}: max abs {err:.3e} against the plain version ({route} route)")
         return None
     macs = sum(i * o for i, o in zip(sizes[:-1], sizes[1:]))
@@ -2301,6 +2387,7 @@ def k3_row(torch, name, label, x, weights, acts, launch_floor_ms, timed=True,
         products_library_ms=time_ms(torch, addmm, sleep_cycles=sleep_cycles),
         bound_ms=b_ms, bound_by=b_by,
         max_abs_err=err, route=route)
+    K3_CALLS.append((spec, t))
     log(f"  K3 {label} ({route} route): kernel {t['ms']:.4f} ms (launch floor "
         f"{launch_floor_ms:.4f}), plain {t['plain_ms']:.4f} ms, one torch.addmm per layer "
         f"(a yardstick only) {t['products_library_ms']:.4f} ms, bound {b_ms:.6f} ms "
@@ -8416,7 +8503,8 @@ def main() -> int:
             row["products_library_ms"] = k3_addmm_ms
             row["wrapper_host_us_by_shape"] = {"x [20, 4]": host_us["K3 [20, 4]"]}
             # the evaluation's forwards (phase 21), each with its addmm yardstick
-            row["by_shape"].update({f"evaluation {k}": v for k, v in k3_eval.items()})
+            row["by_shape"].update({(k if k.startswith("q_values") else f"evaluation {k}"): v
+                                    for k, v in k3_eval.items()})
         if kname.startswith(("K3", "K4")):
             # the C51 and parametric paths' shapes (phase 34)
             row["by_shape"].update(family_kernels[kname[:2]])
@@ -8433,6 +8521,15 @@ def main() -> int:
             row["by_shape"].update(ope_timed["k3"])
             row["by_shape"].update(imit_timed["k3"])
             row["by_shape"].update(leaf["k3"])
+            # both routes: the kernel, the CUDA kernels a call (each shape's
+            # row holds its profiled count) and the shapes each took here
+            row["routes"] = {
+                route: {"kernel": kernel, "cuda_kernels_a_call": per_call,
+                        "shapes": [k for k, v in row["by_shape"].items()
+                                   if isinstance(v, dict) and v.get("route") == route]}
+                for route, kernel, per_call in (
+                    ("resident", "fused_mlp_resident_kernel", "1"),
+                    ("streamed", "mlp_layer_kernel", "one a layer"))}
         if kname.startswith("K4"):
             row["by_shape"].update(wm_k4)
             row["by_shape"].update(sparse_k4)
@@ -8477,6 +8574,10 @@ def main() -> int:
     log(json.dumps({"leaf_utilities": {
         "card_vs_cpu_max_abs": leaf_errors,
         "timed": {k: v for k, v in leaf.items() if k != "k3"}, "native_serving": native_serving}}))
+    phase("phase 66: K3's CUDA kernels a call at every K3 row's shape (torch.profiler, a "
+          "fresh process)")
+    n_k3_rows = k3_kernels_phase()
+    log(f"  {n_k3_rows} K3 rows counted")
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {
@@ -8485,4 +8586,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--k3-kernels-a-call"]:
+        sys.exit(k3_kernels_child(sys.argv[2]))
     sys.exit(main())

@@ -55,8 +55,9 @@ _SIGNATURES = {
     },
     "fused_mlp": {
         "fused_mlp_error_string": (ctypes.c_char_p, [_I]),
-        "fused_mlp_forward": (_I, [_I, _IP, _IP, _PP, _LLP, _PP, _P, _I, _I, _P, _P]),
+        "fused_mlp_forward": (_I, [_I, _IP, _IP, _PP, _LLP, _PP, _P, _I, _I, _P, _P, _P]),
         "fused_mlp_resident": (_I, [_I, _IP, _LLP, _I, _I]),
+        "fused_mlp_workspace_floats": (_LL, [_I, _IP, _LLP, _I, _I]),
     },
     "nstep_replay": {
         "nstep_error_string": (ctypes.c_char_p, [_I]),

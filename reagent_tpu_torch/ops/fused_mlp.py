@@ -1,26 +1,36 @@
-"""Fused small-MLP forward (K3): every layer of a dense MLP in one launch.
+"""Fused small-MLP forward (K3): a dense MLP's forward in hand-written kernels.
 
 Replaces the TPU kernel ``reagent_tpu/ops/fused_mlp.py::fused_mlp_forward``
 (its ``pallas_call`` at :75), with its signature: ``weights`` is
 ``[(W_i [d_i, d_{i+1}], b_i [d_{i+1}]), ...]`` and one activation per layer
-(relu, leaky_relu with slope 0.01, tanh, linear).  It scores policies: the
-act step of both online loops (``FusedDQNTrainer.q_values``) and
-``gym/policies/scorers.py::discrete_dqn_scorer``.
+(relu, leaky_relu with slope 0.01, tanh, linear).  It scores policies (the
+act step of both online loops, ``FusedDQNTrainer.q_values``,
+``gym/policies/scorers.py::discrete_dqn_scorer``) and runs the evaluation,
+OPE, imitation and surrogate forwards.
 
-The CUDA kernel (``csrc/fused_mlp.cu``) takes each weight's two strides, so a
-caller holding ``[out, in]`` weights (``nn.Linear``, the trainer state)
-passes ``W.T`` views with no copy.  One block scores a tile of up to 16
-rows, its activations kept in shared memory through all layers.  At the act
-step's shapes the work is nanoseconds of this card's memory and arithmetic;
-the launch and the latency of the loads are the cost.  So where the whole
-net fits in a block's shared memory (``takes_resident_route``), the block
-issues every load of the launch (x, all weights and biases) at its start
-and each layer waits only for its own; larger nets stage each layer's
-weights in turn.  Both routes sum every output in the same order.
+The CUDA kernels (``csrc/fused_mlp.cu``) take each weight's two strides, so
+a caller holding ``[out, in]`` weights (``nn.Linear``, the trainer state)
+passes ``W.T`` views with no copy.  Two routes, which
+``takes_resident_route`` names:
 
-``block_b`` is the TPU kernel's batch tile.  The CUDA tile is at most 16 rows
-(it sizes the kernel's shared-memory activation buffers), so ``block_b``
-only caps it from above; results do not depend on it.
+* resident, one CUDA kernel a call: where the whole net fits in a block's
+  shared memory (the act step's nets).  Their work is nanoseconds of this
+  card's memory and arithmetic; the launch and the latency of the loads
+  are the cost, so each block of up to 16 rows issues every load of the
+  launch (x, all weights and biases) at its start and each layer waits only
+  for its own.
+* streamed, L CUDA kernels a call, one a layer: larger nets (0.5-1 MB of
+  weights).  f32 fmas bound them at thousands of rows, load and launch
+  latency at tens, so each layer is a register-blocked tile product with
+  its bias and activation fused, each weight tile serving a whole row tile,
+  and the tile is picked from the layer's shape so that small batches
+  spread over every SM.  Hidden activations pass through a workspace this
+  wrapper allocates.
+
+Both routes sum every output in the same order (fmaf over k ascending,
+then the bias), so results do not depend on the route or the tile.
+``block_b`` is the TPU kernel's batch tile: it caps the resident route's
+tile of at most 16 rows from above; results do not depend on it.
 """
 
 from __future__ import annotations
@@ -64,9 +74,9 @@ def _tile_rows(block_b: int, B: int) -> int:
 
 
 def takes_resident_route(B: int, weights, block_b: int = 256) -> bool:
-    """Whether a launch at B rows holds these weights in shared memory (the
-    resident route) or stages each layer's weights in turn (the streamed
-    route).  Asks the built library (on the machine with the card)."""
+    """Whether a call at B rows holds these weights in shared memory in one
+    CUDA kernel (the resident route) or runs one tile product a layer (the
+    streamed route).  Asks the built library (on the machine with the card)."""
     from reagent_tpu_torch.ops import _build
 
     L = len(weights)
@@ -116,14 +126,21 @@ def _launch(x, weights, activations, block_b) -> torch.Tensor:
         return y
     lib = _build.load_library("fused_mlp")
     tile = _tile_rows(block_b, B)
+    c_dims = (ctypes.c_int * (L + 1))(*dims)
+    c_strides = (ctypes.c_longlong * (2 * L))(*strides)
+    # the streamed route's hidden activations; none on the resident route
+    ws_floats = lib.fused_mlp_workspace_floats(L, c_dims, c_strides, B, tile)
+    if ws_floats < 0:
+        raise ValueError(f"invalid net {dims} at B={B}")
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=dev) if ws_floats else None
     with torch.cuda.device(dev):
         err = lib.fused_mlp_forward(
-            L, (ctypes.c_int * (L + 1))(*dims),
+            L, c_dims,
             (ctypes.c_int * L)(*(_ACT_CODES[a] for a in activations)),
             (ctypes.c_void_p * L)(*(w.data_ptr() for w, _ in weights)),
-            (ctypes.c_longlong * (2 * L))(*strides),
+            c_strides,
             (ctypes.c_void_p * L)(*(b.data_ptr() for _, b in weights)),
-            x.data_ptr(), B, tile, y.data_ptr(),
+            x.data_ptr(), B, tile, y.data_ptr(), None if ws is None else ws.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -138,7 +155,8 @@ def fused_mlp_forward(
     activations: Sequence[str],
     block_b: int = 256,
 ) -> torch.Tensor:
-    """K3: ``y = MLP(x)`` with all layers in one launch; x [B, d_0] -> [B, d_L].
+    """K3: ``y = MLP(x)``; x [B, d_0] -> [B, d_L], one CUDA kernel a call on
+    the resident route, one a layer on the streamed route.
 
     A CUDA tensor launches the hand-written kernel (or raises); a CPU tensor
     takes the plain version."""

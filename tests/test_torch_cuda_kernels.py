@@ -539,6 +539,75 @@ def test_k3_on_the_c51_and_parametric_paths(card, family, rows):
     torch.testing.assert_close(y, own.detach(), rtol=1e-5, atol=1e-4)
 
 
+# The streamed route's tile edges: every net past the resident route's
+# shared memory, out widths 500, 501 and 1, in widths 6, 10 and 137 (none a
+# multiple of 4: the 4-byte copies of x), L of 1 and 6.
+K3_STREAMED_NETS = {
+    "6-500-501-1": [6, 500, 501, 1],
+    "10-501-500-1": [10, 501, 500, 1],
+    "137-500-1": [137, 500, 1],
+    "L1-600-501": [600, 501],
+    "L6-10-300-300-300-200-100-1": [10, 300, 300, 300, 200, 100, 1],
+}
+K3_ACTS = ["relu", "leaky_relu", "tanh", "linear"]
+
+
+def _k3_streamed(x, weights, acts):
+    """K3 on the streamed route against its plain version (f32 sums in
+    another order: rtol 1e-5, atol 1e-5), one wrapper launch and one CUDA
+    kernel a layer."""
+    assert not fused_mlp.takes_resident_route(x.shape[0], weights)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        y = _k3_matches(x, weights, acts)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "mlp_layer_kernel" in e.name]
+    assert len(kernels) == len(weights), [e.name for e in kernels]
+    return y
+
+
+@pytest.mark.parametrize("transposed", [True, False], ids=["out_in_view", "in_out"])
+@pytest.mark.parametrize("net", list(K3_STREAMED_NETS))
+@pytest.mark.parametrize("B", [1, 17, 33, 257, 4097])
+def test_k3_streamed_route_at_its_tile_edges(card, B, net, transposed):
+    """Batches on both sides of the row tiles (16, 32, 64, 128) and of the
+    grid's switch between tile shapes, in both weight layouts, each
+    activation in turn."""
+    sizes = K3_STREAMED_NETS[net]
+    i = list(K3_STREAMED_NETS).index(net) + B
+    acts = [K3_ACTS[i % 4]] * (len(sizes) - 2) + [K3_ACTS[(i + 1) % 4]]
+    weights = _mlp(card, sizes, i, transposed)
+    x = torch.tensor(np.random.default_rng(B).normal(size=(B, sizes[0])).astype(np.float32),
+                     device=card)
+    _k3_streamed(x, weights, acts)
+
+
+def _misaligned(t):
+    """A copy of ``t`` whose data starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("transposed", [True, False], ids=["out_in_view", "in_out"])
+@pytest.mark.parametrize("act", K3_ACTS)
+@pytest.mark.parametrize("B", [17, 257])
+def test_k3_streamed_route_on_views_not_16_byte_aligned(card, B, act, transposed):
+    """Weights and x whose pointers are not 16-byte aligned take the 4-byte
+    copies; results as the aligned ones' bit for bit (the order of every sum
+    is fixed)."""
+    sizes = [10, 501, 500, 1]
+    weights = _mlp(card, sizes, 3, transposed)
+    odd = [((_misaligned(w.T).T if transposed else _misaligned(w)), b) for w, b in weights]
+    x = torch.tensor(np.random.default_rng(B).normal(size=(B, 10)).astype(np.float32),
+                     device=card)
+    acts = [act, act, "linear"]
+    y = _k3_streamed(_misaligned(x), odd, acts)
+    assert torch.equal(y, fused_mlp.fused_mlp_forward(x, weights, acts))
+
+
 def _nstep_inputs(device, capacity, R, term_dtype, seed, p_terminal=0.2):
     rng = np.random.default_rng(seed)
     rewards = rng.normal(size=(capacity,) if R == 1 else (capacity, 2, R // 2)).astype(np.float32)

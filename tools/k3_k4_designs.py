@@ -10,22 +10,28 @@ copies of those sources, on one NVIDIA card.
 
 Each further pair of sources is one more design, named by its two paths
 (a pair may name this checkout's own ``fused_mlp.cu`` to compare K4 alone).
-Prints ``-Xptxas -v`` for both kernels of each source (registers, shared
+Prints ``-Xptxas -v`` for every kernel of each source (registers, shared
 memory, spills); holds this checkout's results against the other sources'
 bit for bit at every shape ``chip_smoke.py`` and
 ``tests/test_torch_cuda_kernels.py`` use (K3: the act step [1, 4],
 evaluate_policy's [20, 4] and [64, 4] on the CartPole net, the full-width
 ``q_values`` nets 128 -> 512 -> 256 -> 8 and -> 408 on 64 rows, the ragged
 test net at B 37 and 300 in both weight layouts with each activation, the
-600-wide net and a net of input widths that are not multiples of 4; K4 at
-both ``chip_smoke.K4_SHAPES`` with R 1 and 6 and H 1, 3 and 64); then
-times all in turns (the others, this, this, the others in reverse; CUDA
-events, 3 warm-ups, median of 20) beside the queued launch floor and the
-plain versions, with each wrapper's host time per call (the least of 5
-runs of ``chip_smoke.host_us_per_call``, 200 calls each) at the act step's
-[1, 4] and the loops' K4 shape through each design's library.  Exits 1 if any result differs.
-The other sources keep the C interfaces of ``csrc/fused_mlp.cu`` and
-``csrc/nstep_replay.cu``, less the entries added since (``bind``).
+600-wide net, a net of input widths that are not multiples of 4, and the
+streamed route's callers, ``STREAMED``; K4 at both ``chip_smoke.K4_SHAPES``
+with R 1 and 6 and H 1, 3 and 64); then times all in turns (the others,
+this, this, the others in reverse; CUDA events, 3 warm-ups, median of 20)
+beside the queued launch floor, the plain versions and, at the streamed
+shapes, one ``torch.addmm`` a layer (a yardstick the port never calls),
+with each wrapper's host time per call (the least of 5 runs of
+``chip_smoke.host_us_per_call``, 200 calls each) at the act step's [1, 4]
+and the loops' K4 shape through each design's library; then each design's
+device time by CUDA kernel (torch.profiler) at the streamed shapes.  Exits
+1 if any result differs.  The other sources keep the C interfaces of
+``csrc/fused_mlp.cu`` and ``csrc/nstep_replay.cu``, less the entries added
+since (``bind``); a ``fused_mlp.cu`` without ``fused_mlp_workspace_floats``
+(the route that staged the whole net in one launch) is called through
+``OlderK3``.
 
 ``--anatomy`` also times, at the CartPole shapes, copies of this checkout's
 ``fused_mlp.cu`` with parts of the resident route's work taken out
@@ -36,6 +42,7 @@ compared; their times show what the kernel's time is made of.
 
 from __future__ import annotations
 
+import ctypes
 import sys
 from pathlib import Path
 
@@ -82,6 +89,66 @@ def anatomy_sources(src: Path):
         path.write_text(t)
         out[f"anatomy: {label}"] = path
     return out
+
+
+# The streamed route's callers: label -> (rows, sizes, activations, W^T views
+# of [out, in] (else contiguous [in, out]))
+RELU_NET = ["relu", "relu", "linear"]
+GATE = ["leaky_relu", "leaky_relu", "linear"]
+STREAMED = {
+    "NNTrainer predict, MSLR [32, 10-500-500-1]": (32, [10, 500, 500, 1], RELU_NET, True),
+    "NNTrainer predict [4000, 8-500-500-1]": (4000, [8, 500, 500, 1], RELU_NET, True),
+    "gate and CPE [4096, 128-512-256-8]": (4096, [128, 512, 256, 8], GATE, True),
+    "BBB sample [4096, 136-512-1] on [in, out]": (4096, [136, 512, 1], ["relu", "linear"], False),
+    "[8192, 128-512-256-8]": (8192, [128, 512, 256, 8], GATE, True),
+}
+# fused_mlp_forward before the streamed route took a workspace
+_OLD_FORWARD = (ctypes.c_int, [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                               ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p),
+                               ctypes.POINTER(ctypes.c_longlong),
+                               ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+
+
+class OlderK3:
+    """A ``fused_mlp`` library whose ``fused_mlp_forward`` takes no workspace,
+    behind this checkout's wrapper: it needs none, and its forward is called
+    without the workspace pointer."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    @staticmethod
+    def fused_mlp_workspace_floats(*args):
+        return 0
+
+    def fused_mlp_forward(self, *args):
+        return self._lib.fused_mlp_forward(*args[:10], args[11])
+
+
+def bind_k3(src: Path):
+    """``bind`` for a ``fused_mlp.cu`` of this checkout's interface or of the
+    older one (``OlderK3``)."""
+    from reagent_tpu_torch.ops import _build
+
+    if hasattr(ctypes.CDLL(str(_build._compile(src))), "fused_mlp_workspace_floats"):
+        return bind(src, "fused_mlp")
+    return OlderK3(bind(src, "fused_mlp", {"fused_mlp_forward": _OLD_FORWARD}))
+
+
+def addmm_fn(torch, x, weights, acts):
+    """The same forward as one torch.addmm a layer: a yardstick only."""
+    from reagent_tpu_torch.ops.fused_dqn import _act
+
+    def run():
+        h = x
+        for (w, b), a in zip(weights, acts):
+            h = _act(a, torch.addmm(b, h, w))
+        return h
+    return run
 
 
 def use(libs) -> None:
@@ -131,6 +198,9 @@ def k3_cases(torch):
         cases.append((f"ragged inputs [20, 6-130-67-2] {'W^T view' if transposed else '[in, out]'}",
                       rows_of(torch, 20, 6, 20), mlp(torch, [6, 130, 67, 2], 6, transposed),
                       ["leaky_relu", "relu", "linear"]))
+    for i, (label, (rows, sizes, acts, transposed)) in enumerate(STREAMED.items()):
+        cases.append((f"streamed: {label}", rows_of(torch, rows, sizes[0], 30 + i),
+                      mlp(torch, sizes, 40 + i, transposed), acts))
     return cases
 
 
@@ -209,7 +279,7 @@ def main(argv) -> int:
         cs.log(f"{label}: -Xptxas -v")
         cs.log(ptxas_report(k3_src, "fused_mlp"))
         cs.log(ptxas_report(k4_src, "nstep"))
-        libs[label] = (bind(k3_src, "fused_mlp"), bind(k4_src, "nstep_replay"))
+        libs[label] = (bind_k3(k3_src), bind(k4_src, "nstep_replay"))
     parts_of = {}
     if anatomy:
         for label, path in anatomy_sources(sources["this"][0]).items():
@@ -222,7 +292,7 @@ def main(argv) -> int:
             same_all &= same_results(torch, libs["this"], libs[label])
 
     k3_timed = [c for c in k3_cases(torch)
-                if c[0].startswith(("CartPole", "q_values [64, 128-512-256-8]"))]
+                if c[0].startswith(("CartPole", "q_values [64, 128-512-256-8]", "streamed"))]
     k4_timed = [(label, cs.k4_inputs(torch, capacity, B, H), H)
                 for label, (capacity, B, H) in cs.K4_SHAPES.items()]
     order = [k for k in sources if k != "this"] + ["this", "this"] + \
@@ -257,6 +327,16 @@ def main(argv) -> int:
               f"{cs.time_ms(torch, lambda: nstep_replay.nstep_rewards_reference(*inputs, H, 0.99)):.4f}"
               for name, inputs, H in k4_timed]
     cs.log("  plain versions: " + ", ".join(plain) + f" ms, on {card}")
+    addmm = [f"K3 {name} {cs.time_ms(torch, addmm_fn(torch, x, w, a)):.4f}"
+             for name, x, w, a in k3_timed if not name.startswith("CartPole")]
+    cs.log("  one torch.addmm a layer (a yardstick only): " + ", ".join(addmm) + f" ms, on {card}")
+    for label in [k for k in sources if k == "this"] + [k for k in sources if k != "this"]:
+        use(libs[label])
+        for name, x, w, a in k3_timed:
+            if name.startswith("streamed"):
+                cs.log(f"  {label}: K3 {name} device time by CUDA kernel (torch.profiler, mean "
+                       f"of 5 calls):")
+                cs.profile_calls(torch, lambda: fused_mlp.fused_mlp_forward(x, w, a))
     use(libs["this"])
     cs.log(f"bit for bit against every other source at every shape: {same_all}")
     return 0 if same_all else 1
