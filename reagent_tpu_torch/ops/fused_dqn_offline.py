@@ -47,6 +47,7 @@ from reagent_tpu_torch.ops.fused_dqn import (
     launch_cuda,
     update_reference,
 )
+from reagent_tpu_torch.utils.profiling import annotate
 
 
 def check_block_size(minibatch_size: int, block_size: Optional[int]) -> None:
@@ -120,17 +121,18 @@ def fused_dqn_offline_update(
             f"fused_dqn_offline_update runs on cuda or cpu, not {obs.device}")
     check_block_size(obs.shape[0], block_size)
     fn = fused_dqn_offline_update
-    if matmul_dtype == save_dtype == torch.float32:
-        metrics, fn.kernels_per_update = launch_cuda(
-            "fused_dqn_offline_update", lr_t, eps_t, obs, nobs, act, rew, nt, mask,
-            params8, **kw)
-    else:
-        bf16 = torch.bfloat16
-        metrics, fn.bf16_kernels_per_update = launch_cuda(
-            "fused_dqn_offline_update_bf16", lr_t, eps_t, obs, nobs, act, rew, nt,
-            mask, params8, precision=(int(matmul_dtype == bf16), int(save_dtype == bf16)),
-            **kw)
-        fn.bf16_launches += 1
+    with annotate("reagent.k1"):
+        if matmul_dtype == save_dtype == torch.float32:
+            metrics, fn.kernels_per_update = launch_cuda(
+                "fused_dqn_offline_update", lr_t, eps_t, obs, nobs, act, rew, nt, mask,
+                params8, **kw)
+        else:
+            bf16 = torch.bfloat16
+            metrics, fn.bf16_kernels_per_update = launch_cuda(
+                "fused_dqn_offline_update_bf16", lr_t, eps_t, obs, nobs, act, rew, nt,
+                mask, params8, precision=(int(matmul_dtype == bf16), int(save_dtype == bf16)),
+                **kw)
+            fn.bf16_launches += 1
     fn.launches += 1
     return metrics
 

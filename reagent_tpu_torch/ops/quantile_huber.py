@@ -37,7 +37,11 @@ differentiated by autograd.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+from reagent_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -204,7 +208,8 @@ class _QuantileHuberPerSample(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_per_sample: Tensor):
         (sums,) = ctx.saved_tensors
-        return None, _launch_scale(sums, grad_per_sample, ctx.dtype), None
+        with annotate("reagent.k5"):
+            return None, _launch_scale(sums, grad_per_sample, ctx.dtype), None
 
 
 def quantile_huber_per_sample(target: Tensor, current: Tensor, kappa: float = 1.0) -> Tensor:
@@ -230,8 +235,10 @@ def quantile_huber_per_sample(target: Tensor, current: Tensor, kappa: float = 1.
 
 def quantile_huber_loss(target_q: Tensor, current_q: Tensor, kappa: float = 1.0) -> Tensor:
     """K5: the mean quantile-Huber loss (a scalar) of target quantiles
-    ``[B, N]`` against current quantiles ``[B, N]``."""
-    return quantile_huber_per_sample(target_q, current_q, kappa).mean()
+    ``[B, N]`` against current quantiles ``[B, N]``.  On the card the
+    forward and its mean are the span ``reagent.k5``, as is the backward."""
+    with annotate("reagent.k5") if target_q.is_cuda else contextlib.nullcontext():
+        return quantile_huber_per_sample(target_q, current_q, kappa).mean()
 
 
 quantile_huber_loss.launches = 0  # forward launches, both routes

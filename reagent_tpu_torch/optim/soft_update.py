@@ -12,6 +12,8 @@ from typing import Callable, Dict
 
 import torch
 
+from reagent_tpu_torch.utils.profiling import annotate
+
 Tensor = torch.Tensor
 
 
@@ -20,10 +22,11 @@ def soft_update(
 ) -> Dict[str, Tensor]:
     """Polyak averaging, ``tau=1`` a hard copy.  Returns new tensors; neither
     argument is written."""
-    return {
-        k: tau * source_params[k].detach() + (1.0 - tau) * t
-        for k, t in target_params.items()
-    }
+    with annotate("reagent.optim.soft_update"):
+        return {
+            k: tau * source_params[k].detach() + (1.0 - tau) * t
+            for k, t in target_params.items()
+        }
 
 
 def soft_update_excluding(

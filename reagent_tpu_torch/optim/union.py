@@ -44,6 +44,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from reagent_tpu_torch.core.registry import OPTIMIZERS
+from reagent_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -109,8 +110,9 @@ class Rule:
         raise NotImplementedError
 
     def update(self, grads: Params, state: OptState, params: Params) -> Tuple[Params, OptState]:
-        u, state = self.updates(grads, state, params)
-        return {k: p + u[k] for k, p in params.items()}, state
+        with annotate("reagent.optim.update"):
+            u, state = self.updates(grads, state, params)
+            return {k: p + u[k] for k, p in params.items()}, state
 
 
 class AdamRule(Rule):

@@ -44,6 +44,7 @@ from reagent_tpu_torch.ops.fused_dqn_offline import (
 from reagent_tpu_torch.ops.fused_mlp import fused_mlp_forward
 from reagent_tpu_torch.training.scan_loop import check_num_steps, run_sampled_steps
 from reagent_tpu_torch.utils.device import resolve_device
+from reagent_tpu_torch.utils.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -201,16 +202,16 @@ class FusedDQNTrainer:
             x = x.to(device=self.device, dtype=torch.float32)
             return (x.reshape(shape) if shape else x).contiguous()
 
-        m = self._update(
-            lr_t, eps_t,
-            f32(batch.state.float_features),
-            f32(batch.next_state.float_features),
-            f32(batch.action),
-            f32(batch.reward, (B, 1)),
-            f32(batch.not_terminal, (B, 1)),
-            f32(batch.possible_next_actions_mask),
-            state.params8(),
-        )
+        with annotate("reagent.fused_dqn.stage"):
+            fields = (
+                f32(batch.state.float_features),
+                f32(batch.next_state.float_features),
+                f32(batch.action),
+                f32(batch.reward, (B, 1)),
+                f32(batch.not_terminal, (B, 1)),
+                f32(batch.possible_next_actions_mask),
+            )
+        m = self._update(lr_t, eps_t, *fields, state.params8())
         return dataclasses.replace(state, step=state.step + 1), _metrics(m)
 
     def _adam_scalars(self, state: FusedDQNTrainerState) -> Tuple[Tensor, Tensor]:

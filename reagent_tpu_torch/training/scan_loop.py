@@ -24,6 +24,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from reagent_tpu_torch.utils.profiling import annotate
+
 Tensor = torch.Tensor
 
 
@@ -96,13 +98,19 @@ def run_sampled_steps(
 ):
     """``num_steps`` calls of ``step(state, batch_of(idx))``, each on
     ``minibatch_size`` row indices drawn uniformly with replacement from
-    ``[0, num_rows)`` on the generator's device; no host read."""
+    ``[0, num_rows)`` on the generator's device; no host read.  Each step,
+    its draw and its gather are spans (``utils.profiling``)."""
     check_num_steps(num_steps)
     per_step = []
     for _ in range(num_steps):
-        idx = torch.randint(
-            0, num_rows, (minibatch_size,), generator=generator, device=generator.device)
-        state, m = step(state, batch_of(idx))
+        with annotate("reagent.loop.step"):
+            with annotate("reagent.loop.sample"):
+                idx = torch.randint(
+                    0, num_rows, (minibatch_size,), generator=generator,
+                    device=generator.device)
+            with annotate("reagent.loop.gather"):
+                batch = batch_of(idx)
+            state, m = step(state, batch)
         per_step.append(m)
     return state, stack_metrics(per_step)
 

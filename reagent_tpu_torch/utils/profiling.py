@@ -7,6 +7,53 @@ activities, and writes it into ``log_dir`` as a Chrome trace
 an xprof trace.  ``StepTimer.measure`` synchronises the device of the
 tensors it is given before it stops the clock, as ``jax.block_until_ready``
 does, and ``annotate`` names a region of the trace.
+
+``annotate(name)`` opens a span only while a profiler runs; otherwise it
+returns one shared context manager that does nothing, so a span on the hot
+path costs a flag read.  torch gives no cheap way to read a running
+profiler's activities, so the gate is the profiler's flag alone, and the
+span is torch's fast record function (``_RecordFunctionFast``, which torch
+opens around its compiled kernels): under a profile that records the host
+it is a host event of the span's name, nested in whatever span is open
+around it on the same thread; under a profile of the device alone it
+records nothing and costs next to nothing.  ``record_function`` costs about
+ten microseconds a span even there, which at five spans a step raised the
+device's idle share of a DQN refresh on an H100 by about 1.5 points, and
+some versions of torch draw its spans on the device's timeline too.  A
+training step is not a request, so spans carry no step identifier.
+
+The program's spans, the layer each marks, and what reads it:
+
+- ``reagent.loop.step``: one whole step of ``training.scan_loop.
+  run_sampled_steps`` (the draw, the gather, the train step).  Read by
+  ``host_us_per_step``: the host's own time a step, the span's length less
+  the time its thread spent inside the CUDA runtime's and driver's calls,
+  where a device-paced loop waits for room in the launch queue.
+- ``reagent.loop.sample``: the step's ``torch.randint`` of row indices.
+- ``reagent.loop.gather``: the step's gather of the minibatch from the
+  table (``batch_of``: a packed-row gather or one gather a field).
+- ``reagent.fused_dqn.stage``: ``FusedDQNTrainer.train_step``'s layout of
+  the batch as contiguous float32 for the fused update (Adam's scalars
+  stay outside).  The last three are read by ``batch_us_per_step``, the
+  device time a step of the operations launched inside them.
+- ``reagent.k1``: K1's CUDA route in ``ops.fused_dqn_offline.
+  fused_dqn_offline_update`` (``launch_cuda``: the C entry's marshalling
+  and its launches).  Read by ``k1_host_us_per_update``, the span's length less the
+  time inside the CUDA runtime's and driver's calls, as for the step; the
+  operations under it are K1's.
+- ``reagent.k5``: K5's CUDA route in ``ops.quantile_huber``: the forward
+  with its mean in ``quantile_huber_loss``, and the backward, which runs on
+  autograd's thread.  The operations under it are K5's; a reader of them
+  takes the span's intervals from every thread, or it misses the backward.
+- ``reagent.optim.update``: ``optim.union.Rule.update``, every rule's step.
+- ``reagent.optim.soft_update``: ``optim.soft_update.soft_update``, the
+  target network's Polyak average.  Both are read by
+  ``optimizer_launches_per_step``, the device operations a step launched
+  inside them.
+
+To profile a refresh, run its loop inside ``with trace(log_dir):`` and open
+``log_dir/trace.json``: each device operation lies under the span whose
+host interval launched it.
 """
 
 from __future__ import annotations
@@ -18,6 +65,7 @@ import time
 from typing import Any, Dict, Iterator
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 TRACE_FILE = "trace.json"
 
@@ -89,6 +137,12 @@ class StepTimer:
         }
 
 
+_OFF = contextlib.nullcontext()  # the span of ``annotate`` while no profiler runs
+_span = torch._C._profiler._RecordFunctionFast
+
+
 def annotate(name: str):
-    """Named region in the trace."""
-    return torch.profiler.record_function(name)
+    """Named region in the trace while a profiler runs; else a shared no-op."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _span(name)
+    return _OFF
