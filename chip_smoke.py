@@ -424,6 +424,9 @@ CARTPOLE = dict(D=4, widths=[128, 64], A=2, B=512, block=None, act="leaky_relu",
 # K2 at the full offline width: both nets' weights (1.6 MB) exceed a block's
 # shared memory, so K2 takes its launch sequence instead of the one launch
 K2_LARGE = dict(FULL, B=512, block=None)
+# K1 at the DQN benchmark cell's batch (portbench/traffic/table10m_b16384.json):
+# its products take other tiles, and walk several split-K chunks a block
+K1_CELL = dict(FULL, B=16384, block=1024)
 ONE_LAUNCH = {True: 1, False: 1}       # CUDA kernels per K2 update, by double_q
 
 
@@ -667,15 +670,21 @@ def roofline(flops, nbytes, name, tensor_cores=False):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def layer_work(cfg, double_q):
+    """One update's f32 operations by layer: (fan_in, out, forward FLOPs of
+    every (net, input) pair, weight-gradient FLOPs, dh FLOPs), dh past the
+    first layer only."""
+    B, groups = cfg["B"], 3 if double_q else 2
+    sizes = [cfg["D"], *cfg["widths"], cfg["A"]]
+    return [(i, o, groups * 2.0 * B * i * o, 2.0 * B * i * o, 2.0 * B * i * o if n else 0.0)
+            for n, (i, o) in enumerate(zip(sizes[:-1], sizes[1:]))]
+
+
 def update_work(cfg, double_q):
     """One update's f32 operations and the parameter count P of one net."""
-    B, D, A = cfg["B"], cfg["D"], cfg["A"]
-    sizes = [D, *cfg["widths"], A]
-    macs_layer = [i * o for i, o in zip(sizes[:-1], sizes[1:])]
-    F = sum(macs_layer)
-    n_fwd = 3 if double_q else 2
-    flops = 2.0 * B * (n_fwd * F + F + (F - macs_layer[0]))
-    return flops, F + sum(sizes[1:])
+    layers = layer_work(cfg, double_q)
+    flops = sum(fwd + wgrad + dh for _, _, fwd, wgrad, dh in layers)
+    return flops, sum(i * o + o for i, o, *_ in layers)
 
 
 def bound(cfg, double_q, name, tensor_cores=False):
@@ -7959,8 +7968,14 @@ def main() -> int:
     log(f"  built {[os.path.basename(p) for p in libs]} and {os.path.relpath(service)} "
         f"(g++) in {build_s:.2f} s")
 
-    phase("phase 3: K1 against its plain version (full width)")
+    phase("phase 3: K1 against its plain version (full width; B=4096, and the DQN "
+          "benchmark cell's B=16384)")
     err_k1 = compare_kernel("K1", FULL, torch, LAUNCH_SEQUENCE)
+    routes = fused_dqn_offline.product_routes()
+    err_k1_cell = compare_kernel("K1 B=16384", K1_CELL, torch, LAUNCH_SEQUENCE)
+    after = fused_dqn_offline.product_routes()
+    log(f"  products by tile route, K1 at B=16384 (10 updates): "
+        f"{ {k: after[k] - routes[k] for k in after if after[k] != routes[k]} }")
     phase("phase 4: K2 against its plain version: one launch at the CartPole sample shapes, "
         "the launch sequence at the full offline width")
     err_k2 = compare_kernel("K2", CARTPOLE, torch, ONE_LAUNCH)
@@ -8411,7 +8426,7 @@ def main() -> int:
     rows = []
     for kname, fn, replaces, err, times in (
         ("K1 fused_dqn_offline_update", fused_dqn_offline.fused_dqn_offline_update,
-         "reagent_tpu/ops/fused_dqn_offline.py:240", err_k1, timing["K1"]),
+         "reagent_tpu/ops/fused_dqn_offline.py:240", max(err_k1, err_k1_cell), timing["K1"]),
         # the matmul_dtype=bfloat16 / save_dtype options (:71-72): the same
         # entry point, its products on the tensor cores
         ("K1 fused_dqn_offline_update (bf16)", None,

@@ -52,6 +52,7 @@ _SIGNATURES = {
             _I, [_I, _IP, _IP, _I, _I, _I, _I, _FP, _PP] + [_P] * 10 + [_IP, _P]),
         "fused_dqn_update_packed": (
             _I, [_I, _IP, _IP, _I, _I, _FP, _PP, _P, _P, _I, _IP] + [_P] * 4 + [_IP, _P]),
+        "k1_product_routes": (_I, [_IP]),
     },
     "fused_mlp": {
         "fused_mlp_error_string": (ctypes.c_char_p, [_I]),

@@ -65,24 +65,44 @@
 // No atomics in any value path, in either design: the result repeats bit for
 // bit from run to run.
 //
-// Bound of K1: f32 operations (about 5 * B * sum(in*out) multiply-adds, no
-// tensor cores at this precision) against a few MB of traffic, so its GEMM
-// (gemm_f32_kernel) is built for FMA throughput: 128 x 64 tiles, 16 deep,
-// 256 threads each holding an 8 x 4 register block, so that every k step
-// reads 12 floats of shared memory (three 16-byte loads) for 32 FMAs, at
-// about 80 registers (three blocks an SM; 128 x 128 tiles with 8 x 8 blocks
-// took 128 and ran slower at these shapes, and so did 8-deep stages).
-// Operands sit k-major in two shared-memory stages, filled by cp.async
-// where the global operand is contiguous in m or n and by 16-byte
-// register-staged loads where it is contiguous in k (transposed on the
-// store), while the other stage multiplies; the epilogue stores 16 bytes a
-// thread.  A narrow 64 x 16 tile, 64 deep (4 x 1 a thread), serves N <= 64:
-// the last layer's 8 outputs, and its weight gradient taken as
-// h_prev^T . dz.  Each output is one fmaf chain over k in ascending order
-// from its chunk's first row, the order the earlier 64 x 64 design summed
-// in, and the weight-gradient blocks add the bias gradient from the dz
-// tiles in shared memory in row order: the parameters equal that design's
-// bit for bit.
+// Bound of K1 (which replaces the TPU's make_fused_dqn_offline_kernel): f32
+// operations, about 5 * B * sum(in*out) multiply-adds an update against a
+// few MB of traffic, on FFMA (no tensor cores at this precision: TF32 would
+// change the numbers).  On an H100 that is 67 TFLOP/s, 128 FP32 lanes an SM
+// and one warp-instruction a cycle a scheduler; shared memory serves 128
+// bytes a cycle an SM, and the measured rates fit one quarter-warp of a
+// 16-byte load a cycle: a thread block of RM x RN outputs reads RM + RN
+// floats a k for RM * RN FMAs, so an 8 x 8 block keeps shared memory about
+// as busy as the FMA lanes, and a smaller one leaves the lanes waiting on it.
+// The wide products (gemm_ring_kernel) hold an 8 x 8 block a thread in a
+// 128 x 128 tile, 256 threads, two blocks an SM (at most 128 registers a
+// thread: larger blocks leave too few warps to hide the loads); 8 x 4 or
+// 4 x 4 in 128 x 64 or 64 x 64 tiles where a product has too few 128 x 128
+// tiles for the SMs (ring_tile picks from M, N, the groups or chunks and the
+// SM count).  Every operand reaches a ring of three
+// shared-memory stages, 32 deep, by asynchronous copies alone, k-major: the
+// forward's x and W and dh's dz, contiguous in k, by 4-byte copies that
+// transpose them on the way; the rest by 16-byte copies; nothing passes
+// through registers, so two stages are in flight while one multiplies,
+// behind one barrier a stage.  The kernel is persistent: each block walks a
+// run of units (tile and group, or tile and split-K chunk: consecutive chunks
+// of one tile) as one stream of stages, so that the ring stays full across a
+// unit's end and a short K (the first layer's 128) pays no fill a tile, and
+// ends each unit in an epilogue that checks alignment and branches on the
+// activation once a unit.  On an H100 at B = 16,384 the forwards and weight
+// gradients run at about 58% of the f32 peak and dh at 48%, against 51%, 51%
+// and 39% for the two-stage 128 x 64 register-staged tile before it.  The
+// last layer's forward (N <= 8 outputs) is bound by reading its input, and
+// gemm_rows_kernel streams that input once through a cp.async ring, a thread
+// two rows and all their outputs.  A narrow 64 x 16 tile, 64 deep (4 x 1 a
+// thread, gemm_f32_kernel), serves the other products with N <= 64 (the last
+// layer's weight gradient taken as h_prev^T . dz); gemm_f32_kernel's 128 x 64
+// tile serves unaligned or bf16-typed operands (off the main path).  Each
+// output is one fmaf chain over k in ascending order from its chunk's first
+// row, the order the earlier 64 x 64 design summed in, and the weight-gradient
+// blocks add the bias gradient from the dz tiles in shared memory in row
+// order: the parameters equal that design's bit for bit, whichever tile or
+// route a product takes.
 //
 // K1 with matmul_dtype=bfloat16 (reagent_tpu/ops/fused_dqn_offline.py:71-72,
 // :96-100) -> C entry fused_dqn_offline_update_bf16, 3L + 2 launches.  Every
@@ -119,6 +139,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -241,6 +263,7 @@ struct GemmArgs {
   long long ldb, ldaux, csm, csn, cz, ld16;
   int M, N, K, kchunk, act, round_b;
   int ntm, ntn;                 // tiles along m and n
+  int nz;                       // groups or chunks (the ring kernel's units: tiles x nz)
   const float* bias_dz;         // [K rows, bias_n] f32 dz
   float* bias_out;              // [chunks, bias_n]
   int bias_n;
@@ -313,40 +336,50 @@ __device__ __forceinline__ bool tile_of(const GemmArgs& g, int& m0, int& n0, int
   return true;
 }
 
+// The epilogue's arithmetic on one output's sum, the one copy of it that
+// every product kernel's stores go through: side is the bias of column n
+// (EPI_BIAS_ACT) or the saved layer output h(m, n) (EPI_ACT_GRAD).
+template <int EPI>
+__device__ __forceinline__ float epilogue(float acc, float side, int act) {
+  if (EPI == EPI_BIAS_ACT) return act_fwd(acc + side, act);
+  if (EPI == EPI_ACT_GRAD) return acc * act_grad_from_h(side, act);
+  return acc;
+}
+
 // The epilogue of output (m, n) with its sum; both kernels end in it.
+// z: the split-K chunk (EPI_SPLITK), whose slot of C the output goes to.
 template <int EPI, bool AUX16>
-__device__ __forceinline__ void store_out(const GemmArgs& g, int grp, int m, int n, float acc) {
+__device__ __forceinline__ void store_out(const GemmArgs& g, int grp, int z, int m, int n,
+                                          float acc) {
   float* C = g.C[grp];
   __nv_bfloat16* C16 = g.C16[grp];
   const long long o = (long long)m * g.csm + (long long)n * g.csn;
-  if (EPI == EPI_BIAS_ACT) {
-    const float v = act_fwd(acc + static_cast<const float*>(g.aux[grp])[n], g.act);
-    if (C) C[o] = v;
-    if (C16) C16[(long long)m * g.ld16 + n] = __float2bfloat16_rn(v);
-  } else if (EPI == EPI_ACT_GRAD) {
-    const float v = acc * act_grad_from_h(load_at<AUX16>(g.aux[grp], (long long)m * g.ldaux + n),
-                                          g.act);
-    C[o] = v;
-    if (C16) C16[(long long)m * g.ld16 + n] = __float2bfloat16_rn(v);
-  } else {
-    C[(long long)blockIdx.z * g.cz + o] = acc;
+  if (EPI == EPI_SPLITK) {
+    C[(long long)z * g.cz + o] = acc;
+    return;
   }
+  const float side = EPI == EPI_BIAS_ACT
+                         ? static_cast<const float*>(g.aux[grp])[n]
+                         : load_at<AUX16>(g.aux[grp], (long long)m * g.ldaux + n);
+  const float v = epilogue<EPI>(acc, side, g.act);
+  if (C) C[o] = v;
+  if (C16) C16[(long long)m * g.ld16 + n] = __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ bool aligned_at(const void* p, long long i, int bytes, int align) {
   return ((reinterpret_cast<size_t>(p) + (size_t)(i * bytes)) & (align - 1)) == 0;
 }
 
-// The epilogue of W (4 or 8) outputs of row m from column n: the same
-// arithmetic as store_out, with 16-byte loads and stores (8-byte for four
-// bf16 values) where every address allows, else one output at a time.
+// The epilogue of W (4 or 8) outputs of row m from column n: store_out's
+// arithmetic with 16-byte loads and stores (8-byte for four bf16 values)
+// where every address allows, else one output at a time.
 template <int EPI, bool AUX16, int W>
-__device__ __forceinline__ void store_row(const GemmArgs& g, int grp, int m, int n,
+__device__ __forceinline__ void store_row(const GemmArgs& g, int grp, int z, int m, int n,
                                           const float (&v)[W]) {
   float* C = g.C[grp];
   __nv_bfloat16* C16 = g.C16[grp];
   const void* aux = g.aux[grp];
-  const long long o = (long long)m * g.csm + n + (EPI == EPI_SPLITK ? blockIdx.z * g.cz : 0);
+  const long long o = (long long)m * g.csm + n + (EPI == EPI_SPLITK ? (long long)z * g.cz : 0);
   const long long o16 = (long long)m * g.ld16 + n;
   const long long oa = (long long)m * g.ldaux + n;
   bool vec = n + W <= g.N && g.csn == 1 && (!C || aligned_at(C, o, 4, 16)) &&
@@ -356,43 +389,37 @@ __device__ __forceinline__ void store_row(const GemmArgs& g, int grp, int m, int
   if (!vec) {
 #pragma unroll
     for (int w = 0; w < W; ++w)
-      if (n + w < g.N) store_out<EPI, AUX16>(g, grp, m, n + w, v[w]);
+      if (n + w < g.N) store_out<EPI, AUX16>(g, grp, z, m, n + w, v[w]);
     return;
   }
-  float x[W];
+  float side[W] = {};  // the bias, or h
   if (EPI == EPI_BIAS_ACT) {
     const float4* b4 = reinterpret_cast<const float4*>(static_cast<const float*>(aux) + n);
 #pragma unroll
     for (int q = 0; q < W / 4; ++q) {
       const float4 b = b4[q];
-      x[4 * q] = act_fwd(v[4 * q] + b.x, g.act);
-      x[4 * q + 1] = act_fwd(v[4 * q + 1] + b.y, g.act);
-      x[4 * q + 2] = act_fwd(v[4 * q + 2] + b.z, g.act);
-      x[4 * q + 3] = act_fwd(v[4 * q + 3] + b.w, g.act);
+      side[4 * q] = b.x; side[4 * q + 1] = b.y; side[4 * q + 2] = b.z; side[4 * q + 3] = b.w;
     }
   } else if (EPI == EPI_ACT_GRAD) {
-    float h[W];
     if (AUX16) {
       const __nv_bfloat16* a16 = static_cast<const __nv_bfloat16*>(aux) + oa;
       __nv_bfloat16 hv[W];
       if (W == 8) *reinterpret_cast<uint4*>(hv) = *reinterpret_cast<const uint4*>(a16);
       else *reinterpret_cast<uint2*>(hv) = *reinterpret_cast<const uint2*>(a16);
 #pragma unroll
-      for (int w = 0; w < W; ++w) h[w] = __bfloat162float(hv[w]);
+      for (int w = 0; w < W; ++w) side[w] = __bfloat162float(hv[w]);
     } else {
       const float4* a4 = reinterpret_cast<const float4*>(static_cast<const float*>(aux) + oa);
 #pragma unroll
       for (int q = 0; q < W / 4; ++q) {
         const float4 a = a4[q];
-        h[4 * q] = a.x; h[4 * q + 1] = a.y; h[4 * q + 2] = a.z; h[4 * q + 3] = a.w;
+        side[4 * q] = a.x; side[4 * q + 1] = a.y; side[4 * q + 2] = a.z; side[4 * q + 3] = a.w;
       }
     }
-#pragma unroll
-    for (int w = 0; w < W; ++w) x[w] = v[w] * act_grad_from_h(h[w], g.act);
-  } else {
-#pragma unroll
-    for (int w = 0; w < W; ++w) x[w] = v[w];
   }
+  float x[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) x[w] = epilogue<EPI>(v[w], side[w], g.act);
   if (C) {
     float4* c4 = reinterpret_cast<float4*>(C + o);
 #pragma unroll
@@ -408,9 +435,10 @@ __device__ __forceinline__ void store_row(const GemmArgs& g, int grp, int m, int
   }
 }
 
-// f32 products: BM x BN tiles, FK deep, two shared-memory stages, each
-// thread an RM x RN register block (8 x 4 in the 128 x 64 tile, 16 deep;
-// 4 x 1 in the narrow 64 x 16 one, 64 deep).  Operands sit in shared
+// f32 products off the ring kernel (the narrow tile, unaligned or
+// bf16-typed operands): BM x BN tiles, FK deep, two shared-memory stages,
+// each thread an RM x RN register block (8 x 4 in the 128 x 64 tile, 16
+// deep; 4 x 1 in the narrow 64 x 16 one, 64 deep).  Operands sit in shared
 // memory k-major, As[k][m] and Bs[k][n], so a thread reads its RM values of
 // A and RN of B at one k with 16-byte loads.  An operand whose contiguous dimension is m or n
 // (A and B of the weight gradient, B of dh) is copied in with cp.async; one
@@ -625,15 +653,373 @@ gemm_f32_kernel(const GemmArgs g) {
     const int m = m0 + (i / 4) * (BM / (RM / 4)) + ty * 4 + i % 4;
     if (m >= M) continue;
     if (RN == 1) {
-      if (n0 + tx < N) store_out<EPI, AUX16>(g, grp, m, n0 + tx, acc[i][0]);
+      if (n0 + tx < N) store_out<EPI, AUX16>(g, grp, blockIdx.z, m, n0 + tx, acc[i][0]);
     } else {
 #pragma unroll
       for (int p = 0; p < RN / 4; ++p) {
         const float v[4] = {acc[i][4 * p], acc[i][4 * p + 1], acc[i][4 * p + 2], acc[i][4 * p + 3]};
-        store_row<EPI, AUX16, 4>(g, grp, m, n0 + p * (BN / (RN / 4)) + tx * 4, v);
+        store_row<EPI, AUX16, 4>(g, grp, blockIdx.z, m, n0 + p * (BN / (RN / 4)) + tx * 4, v);
       }
     }
   }
+}
+
+// The wide f32 products (F32_VEC, N > NARROW) take the ring kernel below.
+constexpr int RK = 32;          // depth of a ring stage
+constexpr int RSTAGES = 3;      // stages in the ring
+constexpr int RING_BLOCKS = 2;  // blocks an SM (at most 128 registers a thread)
+
+// 4 bytes from global to shared memory, or a zero (bytes = 0 reads nothing).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+
+// Floats of a ring stage: both operands k-major, RK rows of the tile's
+// width plus F32_PAD.
+template <int BM, int BN>
+__host__ __device__ constexpr int ring_stage_floats() {
+  return RK * (BM + F32_PAD) + RK * (BN + F32_PAD);
+}
+
+// f32 products on FFMA from a ring of RSTAGES shared-memory stages, RK deep,
+// filled by asynchronous copies alone, one barrier a stage.  Both operands
+// sit k-major in a stage, As[k][m] and Bs[k][n], so that a thread reads its
+// fragments at one k with 16-byte loads, the next k's while the current one
+// multiplies.  An operand contiguous in m or n (the weight gradient's two,
+// dh's W) comes in by 16-byte cp.async copies; one contiguous in k (the
+// forward's x and W, dh's dz) by 4-byte copies that put each float in its
+// k-major place, so that no value passes through registers on its way in (a
+// warp copies 4 rows x 8 k: 32-byte reads, stores to 32 distinct banks).
+// Ragged edges are zero-filled by the copies' byte counts, and groups of 8 k
+// past the end are skipped.  256 threads (warps of 8 x 4 threads along n and
+// m), each an RM x RN register block, two blocks an SM.  The kernel is
+// persistent: a grid of at most RING_BLOCKS blocks an SM, each walking a run
+// of consecutive units (a tile and its group, or a tile and its split-K
+// chunk, consecutive chunks of one tile in turn) through one continuous
+// stream of stages, so that the ring stays full across a unit's end, where
+// the thread stores its outputs (a split-K chunk's to its own slot of
+// [chunks, out, in]) and starts again from zero.  Every output is one fmaf
+// chain over k in ascending order from its chunk's first row, zero-filled
+// past the end (a sum that starts at +0 never holds -0, so padding adds
+// nothing): the sums of gemm_f32_kernel, bit for bit.  The bias gradient of
+// a split-K chunk is summed from the dz tiles in the ring as there.
+template <int EPI, int BM, int BN, int RM, int RN>
+__global__ void __launch_bounds__(GEMM_THREADS, RING_BLOCKS)
+gemm_ring_kernel(const GemmArgs g) {
+  constexpr bool AK = EPI != EPI_SPLITK;    // A contiguous in k
+  constexpr bool BKC = EPI == EPI_BIAS_ACT; // B contiguous in k
+  constexpr int TX = BN / RN, TY = BM / RM;
+  static_assert(TX == 16 && TY == 16, "16 x 16 threads");
+  static_assert(RM % 4 == 0 && RN % 4 == 0, "16-byte fragment reads");
+  static_assert(RK == 32, "a warp's 4-byte copies cover 8 k of a stage's 32");
+  constexpr int GM = BM / (RM / 4), GN = BN / (RN / 4);  // apart: a thread's runs of 4 rows
+  constexpr int PA = BM + F32_PAD, PB = BN + F32_PAD;
+  constexpr int STAGE = ring_stage_floats<BM, BN>();
+  extern __shared__ __align__(16) float ring[];
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tx = (warp % 2) * 8 + lane % 8, ty = (warp / 2) * 4 + lane / 8;
+  // this thread's 4-byte copies: k = ck, rows cr, cr + 8, ...
+  const int ck = (warp % 4) * 8 + lane % 8, cr = (warp / 4) * 4 + lane / 8;
+  const int M = g.M, N = g.N, K = g.K, nz = g.nz, ntn = g.ntn, kchunk = g.kchunk;
+  const int per = (min(kchunk, K) + RK - 1) / RK;  // stages a unit
+  // this block's run of consecutive units
+  const int units = g.ntm * ntn * nz;
+  const int u0 = (int)((long long)units * blockIdx.x / gridDim.x);
+  const int u1 = (int)((long long)units * (blockIdx.x + 1) / gridDim.x);
+  const int nt = (u1 - u0) * per;
+
+  // unit u: tile u / nz, and u % nz its group (forward, dh) or chunk (split-K)
+  struct Unit { int m0, n0, grp, z, kbeg, kend; };
+  auto unit_of = [&](int u) {
+    Unit w;
+    const int tile = u / nz;
+    w.z = u % nz;
+    w.m0 = (tile / ntn) * BM;
+    w.n0 = (tile % ntn) * BN;
+    w.grp = EPI == EPI_SPLITK ? 0 : w.z;
+    w.kbeg = EPI == EPI_SPLITK ? w.z * kchunk : 0;
+    w.kend = min(K, w.kbeg + kchunk);
+    return w;
+  };
+
+  // Copy rows r0 .. r0 + R of an operand into the k-major stage S (pitch
+  // R + F32_PAD) at k = k0 .. k0 + RK: X(r, k) = X[r * ld + k] when
+  // contiguous in k (KC), else X[k * ld + r]; rows past `rows` and k past
+  // kend read as zero.
+  auto copy_operand = [&](auto kc, auto width, float* S, const float* X, long long ld, int r0,
+                          int rows, int k0, int kend) {
+    constexpr bool KC = decltype(kc)::value;
+    constexpr int R = decltype(width)::value, P = R + F32_PAD;
+    if (KC) {  // 4-byte copies, each float to its k-major place
+      const int k = k0 + ck;
+      const float* x = X + (r0 + cr) * ld + k;
+      float* d = S + ck * P + cr;
+      if (r0 + R <= rows && k0 + RK <= kend) {  // the whole stage in range: no checks
+#pragma unroll
+        for (int j = 0; j < R / 8; ++j) cp_async4(d + 8 * j, x + 8 * j * ld, 4);
+      } else {
+        const bool kin = k < kend;
+#pragma unroll
+        for (int j = 0; j < R / 8; ++j) {
+          const bool in = kin && r0 + cr + 8 * j < rows;
+          cp_async4(d + 8 * j, in ? x + 8 * j * ld : X, in ? 4 : 0);
+        }
+      }
+    } else {  // 16-byte copies: row k, 4 along m or n
+#pragma unroll
+      for (int j = 0; j < R * RK / 4 / GEMM_THREADS; ++j) {
+        const int e = tid + j * GEMM_THREADS;
+        const int kk = e / (R / 4), c = (e % (R / 4)) * 4, k = k0 + kk, r = r0 + c;
+        const int ok = k < kend ? min(4, max(0, rows - r)) : 0;
+        cp_async16(S + kk * P + c, ok ? X + (long long)k * ld + r : X, 4 * ok);
+      }
+    }
+  };
+  // Start the copies of stage kt of unit w into ring slot s.
+  auto load = [&](const Unit& w, int kt, int s) {
+    const int k0 = w.kbeg + kt * RK;
+    float* As = ring + s * STAGE;
+    copy_operand(std::integral_constant<bool, AK>(), std::integral_constant<int, BM>(), As,
+                 static_cast<const float*>(g.A[w.grp]), g.lda[w.grp], w.m0, M, k0, w.kend);
+    copy_operand(std::integral_constant<bool, BKC>(), std::integral_constant<int, BN>(),
+                 As + RK * PA, static_cast<const float*>(g.B[w.grp]), g.ldb, w.n0, N, k0,
+                 w.kend);
+  };
+
+  float acc[RM][RN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+  float bsum = 0.f;  // the bias gradient of a split-K chunk, one thread a column
+  const int bias_src = EPI == EPI_SPLITK ? g.bias_src : 0;
+
+  // the next stage to copy (unit, stage within it) and the unit multiplying
+  Unit lw = unit_of(u0), cw = lw;
+  int lu = u0, lkt = 0, cu = u0, ckt = 0;
+  auto load_next = [&](int s) {
+    load(lw, lkt, s);
+    if (++lkt == per) {
+      lkt = 0;
+      if (++lu < u1) lw = unit_of(lu);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < RSTAGES - 1; ++s) {
+    if (s < nt) load_next(s);
+    cp_async_commit();
+  }
+  int slot = 0;  // ring slot of stage t
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<RSTAGES - 2>();  // stage t has landed, for this thread's copies
+    __syncthreads();               // ... and everyone's; the slot of stage t - 1 is free
+    if (t + RSTAGES - 1 < nt) load_next(slot == 0 ? RSTAGES - 1 : slot - 1);
+    cp_async_commit();
+
+    const float* As = ring + slot * STAGE;
+    const float* Bs = As + RK * PA;
+    slot = slot == RSTAGES - 1 ? 0 : slot + 1;
+    float a[2][RM], b[2][RN];  // the fragments of k and k + 1
+    auto frag = [&](int k, float (&fa)[RM], float (&fb)[RN]) {
+#pragma unroll
+      for (int p = 0; p < RM / 4; ++p) {
+        const float4 v = *reinterpret_cast<const float4*>(As + k * PA + p * GM + ty * 4);
+        fa[4 * p] = v.x; fa[4 * p + 1] = v.y; fa[4 * p + 2] = v.z; fa[4 * p + 3] = v.w;
+      }
+#pragma unroll
+      for (int p = 0; p < RN / 4; ++p) {
+        const float4 v = *reinterpret_cast<const float4*>(Bs + k * PB + p * GN + tx * 4);
+        fb[4 * p] = v.x; fb[4 * p + 1] = v.y; fb[4 * p + 2] = v.z; fb[4 * p + 3] = v.w;
+      }
+    };
+    // k past the chunk's end holds zeros: whole groups of 8 of them are skipped
+    // (a short K, a chunk's ragged tail), which leaves every sum as it is
+    const int kn = cw.kend - cw.kbeg - ckt * RK;
+    frag(0, a[0], b[0]);
+#pragma unroll
+    for (int k = 0; k < RK; ++k) {
+      if (k % 8 == 0 && k >= kn) break;
+      if (k + 1 < RK) frag(k + 1, a[(k + 1) & 1], b[(k + 1) & 1]);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[k & 1][i], b[k & 1][j], acc[i][j]);
+    }
+    // the bias gradient: the first tile along the other dimension sums its
+    // dz column over the chunk's rows in ascending order
+    const bool bias_a = bias_src == 1 && cw.n0 == 0 && tid < BM;
+    const bool bias_b = bias_src == 2 && cw.m0 == 0 && tid < BN;
+    if (bias_a) {
+#pragma unroll
+      for (int k = 0; k < RK; ++k) bsum += As[k * PA + tid];
+    } else if (bias_b) {
+#pragma unroll
+      for (int k = 0; k < RK; ++k) bsum += Bs[k * PB + tid];
+    }
+    if (++ckt < per) continue;
+
+    // the unit's last stage: its outputs, then the next unit from zero
+    if ((bias_a && cw.m0 + tid < M) || (bias_b && cw.n0 + tid < N))
+      g.bias_out[(long long)cw.z * g.bias_n + (bias_a ? cw.m0 : cw.n0) + tid] = bsum;
+    bsum = 0.f;
+    // Where the tile lies whole along n and every row of C (and of dh's aux)
+    // starts 16 bytes aligned, one check a unit, the bias loaded once a unit
+    // and one branch on the activation stand for store_row's checks, loads
+    // and switch at every output (the same arithmetic: epilogue<EPI>).
+    float* C = g.C[cw.grp];
+    const float* aux = static_cast<const float*>(g.aux[cw.grp]);
+    bool fast = cw.n0 + BN <= N && g.csn == 1 && g.csm % 4 == 0 && !g.C16[cw.grp] && C &&
+                aligned_at(C, 0, 4, 16);
+    if (EPI == EPI_BIAS_ACT) fast = fast && aligned_at(aux, 0, 4, 16);
+    if (EPI == EPI_ACT_GRAD) fast = fast && aligned_at(aux, 0, 4, 16) && g.ldaux % 4 == 0;
+    if (EPI == EPI_SPLITK) fast = fast && g.cz % 4 == 0;
+    auto fast_out = [&](auto act) {
+      constexpr int ACT = decltype(act)::value;
+      float bias[RN];
+      if (EPI == EPI_BIAS_ACT) {
+#pragma unroll
+        for (int p = 0; p < RN / 4; ++p) {
+          const float4 v = *reinterpret_cast<const float4*>(aux + cw.n0 + p * GN + tx * 4);
+          bias[4 * p] = v.x; bias[4 * p + 1] = v.y; bias[4 * p + 2] = v.z; bias[4 * p + 3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int m = cw.m0 + (i / 4) * GM + ty * 4 + i % 4;
+        if (m >= M) continue;
+        float* c = C + (long long)m * g.csm + cw.n0 + tx * 4 +
+                   (EPI == EPI_SPLITK ? (long long)cw.z * g.cz : 0);
+#pragma unroll
+        for (int p = 0; p < RN / 4; ++p) {
+          float side[4] = {};  // the bias, or h
+          if (EPI == EPI_BIAS_ACT) {
+#pragma unroll
+            for (int w = 0; w < 4; ++w) side[w] = bias[4 * p + w];
+          } else if (EPI == EPI_ACT_GRAD) {
+            const float4 h = *reinterpret_cast<const float4*>(
+                aux + (long long)m * g.ldaux + cw.n0 + p * GN + tx * 4);
+            side[0] = h.x; side[1] = h.y; side[2] = h.z; side[3] = h.w;
+          }
+          float x[4];
+#pragma unroll
+          for (int w = 0; w < 4; ++w) x[w] = epilogue<EPI>(acc[i][4 * p + w], side[w], ACT);
+          *reinterpret_cast<float4*>(c + p * GN) = make_float4(x[0], x[1], x[2], x[3]);
+        }
+      }
+    };
+    if (fast) {
+      switch (EPI == EPI_SPLITK ? (int)ACT_LINEAR : g.act) {
+        case ACT_RELU: fast_out(std::integral_constant<int, ACT_RELU>()); break;
+        case ACT_LEAKY: fast_out(std::integral_constant<int, ACT_LEAKY>()); break;
+        case ACT_TANH: fast_out(std::integral_constant<int, ACT_TANH>()); break;
+        default: fast_out(std::integral_constant<int, ACT_LINEAR>());
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int m = cw.m0 + (i / 4) * GM + ty * 4 + i % 4;
+#pragma unroll
+        for (int p = 0; p < RN / 4; ++p) {
+          const float v[4] = {acc[i][4 * p], acc[i][4 * p + 1], acc[i][4 * p + 2],
+                              acc[i][4 * p + 3]};
+          if (m < M) store_row<EPI, false, 4>(g, cw.grp, cw.z, m, cw.n0 + p * GN + tx * 4, v);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+    ckt = 0;
+    if (++cu < u1) cw = unit_of(cu);
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
+// The forward with at most ROWS_N outputs (the last layer's actions, 16-byte
+// operands): x . W^T, bound by reading x, with a few FMAs for every float of
+// it.  A block is one warp on ROWS_M rows of x of one group, a thread
+// ROWS_R rows (r, r + 32, ...) and all their outputs.  x's rows and W's come
+// in as they lie, by 16-byte cp.async copies, into a ring of ROWS_STAGES
+// stages ROWS_K deep, the rest in flight while one multiplies; a thread
+// reads its rows of a stage 4 k at a time (a row pitch of ROWS_K + F32_PAD
+// floats puts a quarter-warp's 16-byte reads on distinct banks) beside W's
+// rows, which the whole warp reads alike, each value of W for ROWS_R rows.
+// Each output is one fmaf chain over k in ascending order from 0,
+// zero-filled past K: the sums of gemm_f32_kernel's narrow tile, bit for bit.
+constexpr int ROWS_R = 2;              // rows a thread
+constexpr int ROWS_M = 32 * ROWS_R;    // rows a block (one warp)
+constexpr int ROWS_N = 8;              // outputs a row: N at or below this takes this kernel
+constexpr int ROWS_K = 32;             // depth of a stage
+constexpr int ROWS_STAGES = 3;         // stages in the ring
+__global__ void __launch_bounds__(32) gemm_rows_kernel(const GemmArgs g) {
+  constexpr int P = ROWS_K + F32_PAD, CHUNKS = ROWS_K / 4;  // 16-byte chunks of a row's stage
+  __shared__ __align__(16) float xs[ROWS_STAGES][ROWS_M * P];
+  __shared__ __align__(16) float ws[ROWS_STAGES][ROWS_N * P];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * ROWS_M, grp = blockIdx.z;
+  const int M = g.M, N = g.N, K = g.K;
+  const float* x = static_cast<const float*>(g.A[grp]);
+  const float* w = static_cast<const float*>(g.B[grp]);
+  const long long lda = g.lda[grp], ldb = g.ldb;
+  const int nt = (K + ROWS_K - 1) / ROWS_K;
+  // start the copies of x's and W's rows at k = t * ROWS_K .. + ROWS_K into ring slot s
+  auto load = [&](int t, int s) {
+#pragma unroll
+    for (int j = 0; j < ROWS_M * CHUNKS / 32; ++j) {
+      const int e = tid + j * 32, r = e / CHUNKS, c = (e % CHUNKS) * 4, k = t * ROWS_K + c;
+      const int ok = m0 + r < M ? min(4, max(0, K - k)) : 0;
+      cp_async16(&xs[s][r * P + c], ok ? x + (long long)(m0 + r) * lda + k : x, 4 * ok);
+    }
+#pragma unroll
+    for (int j = 0; j < ROWS_N * CHUNKS / 32; ++j) {
+      const int e = tid + j * 32, r = e / CHUNKS, c = (e % CHUNKS) * 4, k = t * ROWS_K + c;
+      const int ok = r < N ? min(4, max(0, K - k)) : 0;
+      cp_async16(&ws[s][r * P + c], ok ? w + (long long)r * ldb + k : w, 4 * ok);
+    }
+  };
+  float acc[ROWS_R][ROWS_N];
+#pragma unroll
+  for (int i = 0; i < ROWS_R; ++i)
+#pragma unroll
+    for (int j = 0; j < ROWS_N; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < ROWS_STAGES - 1; ++s) {
+    if (s < nt) load(s, s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<ROWS_STAGES - 2>();  // stage t has landed, for this thread's copies
+    __syncthreads();                   // ... and the warp's; the slot of stage t - 1 is free
+    if (t + ROWS_STAGES - 1 < nt) load(t + ROWS_STAGES - 1, (t + ROWS_STAGES - 1) % ROWS_STAGES);
+    cp_async_commit();
+    const float* xr = &xs[t % ROWS_STAGES][tid * P];
+    const float* wr = ws[t % ROWS_STAGES];
+#pragma unroll
+    for (int c = 0; c < ROWS_K; c += 4) {
+      float4 a[ROWS_R];
+#pragma unroll
+      for (int i = 0; i < ROWS_R; ++i) a[i] = *reinterpret_cast<const float4*>(xr + 32 * i * P + c);
+#pragma unroll
+      for (int j = 0; j < ROWS_N; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(wr + j * P + c);
+#pragma unroll
+        for (int i = 0; i < ROWS_R; ++i) {
+          acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+#pragma unroll
+  for (int i = 0; i < ROWS_R; ++i)
+    if (m0 + tid + 32 * i < M)
+      store_row<EPI_BIAS_ACT, false, ROWS_N>(g, grp, 0, m0 + tid + 32 * i, 0, acc[i]);
 }
 
 // Dynamic shared memory of the bf16 product: HSTAGES stages of an A and a B
@@ -790,7 +1176,7 @@ mma_gemm_kernel(const GemmArgs g) {
           for (int q = 0; q < 2; ++q)
             v[2 * u + q] = s == 0 ? r[0][q] : s == 1 ? r[1][q] : s == 2 ? r[2][q] : r[3][q];
         }
-        if (m < M) store_row<EPI, AUX16, 8>(g, grp, m, n0 + wn0 + tig * 8, v);
+        if (m < M) store_row<EPI, AUX16, 8>(g, grp, blockIdx.z, m, n0 + wn0 + tig * 8, v);
       } else {
         if (m >= M) continue;
 #pragma unroll
@@ -798,7 +1184,7 @@ mma_gemm_kernel(const GemmArgs g) {
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
             const int n = n0 + wn0 + j * 8 + tig * 2 + q;
-            if (n < N) store_out<EPI, AUX16>(g, grp, m, n, acc[i][j][2 * h + q]);
+            if (n < N) store_out<EPI, AUX16>(g, grp, blockIdx.z, m, n, acc[i][j][2 * h + q]);
           }
       }
     }
@@ -1065,24 +1451,31 @@ bool make_layout(int L, const int* dims, int B, int offline, int save_bf16, Layo
 
 constexpr int MAX_DEVICES = 64;
 
-// Launch one bf16 product.  Its ring of stages needs more shared memory than
-// the 48 KB a kernel gets by default: granted once per device.
+// A kernel whose ring of stages needs more shared memory than the 48 KB a
+// kernel gets by default: granted once per device (granted: the kernel's own
+// flags).
+cudaError_t grant_smem(const void* kern, size_t smem, int* granted) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!granted[dev]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    granted[dev] = 1;
+  }
+  return cudaSuccess;
+}
+
+// Launch one bf16 product.
 template <int EPI, bool AUX16, int BM, int BN, int WM, int WN>
 cudaError_t launch_mma(cudaStream_t st, GemmArgs g, int nz, int nbias) {
   constexpr size_t smem = (size_t)HSTAGES * mma_stage_elems<EPI, BM, BN>() * 2;
   static int granted[MAX_DEVICES];
-  const void* kern = (const void*)mma_gemm_kernel<EPI, AUX16, BM, BN, WM, WN>;
-  if (smem > 48 * 1024) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
-    if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-    if (!granted[dev]) {
-      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return e;
-      granted[dev] = 1;
-    }
-  }
+  const cudaError_t e =
+      grant_smem((const void*)mma_gemm_kernel<EPI, AUX16, BM, BN, WM, WN>, smem, granted);
+  if (e != cudaSuccess) return e;
   g.ntm = cdiv(g.M, BM);
   g.ntn = cdiv(g.N, BN);
   mma_gemm_kernel<EPI, AUX16, BM, BN, WM, WN>
@@ -1096,6 +1489,72 @@ cudaError_t launch_f32(cudaStream_t st, GemmArgs g, int nz, int nbias) {
   g.ntn = cdiv(g.N, BN);
   gemm_f32_kernel<EPI, MODE, BM, BN, RM, RN, FK>
       <<<dim3(g.ntm * g.ntn + nbias, 1, nz), GEMM_THREADS, 0, st>>>(g);
+  return cudaGetLastError();
+}
+
+// The ring kernel's tiles (BM x BN; 8 x 8, 8 x 4 and 4 x 4 a thread),
+// largest first, and the FMA rate each is taken to reach against the first:
+// on an H100 at B = 4,096 the 128 x 64 tile won the first forward (384 128 x
+// 128 tiles, 768 128 x 64) and lost the second (192 and 384) at 0.8, and
+// 0.6 chose worse; the 64 x 64 tile serves the smallest grids.
+constexpr int RING_TILES = 3;
+constexpr int RING_BM[RING_TILES] = {128, 128, 64};
+constexpr int RING_BN[RING_TILES] = {128, 64, 64};
+constexpr double RING_RATE[RING_TILES] = {1.0, 0.8, 0.55};
+
+// The units the busiest SM takes when runs of `units` go to min(units,
+// RING_BLOCKS x sms) blocks: a run of ceil(units / blocks) in each block it
+// holds (which blocks share an SM is the hardware's choice).
+long long busiest_sm(long long units, int sms) {
+  const long long blocks = units < (long long)RING_BLOCKS * sms ? units : RING_BLOCKS * sms;
+  return (units + blocks - 1) / blocks * (blocks > sms ? RING_BLOCKS : 1);
+}
+
+// The tile of a product of M x N outputs in nz groups or chunks: the one
+// whose busiest SM finishes first, walking its units of BM x BN outputs at
+// the tile's rate (K is the same for every tile).
+int ring_tile(int M, int N, int nz, int sms) {
+  int best = 0;
+  double best_cost = 0.0;
+  for (int t = 0; t < RING_TILES; ++t) {
+    const long long units = (long long)cdiv(M, RING_BM[t]) * cdiv(N, RING_BN[t]) * nz;
+    const double cost =
+        (double)busiest_sm(units, sms) * RING_BM[t] * RING_BN[t] / RING_RATE[t];
+    if (t == 0 || cost < best_cost) {
+      best = t;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// Products launched since load, by route (k1_product_routes): the ring
+// kernel's three tiles, gemm_rows_kernel (forwards with N <= ROWS_N,
+// 16-byte operands), the narrow 64 x 16 tile (N <= NARROW, 16-byte
+// operands), gemm_f32_kernel's 128 x 64 tile for unaligned or bf16-typed
+// operands, and the bf16 tensor-core products.
+enum Route {
+  ROUTE_RING = 0, ROUTE_ROWS = RING_TILES, ROUTE_NARROW, ROUTE_TYPED, ROUTE_TENSOR, ROUTES
+};
+int route_counts[ROUTES];
+
+// Launch one product on the ring kernel: at most RING_BLOCKS blocks an SM,
+// each walking its share of the tiles x nz units.
+template <int EPI, int BM, int BN, int RM, int RN>
+cudaError_t launch_ring(cudaStream_t st, GemmArgs g, int nz, int sms) {
+  constexpr size_t smem = (size_t)RSTAGES * ring_stage_floats<BM, BN>() * 4;
+  static int granted[MAX_DEVICES];
+  const cudaError_t e = grant_smem((const void*)gemm_ring_kernel<EPI, BM, BN, RM, RN>, smem,
+                                   granted);
+  if (e != cudaSuccess) return e;
+  g.ntm = cdiv(g.M, BM);
+  g.ntn = cdiv(g.N, BN);
+  g.nz = nz;
+  const long long units = (long long)g.ntm * g.ntn * nz;
+  const long long blocks = (long long)RING_BLOCKS * sms;
+  if (units > (1LL << 30)) return cudaErrorInvalidValue;
+  gemm_ring_kernel<EPI, BM, BN, RM, RN>
+      <<<(int)(units < blocks ? units : blocks), GEMM_THREADS, smem, st>>>(g);
   return cudaGetLastError();
 }
 
@@ -1115,15 +1574,18 @@ cudaError_t sm_count(int* sms) {
 }
 
 // One product: nz = groups (forward) or split-K chunks, nbias = bias-gradient
-// blocks after the tiles (EPI_SPLITK).  N <= NARROW takes the narrow tile
-// (f32: 64 x 16, 64 deep, so that a long K takes few pipeline steps),
-// except where the operands are unaligned or typed (off the main path),
-// which keep the wide one.
+// blocks after the tiles (EPI_SPLITK, bf16 products).  f32 products with
+// 16-byte operands take the ring kernel at the tile ring_tile picks, a
+// forward with N <= ROWS_N gemm_rows_kernel, any other product with
+// N <= NARROW the narrow tile (64 x 16, 64 deep, so that a long K takes few
+// pipeline steps); unaligned or bf16-typed operands (off the main path) take
+// gemm_f32_kernel's 128 x 64 tile.
 template <int EPI>
 cudaError_t gemm(cudaStream_t st, const GemmArgs& g, int nz, int nbias, int tc, int mode,
                  bool aux16) {
   const bool narrow = g.N <= NARROW;
   if (tc) {
+    ++route_counts[ROUTE_TENSOR];
     // 128 x 128 tiles where they make between one and two blocks for each
     // SM (two fit an SM at once), else 128 x 64: more blocks for a product
     // too small to fill the card, fewer idle SMs in the last round of one
@@ -1147,9 +1609,27 @@ cudaError_t gemm(cudaStream_t st, const GemmArgs& g, int nz, int nbias, int tc, 
                     : launch_mma<EPI, false, 128, 128, 2, 4>(st, g, nz, nbias);
     }
   }
-  if (mode == F32_VEC)
-    return narrow ? launch_f32<EPI, F32_VEC, 64, 16, 4, 1, 64>(st, g, nz, nbias)
-                  : launch_f32<EPI, F32_VEC, 128, 64, 8, 4, 16>(st, g, nz, nbias);
+  if constexpr (EPI == EPI_BIAS_ACT)
+    if (mode == F32_VEC && g.N <= ROWS_N) {
+      ++route_counts[ROUTE_ROWS];
+      gemm_rows_kernel<<<dim3(cdiv(g.M, ROWS_M), 1, nz), 32, 0, st>>>(g);
+      return cudaGetLastError();
+    }
+  if (mode == F32_VEC && narrow) {
+    ++route_counts[ROUTE_NARROW];
+    return launch_f32<EPI, F32_VEC, 64, 16, 4, 1, 64>(st, g, nz, nbias);
+  }
+  if (mode == F32_VEC) {
+    int sms = 0;
+    const cudaError_t e = sm_count(&sms);
+    if (e != cudaSuccess) return e;
+    const int tile = ring_tile(g.M, g.N, nz, sms);
+    ++route_counts[ROUTE_RING + tile];
+    return tile == 0   ? launch_ring<EPI, 128, 128, 8, 8>(st, g, nz, sms)
+           : tile == 1 ? launch_ring<EPI, 128, 64, 8, 4>(st, g, nz, sms)
+                       : launch_ring<EPI, 64, 64, 4, 4>(st, g, nz, sms);
+  }
+  ++route_counts[ROUTE_TYPED];
   if (mode == F32_SCALAR)  // unaligned operands: off the main path, one tile
     return launch_f32<EPI, F32_SCALAR, 128, 64, 8, 4, 16>(st, g, nz, nbias);
   if constexpr (EPI != EPI_ACT_GRAD)
@@ -1947,6 +2427,17 @@ long long fused_dqn_workspace_floats(int L, const int* dims, int B, int offline,
   Layout lay;
   if (!make_layout(L, dims, B, offline, save_bf16, &lay)) return -1;
   return lay.total;
+}
+
+// Products launched since the library was loaded, by route: counts[r] for
+// the ROUTES routes (the ring kernel's 128 x 128, 128 x 64 and 64 x 64 tiles,
+// gemm_rows_kernel, the narrow tile, the 128 x 64 tile of unaligned or
+// bf16-typed operands, the tensor cores), where counts is not null.
+// Returns ROUTES.
+int k1_product_routes(int* counts) {
+  if (counts)
+    for (int r = 0; r < ROUTES; ++r) counts[r] = route_counts[r];
+  return ROUTES;
 }
 
 const char* fused_dqn_error_string(int err) {

@@ -16,8 +16,12 @@ forward launch per layer for all three (net, input) pairs, the TD rows, the
 weight gradients, dh, Adam.  The saved layer outputs of the whole batch (at
 4096 rows and widths 512, 256 about 12.6 MB) stay in the 50 MB L2 between
 the forward and the backward.  Like K2 the f32 update is bound by f32
-operations on this card, so its GEMM is a 128x64 tile with an 8x4 register
-block per thread fed by 16-byte loads (``csrc/fused_dqn.cu``).
+operations on this card, so its wide products run on a persistent FFMA
+kernel: 128x128 tiles with an 8x8 register block per thread (smaller tiles
+where a product has too few), fed by a ring of ``cp.async`` stages, the
+operands contiguous in k transposed by the copies themselves, and the last
+layer's forward reads its input once, two rows a thread (``csrc/fused_dqn.cu``);
+``product_routes()`` counts the products each tile took.
 
 ``matmul_dtype`` and ``save_dtype`` are the TPU kernel's options of the same
 names (:71-72): ``matmul_dtype=torch.bfloat16`` rounds both operands of every
@@ -37,10 +41,12 @@ package rejects is rejected here too, with a clear error.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence
 
 import torch
 
+from reagent_tpu_torch.ops import _build
 from reagent_tpu_torch.ops.fused_dqn import (
     _act_grad_from_h,
     check_kernel_dtype,
@@ -141,3 +147,21 @@ fused_dqn_offline_update.launches = 0  # every launch, whatever the dtypes
 fused_dqn_offline_update.bf16_launches = 0  # those with a bfloat16 option
 fused_dqn_offline_update.kernels_per_update = None  # CUDA kernels in the last f32 update
 fused_dqn_offline_update.bf16_kernels_per_update = None  # ... in the last bf16 one
+
+# The tile routes of the library's products (csrc/fused_dqn.cu, Route): the
+# ring kernel's tiles, the row kernel of forwards with N <= 8, the narrow tile
+# (N <= 64), the tile for unaligned or bfloat16-typed operands, the tensor
+# cores.
+PRODUCT_ROUTES = ("ring_128x128", "ring_128x64", "ring_64x64", "rows_64x8", "narrow_64x16",
+                  "typed_128x64", "tensor_cores")
+
+
+def product_routes() -> dict:
+    """Products the CUDA library has launched since it was loaded, K1's and
+    K2's launch sequences alike, by tile route (``PRODUCT_ROUTES``): what
+    shows which tile the main path took.  Needs the built library (the card's
+    machine)."""
+    lib = _build.load_library()
+    counts = (ctypes.c_int * lib.k1_product_routes(None))()
+    lib.k1_product_routes(counts)
+    return dict(zip(PRODUCT_ROUTES, counts))

@@ -11,9 +11,11 @@ Skipped without an NVIDIA card.  On the machine with the card run
 (``--noconftest``: the suite's conftest configures JAX, which that machine
 does not need).  The test shape is ragged on purpose (no dimension a
 multiple of 4 or of the tiles) to cover the tile edges with one-float
-loads; K1 also runs at the full offline width and at a shape whose widths
-are multiples of 4 but not of the 128-wide tile (the 16-byte loads' ragged
-edges); K2 also runs at the online loop's CartPole shapes and at the full
+loads; K1 also runs at the full offline width, at the DQN benchmark cell's
+batch of 16,384 and 37 rows short of it (the ring kernel's tiles and
+split-K chunks, and which route each product takes), and at a shape whose
+widths are multiples of 4 but not of the 128-wide tile (the 16-byte loads'
+ragged edges); K2 also runs at the online loop's CartPole shapes and at the full
 offline width.
 """
 
@@ -64,6 +66,7 @@ def _inputs(device, B, D, widths, A, seed, mid_training=False):
 TEST_SHAPE = (13, [70, 33], 5)  # D, hidden widths, A
 CARTPOLE = (4, [128, 64], 2)
 RAGGED4 = (132, [516, 260], 8)  # multiples of 4, none of the 128-wide tile
+CELL = (128, [512, 256], 8)  # the DQN benchmark cell's widths (at B = 16,384 and 37 rows short)
 # (id, wrapper, extra arguments, B, D, widths, A).  K2 runs as one launch
 # wherever both nets' weights and a block's rows fit its shared memory: the
 # test shape, the online loop's CartPole shapes, one row, and 513 rows (the
@@ -80,6 +83,14 @@ CASES = [
      128, [512, 256], 8),
     ("K1-ragged", fused_dqn_offline.fused_dqn_offline_update, {"block_size": 200}, 1000,
      *RAGGED4),
+    # fewer actions than the row kernel's 8 outputs a thread: W's rows past A
+    # read as zero, the outputs stored one at a time
+    ("K1-A5", fused_dqn_offline.fused_dqn_offline_update, {"block_size": 200}, 1000,
+     *RAGGED4[:2], 5),
+    ("K1-cell", fused_dqn_offline.fused_dqn_offline_update, {"block_size": 1024}, 16384,
+     *CELL),
+    ("K1-cell-ragged", fused_dqn_offline.fused_dqn_offline_update, {"block_size": 16347},
+     16347, *CELL),
 ]
 # The cases added for the one-launch route start from a mid-training Adam
 # state.  From zero moments Adam's first step is lr * sign(g) for every
@@ -88,7 +99,8 @@ CASES = [
 # shapes float32 and float64 plain versions part by up to 300x the params
 # tolerance that way.  Mid-training moments keep every step linear in g
 # (the two part by under 1% of it), so the same tolerances hold the kernel.
-MID_TRAINING = ("K2-cartpole", "K2-B1", "K2-B513", "K2-large", "K1-full", "K1-ragged")
+MID_TRAINING = ("K2-cartpole", "K2-B1", "K2-B513", "K2-large", "K1-full", "K1-ragged", "K1-A5",
+                "K1-cell", "K1-cell-ragged")
 
 
 def _step_scalars(card, name, step, lr=0.01):
@@ -151,6 +163,25 @@ def test_kernel_is_deterministic(card, name, fn, extra, B, D, widths, A):
         runs.append([m] + params)
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("double_q", [True, False])
+def test_k1_wide_products_take_the_ring_kernel(card, double_q):
+    """At the DQN benchmark cell's shapes every wide product of an update
+    (the forwards, weight gradients and dh of the 512- and 256-wide layers:
+    6) takes the ring kernel, the last layer's forward (N = 8) the row kernel
+    and its weight gradient the narrow tile; nothing takes the unaligned or
+    bfloat16 routes."""
+    batch, params = _inputs(card, 16384, *CELL, seed=3)
+    kw = dict(activations=["leaky_relu", "leaky_relu", "linear"], gamma=0.99, tau=0.1,
+              double_q_learning=double_q, block_size=1024)
+    before = fused_dqn_offline.product_routes()
+    fused_dqn_offline.fused_dqn_offline_update(*_k1_scalars(card, 0), *batch, params, **kw)
+    after = fused_dqn_offline.product_routes()
+    took = {route: after[route] - before[route] for route in fused_dqn_offline.PRODUCT_ROUTES}
+    assert sum(n for route, n in took.items() if route.startswith("ring_")) == 6, took
+    assert took["rows_64x8"] == 1 and took["narrow_64x16"] == 1, took
+    assert took["typed_128x64"] == took["tensor_cores"] == 0, took
 
 
 # ------------------------------- K1's matmul_dtype / save_dtype options

@@ -104,7 +104,7 @@ def main(argv) -> int:
     cs.log(ptxas_report(this_src, "k2_one_launch_kernel"))
     libs = {"this": _build.load_library("fused_dqn")}
     for path in argv:
-        libs[path] = _build.bind(Path(path), "fused_dqn")
+        libs[path] = bind(Path(path), "fused_dqn")
 
     cs.log("this checkout's K2 and K2-packed against their plain versions:")
     err = cs.compare_kernel("K2", cs.CARTPOLE, torch)
